@@ -1,0 +1,27 @@
+"""Architecture config registry: ``--arch <id>`` resolution.
+
+Only the Mamba-2 path is ported; every other architecture of the JAX
+package's registry raises ``NotImplementedError`` here.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.models.base import ModelConfig
+
+_ARCHS: Dict[str, str] = {
+    "mamba2-130m": "mamba2_130m",
+}
+
+
+def get_config(arch: str, *, reduced: bool = False, **overrides
+               ) -> ModelConfig:
+    if arch not in _ARCHS:
+        raise NotImplementedError(f"arch {arch!r} is not ported; ported: "
+                                  f"{sorted(_ARCHS)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[arch]}")
+    cfg = mod.REDUCED if reduced else mod.CONFIG
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return cfg

@@ -1,0 +1,119 @@
+// Fused Mamba-2 single-token step, up to (not including) the gated norm.
+//
+// Replaces the TPU kernel src/repro/kernels/decode_step.py:155
+// mamba2_step: conv-tail shift + bias, SiLU, softplus(dt + dt_bias), the
+// SSD update  st' = st * exp(dt*A) + (dt*x) (x) B,  y = st' . C,  and the
+// D skip.  The gated RMSNorm that ends the TPU kernel runs afterwards in
+// gated_norm.cu over whole rows.
+//
+// Bound: bytes.  Per layer and batch row the fp32 state (24 x 64 x 128 at
+// full width, 786 KB) is read once and written once; everything else is
+// a few KB, and the arithmetic is ~5 operations per state element.
+//
+// Design.  The TPU kernel holds a row's whole state in VMEM, which does
+// not fit a Hopper block, so the grid is (batch, head): one block owns a
+// head's 64 x 128 state and streams it straight from device memory to
+// device memory, one warp per state row, lanes along d_state so every
+// load and store is coalesced; y's row sum is a warp shuffle reduction.
+// Each block recomputes the conv + SiLU of its group's B/C channels (256
+// values, cheaper than a second pass).  The x channels of the new conv
+// tail are written by their head's block and the B/C channels by head 0,
+// so every element is written exactly once.
+#include "common.cuh"
+
+template <typename T>
+__global__ void mamba2_step_kernel(
+    const T* __restrict__ xbc, int xbc_rs, const T* __restrict__ dt,
+    int dt_rs, const T* __restrict__ conv_state,
+    const float* __restrict__ ssm_state, const float* __restrict__ conv_w,
+    const float* __restrict__ conv_b, const float* __restrict__ dt_bias,
+    const float* __restrict__ A, const float* __restrict__ D,
+    float* __restrict__ ypre, T* __restrict__ new_conv,
+    float* __restrict__ new_ssm, int h, int p, int g, int n, int width) {
+  extern __shared__ float smem[];
+  float* xs = smem;      // (p,)  activated x channels of this head
+  float* Bv = xs + p;    // (n,)  activated B of this head's group
+  float* Cv = Bv + n;    // (n,)  activated C
+
+  const int bi = blockIdx.x, hi = blockIdx.y;
+  const int di = h * p, dxbc = di + 2 * g * n, gi = hi / (h / g);
+  const int wm1 = width - 1;
+  const T* xrow = xbc + static_cast<size_t>(bi) * xbc_rs;
+  const T* crow = conv_state + static_cast<size_t>(bi) * wm1 * dxbc;
+  T* ncrow = new_conv + static_cast<size_t>(bi) * wm1 * dxbc;
+
+  // Window row j of channel ch: the old tail for j < w-1, then the token.
+  auto win = [&](int j, int ch) -> float {
+    return j < wm1 ? to_f(crow[j * dxbc + ch]) : to_f(xrow[ch]);
+  };
+  auto conv_act = [&](int ch) -> float {
+    float acc = 0.f;
+    for (int j = 0; j < width; ++j)
+      acc = __fadd_rn(acc, __fmul_rn(win(j, ch), conv_w[j * dxbc + ch]));
+    return silu_f(__fadd_rn(acc, conv_b[ch]));
+  };
+  auto shift = [&](int ch) {
+    for (int j = 0; j < wm1; ++j) ncrow[j * dxbc + ch] = from_f<T>(win(j + 1, ch));
+  };
+
+  for (int c = threadIdx.x; c < p; c += blockDim.x) {
+    xs[c] = conv_act(hi * p + c);
+    shift(hi * p + c);
+  }
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    Bv[k] = conv_act(di + gi * n + k);
+    Cv[k] = conv_act(di + g * n + gi * n + k);
+  }
+  if (hi == 0) {
+    for (int c = threadIdx.x; c < 2 * g * n; c += blockDim.x) shift(di + c);
+  }
+  __syncthreads();
+
+  const float dtf =
+      softplus_f(to_f(dt[static_cast<size_t>(bi) * dt_rs + hi]) + dt_bias[hi]);
+  const float decay = expf(dtf * A[hi]);
+  const float dh = D[hi];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const size_t sbase = (static_cast<size_t>(bi) * h + hi) * p * n;
+  for (int pi = warp; pi < p; pi += nwarps) {
+    const float dx = dtf * xs[pi];
+    const float* srow = ssm_state + sbase + static_cast<size_t>(pi) * n;
+    float* nrow = new_ssm + sbase + static_cast<size_t>(pi) * n;
+    float part = 0.f;
+    for (int k = lane; k < n; k += 32) {
+      const float s = srow[k] * decay + dx * Bv[k];
+      nrow[k] = s;
+      part += s * Cv[k];
+    }
+    part = warp_sum(part);
+    if (lane == 0)
+      ypre[static_cast<size_t>(bi) * di + hi * p + pi] = part + dh * xs[pi];
+  }
+}
+
+// xbc rows of dxbc values at row stride xbc_rs, dt rows of h values at
+// row stride dt_rs (both in T); conv_state (b, w-1, dxbc) T; ssm_state
+// (b, h, p, n) fp32; conv_w (w, dxbc), conv_b (dxbc,), dt_bias/A/D (h,)
+// fp32.  Writes ypre (b, h*p) fp32 (pre-norm y with the D skip),
+// new_conv (b, w-1, dxbc) T and new_ssm (b, h, p, n) fp32.
+extern "C" int mamba2_step_launch(
+    int dtype, const void* xbc, int xbc_rs, const void* dt, int dt_rs,
+    const void* conv_state, const void* ssm_state, const void* conv_w,
+    const void* conv_b, const void* dt_bias, const void* A, const void* D,
+    void* ypre, void* new_conv, void* new_ssm, int b, int h, int p, int g,
+    int n, int width, void* stream) {
+  if (b == 0) return 0;
+  const dim3 grid(b, h);
+  const size_t smem = static_cast<size_t>(p + 2 * n) * sizeof(float);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH_T(dtype, mamba2_step_kernel<T><<<grid, 128, smem, s>>>(
+      static_cast<const T*>(xbc), xbc_rs, static_cast<const T*>(dt), dt_rs,
+      static_cast<const T*>(conv_state), static_cast<const float*>(ssm_state),
+      static_cast<const float*>(conv_w), static_cast<const float*>(conv_b),
+      static_cast<const float*>(dt_bias), static_cast<const float*>(A),
+      static_cast<const float*>(D), static_cast<float*>(ypre),
+      static_cast<T*>(new_conv), static_cast<float*>(new_ssm), h, p, g, n,
+      width));
+  return static_cast<int>(cudaGetLastError());
+}

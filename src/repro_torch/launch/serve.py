@@ -1,0 +1,70 @@
+"""Serving CLI: ``python -m repro_torch.launch.serve --arch mamba2-130m``
+— batched random requests through the wave engine on the GPU (or
+``--device cpu``), with weights drawn from ``--seed``.
+
+Takes the JAX CLI's wave-engine flags; the continuous engine's flags
+come with that engine.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+
+import numpy as np
+
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.nn.params import init_params
+from repro_torch.serve import Engine, ServeConfig
+
+log = logging.getLogger("repro_torch.serve")
+
+
+def main(argv=None):
+    """Run the CLI; returns ``(engine, completed requests)``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mamba2-130m")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=24)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--policy", choices=("fcfs", "priority"),
+                    default="fcfs")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default cuda; 'cpu' "
+                         "runs the kernels' plain PyTorch versions)")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+
+    cfg = get_config(args.arch, reduced=args.reduced)
+    model = build_model(cfg, args.device)
+    params = init_params(model.param_specs(), args.seed, cfg.dtype,
+                         model.device)
+    scfg = ServeConfig(max_batch=args.batch, prefill_buckets=(32, 128),
+                       max_new_tokens=args.max_new,
+                       temperature=args.temperature, seed=args.seed,
+                       policy=args.policy)
+    engine = Engine(model, params, scfg)
+
+    rng = np.random.default_rng(args.seed)
+    for _ in range(args.requests):
+        plen = int(rng.integers(4, args.prompt_len + 1))
+        engine.submit(rng.integers(1, cfg.vocab_size, plen).tolist())
+    done = engine.run()
+    for r in done[:4]:
+        log.info("req %d: %d prompt toks -> %s%s", r.uid, len(r.prompt),
+                 r.out_tokens[:8], "..." if len(r.out_tokens) > 8 else "")
+    log.info("stats: %s", engine.stats(done))
+    m = engine.metrics.summary()
+    log.info("occupancy: %.2f  ttft_mean_s: %.4f  ttft_p99_s: %.4f  "
+             "goodput_tok_s: %.1f  (wall source: %s)",
+             m["slot_occupancy"], m["ttft_mean_s"], m["ttft_p99_s"],
+             m["goodput_tokens_per_s"], m["wall_source"])
+    return engine, done
+
+
+if __name__ == "__main__":
+    main()

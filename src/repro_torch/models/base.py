@@ -1,0 +1,57 @@
+"""Model configuration: the ``repro.models.base.ModelConfig`` fields that
+the Mamba-2 family uses, with ``dtype`` as a ``torch.dtype``."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.xamba import XambaConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Mamba-2 subset of the JAX package's one-config-for-all-families."""
+
+    name: str = "model"
+    family: str = "mamba2"
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    tie_embeddings: bool = True
+
+    # -- SSM (mamba2) ---------------------------------------------------------
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_ngroups: int = 1
+    chunk_size: int = 256
+
+    param_dtype: str = "bfloat16"
+    xamba: XambaConfig = XambaConfig()
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def with_decode_mode(self, mode: str) -> "ModelConfig":
+        """Config with ``XambaConfig.decode`` overridden (CLI plumbing)."""
+        return self.replace(xamba=dataclasses.replace(self.xamba,
+                                                      decode=mode))
+
+    def with_prefill_mode(self, mode: str) -> "ModelConfig":
+        """Config with ``XambaConfig.prefill`` overridden (CLI plumbing)."""
+        return self.replace(xamba=dataclasses.replace(self.xamba,
+                                                      prefill=mode))
+
+    def with_quant(self, mode: str) -> "ModelConfig":
+        """Config with ``XambaConfig.quant`` overridden (CLI plumbing)."""
+        return self.replace(xamba=dataclasses.replace(self.xamba,
+                                                      quant=mode))

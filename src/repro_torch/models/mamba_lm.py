@@ -1,0 +1,101 @@
+"""The Mamba-2 language model (port of ``repro.models.mamba_lm``,
+``family="mamba2"``).
+
+Block = RMSNorm -> SSD mixer -> residual; final RMSNorm; tied logits in
+fp32.  Params are plain dicts of tensors with the
+layer trunk as a per-layer list, walked by a Python loop.
+:meth:`MambaLM.decode_view` adds each mixer's kernel operands in fp32,
+once per weight set (the engine serves from it).  The serving cache is
+the JAX package's stacked layout, ``Mamba2State`` with a leading
+``n_layers`` axis: conv (L, b, w-1, dxbc) in the model dtype and ssm
+(L, b, h, p, n) fp32.  Each step allocates the next cache once and every
+layer's kernel writes its new state straight into its slice of it.
+"""
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.models.base import ModelConfig
+from repro_torch.nn import layers, ssm
+from repro_torch.nn.params import stack_specs
+
+
+class MambaLM:
+    """family == "mamba2" (SSD); runs on ``device`` (default ``cuda``)."""
+
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
+        if cfg.family != "mamba2":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (only mamba2)")
+        if not cfg.tie_embeddings:
+            raise NotImplementedError("untied embeddings are not ported yet")
+        cfg.xamba.require_ported()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def param_specs(self) -> dict:
+        cfg = self.cfg
+        block = {"ln": layers.norm_specs(cfg.d_model),
+                 "mixer": ssm.mamba2_specs(cfg)}
+        return {
+            "embed": layers.embed_specs(cfg.vocab_size, cfg.d_model),
+            "final_norm": layers.norm_specs(cfg.d_model),
+            "layers": stack_specs(block, cfg.n_layers),
+        }
+
+    def decode_view(self, params) -> dict:
+        """``params`` with each layer's mixer carrying its kernel operands
+        (``ssm.mamba2_kernel_operands``: fp32, ``A = -exp(A_log)``), so no
+        step casts them again.  Build it once per weight set; ``prefill``
+        and ``decode_step`` take either form."""
+        return dict(params, layers=[
+            dict(p, mixer=dict(p["mixer"], kernel=ssm.mamba2_kernel_operands(
+                p["mixer"]))) for p in params["layers"]])
+
+    # ---------------- trunk ----------------
+    def _trunk(self, params, x: torch.Tensor, cache: ssm.Mamba2State
+               ) -> Tuple[torch.Tensor, ssm.Mamba2State]:
+        new = ssm.Mamba2State(torch.empty_like(cache.conv),
+                              torch.empty_like(cache.ssm))
+        for i, p in enumerate(params["layers"]):
+            h, _ = ssm.mamba2_apply(
+                p["mixer"], self.cfg, layers.norm(p["ln"], x),
+                ssm.Mamba2State(cache.conv[i], cache.ssm[i]),
+                out=ssm.Mamba2State(new.conv[i], new.ssm[i]))
+            x = x + h
+        return x, new
+
+    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        return layers.unembed(params["embed"],
+                              layers.norm(params["final_norm"], x))
+
+    # ---------------- serving ----------------
+    def init_cache(self, batch: int, max_seq: int = 0,
+                   dtype: torch.dtype = torch.bfloat16) -> ssm.Mamba2State:
+        """Zero state for ``batch`` rows (O(1) in ``max_seq``)."""
+        del max_seq
+        one = ssm.mamba2_init_state(self.cfg, batch, dtype, self.device)
+        n = self.cfg.n_layers
+        return ssm.Mamba2State(
+            one.conv.new_zeros((n,) + tuple(one.conv.shape)),
+            one.ssm.new_zeros((n,) + tuple(one.ssm.shape)))
+
+    def prefill(self, params, batch, cache) -> Tuple[torch.Tensor, Any]:
+        """Whole prompt ``batch["tokens"]`` (b, l) -> (last logits (b, V)
+        fp32, cache after the prompt)."""
+        x = layers.embed(params["embed"], batch["tokens"])
+        x, new_cache = self._trunk(params, x, cache)
+        return self._logits(params, x[:, -1]), new_cache
+
+    def decode_step(self, params, token, cache, index) -> Tuple[torch.Tensor,
+                                                                Any]:
+        """token (b, 1) -> (logits (b, V) fp32, cache).  ``index`` is
+        accepted for engine uniformity and ignored: the recurrence carries
+        position in the state."""
+        del index
+        x = layers.embed(params["embed"], token)
+        x, new_cache = self._trunk(params, x, cache)
+        return self._logits(params, x[:, 0]), new_cache

@@ -1,0 +1,119 @@
+"""Parameter specs, random init, and the bridge from the JAX package's params.
+
+A model's parameters are a nested dict of :class:`ParamSpec`, declared
+once (``models/mamba_lm.py: param_specs``).  As in the JAX package the
+layer trunk is declared stacked (``stack_specs``: a leading ``n_layers``
+axis), so one draw covers every layer of a leaf with the same init scale
+as ``repro.nn.params._init_one``; :func:`split_layers` then cuts the
+stacked leaves into the per-layer dicts the port's Python layer loop
+reads.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"           # normal | zeros | ones
+    scale: Optional[float] = None  # stddev; default 1/sqrt(fan-in)
+
+
+def stack_specs(specs: Any, n: int) -> Any:
+    """Prepend a stacked-layers dimension to every spec."""
+    if isinstance(specs, ParamSpec):
+        return dataclasses.replace(specs, shape=(n,) + specs.shape)
+    return {k: stack_specs(v, n) for k, v in specs.items()}
+
+
+def _init_one(spec: ParamSpec, gen: torch.Generator,
+              dtype: torch.dtype) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype)
+    # The JAX package's rule, on the (possibly stacked) declared shape.
+    fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
+    std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
+    return (torch.randn(spec.shape, generator=gen, dtype=torch.float32)
+            * std).to(dtype)
+
+
+def _map_specs(specs: Any, fn) -> Any:
+    if isinstance(specs, ParamSpec):
+        return fn(specs)
+    return {k: _map_specs(specs[k], fn) for k in sorted(specs)}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def split_layers(stacked: Any) -> List[Any]:
+    """Cut every leaf's leading layer axis into per-layer trees."""
+    def one(tree, i):
+        if isinstance(tree, dict):
+            return {k: one(v, i) for k, v in tree.items()}
+        return tree[i].contiguous()
+    n = next(_leaves(stacked)).shape[0]
+    return [one(stacked, i) for i in range(n)]
+
+
+def init_params(specs: Dict[str, Any], seed: int,
+                dtype: torch.dtype = torch.bfloat16,
+                device: DeviceLike = None) -> Dict[str, Any]:
+    """Random params from ``seed`` (a ``torch.Generator`` on the CPU, so a
+    seed gives the same weights on any device), moved to ``device``.
+
+    Leaves are drawn in sorted-key order.  The draws are not JAX's: the
+    same seed gives other numbers than ``repro.nn.params.init_params``;
+    tests that compare the packages carry JAX's params across with
+    :func:`from_jax_params`.  ``specs["layers"]`` is stacked
+    (:func:`stack_specs`) and comes back as a per-layer list.
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(int(seed))
+    tree = _map_specs(specs, lambda s: _init_one(s, gen, dtype).to(dev))
+    return dict(tree, layers=split_layers(tree["layers"]))
+
+
+def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """numpy -> torch, keeping the dtype.  A bf16 ``ml_dtypes`` array is
+    read as its uint16 bits (numpy has no bf16 of its own)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def from_jax_params(tree: Dict[str, Any], cfg, device: DeviceLike = None
+                    ) -> Dict[str, Any]:
+    """The JAX package's params (nested dicts of numpy arrays, the stacked
+    scan-over-layers layout) as the port's params: the same leaves with
+    the same dtypes on ``device``, ``layers`` split per layer."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return _tensor_from_numpy(t).to(dev)
+
+    out = conv(tree)
+    layers = split_layers(out["layers"])
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"params hold {len(layers)} layers, the config "
+                         f"{cfg.n_layers}")
+    return dict(out, layers=layers)

@@ -5,6 +5,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); "
+        "skips with a reason where there is none")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
