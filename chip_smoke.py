@@ -8,18 +8,35 @@ Drives ``src/repro_torch`` (never JAX) at the full width of mamba2-130m:
 3. kernels — each hand-written kernel against its plain PyTorch version
    on the card, in fp32 and bf16: the decode step at b = 1 and 4, the
    prefill at b = 4 with l = 128 (one chunk) and l = 512 at chunk 256
-   (state carried between chunks);
+   (state carried between chunks), both also with the ActiBA tables;
+   ``cumsum_last`` on the SSD chain's (4, 24, 2, 256) prefix sums,
+   ``ssd_chunk`` at b = 4, two chunks of 256, and ``pwl_activate`` with
+   the SiLU and softplus tables on the chain's xBC and dt streams;
 4. serve   — the wave engine through ``repro_torch.launch.serve``: 8
    requests, batch 4, prompts of 4-128 tokens, 16 new tokens, greedy,
    bf16 weights from ``--seed``; every token in the vocabulary, every
    logit finite, and each kernel launched 24 times per decode step and
-   per wave;
+   per wave.  Then a short CLI run with ``--prefill-mode naive
+   --decode-mode naive`` (no fused kernel launched) and an ``Engine`` run
+   under ``XambaConfig.pallas()`` (ActiBA in the fused kernels);
 5. parity  — the same model in fp32, kernel path on the card against the
    plain path on the CPU, teacher-forced over 16 greedy tokens of 4
    prompts: tokens agree wherever the plain path's top-2 margin exceeds
    the logit tolerance;
-6. times   — each kernel and its plain version at the serve shapes (CUDA
-   events, median), launches per decode step and per prefill, the bound.
+6. ablation — the paper's Fig. 4a variants (``examples/xamba_ablation.py``:
+   baseline, +CumBA, +ReduBA, +CumBA+ReduBA, +ActiBA) and ``pallas()``
+   through ``repro_torch.launch.ablation``: ``MambaLM.forward`` of the fp32
+   model at b = 4, l = 300 (not a chunk multiple: the unfused chain,
+   padded to 512 inside ``ssd``), with each variant's device time by
+   kernel.  Every variant, and ``pallas()`` on the CPU's plain path, is
+   held against an fp64 witness of its function written apart from the
+   port, and the exact remaps against each other (``LOGIT_TOL``,
+   ``PREFIX_SUM_TOL``); under ``pallas()`` each layer launches one
+   ``cumsum_last``, one ``ssd_chunk`` and three ``pwl_activate``, and the
+   first two are held to the phase-3 limits on the operands that forward
+   gave them;
+7. times   — each kernel and its plain version at the shapes its path
+   gives it (CUDA events, median), launches, the bound.
 
 Any failure raises (exit code 1).  Without a GPU it exits 1 before doing
 anything.  The second line from the end is the ``kernels`` JSON record,
@@ -27,6 +44,7 @@ the last line the device record.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -66,6 +84,26 @@ ATOL_RMS = 4.0
 MAX_OFF_SHARE = 0.005
 # Logit tolerance of the fp32 path-parity phase (absolute).
 LOGIT_TOL = 2e-3
+# The ablation: each variant against the fp64 witness of its function
+# (``witness_forward``: no chunks, no prefix sums), absolute, on logits up
+# to ~3.3.  The function is well conditioned (a 2^-24 relative change of
+# the embeddings moves the witness's logits by 7.8e-9 on an H100); what
+# sets a variant's fp32 error is where its decays exp(sum of dt*A) come
+# from:
+# * segment sums of dt*A (cumba mode "naive": baseline, +ReduBA) keep
+#   fp32 precision, and are held to LOGIT_TOL (H100: 4.1e-4 and 4.9e-4);
+# * differences of fp32 prefix sums cs (CumBA and kernels 13 and 7, the
+#   JAX package's form) lose the digits of |cs|: up to ~3.7e3 in this
+#   random model, whose ulp is 2.4e-4 in the exponent, and a one-ulp
+#   change anywhere upstream redraws that rounding in every later layer.
+#   PREFIX_SUM_TOL is 1.8x the largest of the five H100 readings (3.4e-3
+#   to 4.5e-3); the JAX package loses the same digits
+#   (tests/test_torch_xamba.py).
+# Two variants are held to LOGIT_TOL if both take segment sums, else to
+# the sum of their limits (the triangle inequality), and each to top-1
+# agreement on ABLATION_TOP1 of the positions.
+PREFIX_SUM_TOL = 8e-3
+ABLATION_TOP1 = 0.99
 
 N_HEADS, HEAD_DIM, D_STATE, N_GROUPS, WIDTH = 24, 64, 128, 1, 4
 D_INNER = N_HEADS * HEAD_DIM
@@ -134,14 +172,19 @@ def _bf16_steps(diff, r):
     return diff / torch.exp2(e - 7)
 
 
-def compare(name, got, want, dtype_name):
+FUSED_OUTS = (("y", "stream"), ("conv", "stream"), ("ssm", "state"))
+
+
+def compare(name, got, want, dtype_name, outs=FUSED_OUTS):
     """Each output element by element against the plain version (``TOL``,
     ``ATOL_RMS``, ``MAX_OFF_SHARE``); prints the readings and returns
-    (worst abs error, names of the outputs that failed)."""
+    (worst abs error, names of the outputs that failed).  ``outs`` names
+    each output and its kind ("stream" in the case's dtype, "state"
+    fp32)."""
     import torch
     worst, fails = 0.0, []
-    for out_name, a, r in zip(("y", "conv", "ssm"), got, want):
-        rtol = TOL[dtype_name, "state" if out_name == "ssm" else "stream"]
+    for (out_name, kind), a, r in zip(outs, got, want):
+        rtol = TOL[dtype_name, kind]
         a32, r32 = a.float(), r.float()
         diff = (a32 - r32).abs()
         rms = float(r32.square().mean().sqrt())
@@ -168,16 +211,47 @@ def compare(name, got, want, dtype_name):
     return worst, fails
 
 
-def kernel_cases(dev, kernels):
+# The SSD chain's shapes in the ablation phase (b = 4, l = 300 padded to
+# two chunks of 256 inside ``ssd``).
+CHAIN_B, CHAIN_L, CHUNK = 4, 300, 256
+CHAIN_C = -(-CHAIN_L // CHUNK)
+
+
+def chain_inputs(dev, dtype, seed):
+    """Operands of kernels 13, 7 and 12 at the chain's full width: the
+    per-chunk log decays a_c (b, h, c, L) and their prefix sums, the
+    dt-scaled x, B and C of ``ssd``, and the xBC and dt streams the SiLU
+    and softplus tables act on."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    b, c, L = CHAIN_B, CHAIN_C, CHUNK
+    a_c = (-torch.rand(b, N_HEADS, c, L, generator=g) * 0.95 - 0.05)
+    return dict(
+        a_c=a_c.to(dev).to(dtype),
+        A_cum=torch.cumsum(a_c, dim=-1).to(dev),
+        x_c=_rand(g, (b, c, L, N_HEADS, HEAD_DIM), 0.5, dev, dtype),
+        B_c=_rand(g, (b, c, L, N_GROUPS, D_STATE), 0.5, dev, dtype),
+        C_c=_rand(g, (b, c, L, N_GROUPS, D_STATE), 0.5, dev, dtype),
+        xbc=_rand(g, (b, CHAIN_L, D_XBC), 2.0, dev, dtype),
+        dt=_rand(g, (b, CHAIN_L, N_HEADS), 2.0, dev, dtype))
+
+
+def kernel_cases(dev, kernels, tables):
     """Phase 3: every kernel against its plain version on the card.  Every
-    case is printed; the phase fails at its end if any output failed."""
+    case is printed; the phase fails at its end if any output failed.
+    ``tables``: the ActiBA tables (``silu``, ``softplus``) of
+    ``XambaConfig.pallas()``."""
     import torch
     kw = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM)
-    worst = {"mamba2_step": 0.0, "mamba2_prefill": 0.0}
+    worst = {k: 0.0 for k in ("mamba2_step", "mamba2_prefill", "cumsum_last",
+                              "ssd_chunk", "pwl_activate")}
     fails = []
+    ktab = dict(silu_table=tables["silu"], softplus_table=tables["softplus"])
+    pact = {k: (lambda v, t=t: kernels["pwl_activate_plain"](v, t))
+            for k, t in tables.items()}
 
-    def check(kernel, case, got, want, dn):
-        err, bad = compare(f"{kernel} {case}", got, want, dn)
+    def check(kernel, case, got, want, dn, outs=FUSED_OUTS):
+        err, bad = compare(f"{kernel} {case}", got, want, dn, outs)
         worst[kernel] = max(worst[kernel], err)
         fails.extend(bad)
 
@@ -189,6 +263,10 @@ def kernel_cases(dev, kernels):
             want = kernels["mamba2_step_plain"](**ins, **kw)
             torch.cuda.synchronize(dev)
             check("mamba2_step", f"{dn} b={b}", got, want, dn)
+        got = kernels["mamba2_step"](**ins, **kw, **ktab)
+        want = kernels["mamba2_step_plain"](**ins, **kw, **pact)
+        torch.cuda.synchronize(dev)
+        check("mamba2_step", f"{dn} b=4 actiba", got, want, dn)
         for b, l, chunk in ((4, 128, 128), (4, 512, 256)):
             ins = prefill_inputs(b, l, dev, dtype, seed=20 + l)
             got = kernels["mamba2_prefill"](**ins, chunk=chunk, **kw)
@@ -196,6 +274,34 @@ def kernel_cases(dev, kernels):
             torch.cuda.synchronize(dev)
             check("mamba2_prefill", f"{dn} b={b} l={l} chunk={chunk}", got,
                   want, dn)
+        got = kernels["mamba2_prefill"](**ins, chunk=chunk, **kw, **ktab)
+        want = kernels["mamba2_prefill_plain"](**ins, chunk=chunk, **kw,
+                                               **pact)
+        torch.cuda.synchronize(dev)
+        check("mamba2_prefill", f"{dn} b={b} l={l} chunk={chunk} actiba",
+              got, want, dn)
+
+        ch = chain_inputs(dev, dtype, seed=30)
+        got = kernels["cumsum_last"](ch["a_c"])
+        want = kernels["cumsum_last_plain"](ch["a_c"])
+        torch.cuda.synchronize(dev)
+        check("cumsum_last", f"{dn} {tuple(ch['a_c'].shape)}", (got,),
+              (want,), dn, (("A_cum", "stream"),))
+        args = (ch["x_c"], ch["A_cum"], ch["B_c"], ch["C_c"])
+        got = kernels["ssd_chunk"](*args)
+        want = kernels["ssd_chunk_plain"](*args)
+        torch.cuda.synchronize(dev)
+        check("ssd_chunk", f"{dn} inputs b={CHAIN_B} c={CHAIN_C} L={CHUNK}",
+              got, want, dn, (("y_diag", "state"), ("states", "state")))
+        for name, x in (("silu", ch["xbc"]), ("softplus", ch["dt"])):
+            got = kernels["pwl_activate"](x, tables[name])
+            want = kernels["pwl_activate_plain"](x, tables[name])
+            torch.cuda.synchronize(dev)
+            check("pwl_activate", f"{dn} {name} {tuple(x.shape)}", (got,),
+                  (want,), dn, ((name, "stream"),))
+            if dtype == torch.float32:
+                print(f"    bit-identical to the plain version: "
+                      f"{bool(torch.equal(got, want))}")
     if fails:
         raise AssertionError(f"kernels vs plain: {fails}")
     return worst
@@ -227,12 +333,14 @@ def serve_phase(serve_main, counters, argv):
     assert all(0 <= t < cfg.vocab_size for t in toks), "serve: token id"
     assert m["logit_rows"] > 0 and m["nonfinite_logit_rows"] == 0, \
         f"serve: non-finite logits {m['nonfinite_logit_rows']}"
-    want = {"mamba2_step": cfg.n_layers * steps,
-            "mamba2_prefill": cfg.n_layers * waves}
+    want = dict({k: 0 for k in launches},
+                mamba2_step=cfg.n_layers * steps,
+                mamba2_prefill=cfg.n_layers * waves)
     print(f"  launches {launches} expected {want} "
           f"({waves} waves, {steps} decode steps, {cfg.n_layers} layers)")
     assert launches == want, "serve: kernel launch counts"
-    assert all(v > 0 for v in launches.values()), "serve: a kernel idle"
+    assert want["mamba2_step"] > 0 and want["mamba2_prefill"] > 0, \
+        "serve: a kernel idle"
     st = engine.stats(done)
     print(f"  generated {st['generated_tokens']} tokens in "
           f"{st['wall_s']:.4f} s of waves: {st['tokens_per_s']:.1f} tok/s; "
@@ -241,6 +349,64 @@ def serve_phase(serve_main, counters, argv):
           f"{m['token_latency_s'] * 1e3:.3f} ms; call wall {wall:.3f} s "
           f"(weights included)", flush=True)
     return engine, launches, steps, waves
+
+
+def serve_modes_phase(serve_main, counters, cfg, dev):
+    """Phase 4, continued: the CLI's unfused modes, then an ``Engine``
+    under ``XambaConfig.pallas()`` (prompts in both buckets: the 128
+    bucket takes the fused prefill with ActiBA tables, the 32 bucket's
+    chunk 32 is below the kernels' 64-row tiles and takes the unfused
+    chain with ``pwl_activate`` and ``cumsum_last``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.xamba import XambaConfig
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import init_params
+    from repro_torch.serve import Engine, ServeConfig
+
+    for fn in counters.values():
+        fn.launches = 0
+    argv = SERVE_ARGV[:] + ["--prefill-mode", "naive", "--decode-mode",
+                            "naive"]
+    argv[argv.index("--requests") + 1] = "4"
+    argv[argv.index("--max-new") + 1] = "4"
+    t0 = time.perf_counter()
+    _, done = serve_main(argv)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    toks = [t for r in done for t in r.out_tokens]
+    print(f"  naive modes (CLI): {len(done)} requests, {len(toks)} tokens "
+          f"in {time.perf_counter() - t0:.3f} s; launches {launches}",
+          flush=True)
+    assert len(done) == 4 and all(len(r.out_tokens) == 4 for r in done)
+    assert all(0 <= t < cfg.vocab_size for t in toks)
+    assert all(v == 0 for v in launches.values()), \
+        "naive modes must launch no kernel"
+
+    pcfg = cfg.replace(xamba=XambaConfig.pallas())
+    model = build_model(pcfg, dev)
+    params = init_params(model.param_specs(), 0, pcfg.dtype, dev)
+    engine = Engine(model, params, ServeConfig(
+        max_batch=4, prefill_buckets=(32, 128), max_new_tokens=6))
+    rng = np.random.default_rng(5)
+    for n in (20, 7, 30, 12, 100, 128, 90, 64):   # a 32 wave, a 128 one
+        engine.submit(rng.integers(1, pcfg.vocab_size, n).tolist())
+    for fn in counters.values():
+        fn.launches = 0
+    done = engine.run()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    m = engine.metrics.summary()
+    toks = [t for r in done for t in r.out_tokens]
+    print(f"  pallas() + ActiBA (Engine): {len(done)} requests, "
+          f"{len(toks)} tokens, {m['decode_steps']} decode steps; launches "
+          f"{launches}", flush=True)
+    assert len(done) == 8 and all(len(r.out_tokens) == 6 for r in done)
+    assert all(0 <= t < pcfg.vocab_size for t in toks)
+    assert m["nonfinite_logit_rows"] == 0
+    assert launches["mamba2_step"] == pcfg.n_layers * m["decode_steps"]
+    for k in ("mamba2_prefill", "pwl_activate", "cumsum_last"):
+        assert launches[k] > 0, f"pallas serve: {k} idle"
 
 
 def parity_phase(dev, seed, cfg):
@@ -290,6 +456,254 @@ def parity_phase(dev, seed, cfg):
     assert bool(agree[confident].all()), "parity: confident token differs"
 
 
+def ablation_phase(dev, seed, cfg, counters, kernels, worst):
+    """Phase 6: ``forward`` of the fp32 model at b = 4, l = 300 under each
+    variant of ``repro_torch.launch.ablation``, each held against the fp64
+    witness of its function; then ``cumsum_last`` and ``ssd_chunk``
+    against their plain versions on the operands the ``pallas()`` forward
+    gave them.  Returns the chain kernels' launches in the ``pallas()``
+    run."""
+    import torch
+    from repro_torch.core.pwl import table_for
+    from repro_torch.core.xamba import XambaConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import ablation
+    from repro_torch.models import build_model
+
+    launches, by_kernel, shared = {}, {}, {}
+    calls = {"cumba_cumsum": [], "ssd_chunk": []}
+
+    def first_forward(name, model, params, tokens):
+        shared.update(params=params, tokens=tokens)
+        for fn in counters.values():
+            fn.launches = 0
+        out = model.forward(params, tokens)
+        torch.cuda.synchronize()
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        by_kernel[name] = device_profile(
+            lambda: model.forward(params, tokens), n=2)
+        if name == "pallas":
+            with recording(ops, calls):
+                model.forward(params, tokens)
+        return out
+
+    res = ablation.run(cfg, dev, batch=CHAIN_B, seqlen=CHAIN_L, seed=seed,
+                       iters=3, first_forward=first_forward)
+    params, tokens = shared["params"], shared["tokens"]
+    logits = {k: r["logits"] for k, r in res.items()}
+    t_base = res["baseline"]["ms"]
+    print(f"  {'variant':16s} {'ms/fwd':>9s} {'speedup':>8s} "
+          f"{'top1 vs exact':>14s}  launches", flush=True)
+    for name, r in res.items():
+        assert torch.isfinite(logits[name]).all(), f"ablation {name}: inf"
+        assert logits[name].shape == (CHAIN_B, CHAIN_L, cfg.vocab_size)
+        top1 = float((logits[name].argmax(-1) ==
+                      logits["baseline"].argmax(-1)).float().mean())
+        print(f"  {name:16s} {r['ms']:9.3f} {t_base / r['ms']:7.2f}x "
+              f"{top1:14.4f}  "
+              f"{ {k: v for k, v in launches[name].items() if v} }")
+        by = by_kernel[name]
+        dev_ms = sum(by.values())
+        top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
+        print(f"    device {dev_ms:.3f} ms per forward ({100 * dev_ms / r['ms']:.1f}"
+              f"% of the event time); " + "; ".join(
+                  f"{v:.3f} ms {k[:60]}" for k, v in top), flush=True)
+    torch.cuda.empty_cache()
+
+    cpu = build_model(cfg.replace(param_dtype="float32",
+                                  xamba=XambaConfig.pallas()), "cpu")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits["pallas (CPU plain)"] = cpu.forward(_to_cpu(params),
+                                                   tokens.cpu())
+    print(f"  CPU forward of pallas() {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # The fp64 witness of each function the variants compute (exact, and
+    # with the PWL tables), and its response to a one-ulp (2^-24) relative
+    # change of the embeddings: how far fp32 rounding alone can move it.
+    xambas = dict(ablation.VARIANTS, **{"pallas (CPU plain)":
+                                        XambaConfig.pallas()})
+    witness = {}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for name, xamba in xambas.items():
+            key = tuple(table_for(k, xamba) for k in ("silu", "softplus"))
+            if key not in witness:
+                tabs = None if key[0] is None else dict(zip(
+                    ("silu", "softplus"), key))
+                witness[key] = witness_forward(params, cfg, tokens,
+                                               tabs).cpu()
+        exact = witness[(None, None)]
+        moved = float((witness_forward(params, cfg, tokens, None,
+                                       perturb=2.0 ** -24).cpu() -
+                       exact).abs().max())
+    print(f"  fp64 witness: {len(witness) + 1} forwards in "
+          f"{time.perf_counter() - t0:.1f} s; a 2^-24 relative change of "
+          f"the embeddings moves its logits by {moved:.3e}; logits up to "
+          f"{float(exact.abs().max()):.3f}", flush=True)
+    def tol(*names):
+        segment = [xambas[k].cumba == "naive" for k in names]
+        if all(segment):
+            return LOGIT_TOL
+        return sum(LOGIT_TOL if seg else PREFIX_SUM_TOL for seg in segment)
+
+    fails = []
+    pairs = [(name, None) for name in xambas] + [
+        ("baseline", "+ReduBA"), ("+CumBA", "+CumBA+ReduBA"),
+        ("baseline", "+CumBA+ReduBA"), ("+ActiBA (k=32)", "pallas"),
+        ("pallas", "pallas (CPU plain)")]
+    for a, b in pairs:
+        if b is None:
+            key = tuple(table_for(k, xambas[a]) for k in ("silu", "softplus"))
+            other, label, limit = witness[key], "its fp64 witness", tol(a)
+        else:
+            other, label, limit = logits[b].double(), b, tol(a, b)
+        err = float((logits[a].double() - other).abs().max())
+        top1 = float((logits[a].argmax(-1) == other.argmax(-1)).float()
+                     .mean())
+        ok = err <= limit and top1 >= ABLATION_TOP1
+        print(f"  {a} vs {label}: logits max_abs_err {err:.3e} (tol "
+              f"{limit:.0e}), top-1 agreement {top1:.4f} (at least "
+              f"{ABLATION_TOP1}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fails.append(f"{a} vs {label}")
+
+    # Kernels 13 and 7 against their plain versions on the pallas()
+    # forward's own operands, all layers at once.
+    a_all = [a for (a,) in calls["cumba_cumsum"]]
+    cs = [c[1] for c in calls["ssd_chunk"]]
+    assert len(a_all) == len(cs) == cfg.n_layers
+    with torch.inference_mode():
+        cases = (
+            ("cumsum_last", (("A_cum", "stream"),),
+             [(kernels["cumsum_last"](a),) for a in a_all],
+             [(kernels["cumsum_last_plain"](a),) for a in a_all]),
+            ("ssd_chunk", (("y_diag", "state"), ("states", "state")),
+             [kernels["ssd_chunk"](*c) for c in calls["ssd_chunk"]],
+             [kernels["ssd_chunk_plain"](*c) for c in calls["ssd_chunk"]]))
+        torch.cuda.synchronize()
+        for kernel, outs, got, want in cases:
+            err, bad = compare(
+                f"{kernel} fp32 on the pallas() forward's operands "
+                f"({cfg.n_layers} layers)",
+                [torch.stack(t) for t in zip(*got)],
+                [torch.stack(t) for t in zip(*want)], "float32", outs)
+            worst[kernel] = max(worst[kernel], err)
+            fails.extend(bad)
+        # How well the prefix sums keep one step's decay: exp(cs_i -
+        # cs_{i-1}) in fp32 against exp(dt_i A) in fp64.
+        rel = max(float(((torch.exp(c[..., 1:] - c[..., :-1]).double() /
+                          torch.exp(a[..., 1:].double())) - 1).abs().max())
+                  for a, c in zip(a_all, cs))
+    print(f"  largest |cs| (SSD prefix sums) over the {cfg.n_layers} layers "
+          f"{max(float(c.abs().max()) for c in cs):.1f}; one step's decay "
+          f"from their difference off by up to {rel:.3e} (relative)",
+          flush=True)
+    assert not fails, f"ablation: {fails}"
+
+    n = cfg.n_layers
+    want = {"pallas": dict(cumsum_last=n, ssd_chunk=n, pwl_activate=3 * n,
+                           mamba2_step=0, mamba2_prefill=0),
+            "+ActiBA (k=32)": dict(cumsum_last=0, ssd_chunk=0,
+                                   pwl_activate=3 * n, mamba2_step=0,
+                                   mamba2_prefill=0)}
+    for name, w in want.items():
+        assert launches[name] == w, f"ablation {name}: launches " \
+            f"{launches[name]} expected {w}"
+    for name, _ in ablation.VARIANTS[:4]:
+        assert not any(launches[name].values()), f"ablation {name}: kernel"
+    return launches["pallas"]
+
+
+@contextlib.contextmanager
+def recording(module, calls):
+    """While open, each call of ``module.<name>`` for ``name`` in
+    ``calls`` appends its arguments to ``calls[name]`` (the SSD chain looks
+    these functions up on ``kernels/ops.py`` at call time)."""
+    saved = {k: getattr(module, k) for k in calls}
+
+    def recorder(name, fn):
+        def rec(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return rec
+    for k, fn in saved.items():
+        setattr(module, k, recorder(k, fn))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(module, k, fn)
+
+
+def witness_forward(params, cfg, tokens, tables=None, perturb=0.0):
+    """fp64 logits of the model, written out apart from the port: each
+    block as the unfused chain defines it (RMSNorm, in-projection, causal
+    conv, SiLU, softplus of dt, the SSD, the D skip, RMSNorm then the SiLU
+    gate, out-projection, residual), with the SSD as its recurrence
+    h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T, y_t = h_t C_t, one step at
+    a time: no chunks and no prefix sums.  ``tables`` (``silu``,
+    ``softplus``): those PWL tables, evaluated in fp64 on their fp32
+    coefficients, in place of the exact activations.  ``perturb``: a
+    relative change of the embeddings."""
+    import torch
+    import torch.nn.functional as F
+    f64 = torch.float64
+
+    def d(t):
+        return t.to(f64)
+
+    def rms(x, scale):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * \
+            d(scale)
+
+    def pwl(tab):
+        k = tab.num_segments - 1
+        c = torch.from_numpy(tab.packed_f32()).to(tokens.device, f64)
+
+        def f(x):
+            y = c[2 * k] * x + c[2 * k + 1]
+            for i in range(k):
+                y = y + c[k + i] * torch.clamp_min(x - c[i], 0.0)
+            return y
+        return f
+
+    silu, softplus = (F.silu, F.softplus) if tables is None else \
+        (pwl(tables["silu"]), pwl(tables["softplus"]))
+    b, l = tokens.shape
+    di = cfg.expand * cfg.d_model
+    h, p, g, n = di // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_ngroups, \
+        cfg.d_state
+    x = d(params["embed"]["table"])[tokens] * (1.0 + perturb)
+    for lp in params["layers"]:
+        m = lp["mixer"]
+        z, xbc, dt = torch.split(rms(x, lp["ln"]["scale"]) @
+                                 d(m["in_proj"]["w"]),
+                                 [di, di + 2 * g * n, h], dim=-1)
+        w = d(m["conv"]["w"])
+        xp = F.pad(xbc, (0, 0, w.shape[0] - 1, 0))
+        xbc = silu(sum(xp[:, i:i + l] * w[i] for i in range(w.shape[0])) +
+                   d(m["conv"]["b"]))
+        xs, B, C = torch.split(xbc, [di, g * n, g * n], dim=-1)
+        xs = xs.reshape(b, l, h, p)
+        B = B.reshape(b, l, g, n).repeat_interleave(h // g, dim=2)
+        C = C.reshape(b, l, g, n).repeat_interleave(h // g, dim=2)
+        dt = softplus(dt + d(m["dt_bias"]))                  # (b, l, h)
+        decay = torch.exp(dt * -torch.exp(d(m["A_log"])))
+        state = torch.zeros((b, h, p, n), dtype=f64, device=x.device)
+        ys = []
+        for t in range(l):
+            state = state * decay[:, t, :, None, None] + \
+                (dt[:, t, :, None] * xs[:, t])[..., None] * B[:, t, :, None]
+            ys.append(torch.einsum("bhpn,bhn->bhp", state, C[:, t]))
+        y = torch.stack(ys, dim=1) + xs * d(m["D"])[:, None]
+        y = rms(y.reshape(b, l, di), m["norm"]["scale"]) * silu(z)
+        x = x + y @ d(m["out_proj"]["w"])
+    return rms(x, params["final_norm"]["scale"]) @ \
+        d(params["embed"]["table"]).t()
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -316,7 +730,8 @@ def time_call(fn, n=30, warmup=3):
 
 
 OUR_KERNELS = ("mamba2_step_kernel", "gated_norm_kernel", "conv_act_kernel",
-               "ssd_scan_kernel")
+               "ssd_scan_kernel", "cumsum_last_kernel", "ssd_chunk_kernel",
+               "pwl_activate_kernel")
 
 
 def device_profile(fn, n=10):
@@ -425,15 +840,32 @@ def chunked_ops(b, l, chunk):
     return b * N_HEADS * (l // chunk) * per
 
 
+def ssd_chunk_ops(b, c, L, h, g, p, n):
+    """The least work of the intra-chunk pass: the lower triangle (with
+    its diagonal) of C B^T once per group, its decay (a difference and an
+    exp per pair) and its product with x per head, and the state product
+    (2 operations per multiply-add)."""
+    tri = L * (L + 1) // 2
+    return b * c * (g * 2 * n * tri + h * (2 * p * tri + 2 * tri +
+                                           2 * L * p * n + L * p))
+
+
+def pwl_ops(numel, table):
+    """m0*x + c0, then a subtraction, max, product and sum per breakpoint."""
+    return numel * (2 + 4 * (table.num_segments - 1))
+
+
 def _bound(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def times_phase(dev, kernels, launches, steps, waves, worst):
-    """Phase 6: kernel and plain times at the serve shapes (bf16, b=4;
-    prefill l=128, one chunk) and the kernels record."""
+def times_phase(dev, kernels, launches, steps, waves, worst, tables):
+    """Phase 7: kernel and plain times at the shapes each path gives the
+    kernel (serve: bf16, b=4, prefill l=128, one chunk; the ablation's
+    chain: fp32, b=4, l=300 in two chunks of 256) and the kernels
+    record."""
     import torch
     kw = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM)
     dtype = torch.bfloat16
@@ -456,6 +888,12 @@ def times_phase(dev, kernels, launches, steps, waves, worst):
           f" ms, bound {bound_ms:.4f} ms ({bound_by}); "
           f"{launches['mamba2_step'] / steps:.0f} launches per decode step",
           flush=True)
+    ktab = dict(silu_table=tables["silu"], softplus_table=tables["softplus"])
+    ms_a = time_call(lambda: kernels["mamba2_step"](**ins, **kw, **ktab))
+    dev_a = _ours(device_profile(
+        lambda: kernels["mamba2_step"](**ins, **kw, **ktab)))
+    print(f"  mamba2_step b=4 bf16 with the ActiBA tables: kernel {ms_a:.4f} "
+          f"ms (device {dev_a:.4f} ms)", flush=True)
 
     ins = prefill_inputs(4, 128, dev, dtype, seed=32)
     outs = kernels["mamba2_prefill"](**ins, chunk=128, **kw)
@@ -481,6 +919,49 @@ def times_phase(dev, kernels, launches, steps, waves, worst):
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
           f"{launches['mamba2_prefill'] / waves:.0f} launches per prefill; "
           f"library: no single PyTorch call", flush=True)
+    ms_a = time_call(lambda: kernels["mamba2_prefill"](**ins, chunk=128, **kw,
+                                                       **ktab))
+    dev_a = _ours(device_profile(lambda: kernels["mamba2_prefill"](
+        **ins, chunk=128, **kw, **ktab)))
+    print(f"  mamba2_prefill b=4 l=128 bf16 with the ActiBA tables: kernel "
+          f"{ms_a:.4f} ms (device {dev_a:.4f} ms)", flush=True)
+
+    # The chain's kernels at the ablation's shapes (fp32, b=4, l=300).
+    ch = chain_inputs(dev, torch.float32, seed=33)
+    chain = (
+        ("cumsum_last", "cumba.cu", "src/repro/kernels/cumba.py:51",
+         (ch["a_c"],), lambda o: 0.0 + ch["a_c"].numel(),
+         lambda: torch.cumsum(ch["a_c"], dim=-1)),
+        ("ssd_chunk", "ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:62",
+         (ch["x_c"], ch["A_cum"], ch["B_c"], ch["C_c"]),
+         lambda o: ssd_chunk_ops(CHAIN_B, CHAIN_C, CHUNK, N_HEADS, N_GROUPS,
+                                 HEAD_DIM, D_STATE), None),
+        ("pwl_activate", "actiba.cu", "src/repro/kernels/actiba.py:52",
+         (ch["xbc"], tables["silu"]),
+         lambda o: pwl_ops(ch["xbc"].numel(), tables["silu"]), None),
+    )
+    for name, src, where, args, ops, library in chain:
+        outs = kernels[name](*args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        ms = time_call(lambda: kernels[name](*args))
+        plain_ms = time_call(lambda: kernels[name + "_plain"](*args))
+        dev_ms = _ours(device_profile(lambda: kernels[name](*args)))
+        lib_ms = time_call(library) if library else None
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        bound_ms, bound_by = _bound(_bytes(*tensors, *outs), ops(outs))
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=where, launches=launches[name],
+            max_abs_err=worst[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+        shapes = ", ".join(str(tuple(a.shape)) for a in tensors)
+        print(f"  {name} fp32 {shapes}: kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), library "
+              + (f"{lib_ms:.4f} ms (torch.cumsum)" if lib_ms is not None
+                 else "none: no single PyTorch call")
+              + f"; {launches[name]} launches in the pallas() forward",
+              flush=True)
     return rows
 
 
@@ -491,7 +972,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build, decode_step, prefill_chunk
+    from repro_torch.core.pwl import table_for
+    from repro_torch.core.xamba import XambaConfig
+    from repro_torch.kernels import actiba, build, cumba, decode_step, \
+        prefill_chunk, ssd_chunk
     from repro_torch.launch import serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -518,24 +1002,44 @@ def main() -> int:
         "mamba2_step_plain": decode_step.mamba2_step_plain,
         "mamba2_prefill": prefill_chunk.mamba2_prefill,
         "mamba2_prefill_plain": prefill_chunk.mamba2_prefill_plain,
+        "cumsum_last": cumba.cumsum_last,
+        "cumsum_last_plain": cumba.cumsum_last_plain,
+        "ssd_chunk": ssd_chunk.ssd_chunk,
+        "ssd_chunk_plain": ssd_chunk.ssd_chunk_plain,
+        "pwl_activate": actiba.pwl_activate,
+        "pwl_activate_plain": actiba.pwl_activate_plain,
     }
     counters = {"mamba2_step": decode_step.mamba2_step,
-                "mamba2_prefill": prefill_chunk.mamba2_prefill}
+                "mamba2_prefill": prefill_chunk.mamba2_prefill,
+                "cumsum_last": cumba.cumsum_last,
+                "ssd_chunk": ssd_chunk.ssd_chunk,
+                "pwl_activate": actiba.pwl_activate}
+    pallas = XambaConfig.pallas()
+    tables = {k: table_for(k, pallas) for k in ("silu", "softplus")}
 
     print("== 3. kernels vs plain (full width)", flush=True)
     with torch.inference_mode():
-        worst = kernel_cases(dev, kernels)
+        worst = kernel_cases(dev, kernels, tables)
 
     print("== 4. serve (mamba2-130m, bf16, wave engine)", flush=True)
     engine, launches, steps, waves = serve_phase(serve.main, counters,
                                                  SERVE_ARGV)
+    with torch.inference_mode():
+        serve_modes_phase(serve.main, counters, get_config("mamba2-130m"),
+                          dev)
 
     print("== 5. path parity (fp32, kernel path vs plain path)", flush=True)
     parity_phase(dev, 1, get_config("mamba2-130m"))
 
-    print("== 6. times (serve shapes)", flush=True)
+    print("== 6. ablation (fp32 forward, b=4, l=300)", flush=True)
+    launches.update({k: v for k, v in ablation_phase(
+        dev, 2, get_config("mamba2-130m"), counters, kernels, worst).items()
+        if k in ("cumsum_last", "ssd_chunk", "pwl_activate")})
+
+    print("== 7. times", flush=True)
     with torch.inference_mode():
-        rows = times_phase(dev, kernels, launches, steps, waves, worst)
+        rows = times_phase(dev, kernels, launches, steps, waves, worst,
+                           tables)
         step_breakdown(engine)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 

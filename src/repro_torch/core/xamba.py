@@ -1,16 +1,21 @@
 """XAMBA technique configuration (a copy of ``repro.core.xamba``).
 
-The mode names and their validation are the JAX package's, so a config
-written for one package reads the same in the other.  The port runs a
-subset of them:
+The mode names, presets and validation are the JAX package's, so a
+config written for one package reads the same in the other.  How the
+port runs them:
 
 * ``decode`` / ``prefill`` modes ``cumba``, ``pallas`` and
-  ``pallas_interpret`` all go through the kernel wrappers
-  (``kernels/ops.py``).  On the GPU the hot path is the hand-written
-  kernel whatever the mode says; on the CPU it is the kernel's plain
-  PyTorch version.
-* ``naive`` (the unfused op chains), ``actiba=True`` (piecewise-linear
-  activations) and ``quant != "none"`` (W8 weights) are not ported yet:
+  ``pallas_interpret`` go through the fused kernel wrappers
+  (``kernels/ops.py``): the hand-written kernel on the GPU, its plain
+  PyTorch version on the CPU.  ``naive`` runs the unfused op chains
+  (``nn/ssm.py``), as does a prefill shape the fused path does not take.
+* ``cumba`` / ``reduba`` pick how the unfused chain's cumulative sums and
+  contractions run (``core/segsum.py``, ``core/reduce.py``); ``pallas``
+  there means the hand-written ``cumsum_last`` and ``ssd_chunk`` kernels.
+* ``actiba=True`` swaps SiLU and softplus for their piecewise-linear
+  tables (``core/pwl.py``), inside the fused kernels and elementwise in
+  the unfused chain.
+* ``quant != "none"`` (W8 weights) is not ported yet:
   :meth:`XambaConfig.require_ported` raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -56,20 +61,34 @@ class XambaConfig:
 
     def require_ported(self) -> None:
         """Raise ``NotImplementedError`` for options the port lacks."""
-        for field in ("decode", "prefill"):
-            if getattr(self, field) == "naive":
-                raise NotImplementedError(
-                    f"{field} mode 'naive' (the unfused op chain) is not "
-                    "ported yet")
-        if self.actiba:
-            raise NotImplementedError(
-                "actiba=True (piecewise-linear activations) is not ported yet")
         if self.quant != "none":
             raise NotImplementedError(
                 f"quant mode {self.quant!r} (W8 weights) is not ported yet")
+
+    # ---- presets (the JAX package's) ---------------------------------------
+    @classmethod
+    def baseline(cls) -> "XambaConfig":
+        """The unoptimized NPU-style execution (paper's baseline)."""
+        return cls(cumba="naive", reduba="naive", decode="naive",
+                   prefill="naive", actiba=False)
 
     @classmethod
     def optimized(cls) -> "XambaConfig":
         """CumBA + ReduBA (paper step-2, exact numerics)."""
         return cls(cumba="cumba", reduba="reduba", decode="cumba",
                    prefill="cumba", actiba=False)
+
+    @classmethod
+    def full(cls, segments: int = 32) -> "XambaConfig":
+        """CumBA + ReduBA + ActiBA (paper step-2 + step-3)."""
+        return cls(cumba="cumba", reduba="reduba", decode="cumba",
+                   prefill="cumba", actiba=True, actiba_segments=segments)
+
+    @classmethod
+    def pallas(cls, interpret: bool = False) -> "XambaConfig":
+        """Kernel-backed variants: the hand-written kernels on the GPU
+        (``interpret`` only names the mode; the CPU runs the plain
+        versions either way)."""
+        mode = "pallas_interpret" if interpret else "pallas"
+        return cls(cumba=mode, reduba=mode, decode=mode, prefill=mode,
+                   actiba=True)

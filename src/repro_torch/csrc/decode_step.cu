@@ -19,6 +19,10 @@
 // values, cheaper than a second pass).  The x channels of the new conv
 // tail are written by their head's block and the B/C channels by head 0,
 // so every element is written exactly once.
+//
+// Under ActiBA the conv's SiLU and dt's softplus are PWL tables (silu_tab,
+// sp_tab; null for the exact functions), as the TPU kernel's silu and
+// softplus callables are (decode_step.py:159-160).
 #include "common.cuh"
 
 template <typename T>
@@ -29,7 +33,8 @@ __global__ void mamba2_step_kernel(
     const float* __restrict__ conv_b, const float* __restrict__ dt_bias,
     const float* __restrict__ A, const float* __restrict__ D,
     float* __restrict__ ypre, T* __restrict__ new_conv,
-    float* __restrict__ new_ssm, int h, int p, int g, int n, int width) {
+    float* __restrict__ new_ssm, int h, int p, int g, int n, int width,
+    const float* silu_tab, int silu_nk, const float* sp_tab, int sp_nk) {
   extern __shared__ float smem[];
   float* xs = smem;      // (p,)  activated x channels of this head
   float* Bv = xs + p;    // (n,)  activated B of this head's group
@@ -50,7 +55,7 @@ __global__ void mamba2_step_kernel(
     float acc = 0.f;
     for (int j = 0; j < width; ++j)
       acc = __fadd_rn(acc, __fmul_rn(win(j, ch), conv_w[j * dxbc + ch]));
-    return silu_f(__fadd_rn(acc, conv_b[ch]));
+    return silu_act(__fadd_rn(acc, conv_b[ch]), silu_tab, silu_nk);
   };
   auto shift = [&](int ch) {
     for (int j = 0; j < wm1; ++j) ncrow[j * dxbc + ch] = from_f<T>(win(j + 1, ch));
@@ -69,8 +74,9 @@ __global__ void mamba2_step_kernel(
   }
   __syncthreads();
 
-  const float dtf =
-      softplus_f(to_f(dt[static_cast<size_t>(bi) * dt_rs + hi]) + dt_bias[hi]);
+  const float dtf = softplus_act(
+      to_f(dt[static_cast<size_t>(bi) * dt_rs + hi]) + dt_bias[hi], sp_tab,
+      sp_nk);
   const float decay = expf(dtf * A[hi]);
   const float dh = D[hi];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -96,13 +102,15 @@ __global__ void mamba2_step_kernel(
 // row stride dt_rs (both in T); conv_state (b, w-1, dxbc) T; ssm_state
 // (b, h, p, n) fp32; conv_w (w, dxbc), conv_b (dxbc,), dt_bias/A/D (h,)
 // fp32.  Writes ypre (b, h*p) fp32 (pre-norm y with the D skip),
-// new_conv (b, w-1, dxbc) T and new_ssm (b, h, p, n) fp32.
+// new_conv (b, w-1, dxbc) T and new_ssm (b, h, p, n) fp32.  silu_tab /
+// sp_tab: the ActiBA tables (common.cuh: pwl_eval), or null for exact.
 extern "C" int mamba2_step_launch(
     int dtype, const void* xbc, int xbc_rs, const void* dt, int dt_rs,
     const void* conv_state, const void* ssm_state, const void* conv_w,
     const void* conv_b, const void* dt_bias, const void* A, const void* D,
     void* ypre, void* new_conv, void* new_ssm, int b, int h, int p, int g,
-    int n, int width, void* stream) {
+    int n, int width, const void* silu_tab, int silu_nk, const void* sp_tab,
+    int sp_nk, void* stream) {
   if (b == 0) return 0;
   const dim3 grid(b, h);
   const size_t smem = static_cast<size_t>(p + 2 * n) * sizeof(float);
@@ -114,6 +122,7 @@ extern "C" int mamba2_step_launch(
       static_cast<const float*>(dt_bias), static_cast<const float*>(A),
       static_cast<const float*>(D), static_cast<float*>(ypre),
       static_cast<T*>(new_conv), static_cast<float*>(new_ssm), h, p, g, n,
-      width));
+      width, static_cast<const float*>(silu_tab), silu_nk,
+      static_cast<const float*>(sp_tab), sp_nk));
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,13 +16,17 @@
 // the normalised row is rounded to the stream dtype T, SiLU(z) is rounded
 // to T, and so is their product.  round_stream = 0 is the decode step's:
 // one rounding at the end (decode_step.py:199-200).
+//
+// Under ActiBA the gate's SiLU is the PWL table silu_tab (null for exact),
+// as the TPU kernels' silu callable is.
 #include "common.cuh"
 
 template <typename T, bool ROUND>
 __global__ void gated_norm_kernel(const float* __restrict__ y,
                                   const T* __restrict__ z, int z_rs,
                                   const float* __restrict__ scale,
-                                  T* __restrict__ out, int d, float eps) {
+                                  T* __restrict__ out, int d, float eps,
+                                  const float* silu_tab, int silu_nk) {
   __shared__ float part[32];
   const int row = blockIdx.x;
   const float* yr = y + static_cast<size_t>(row) * d;
@@ -46,7 +50,7 @@ __global__ void gated_norm_kernel(const float* __restrict__ y,
 
   for (int c = threadIdx.x; c < d; c += blockDim.x) {
     const float yn = yr[c] * inv * scale[c];
-    const float gate = silu_f(to_f(zr[c]));
+    const float gate = silu_act(to_f(zr[c]), silu_tab, silu_nk);
     if (ROUND) {
       orow[c] = from_f<T>(round_to<T>(yn) * round_to<T>(gate));
     } else {
@@ -56,10 +60,12 @@ __global__ void gated_norm_kernel(const float* __restrict__ y,
 }
 
 // y (rows, d) fp32; z rows of d values at a row stride of z_rs elements;
-// scale (d,) fp32; out (rows, d) in T.  Returns the cudaError_t.
+// scale (d,) fp32; out (rows, d) in T; silu_tab the gate's ActiBA table
+// or null.  Returns the cudaError_t.
 extern "C" int gated_norm_launch(int dtype, int round_stream, const void* y,
                                  const void* z, int z_rs, const void* scale,
                                  void* out, int rows, int d, float eps,
+                                 const void* silu_tab, int silu_nk,
                                  void* stream) {
   if (rows == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -67,11 +73,13 @@ extern "C" int gated_norm_launch(int dtype, int round_stream, const void* y,
     if (round_stream) {
       gated_norm_kernel<T, true><<<rows, 256, 0, s>>>(
           static_cast<const float*>(y), static_cast<const T*>(z), z_rs,
-          static_cast<const float*>(scale), static_cast<T*>(out), d, eps);
+          static_cast<const float*>(scale), static_cast<T*>(out), d, eps,
+          static_cast<const float*>(silu_tab), silu_nk);
     } else {
       gated_norm_kernel<T, false><<<rows, 256, 0, s>>>(
           static_cast<const float*>(y), static_cast<const T*>(z), z_rs,
-          static_cast<const float*>(scale), static_cast<T*>(out), d, eps);
+          static_cast<const float*>(scale), static_cast<T*>(out), d, eps,
+          static_cast<const float*>(silu_tab), silu_nk);
     }
   });
   return static_cast<int>(cudaGetLastError());

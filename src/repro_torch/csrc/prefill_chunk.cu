@@ -22,21 +22,17 @@
 //      carry is needed) and writes the outgoing conv tail;
 //   2. ssd_scan_kernel runs one block per (batch, head) that loops over
 //      the chunks in order and keeps the head's 64 x 128 fp32 state in
-//      shared memory.  The (L, L) decay block at L = 256 is 256 KB, more
-//      than a block's 227 KB, so it is never held whole: 64 query rows x
-//      64 key rows at a time, with 64 x 128 B and C tiles, the masked and
-//      decayed scores in a 64 x 65 tile, and row strides padded by one
-//      float so the shared-memory reads are free of bank conflicts.
+//      shared memory.  Each chunk's diagonal term and state contribution
+//      are the 64 x 64 tiles of common.cuh (ssd_tiles), which ssd_chunk.cu
+//      shares; this kernel adds the carried-state term and the state's
+//      decay across chunks.
+// Under ActiBA the conv's SiLU and dt's softplus are PWL tables (silu_tab,
+// sp_tab; null for the exact functions), as the TPU kernel's silu and
+// softplus callables are (prefill_chunk.py:178,182).
 // A later PR moves the three products to wgmma; this one is plain fp32.
 #include "common.cuh"
 
-namespace {
-constexpr int TQ = 64;   // query rows per tile
-constexpr int TK = 64;   // key rows per tile
-constexpr int NT = 256;  // threads per scan block
-constexpr int ACC_Y = TQ * 64 / NT;  // y outputs per thread (p <= 64): 16
-constexpr int ACC_S = 8192 / NT;     // state outputs per thread (p*n <= 8192)
-}  // namespace
+using namespace ssd_tiles;
 
 template <typename T>
 __global__ void conv_act_kernel(const T* __restrict__ xbc, int xbc_rs,
@@ -44,7 +40,8 @@ __global__ void conv_act_kernel(const T* __restrict__ xbc, int xbc_rs,
                                 const float* __restrict__ conv_w,
                                 const float* __restrict__ conv_b,
                                 T* __restrict__ act, T* __restrict__ new_conv,
-                                int l, int dxbc, int width) {
+                                int l, int dxbc, int width,
+                                const float* silu_tab, int silu_nk) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= dxbc) return;
   const int t = blockIdx.y, bi = blockIdx.z, wm1 = width - 1;
@@ -61,7 +58,7 @@ __global__ void conv_act_kernel(const T* __restrict__ xbc, int xbc_rs,
       acc = __fadd_rn(acc, __fmul_rn(at(t - wm1 + j), conv_w[j * dxbc + c]));
     acc = __fadd_rn(acc, conv_b[c]);
     act[(static_cast<size_t>(bi) * l + t) * dxbc + c] =
-        from_f<T>(silu_f(round_to<T>(acc)));
+        from_f<T>(silu_act(round_to<T>(acc), silu_tab, silu_nk));
   }
   if (t < wm1)
     new_conv[(static_cast<size_t>(bi) * wm1 + t) * dxbc + c] =
@@ -74,16 +71,13 @@ __global__ void __launch_bounds__(NT) ssd_scan_kernel(
     const float* __restrict__ dt_bias, const float* __restrict__ A,
     const float* __restrict__ D, const float* __restrict__ state_in,
     float* __restrict__ state_out, float* __restrict__ ypre, int l,
-    int chunk, int h, int p, int g, int n) {
+    int chunk, int h, int p, int g, int n, const float* sp_tab, int sp_nk) {
   extern __shared__ float sm[];
-  const int ns = n + 1, ps = p + 1, ss = TK + 1;
+  const int ns = n + 1;
   float* st = sm;                 // (p, ns)   carried state
   float* cs = st + p * ns;        // (chunk,)  CumBA prefix sums of dt*A
   float* dtf = cs + chunk;        // (chunk,)  softplus(dt + dt_bias)
-  float* Ct = dtf + chunk;        // (TQ, ns)
-  float* Bt = Ct + TQ * ns;       // (TK, ns)
-  float* Xt = Bt + TK * ns;       // (TK, ps)  x*dt (times decay for state)
-  float* S = Xt + TK * ps;        // (TQ, ss)  masked, decayed C.B scores
+  const Tiles tl = carve(dtf + chunk, p, n);
 
   const int bi = blockIdx.x, hi = blockIdx.y, tid = threadIdx.x;
   const int di = h * p, dxbc = di + 2 * g * n, gi = hi / (h / g);
@@ -97,9 +91,11 @@ __global__ void __launch_bounds__(NT) ssd_scan_kernel(
 
   for (int c0 = 0; c0 < l; c0 += chunk) {
     const size_t row0 = static_cast<size_t>(bi) * l + c0;
+    const T* arow = act + row0 * dxbc;  // this chunk's activated rows
     __syncthreads();
     for (int t = tid; t < chunk; t += NT) {
-      const float v = softplus_f(to_f(dt[(row0 + t) * dt_rs + hi]) + dtb);
+      const float v = softplus_act(to_f(dt[(row0 + t) * dt_rs + hi]) + dtb,
+                                   sp_tab, sp_nk);
       dtf[t] = v;
       cs[t] = v * Ah;
     }
@@ -114,12 +110,24 @@ __global__ void __launch_bounds__(NT) ssd_scan_kernel(
     __syncthreads();
     const float cl = cs[chunk - 1];
 
+    auto load_b = [&](int s0, int tk) {
+      load_tile(tl.Bt, ns, arow + s0 * dxbc + boff, dxbc, tk, n, Ident());
+    };
+    auto load_x = [&](int s0, int tk) {
+      load_tile(tl.Xt, tl.ps, arow + s0 * dxbc + xoff, dxbc, tk, p,
+                [&](int r, float v) { return v * dtf[s0 + r]; });
+    };
+    auto load_xw = [&](int s0, int tk) {
+      load_tile(tl.Xt, tl.ps, arow + s0 * dxbc + xoff, dxbc, tk, p,
+                [&](int r, float v) {
+                  return v * dtf[s0 + r] * expf(cl - cs[s0 + r]);
+                });
+    };
+
     // ---- outputs, one tile of TQ query rows at a time ------------------
     for (int q0 = 0; q0 < chunk; q0 += TQ) {
       const int tq = min(TQ, chunk - q0);
-      for (int e = tid; e < tq * n; e += NT)
-        Ct[(e / n) * ns + e % n] =
-            to_f(act[(row0 + q0 + e / n) * dxbc + coff + e % n]);
+      load_tile(tl.Ct, ns, arow + q0 * dxbc + coff, dxbc, tq, n, Ident());
       __syncthreads();
 
       float acc[ACC_Y];
@@ -130,44 +138,11 @@ __global__ void __launch_bounds__(NT) ssd_scan_kernel(
         if (e < tq * p) {
           const int i = e / p, pi = e % p;
           float s = 0.f;
-          for (int k = 0; k < n; ++k) s += Ct[i * ns + k] * st[pi * ns + k];
+          for (int k = 0; k < n; ++k) s += tl.Ct[i * ns + k] * st[pi * ns + k];
           acc[j] = s * expf(cs[q0 + i]);
         }
       }
-      for (int s0 = 0; s0 <= q0; s0 += TK) {  // intra-chunk term
-        const int tk = min(TK, chunk - s0);
-        for (int e = tid; e < tk * n; e += NT)
-          Bt[(e / n) * ns + e % n] =
-              to_f(act[(row0 + s0 + e / n) * dxbc + boff + e % n]);
-        for (int e = tid; e < tk * p; e += NT) {
-          const int j = e / p, pi = e % p;
-          Xt[j * ps + pi] =
-              to_f(act[(row0 + s0 + j) * dxbc + xoff + pi]) * dtf[s0 + j];
-        }
-        __syncthreads();
-        for (int e = tid; e < TQ * TK; e += NT) {
-          const int i = e / TK, j = e % TK;
-          float v = 0.f;
-          if (i < tq && j < tk && s0 + j <= q0 + i) {
-            float d = 0.f;
-            for (int k = 0; k < n; ++k) d += Ct[i * ns + k] * Bt[j * ns + k];
-            v = d * expf(cs[q0 + i] - cs[s0 + j]);
-          }
-          S[i * ss + j] = v;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int j = 0; j < ACC_Y; ++j) {
-          const int e = tid + j * NT;
-          if (e < tq * p) {
-            const int i = e / p, pi = e % p;
-            float s = 0.f;
-            for (int jj = 0; jj < tk; ++jj) s += S[i * ss + jj] * Xt[jj * ps + pi];
-            acc[j] += s;
-          }
-        }
-        __syncthreads();
-      }
+      diag_rows(acc, tl, cs, q0, tq, chunk, p, n, load_b, load_x);
 #pragma unroll
       for (int j = 0; j < ACC_Y; ++j) {  // D skip in the stream dtype
         const int e = tid + j * NT;
@@ -183,31 +158,7 @@ __global__ void __launch_bounds__(NT) ssd_scan_kernel(
 
     // ---- outgoing state: st * exp(cs_L) + sum_s (x dt exp(cs_L - cs_s)) B_s
     float sacc[ACC_S];
-#pragma unroll
-    for (int j = 0; j < ACC_S; ++j) sacc[j] = 0.f;
-    for (int s0 = 0; s0 < chunk; s0 += TK) {
-      const int tk = min(TK, chunk - s0);
-      __syncthreads();
-      for (int e = tid; e < tk * n; e += NT)
-        Bt[(e / n) * ns + e % n] =
-            to_f(act[(row0 + s0 + e / n) * dxbc + boff + e % n]);
-      for (int e = tid; e < tk * p; e += NT) {
-        const int j = e / p, pi = e % p;
-        Xt[j * ps + pi] = to_f(act[(row0 + s0 + j) * dxbc + xoff + pi]) *
-                          dtf[s0 + j] * expf(cl - cs[s0 + j]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < ACC_S; ++j) {
-        const int e = tid + j * NT;
-        if (e < p * n) {
-          const int pi = e / n, k = e % n;
-          float s = 0.f;
-          for (int jj = 0; jj < tk; ++jj) s += Xt[jj * ps + pi] * Bt[jj * ns + k];
-          sacc[j] += s;
-        }
-      }
-    }
+    chunk_state(sacc, tl, chunk, p, n, load_b, load_xw);
     const float dcl = expf(cl);
 #pragma unroll
     for (int j = 0; j < ACC_S; ++j) {
@@ -229,13 +180,16 @@ __global__ void __launch_bounds__(NT) ssd_scan_kernel(
 // dt_bias/A/D (h,) fp32.  Scratch act (b, l, dxbc) T.  Writes ypre
 // (b, l, h*p) fp32 (the T-rounded pre-norm y with the D skip), new_conv
 // (b, w-1, dxbc) T and state_out (b, h, p, n) fp32.  l % chunk == 0,
-// p <= 64, p * n <= 8192.  Returns the cudaError_t.
+// p <= 64, p * n <= 8192.  silu_tab / sp_tab: the ActiBA tables of the
+// conv's SiLU and dt's softplus (common.cuh: pwl_eval), or null for the
+// exact functions.  Returns the cudaError_t.
 extern "C" int mamba2_prefill_launch(
     int dtype, const void* xbc, int xbc_rs, const void* dt, int dt_rs,
     const void* conv_state, const void* state_in, const void* conv_w,
     const void* conv_b, const void* dt_bias, const void* A, const void* D,
     void* act, void* ypre, void* new_conv, void* state_out, int b, int l,
-    int chunk, int h, int p, int g, int n, int width, void* stream) {
+    int chunk, int h, int p, int g, int n, int width, const void* silu_tab,
+    int silu_nk, const void* sp_tab, int sp_nk, void* stream) {
   if (b == 0) return 0;
   if (p > 64 || p * n > 8192 || chunk <= 0 || l % chunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -245,13 +199,14 @@ extern "C" int mamba2_prefill_launch(
   const dim3 cgrid((dxbc + 255) / 256, rows, b);
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(p) * (n + 1) + 2 * chunk +
-                       2 * TQ * (n + 1) + TK * (p + 1) + TQ * (TK + 1));
+                       tile_floats(p, n));
   cudaError_t err = cudaSuccess;
   DISPATCH_T(dtype, {
     conv_act_kernel<T><<<cgrid, 256, 0, s>>>(
         static_cast<const T*>(xbc), xbc_rs, static_cast<const T*>(conv_state),
         static_cast<const float*>(conv_w), static_cast<const float*>(conv_b),
-        static_cast<T*>(act), static_cast<T*>(new_conv), l, dxbc, width);
+        static_cast<T*>(act), static_cast<T*>(new_conv), l, dxbc, width,
+        static_cast<const float*>(silu_tab), silu_nk);
     err = cudaGetLastError();
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(ssd_scan_kernel<T>,
@@ -263,7 +218,7 @@ extern "C" int mamba2_prefill_launch(
           static_cast<const float*>(dt_bias), static_cast<const float*>(A),
           static_cast<const float*>(D), static_cast<const float*>(state_in),
           static_cast<float*>(state_out), static_cast<float*>(ypre), l, chunk,
-          h, p, g, n);
+          h, p, g, n, static_cast<const float*>(sp_tab), sp_nk);
       err = cudaGetLastError();
     }
   });

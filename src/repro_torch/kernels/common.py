@@ -12,6 +12,7 @@ STREAM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 F = ctypes.c_float
 
 

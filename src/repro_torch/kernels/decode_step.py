@@ -11,6 +11,10 @@ its oracle ``repro.kernels.ref.mamba2_step_ref``:
 * :func:`mamba2_step_plain` — the same function in plain PyTorch, fp32
   throughout; the CPU path, and what the kernel is held to on the card.
 
+ActiBA: the plain version takes SiLU and softplus as callables (as the
+TPU kernel does, ``decode_step.py:159-160``), the kernel takes their PWL
+tables (``None`` = exact) and evaluates them in its body.
+
 Shapes (the JAX package's): z (b, di), xbc (b, dxbc), dt (b, h) — the
 ``in_proj`` splits, in the stream dtype; conv_state (b, w-1, dxbc) in the
 stream dtype; ssm_state (b, h, p, n) fp32; conv_w (w, dxbc); conv_b
@@ -20,21 +24,27 @@ new_conv; new_ssm).
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import common
+from repro_torch.kernels.actiba import table_args
 from repro_torch.kernels.gated_norm import gated_norm_cuda, gated_norm_plain
 from repro_torch.nn import layers
 
 _LAUNCH = ("decode_step", "mamba2_step_launch",
            [common.I, common.P, common.I, common.P, common.I]
-           + [common.P] * 10 + [common.I] * 6 + [common.P])
+           + [common.P] * 10 + [common.I] * 6
+           + [common.P, common.I, common.P, common.I, common.P])
 
 
 def mamba2_step_plain(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
                       dt_bias, A, D, norm_scale, *, ngroups: int,
-                      head_dim: int, eps: float = 1e-6):
+                      head_dim: int, eps: float = 1e-6,
+                      silu: Callable = F.silu, softplus: Callable = F.softplus):
     """Plain PyTorch port of ``mamba2_step_ref`` (fp32 interior)."""
     b, di = z.shape
     g, p = ngroups, head_dim
@@ -42,27 +52,30 @@ def mamba2_step_plain(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
     h = dt.shape[1]
     conv_out, new_conv = layers.causal_conv1d_step(
         {"w": conv_w, "b": conv_b}, xbc.float(), conv_state.float())
-    act = F.silu(conv_out)
+    act = silu(conv_out)
     xs = act[:, :di].reshape(b, h, p)
     B = act[:, di:di + g * n].reshape(b, g, n).repeat_interleave(h // g, 1)
     C = act[:, di + g * n:].reshape(b, g, n).repeat_interleave(h // g, 1)
-    dt_f = F.softplus(dt.float() + dt_bias.float()[None])
+    dt_f = softplus(dt.float() + dt_bias.float()[None])
     decay = torch.exp(dt_f * A.float()[None])
     new = ssm_state.float() * decay[..., None, None] + \
         dt_f[..., None, None] * B[:, :, None, :] * xs[..., None]
     y = torch.einsum("bhpn,bhn->bhp", new, C) + D.float()[None, :, None] * xs
     out = gated_norm_plain(y.reshape(b, di), z, norm_scale,
-                           round_stream=False, eps=eps)
+                           round_stream=False, eps=eps, silu=silu)
     return out, new_conv.to(conv_state.dtype), new
 
 
 def mamba2_step(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b, dt_bias,
                 A, D, norm_scale, *, ngroups: int, head_dim: int,
-                eps: float = 1e-6, out=None):
-    """The CUDA kernel (contract as :func:`mamba2_step_plain`).  The small
-    parameters (conv_w, conv_b, dt_bias, A, D, norm_scale) must be
-    contiguous fp32.  ``out`` = (new_conv, new_ssm) buffers to write the
-    new state into instead of fresh ones."""
+                eps: float = 1e-6, out=None,
+                silu_table: Optional[PWLTable] = None,
+                softplus_table: Optional[PWLTable] = None):
+    """The CUDA kernel (contract as :func:`mamba2_step_plain`, with the
+    activations' ActiBA tables in place of callables, ``None`` = exact).
+    The small parameters (conv_w, conv_b, dt_bias, A, D, norm_scale) must
+    be contiguous fp32.  ``out`` = (new_conv, new_ssm) buffers to write
+    the new state into instead of fresh ones."""
     dev = z.device
     common.require(dev.type == "cuda", "mamba2_step takes CUDA tensors; "
                    "the CPU path is mamba2_step_plain")
@@ -104,9 +117,11 @@ def mamba2_step(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b, dt_bias,
              common.ptr(ssm_state), common.ptr(conv_w), common.ptr(conv_b),
              common.ptr(dt_bias), common.ptr(A), common.ptr(D),
              common.ptr(ypre), common.ptr(new_conv), common.ptr(new_ssm),
-             b, h, p, g, n, width, common.stream(dev))
+             b, h, p, g, n, width, *table_args(silu_table, dev),
+             *table_args(softplus_table, dev), common.stream(dev))
     common.check_launch(err, "decode_step", "mamba2_step kernel")
-    out = gated_norm_cuda(ypre, z, norm_scale, round_stream=False, eps=eps)
+    out = gated_norm_cuda(ypre, z, norm_scale, round_stream=False, eps=eps,
+                          silu_table=silu_table)
     mamba2_step.launches += 1
     return out, new_conv, new_ssm
 

@@ -12,36 +12,45 @@ Two rounding disciplines, as in the JAX package:
 * decode (``round_stream=False``): fp32 throughout, one cast at the end;
 * prefill (``round_stream=True``): the normalised row and SiLU(z) are
   rounded to the stream dtype before their product (which rounds too).
+
+Under ActiBA the gate's SiLU is a PWL table: a callable in the plain
+version, the table (``kernels/actiba.py: table_args``) in the kernel.
 """
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import common
+from repro_torch.kernels.actiba import table_args
 
 _LAUNCH = ("gated_norm", "gated_norm_launch",
            [common.I, common.I, common.P, common.P, common.I, common.P,
-            common.P, common.I, common.I, common.F, common.P])
+            common.P, common.I, common.I, common.F, common.P, common.I,
+            common.P])
 
 
 def gated_norm_plain(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                     *, round_stream: bool, eps: float = 1e-6
-                     ) -> torch.Tensor:
+                     *, round_stream: bool, eps: float = 1e-6,
+                     silu: Callable = F.silu) -> torch.Tensor:
     """y (..., d) fp32; z (..., d) in the stream dtype; out in z's dtype."""
     yf = y.float()
     ms = torch.mean(yf * yf, dim=-1, keepdim=True)
     yn = yf * torch.rsqrt(ms + eps) * scale.float()
     if round_stream:
-        return yn.to(z.dtype) * F.silu(z)
-    return (yn * F.silu(z.float())).to(z.dtype)
+        return yn.to(z.dtype) * silu(z)
+    return (yn * silu(z.float())).to(z.dtype)
 
 
 def gated_norm_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                    *, round_stream: bool, eps: float = 1e-6
-                    ) -> torch.Tensor:
+                    *, round_stream: bool, eps: float = 1e-6,
+                    silu_table: Optional[PWLTable] = None) -> torch.Tensor:
     """The kernel: y (..., d) contiguous fp32, z rows of d values, scale
-    (d,) contiguous fp32."""
+    (d,) contiguous fp32; ``silu_table`` the gate's ActiBA table or
+    ``None`` for the exact SiLU."""
     d = y.shape[-1]
     common.require(y.dtype == torch.float32 and y.is_contiguous(),
                    "gated_norm: y must be contiguous fp32")
@@ -55,6 +64,7 @@ def gated_norm_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     fn = common.launcher(*_LAUNCH)
     err = fn(common.stream_code(z), int(round_stream), common.ptr(y),
              common.ptr(z), common.row_stride(z, "z"), common.ptr(scale),
-             common.ptr(out), rows, d, eps, common.stream(y.device))
+             common.ptr(out), rows, d, eps,
+             *table_args(silu_table, y.device), common.stream(y.device))
     common.check_launch(err, "gated_norm", "gated_norm kernel")
     return out

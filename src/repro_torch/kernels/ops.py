@@ -2,12 +2,19 @@
 kernel (which launches or raises), a CPU tensor to its plain PyTorch
 version.  There is no fallback from the one to the other and no mode
 string that picks the plain version on the card.
+
+``xamba`` (an ``XambaConfig``) carries ActiBA into the fused kernels: the
+kernel takes the PWL tables of SiLU and softplus, the plain version the
+activations of ``core/pwl.py: activation``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import decode_step as _ds, prefill_chunk as _pc
+from repro_torch.core import pwl
+from repro_torch.core.pwl import PWLTable
+from repro_torch.kernels import actiba as _act, cumba as _cumba, \
+    decode_step as _ds, prefill_chunk as _pc, ssd_chunk as _ssd
 
 
 def _plain_into(out, res):
@@ -20,24 +27,34 @@ def _plain_into(out, res):
     return y, out[0], out[1]
 
 
+def _activations(xamba, on_cuda: bool) -> dict:
+    """The fused kernels' activation arguments under ``xamba``: tables for
+    the kernel, callables for the plain version."""
+    if on_cuda:
+        return dict(silu_table=pwl.table_for("silu", xamba),
+                    softplus_table=pwl.table_for("softplus", xamba))
+    return dict(silu=pwl.activation("silu", xamba),
+                softplus=pwl.activation("softplus", xamba))
+
+
 def mamba2_decode_step(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
                        dt_bias, A, D, norm_scale, *, ngroups: int,
-                       head_dim: int, out=None):
+                       head_dim: int, xamba=None, out=None):
     """Fused Mamba-2 single-token step (conv + SiLU + softplus + SSD +
     gated norm); shapes as ``kernels/decode_step.py``.  ``out`` =
     (new_conv, new_ssm) buffers that receive the new state."""
     args = (z, xbc, dt, conv_state, ssm_state, conv_w, conv_b, dt_bias, A,
             D, norm_scale)
+    kw = dict(ngroups=ngroups, head_dim=head_dim,
+              **_activations(xamba, z.is_cuda))
     if z.is_cuda:
-        return _ds.mamba2_step(*args, ngroups=ngroups, head_dim=head_dim,
-                               out=out)
-    return _plain_into(out, _ds.mamba2_step_plain(
-        *args, ngroups=ngroups, head_dim=head_dim))
+        return _ds.mamba2_step(*args, **kw, out=out)
+    return _plain_into(out, _ds.mamba2_step_plain(*args, **kw))
 
 
 def mamba2_prefill(x, in_w, conv_state, ssm_state, conv_w, conv_b, dt_bias,
                    A, D, norm_scale, *, ngroups: int, head_dim: int,
-                   chunk: int, out=None):
+                   chunk: int, xamba=None, out=None):
     """In-projection + the fused Mamba-2 prefill; returns ``(y, new_conv,
     new_ssm)`` with ``y`` the gated, pre-``out_proj`` mixer output
     (b, l, d_inner) in ``x``'s dtype.  ``out`` as for
@@ -47,7 +64,30 @@ def mamba2_prefill(x, in_w, conv_state, ssm_state, conv_w, conv_b, dt_bias,
                              [di, di + 2 * ngroups * n, h], dim=-1)
     args = (z, xbc, dt, conv_state, ssm_state, conv_w, conv_b, dt_bias, A,
             D, norm_scale)
-    kw = dict(ngroups=ngroups, head_dim=head_dim, chunk=chunk)
+    kw = dict(ngroups=ngroups, head_dim=head_dim, chunk=chunk,
+              **_activations(xamba, x.is_cuda))
     if x.is_cuda:
         return _pc.mamba2_prefill(*args, **kw, out=out)
     return _plain_into(out, _pc.mamba2_prefill_plain(*args, **kw))
+
+
+def actiba_activate(x: torch.Tensor, table: PWLTable) -> torch.Tensor:
+    """ActiBA: the elementwise PWL activation (kernel 12)."""
+    if x.is_cuda:
+        return _act.pwl_activate(x.contiguous(), table)
+    return _act.pwl_activate_plain(x, table)
+
+
+def cumba_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """CumBA: the cumulative sum along the trailing axis (kernel 13)."""
+    if x.is_cuda:
+        return _cumba.cumsum_last(x.contiguous())
+    return _cumba.cumsum_last_plain(x)
+
+
+def ssd_chunk(x_c, A_cum, B_c, C_c):
+    """The fused SSD intra-chunk pass (kernel 7) -> (y_diag, chunk
+    states), from the per-chunk prefix sums ``A_cum`` of the log decays."""
+    if x_c.is_cuda:
+        return _ssd.ssd_chunk(x_c, A_cum, B_c, C_c)
+    return _ssd.ssd_chunk_plain(x_c, A_cum, B_c, C_c)

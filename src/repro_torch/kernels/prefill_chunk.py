@@ -15,6 +15,10 @@ Port of ``repro.kernels.prefill_chunk``:
   and the same stream-dtype rounding points (``prefill_chunk.py:176-186``
   and ``:278-283``).
 
+ActiBA: the plain version takes SiLU and softplus as callables (as the
+TPU kernel does, ``prefill_chunk.py:178,182,283``), the kernel takes
+their PWL tables (``None`` = exact).
+
 Shapes: z (b, l, di); xbc (b, l, dxbc); dt (b, l, h) RAW (pre-softplus);
 conv_state (b, w-1, dxbc); ssm_state (b, h, p, n).  Returns (y (b, l, di)
 in the stream dtype, new_conv (b, w-1, dxbc), new_ssm fp32).  ``l`` must
@@ -22,18 +26,21 @@ be a multiple of ``chunk``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import common
+from repro_torch.kernels.actiba import table_args
 from repro_torch.kernels.gated_norm import gated_norm_cuda, gated_norm_plain
 from repro_torch.nn import layers
 
 _LAUNCH = ("prefill_chunk", "mamba2_prefill_launch",
            [common.I, common.P, common.I, common.P, common.I]
-           + [common.P] * 11 + [common.I] * 8 + [common.P])
+           + [common.P] * 11 + [common.I] * 8
+           + [common.P, common.I, common.P, common.I, common.P])
 
 
 def project_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -74,7 +81,9 @@ def _chunk_scan(xdt, a, B, C, state, g: int):
 
 def mamba2_prefill_plain(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
                          dt_bias, A, D, norm_scale, *, ngroups: int,
-                         head_dim: int, chunk: int, eps: float = 1e-6
+                         head_dim: int, chunk: int, eps: float = 1e-6,
+                         silu: Callable = F.silu,
+                         softplus: Callable = F.softplus
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch port of ``mamba2_prefill_xla``."""
     b, l, di = z.shape
@@ -87,11 +96,11 @@ def mamba2_prefill_plain(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
     conv, new_tail = layers.causal_conv1d(
         {"w": conv_w, "b": conv_b}, xbc.float(), conv_state.float())
     # Activated streams round to the stream dtype before the fp32 scan.
-    act = F.silu(conv.to(sd))
+    act = silu(conv.to(sd))
     xs = act[..., :di].reshape(b, l, h, p)
     B = act[..., di:di + g * n].reshape(b, l, g, n).float()
     C = act[..., di + g * n:].reshape(b, l, g, n).float()
-    dt_f = F.softplus(dt.float() + dt_bias.float())           # (b, l, h)
+    dt_f = softplus(dt.float() + dt_bias.float())             # (b, l, h)
     a = dt_f * A.float()
     xdt = xs.float() * dt_f[..., None]
     state = ssm_state.float()
@@ -105,18 +114,21 @@ def mamba2_prefill_plain(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
     # D skip in the stream dtype, then the norm with its fp32 interior.
     y = y.to(sd) + xs * D.to(sd)[None, None, :, None]
     out = gated_norm_plain(y.reshape(b, l, di), z, norm_scale,
-                           round_stream=True, eps=eps)
+                           round_stream=True, eps=eps, silu=silu)
     return out, new_tail.to(conv_state.dtype), state
 
 
 def mamba2_prefill(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
                    dt_bias, A, D, norm_scale, *, ngroups: int, head_dim: int,
-                   chunk: int, eps: float = 1e-6, out=None
+                   chunk: int, eps: float = 1e-6, out=None,
+                   silu_table: Optional[PWLTable] = None,
+                   softplus_table: Optional[PWLTable] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The CUDA kernel (contract as :func:`mamba2_prefill_plain`).  The
-    small parameters (conv_w, conv_b, dt_bias, A, D, norm_scale) must be
-    contiguous fp32.  ``out`` = (new_conv, new_ssm) buffers to write the
-    new state into instead of fresh ones."""
+    """The CUDA kernel (contract as :func:`mamba2_prefill_plain`, with
+    the activations' ActiBA tables in place of callables, ``None`` =
+    exact).  The small parameters (conv_w, conv_b, dt_bias, A, D,
+    norm_scale) must be contiguous fp32.  ``out`` = (new_conv, new_ssm)
+    buffers to write the new state into instead of fresh ones."""
     dev = z.device
     common.require(dev.type == "cuda", "mamba2_prefill takes CUDA tensors; "
                    "the CPU path is mamba2_prefill_plain")
@@ -166,9 +178,11 @@ def mamba2_prefill(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
              common.ptr(dt_bias), common.ptr(A), common.ptr(D),
              common.ptr(act), common.ptr(ypre), common.ptr(new_conv),
              common.ptr(new_ssm), b, l, chunk, h, p, g, n, width,
+             *table_args(silu_table, dev), *table_args(softplus_table, dev),
              common.stream(dev))
     common.check_launch(err, "prefill_chunk", "mamba2_prefill kernel")
-    out = gated_norm_cuda(ypre, z, norm_scale, round_stream=True, eps=eps)
+    out = gated_norm_cuda(ypre, z, norm_scale, round_stream=True, eps=eps,
+                          silu_table=silu_table)
     mamba2_prefill.launches += 1
     return out, new_conv, new_ssm
 

@@ -2,8 +2,10 @@
 — batched random requests through the wave engine on the GPU (or
 ``--device cpu``), with weights drawn from ``--seed``.
 
-Takes the JAX CLI's wave-engine flags; the continuous engine's flags
-come with that engine.
+Takes the JAX CLI's wave-engine flags, ``--decode-mode`` and
+``--prefill-mode`` among them (``naive`` = the unfused op chains); the
+continuous engine's flags come with that engine.  ActiBA has no flag, as
+in the JAX CLI: it comes with the ``XambaConfig`` presets.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import logging
 import numpy as np
 
 from repro_torch.configs import get_config
+from repro_torch.core.xamba import DECODE_MODES, PREFILL_MODES
 from repro_torch.models import build_model
 from repro_torch.nn.params import init_params
 from repro_torch.serve import Engine, ServeConfig
@@ -32,6 +35,12 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--policy", choices=("fcfs", "priority"),
                     default="fcfs")
+    ap.add_argument("--decode-mode", default=None, choices=DECODE_MODES,
+                    help="XambaConfig.decode mode for the single-token "
+                         "step (naive = the unfused op chain)")
+    ap.add_argument("--prefill-mode", default=None, choices=PREFILL_MODES,
+                    help="XambaConfig.prefill mode for the multi-token "
+                         "prefill (naive = the unfused op chain)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; 'cpu' "
@@ -40,6 +49,10 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.decode_mode:
+        cfg = cfg.with_decode_mode(args.decode_mode)
+    if args.prefill_mode:
+        cfg = cfg.with_prefill_mode(args.prefill_mode)
     model = build_model(cfg, args.device)
     params = init_params(model.param_specs(), args.seed, cfg.dtype,
                          model.device)

@@ -30,8 +30,11 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_ngroups: int = 1
     chunk_size: int = 256
+    ssd_dtype: str = "float32"    # SSD big-matmul dtype (bf16 = perf mode)
 
     param_dtype: str = "bfloat16"
+    # A one-token call with a state takes the prefill path, not the step.
+    force_prefill_path: bool = False
     xamba: XambaConfig = XambaConfig()
 
     @property

@@ -72,6 +72,17 @@ class MambaLM:
         return layers.unembed(params["embed"],
                               layers.norm(params["final_norm"], x))
 
+    def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence logits (b, l, V) fp32, no cache: every layer runs
+        its prefill path without a carried state (the ablation's and the
+        quality benchmark's entry point)."""
+        x = layers.embed(params["embed"], tokens)
+        for p in params["layers"]:
+            h, _ = ssm.mamba2_apply(p["mixer"], self.cfg,
+                                    layers.norm(p["ln"], x))
+            x = x + h
+        return self._logits(params, x)
+
     # ---------------- serving ----------------
     def init_cache(self, batch: int, max_seq: int = 0,
                    dtype: torch.dtype = torch.bfloat16) -> ssm.Mamba2State:

@@ -1,23 +1,36 @@
 """The Mamba-2 (SSD) mixer: port of the Mamba-2 part of ``repro.nn.ssm``.
 
 ``mamba2_apply`` handles both the multi-token prefill (with or without a
-carried state) and the single-token decode step with the same params.
-Both go through the kernel dispatch in ``kernels/ops.py``: the
-hand-written CUDA kernels on the GPU, their plain versions on the CPU.
+carried state) and the single-token decode step with the same params:
 
-The prefill gate is the port's own: ``l % min(chunk_size, l) == 0``.  A
-shape that fails it raises; the JAX package's unfused fallback chain is
-not ported yet.
+* decode, modes ``cumba`` / ``pallas*``: the fused step through
+  ``kernels/ops.py`` (the hand-written kernel on the GPU, its plain
+  version on the CPU); mode ``naive``: the unfused dense step
+  (``_mamba2_decode_naive``);
+* prefill: the fused prefill through ``kernels/ops.py`` when the JAX
+  package's gate admits the shape, else the unfused chain (projection ->
+  conv -> activations -> ``core/ssd.py: ssd`` -> gate), as the JAX
+  package falls back to it: ``prefill="naive"``, ``ssd_dtype`` other than
+  fp32, a seqlen that is not a chunk multiple, or a ``pallas`` chunk that
+  is not a multiple of 64.  Each reason is logged once per shape.
+
+ActiBA reaches the fused kernels as PWL tables (``xamba``) and the
+unfused chain through ``core/pwl.py: activation`` (kernel 12 on the GPU).
 """
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import pwl, ssd as ssd_mod
 from repro_torch.kernels import ops
 from repro_torch.nn import layers
 from repro_torch.nn.params import ParamSpec
+
+log = logging.getLogger("repro_torch.ssm")
+_LOGGED = set()    # (mode, reason, b, l) already logged
 
 
 class Mamba2State(NamedTuple):
@@ -78,44 +91,134 @@ def _operands(params: dict) -> dict:
         mamba2_kernel_operands(params)
 
 
+def _into(out: Optional[Mamba2State], new: Mamba2State) -> Mamba2State:
+    """The new state written into the caller's ``out`` buffers, if any
+    (the fused kernels write there directly)."""
+    if out is None:
+        return new
+    out.conv.copy_(new.conv)
+    out.ssm.copy_(new.ssm)
+    return out
+
+
+def _unfused_streams(params: dict, cfg, x: torch.Tensor,
+                     conv_state: torch.Tensor):
+    """The unfused chain up to the SSD: in-projection, causal conv over
+    [tail; x], the activations (``core/pwl.py``) and the splits.  Returns
+    (z, xs (b, l, h, p), B, C (b, l, g, n), dt (b, l, h) fp32, A, the new
+    conv tail, the SiLU in use)."""
+    b, l, _ = x.shape
+    d_inner, nheads, g, n = mamba2_dims(cfg)
+    silu = pwl.activation("silu", cfg.xamba)
+    softplus = pwl.activation("softplus", cfg.xamba)
+    z, xbc, dt = torch.split(layers.linear(params["in_proj"], x),
+                             [d_inner, d_inner + 2 * g * n, nheads], dim=-1)
+    xbc_conv, new_conv = layers.causal_conv1d(params["conv"], xbc, conv_state)
+    xs, B, C = torch.split(silu(xbc_conv), [d_inner, g * n, g * n], dim=-1)
+    dt = softplus(dt.float() + params["dt_bias"].float())
+    A = -torch.exp(params["A_log"].float())
+    return (z, xs.reshape(b, l, nheads, cfg.ssm_head_dim),
+            B.reshape(b, l, g, n), C.reshape(b, l, g, n), dt, A, new_conv,
+            silu)
+
+
+def _gate_out(params: dict, x, y, xs, z, silu) -> torch.Tensor:
+    """D skip, gated RMSNorm and the out-projection of the unfused chain."""
+    b, l = x.shape[:2]
+    y = y + xs * params["D"].to(x.dtype)[None, None, :, None]
+    y = layers.norm(params["norm"], y.reshape(b, l, -1)) * silu(z)
+    return layers.linear(params["out_proj"], y.to(x.dtype))
+
+
+def _mamba2_decode_naive(params: dict, cfg, x: torch.Tensor,
+                         state: Mamba2State, out: Optional[Mamba2State]
+                         ) -> Tuple[torch.Tensor, Mamba2State]:
+    """The unfused dense step (the NPU-baseline op chain): seq-axis
+    (b, 1, d) operands end to end, per-tap conv slices, and the state
+    contraction as broadcast-multiply + ReduceSum."""
+    z, xs, B, C, dt, A, new_conv, silu = _unfused_streams(params, cfg, x,
+                                                          state.conv)
+    new_ssm, y = ssd_mod.ssd_decode_step(state.ssm, xs[:, 0], dt[:, 0], A,
+                                         B[:, 0], C[:, 0], mode="naive")
+    h = _gate_out(params, x, y[:, None], xs, z, silu)
+    return h, _into(out, Mamba2State(new_conv, new_ssm))
+
+
 def _mamba2_decode(params: dict, cfg, x: torch.Tensor, state: Mamba2State,
                    out: Optional[Mamba2State]
                    ) -> Tuple[torch.Tensor, Mamba2State]:
-    """Fused single-token step on (b, d) operands; x: (b, 1, d)."""
+    """Single-token step; x: (b, 1, d).  ``naive`` runs the unfused
+    chain; ``cumba`` and ``pallas*`` the fused step on (b, d) operands."""
+    if cfg.xamba.decode == "naive":
+        return _mamba2_decode_naive(params, cfg, x, state, out)
     d_inner, nheads, g, n = mamba2_dims(cfg)
     zxbcdt = layers.linear(params["in_proj"], x[:, 0])       # (b, d_in_proj)
     z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * g * n, nheads],
                              dim=-1)
     y, new_conv, new_ssm = ops.mamba2_decode_step(
         z, xbc, dt, state.conv, state.ssm, **_operands(params), ngroups=g,
-        head_dim=cfg.ssm_head_dim, out=out)
+        head_dim=cfg.ssm_head_dim, xamba=cfg.xamba, out=out)
     h = layers.linear(params["out_proj"], y.to(x.dtype))[:, None]
     return h, Mamba2State(new_conv, new_ssm)
+
+
+def _fused_prefill_refusal(cfg, l: int) -> Optional[str]:
+    """Why the fused prefill does not take this shape (the JAX package's
+    gate, ``nn/ssm.py:174-184``), or ``None`` when it does."""
+    mode = cfg.xamba.prefill
+    if mode == "naive":
+        return "prefill mode naive"
+    chunk = min(cfg.chunk_size, l)
+    if cfg.ssd_dtype != "float32":
+        return f"ssd_dtype={cfg.ssd_dtype} (fused prefill is fp32-only)"
+    if l % chunk:
+        return f"seqlen {l} not a multiple of chunk {chunk}"
+    if mode == "pallas" and chunk % 64:
+        return f"chunk {chunk} not a multiple of 64 (kernel tiling)"
+    return None
+
+
+def _mamba2_prefill_unfused(params: dict, cfg, x: torch.Tensor,
+                            init: Mamba2State, out: Optional[Mamba2State]
+                            ) -> Tuple[torch.Tensor, Mamba2State]:
+    """The unfused chain (``repro`` ``nn/ssm.py:207-237``)."""
+    z, xs, B, C, dt, A, new_conv, silu = _unfused_streams(params, cfg, x,
+                                                          init.conv)
+    y, new_ssm = ssd_mod.ssd(
+        xs, dt, A, B, C, chunk_size=min(cfg.chunk_size, x.shape[1]),
+        initial_state=init.ssm, xamba=cfg.xamba, return_final_state=True,
+        matmul_dtype=torch.bfloat16 if cfg.ssd_dtype == "bfloat16" else None)
+    h = _gate_out(params, x, y, xs, z, silu)
+    return h, _into(out, Mamba2State(new_conv.to(init.conv.dtype), new_ssm))
 
 
 def mamba2_apply(params: dict, cfg, x: torch.Tensor,
                  state: Optional[Mamba2State] = None,
                  out: Optional[Mamba2State] = None,
                  ) -> Tuple[torch.Tensor, Optional[Mamba2State]]:
-    """x: (b, l, d).  l == 1 with a state -> decode step; else prefill.
+    """x: (b, l, d).  l == 1 with a state -> decode step (unless
+    ``cfg.force_prefill_path``); else prefill, fused or unfused.
     ``out``: buffers that receive the new state (with ``state`` only)."""
     b, l, _ = x.shape
     d_inner, nheads, g, n = mamba2_dims(cfg)
-    if state is not None and l == 1:
+    if state is not None and l == 1 and not cfg.force_prefill_path:
         return _mamba2_decode(params, cfg, x, state, out)
 
-    chunk = min(cfg.chunk_size, l)
-    if l % chunk:
-        raise NotImplementedError(
-            f"prefill of seqlen {l} is not a multiple of chunk {chunk}; the "
-            "unfused prefill chain is not ported yet")
-    if state is None:
-        init = mamba2_init_state(cfg, b, x.dtype, x.device)
+    init = state if state is not None else \
+        mamba2_init_state(cfg, b, x.dtype, x.device)
+    reason = _fused_prefill_refusal(cfg, l)
+    if reason is not None:
+        key = (cfg.xamba.prefill, reason, b, l)
+        if cfg.xamba.prefill != "naive" and key not in _LOGGED:
+            _LOGGED.add(key)
+            log.info("fused prefill (%s) skipped: %s — running the unfused "
+                     "chain", cfg.xamba.prefill, reason)
+        h, new_state = _mamba2_prefill_unfused(params, cfg, x, init, out)
     else:
-        init = state
-    y, new_conv, new_ssm = ops.mamba2_prefill(
-        x, params["in_proj"]["w"], init.conv, init.ssm, **_operands(params),
-        ngroups=g, head_dim=cfg.ssm_head_dim, chunk=chunk, out=out)
-    h = layers.linear(params["out_proj"], y.to(x.dtype))
-    new_state = Mamba2State(new_conv, new_ssm) if state is not None else None
-    return h, new_state
+        y, new_conv, new_ssm = ops.mamba2_prefill(
+            x, params["in_proj"]["w"], init.conv, init.ssm,
+            **_operands(params), ngroups=g, head_dim=cfg.ssm_head_dim,
+            chunk=min(cfg.chunk_size, l), xamba=cfg.xamba, out=out)
+        h = layers.linear(params["out_proj"], y.to(x.dtype))
+        new_state = Mamba2State(new_conv, new_ssm)
+    return h, new_state if state is not None else None

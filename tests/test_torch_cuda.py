@@ -9,7 +9,10 @@ small and uneven (groups 2, head_dim 8 and 32, chunks that do not fill a
 import pytest
 import torch
 
-from repro_torch.kernels import decode_step as ds, ops, prefill_chunk as pc
+from repro_torch.core import pwl
+from repro_torch.core.xamba import XambaConfig
+from repro_torch.kernels import actiba, cumba, decode_step as ds, ops, \
+    prefill_chunk as pc, ssd_chunk as sc
 
 pytestmark = pytest.mark.cuda
 
@@ -50,17 +53,21 @@ def _inputs(dev, dtype, b, l, h, p, g, n, w, seed):
         D=r(h, scale=0.2, dtype=f32), norm_scale=r(di, dtype=f32).abs() + 0.5)
 
 
+def _close(a, r, rtol, name):
+    assert a.dtype == r.dtype and a.shape == r.shape, name
+    diff = (a.float() - r.float()).abs()
+    r32 = r.float()
+    tol = rtol * (r32.abs() + ATOL_RMS * r32.square().mean().sqrt())
+    assert bool((diff <= tol).all()), name
+    if a.dtype == torch.bfloat16:
+        n_off = int((diff > 0).sum())
+        assert n_off <= max(2, MAX_OFF_SHARE * diff.numel()), name
+
+
 def _check(got, want, dtype):
     for name, a, r in zip(("y", "conv", "ssm"), got, want):
-        assert a.dtype == r.dtype and a.shape == r.shape
-        rtol = TOL[dtype, "state" if name == "ssm" else "stream"]
-        diff = (a.float() - r.float()).abs()
-        r32 = r.float()
-        tol = rtol * (r32.abs() + ATOL_RMS * r32.square().mean().sqrt())
-        assert bool((diff <= tol).all()), name
-        if a.dtype == torch.bfloat16:
-            n_off = int((diff > 0).sum())
-            assert n_off <= max(2, MAX_OFF_SHARE * diff.numel()), name
+        _close(a, r, TOL[dtype, "state" if name == "ssm" else "stream"],
+               name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -144,3 +151,105 @@ def test_kernels_write_into_out_buffers(dev):
     assert got[1] is out[0] and got[2] is out[1]
     for a, r in zip(got, fresh):
         assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,segments", [("silu", 32), ("softplus", 32),
+                                           ("gelu", 8), ("sigmoid", 16)])
+def test_pwl_activate_kernel_matches_plain(dev, dtype, name, segments):
+    """Same sum in the same order: fp32 bit for bit, bf16 within the
+    stream tolerance."""
+    table = pwl.get_table(name, segments=segments)
+    gen = torch.Generator().manual_seed(segments)
+    x = (torch.randn(3, 37, 41, generator=gen) * 8).to(dev).to(dtype)
+    before = actiba.pwl_activate.launches
+    got = actiba.pwl_activate(x, table)
+    assert actiba.pwl_activate.launches == before + 1
+    want = actiba.pwl_activate_plain(x, table)
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    _close(got, want, TOL[dtype, "stream"], "pwl")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(5, 256), (3, 4, 300), (70,)])
+def test_cumsum_kernel_matches_plain(dev, dtype, shape):
+    gen = torch.Generator().manual_seed(len(shape))
+    x = (-torch.rand(shape, generator=gen) * 0.2).to(dev).to(dtype)
+    before = cumba.cumsum_last.launches
+    got = cumba.cumsum_last(x)
+    assert cumba.cumsum_last.launches == before + 1
+    _close(got, cumba.cumsum_last_plain(x), TOL[dtype, "stream"], "cumsum")
+
+
+@pytest.mark.parametrize("g,L", [(1, 64), (2, 96), (1, 256)])
+def test_ssd_chunk_kernel_matches_plain(dev, g, L):
+    """Chunks of one, one and a half and four 64-row tiles."""
+    b, c, h, p, n = 2, 3, 4, 32, 64
+    gen = torch.Generator().manual_seed(L + g)
+    x_c = (torch.randn(b, c, L, h, p, generator=gen) * 0.3).to(dev)
+    a_c = (-torch.rand(b, h, c, L, generator=gen) * 0.2).to(dev)
+    A_cum = torch.cumsum(a_c, dim=-1)
+    B_c = (torch.randn(b, c, L, g, n, generator=gen) * 0.5).to(dev)
+    C_c = (torch.randn(b, c, L, g, n, generator=gen) * 0.5).to(dev)
+    before = sc.ssd_chunk.launches
+    got = ops.ssd_chunk(x_c, A_cum, B_c, C_c)
+    assert sc.ssd_chunk.launches == before + 1
+    want = sc.ssd_chunk_plain(x_c, A_cum, B_c, C_c)
+    for name, a, r in zip(("y", "states"), got, want):
+        _close(a, r, TOL[torch.float32, "state"], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_with_actiba_tables_match_plain(dev, dtype):
+    """The PWL epilogue of the decode-step and prefill kernels (the
+    tables through ``ops`` with ``xamba``) against the plain versions
+    with the PWL activations."""
+    xamba = XambaConfig.full()
+    h, p, g, n = 4, 16, 2, 32
+    kw = dict(ngroups=g, head_dim=p)
+    plain_acts = dict(silu=lambda v: pwl.eval_pwl(pwl.table_for("silu", xamba),
+                                                  v),
+                      softplus=lambda v: pwl.eval_pwl(
+                          pwl.table_for("softplus", xamba), v))
+    ins = _inputs(dev, dtype, 3, None, h, p, g, n, 4, seed=40)
+    got = ops.mamba2_decode_step(*ins.values(), **kw, xamba=xamba)
+    _check(got, ds.mamba2_step_plain(**ins, **kw, **plain_acts), dtype)
+    exact = ds.mamba2_step(**ins, **kw)
+    assert not torch.equal(got[0], exact[0])
+    pins = _inputs(dev, dtype, 2, 128, h, p, g, n, 4, seed=41)
+    got = pc.mamba2_prefill(**pins, **kw, chunk=64,
+                            silu_table=pwl.table_for("silu", xamba),
+                            softplus_table=pwl.table_for("softplus", xamba))
+    _check(got, pc.mamba2_prefill_plain(**pins, **kw, chunk=64, **plain_acts),
+           dtype)
+
+
+def test_pallas_forward_launches_kernels_7_12_13(dev):
+    """A 2-layer model's ``forward`` under ``pallas()`` at l = 96, chunk
+    64: per layer one cumsum_last, one ssd_chunk and three pwl_activate
+    launches, and logits near the CPU plain path's."""
+    from repro_torch.models import ModelConfig, build_model
+    from repro_torch.nn.params import init_params
+    cfg = ModelConfig(name="m", vocab_size=64, d_model=64, n_layers=2,
+                      d_state=16, ssm_head_dim=16, chunk_size=64,
+                      param_dtype="float32", xamba=XambaConfig.pallas())
+    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+    params = init_params(gpu.param_specs(), 0, torch.float32, "cpu")
+    toks = torch.randint(1, 64, (2, 96), generator=torch.Generator()
+                         .manual_seed(0))
+    counters = (cumba.cumsum_last, sc.ssd_chunk, actiba.pwl_activate)
+    before = [f.launches for f in counters]
+    with torch.inference_mode():
+        lg = gpu.forward(_to(params, dev), toks.to(dev))
+        lc = cpu.forward(params, toks)
+    assert [f.launches - b0 for f, b0 in zip(counters, before)] == [2, 2, 6]
+    assert float((lg.cpu() - lc).abs().max()) <= 1e-3
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

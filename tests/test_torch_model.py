@@ -10,7 +10,6 @@ import logging
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.core.xamba import XambaConfig as JXamba
@@ -18,6 +17,7 @@ from repro.models import ModelConfig as JModelConfig, build_model as jbuild
 from repro.nn.params import init_params as jinit
 from repro.serve import Engine as JEngine, ServeConfig as JServeConfig
 from repro_torch.models import ModelConfig, build_model
+from repro_torch.nn import ssm as tssm
 from repro_torch.nn.params import from_jax_params
 from repro_torch.serve import Engine, ServeConfig
 
@@ -103,13 +103,26 @@ def test_wave_engine_greedy_matches_jax_engine():
     assert m["decode_steps"] == 3 * 5      # three waves of max_new - 1
 
 
-def test_prefill_gate_raises_instead_of_falling_back():
-    """A seqlen that is not a chunk multiple raises: the unfused chain
-    the JAX package falls back to is not ported."""
-    _, _, tm, tp = _pair()
-    toks = torch.ones((1, 96), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="not a multiple"):
-        tm.prefill(tp, {"tokens": toks}, tm.init_cache(1, dtype=torch.float32))
+def test_prefill_gate_falls_back_to_unfused_chain_like_jax(caplog,
+                                                         monkeypatch):
+    """A seqlen that is not a chunk multiple (96 at chunk 64): the gate
+    logs its reason and the port falls back to the unfused chain, as the
+    JAX package does, with the same logits and state.  The port logs each
+    reason once per shape and process, so the test starts from none
+    logged."""
+    monkeypatch.setattr(tssm, "_LOGGED", set())
+    jm, jp, tm, tp = _pair()
+    toks = np.random.default_rng(5).integers(1, V, size=(2, 96))
+    with caplog.at_level(logging.INFO):
+        jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                            jm.init_cache(2, dtype=jnp.float32))
+        with torch.inference_mode():
+            tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                                tm.init_cache(2, dtype=torch.float32))
+    assert caplog.text.count("seqlen 96 not a multiple of chunk 64") >= 2
+    assert _err(tl, jl) <= 1e-4
+    assert _rel(tc.conv, jc.conv) <= 1e-4
+    assert _rel(tc.ssm, jc.ssm) <= 1e-4
 
 
 def test_decode_view_serves_the_same_logits_into_a_fresh_cache():

@@ -1,5 +1,6 @@
 """The port's package rules: the weight bridge, no JAX imports, no silent
-CPU fallback, and a clear refusal of options that are not ported."""
+CPU fallback, a clear refusal of options that are not ported, and the
+modes that are."""
 import os
 import pathlib
 import subprocess
@@ -11,10 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.xamba import XambaConfig as JXamba
 from repro.models import ModelConfig as JModelConfig, build_model as jbuild
 from repro.nn.params import init_params as jinit
 from repro_torch.configs import get_config
 from repro_torch.core.xamba import XambaConfig
+from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve as tserve
 from repro_torch.models import ModelConfig, build_model
 from repro_torch.nn.params import from_jax_params, init_params
@@ -115,23 +118,76 @@ def test_default_device_raises_without_gpu():
 
 
 @pytest.mark.parametrize("cfg", [
-    ModelConfig(**DIMS).with_decode_mode("naive"),
-    ModelConfig(**DIMS).with_prefill_mode("naive"),
-    ModelConfig(**DIMS, xamba=XambaConfig(actiba=True)),
     ModelConfig(**DIMS).with_quant("w8"),
     ModelConfig(**DIMS, tie_embeddings=False)],
-    ids=["decode_naive", "prefill_naive", "actiba", "w8", "untied"])
+    ids=["w8", "untied"])
 def test_unported_modes_raise(cfg):
     with pytest.raises(NotImplementedError):
         build_model(cfg, device="cpu")
 
 
-def test_ported_modes_all_take_the_kernel_path():
-    """cumba / pallas / pallas_interpret name the same path in the port."""
-    for mode in ("cumba", "pallas", "pallas_interpret"):
-        cfg = ModelConfig(**DIMS).with_decode_mode(mode).with_prefill_mode(
+@pytest.mark.parametrize("xamba", [
+    dict(decode="naive"), dict(prefill="naive"), dict(actiba=True)],
+    ids=["decode_naive", "prefill_naive", "actiba"])
+def test_formerly_unported_modes_build_and_match_jax(xamba):
+    """The modes that raised before the XAMBA technique path was ported
+    build, and a prefill (l = 32, chunk 16: the fused path unless prefill
+    is naive) plus a decode step match the JAX package's logits."""
+    dims = dict(DIMS, param_dtype="float32")
+    jm = jbuild(JModelConfig(**dims, xamba=JXamba(**xamba)))
+    jp = jinit(jm.param_specs(), jax.random.PRNGKey(1), jnp.float32)
+    tm = build_model(ModelConfig(**dims, xamba=XambaConfig(**xamba)),
+                     device="cpu")
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), tm.cfg, device="cpu")
+    toks = np.random.default_rng(2).integers(1, 64, size=(2, 32))
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                        jm.init_cache(2, dtype=jnp.float32))
+    with torch.inference_mode():
+        tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                            tm.init_cache(2, dtype=torch.float32))
+        tl2, _ = tm.decode_step(tp, torch.from_numpy(toks[:, :1]), tc, 32)
+    jl2, _ = jm.decode_step(jm.decode_view(jp),
+                            jnp.asarray(toks[:, :1], jnp.int32), jc,
+                            jnp.int32(32))
+    assert float(np.abs(tl.numpy() - np.asarray(jl)).max()) <= 1e-4
+    assert float(np.abs(tl2.numpy() - np.asarray(jl2)).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("preset", ["optimized", "full", "pallas",
+                                    "pallas_interpret", "mode_cumba",
+                                    "mode_pallas", "mode_pallas_interpret"])
+def test_ported_modes_all_take_the_kernel_path(preset, monkeypatch):
+    """cumba / pallas / pallas_interpret name the same path in the port,
+    alone or in a preset: each layer's decode step and prefill (l = 64 at
+    chunk 64, which the gate admits in every mode) go through the fused
+    kernel dispatch once."""
+    dims = dict(DIMS, chunk_size=64)
+    if preset.startswith("mode_"):
+        mode = preset[len("mode_"):]
+        cfg = ModelConfig(**dims).with_decode_mode(mode).with_prefill_mode(
             mode)
-        assert build_model(cfg, device="cpu").cfg.xamba.decode == mode
+    else:
+        xamba = (XambaConfig.pallas(interpret=True)
+                 if preset == "pallas_interpret"
+                 else getattr(XambaConfig, preset)())
+        cfg = ModelConfig(**dims, xamba=xamba)
+    model = build_model(cfg, device="cpu")
+    calls = {"mamba2_decode_step": 0, "mamba2_prefill": 0}
+    for name in calls:
+        fn = getattr(tops, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(tops, name, counted)
+    params = init_params(model.param_specs(), 0, torch.float32, "cpu")
+    with torch.inference_mode():
+        _, cache = model.prefill(params, {"tokens": torch.ones(
+            (1, 64), dtype=torch.long)}, model.init_cache(1))
+        model.decode_step(params, torch.ones((1, 1), dtype=torch.long),
+                          cache, 64)
+    assert calls == {"mamba2_decode_step": cfg.n_layers,
+                     "mamba2_prefill": cfg.n_layers}
 
 
 def test_registry():
