@@ -12,17 +12,29 @@ Drives ``src/repro_torch`` (never JAX) at the full width of mamba2-130m:
    ``cumsum_last`` on the SSD chain's (4, 24, 2, 256) prefix sums,
    ``ssd_chunk`` at b = 4, two chunks of 256, and ``pwl_activate`` with
    the SiLU and softplus tables on the chain's xBC and dt streams;
+   ``qmatmul`` (W8) at mamba2-130m's in_proj and out_proj shapes with
+   m = 4, 8, 256 and 512, at mamba2-2.7b's at m = 4, and in its PWL and
+   gated forms at (512, 768) x (768, 2048), each run twice and held to
+   give the same bits;
 4. serve   — the wave engine through ``repro_torch.launch.serve``: 8
    requests, batch 4, prompts of 4-128 tokens, 16 new tokens, greedy,
    bf16 weights from ``--seed``; every token in the vocabulary, every
    logit finite, and each kernel launched 24 times per decode step and
    per wave.  Then a short CLI run with ``--prefill-mode naive
    --decode-mode naive`` (no fused kernel launched) and an ``Engine`` run
-   under ``XambaConfig.pallas()`` (ActiBA in the fused kernels);
+   under ``XambaConfig.pallas()`` (ActiBA in the fused kernels).  Then
+   the continuous engine through the CLI with ``--prefill-chunk 64``,
+   with ``--quant w8`` and without: 12 requests, batch 4, 16 new tokens;
+   24 ``mamba2_step`` launches per decode step, 24 ``mamba2_prefill`` per
+   chunk call, and 48 ``qmatmul`` per decode step and per chunk call
+   under W8 (none without);
 5. parity  — the same model in fp32, kernel path on the card against the
    plain path on the CPU, teacher-forced over 16 greedy tokens of 4
-   prompts: tokens agree wherever the plain path's top-2 margin exceeds
-   the logit tolerance;
+   prompts, with fp32 weights and with W8 weights: tokens agree
+   wherever the plain path's top-2 margin exceeds the logit tolerance.
+   Then the continuous engine (monolithic prefill) against the wave
+   engine on the card, fp32: the same tokens until the first position
+   whose top-2 margin is within the logit tolerance;
 6. ablation — the paper's Fig. 4a variants (``examples/xamba_ablation.py``:
    baseline, +CumBA, +ReduBA, +CumBA+ReduBA, +ActiBA) and ``pallas()``
    through ``repro_torch.launch.ablation``: ``MambaLM.forward`` of the fp32
@@ -36,7 +48,9 @@ Drives ``src/repro_torch`` (never JAX) at the full width of mamba2-130m:
    first two are held to the phase-3 limits on the operands that forward
    gave them;
 7. times   — each kernel and its plain version at the shapes its path
-   gives it (CUDA events, median), launches, the bound.
+   gives it (CUDA events, median), launches, the bound; the W8 decode
+   step beside the bf16 one, and the engines' serve metrics side by
+   side.
 
 Any failure raises (exit code 1).  Without a GPU it exits 1 before doing
 anything.  The second line from the end is the ``kernels`` JSON record,
@@ -55,10 +69,13 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 CUDA-core
-# FLOP/s.  The kernels of this slice compute in fp32 on the CUDA cores.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 CUDA-core FLOP/s
+# and bf16 tensor-core FLOP/s (dense).  The fused kernels compute in fp32
+# on the CUDA cores; qmatmul's bound takes the rate its stream dtype
+# allows (bf16 in the serve path: the int8 weights widen exactly to bf16).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
 
 # Kernel vs plain version on the same inputs, element by element:
 #     |kernel - plain| <= rtol * (|plain| + ATOL_RMS * rms(plain))
@@ -106,8 +123,32 @@ PREFIX_SUM_TOL = 8e-3
 ABLATION_TOP1 = 0.99
 
 N_HEADS, HEAD_DIM, D_STATE, N_GROUPS, WIDTH = 24, 64, 128, 1, 4
+D_MODEL = 768
 D_INNER = N_HEADS * HEAD_DIM
 D_XBC = D_INNER + 2 * N_GROUPS * D_STATE
+D_IN_PROJ = D_INNER + D_XBC + N_HEADS            # 3352
+# qmatmul's cases (name, k, n, m values): mamba2-130m's projections at
+# the decode (m = slots) and chunked-prefill (m = slots x chunk) widths,
+# mamba2-2.7b's (d_model 2560: src/repro/configs/mamba2_2p7b.py) at
+# decode, a GEMV over 27 MB of int8.
+QMM_CASES = (("in_proj", D_MODEL, D_IN_PROJ, (4, 8, 256, 512)),
+             ("out_proj", D_INNER, D_MODEL, (4, 8, 256, 512)),
+             ("2.7b in_proj", 2560, 10576, (4,)),
+             ("2.7b out_proj", 5120, 2560, (4,)))
+# The PWL and gated forms at an MLP-like shape: (m, k, n).
+QMM_MLP = (512, 768, 2048)
+
+
+def reset_counts(counters) -> None:
+    """Every wrapper's launch count to 0 (qmatmul's by path too)."""
+    for fn in counters.values():
+        fn.launches = 0
+        for k in getattr(fn, "path_launches", {}):
+            fn.path_launches[k] = 0
+
+
+def read_counts(counters) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
 
 
 def _nvidia_smi() -> str:
@@ -244,7 +285,7 @@ def kernel_cases(dev, kernels, tables):
     import torch
     kw = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM)
     worst = {k: 0.0 for k in ("mamba2_step", "mamba2_prefill", "cumsum_last",
-                              "ssd_chunk", "pwl_activate")}
+                              "ssd_chunk", "pwl_activate", "qmatmul")}
     fails = []
     ktab = dict(silu_table=tables["silu"], softplus_table=tables["softplus"])
     pact = {k: (lambda v, t=t: kernels["pwl_activate_plain"](v, t))
@@ -302,9 +343,50 @@ def kernel_cases(dev, kernels, tables):
             if dtype == torch.float32:
                 print(f"    bit-identical to the plain version: "
                       f"{bool(torch.equal(got, want))}")
+        for case, args, qkw in qmatmul_cases(dev, dtype, tables):
+            got = kernels["qmatmul"](*args, **qkw)
+            again = kernels["qmatmul"](*args, **qkw)
+            want = kernels["qmatmul_plain"](*args, **qkw)
+            torch.cuda.synchronize(dev)
+            check("qmatmul", f"{dn} {case}", (got,), (want,), dn,
+                  (("out", "stream"),))
+            if not torch.equal(got, again):
+                print(f"  qmatmul {dn} {case}: a second call gave other "
+                      f"bits FAIL")
+                fails.append(f"qmatmul {dn} {case} repeat")
     if fails:
         raise AssertionError(f"kernels vs plain: {fails}")
     return worst
+
+
+def qmatmul_inputs(m, k, n, dev, dtype, seed, gated=False):
+    """x (m, k) in ``dtype``; the int8 weight and scale of a random (k, n)
+    weight (and a second one, gated) as ``nn/quant.py`` makes them."""
+    import torch
+    from repro_torch.nn.quant import quantize_tensor
+    g = torch.Generator().manual_seed(seed)
+    x = _rand(g, (m, k), 1.0, dev, dtype)
+    ws = [quantize_tensor(_rand(g, (k, n), 1.0, dev, torch.float32))
+          for _ in range(2 if gated else 1)]
+    args = (x, ws[0].q, ws[0].scale.reshape(-1))
+    kw = dict(qv=ws[1].q, vscale=ws[1].scale.reshape(-1)) if gated else {}
+    return args, kw
+
+
+def qmatmul_cases(dev, dtype, tables):
+    """Phase 3's qmatmul cases: (label, args, kwargs)."""
+    out = []
+    for name, k, n, ms in QMM_CASES:
+        for m in ms:
+            args, kw = qmatmul_inputs(m, k, n, dev, dtype, seed=m + k + n)
+            out.append((f"{name} x ({m}, {k}) q ({k}, {n})", args, kw))
+    m, k, n = QMM_MLP
+    for form in ("pwl", "gated"):
+        args, kw = qmatmul_inputs(m, k, n, dev, dtype, seed=7,
+                                  gated=form == "gated")
+        out.append((f"{form} (silu table) x ({m}, {k}) q ({k}, {n})", args,
+                    dict(kw, table=tables["silu"])))
+    return out
 
 
 SERVE_ARGV = ["--arch", "mamba2-130m", "--requests", "8", "--batch", "4",
@@ -316,13 +398,12 @@ def serve_phase(serve_main, counters, argv):
     """Phase 4: the CLI's wave engine; returns (engine, launches, steps,
     waves)."""
     import torch
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     engine, done = serve_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts(counters)
     cfg = engine.model.cfg
     m = engine.metrics.summary()
     waves = math.ceil(len(done) / engine.cfg.max_batch)
@@ -364,8 +445,7 @@ def serve_modes_phase(serve_main, counters, cfg, dev):
     from repro_torch.nn.params import init_params
     from repro_torch.serve import Engine, ServeConfig
 
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     argv = SERVE_ARGV[:] + ["--prefill-mode", "naive", "--decode-mode",
                             "naive"]
     argv[argv.index("--requests") + 1] = "4"
@@ -373,7 +453,7 @@ def serve_modes_phase(serve_main, counters, cfg, dev):
     t0 = time.perf_counter()
     _, done = serve_main(argv)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = read_counts(counters)
     toks = [t for r in done for t in r.out_tokens]
     print(f"  naive modes (CLI): {len(done)} requests, {len(toks)} tokens "
           f"in {time.perf_counter() - t0:.3f} s; launches {launches}",
@@ -391,11 +471,10 @@ def serve_modes_phase(serve_main, counters, cfg, dev):
     rng = np.random.default_rng(5)
     for n in (20, 7, 30, 12, 100, 128, 90, 64):   # a 32 wave, a 128 one
         engine.submit(rng.integers(1, pcfg.vocab_size, n).tolist())
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     done = engine.run()
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = read_counts(counters)
     m = engine.metrics.summary()
     toks = [t for r in done for t in r.out_tokens]
     print(f"  pallas() + ActiBA (Engine): {len(done)} requests, "
@@ -409,18 +488,72 @@ def serve_modes_phase(serve_main, counters, cfg, dev):
         assert launches[k] > 0, f"pallas serve: {k} idle"
 
 
-def parity_phase(dev, seed, cfg):
+CONT_ARGV = ["--arch", "mamba2-130m", "--engine", "continuous",
+             "--prefill-chunk", "64", "--requests", "12", "--batch", "4",
+             "--prompt-len", "128", "--max-new", "16", "--temperature", "0",
+             "--seed", "0"]
+
+
+def continuous_phase(serve_main, counters, argv):
+    """Phase 4, continued: the continuous engine with chunked prefill
+    through the CLI.  Returns (engine, launches, qmatmul launches by
+    path)."""
+    import torch
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    engine, done = serve_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    paths = dict(counters["qmatmul"].path_launches)
+    cfg = engine.model.cfg
+    m = engine.metrics.summary()
+    steps, calls = m["decode_steps"], m["prefill_chunks"]
+    w8 = "--quant" in argv
+    label = "W8" if w8 else "bf16"
+    toks = [t for r in done for t in r.out_tokens]
+    assert len(done) == 12 and all(len(r.out_tokens) == 16 for r in done), \
+        f"continuous {label}: every request must get 16 tokens"
+    assert all(0 <= t < cfg.vocab_size for t in toks), "continuous: token"
+    assert m["logit_rows"] > 0 and m["nonfinite_logit_rows"] == 0, \
+        f"continuous {label}: non-finite logits {m['nonfinite_logit_rows']}"
+    n = cfg.n_layers
+    want = dict({k: 0 for k in launches}, mamba2_step=n * steps,
+                mamba2_prefill=n * calls,
+                qmatmul=2 * n * (steps + calls) if w8 else 0)
+    want_paths = dict(gemv=2 * n * steps if w8 else 0,
+                      tiled=2 * n * calls if w8 else 0)
+    print(f"  continuous {label} (chunk 64): launches {launches}, qmatmul "
+          f"by path {paths}; expected {want}, {want_paths} ({steps} decode "
+          f"steps, {calls} chunk calls, {n} layers)")
+    assert launches == want and paths == want_paths, \
+        f"continuous {label}: kernel launch counts"
+    assert steps > 0 and calls > 0, f"continuous {label}: a path idle"
+    print(f"  generated {m['generated_tokens']} tokens: "
+          f"{m['tokens_per_s']:.1f} tok/s; ttft_mean_s "
+          f"{m['ttft_mean_s']:.4f} ttft_p99_s {m['ttft_p99_s']:.4f}; "
+          f"occupancy {m['slot_occupancy']:.4f}; decode step mean "
+          f"{m['token_latency_s'] * 1e3:.3f} ms; {m['prefill_tokens']} "
+          f"prompt tokens in {m['prefill_time_s']:.4f} s of chunk calls; "
+          f"call wall {wall:.3f} s", flush=True)
+    return engine, launches, paths
+
+
+def parity_phase(dev, seed, cfg, counters, quant_mode="none"):
     """Phase 5: fp32 kernel path (card) vs plain path (CPU), teacher
-    forced over the kernel path's own greedy tokens."""
+    forced over the kernel path's own greedy tokens; ``quant_mode``
+    quantizes the fp32 weights first (the same int8 weights on both)."""
     import numpy as np
     import torch
     from repro_torch.models import build_model
+    from repro_torch.nn import quant
     from repro_torch.nn.params import init_params
 
-    cfg = cfg.replace(param_dtype="float32")
+    cfg = cfg.replace(param_dtype="float32").with_quant(quant_mode)
     gpu = build_model(cfg, dev)
     cpu = build_model(cfg, "cpu")
-    params = init_params(gpu.param_specs(), seed, torch.float32, dev)
+    params = quant.quantize_params_for_mode(
+        init_params(gpu.param_specs(), seed, torch.float32, dev), quant_mode)
     cparams = _to_cpu(params)
     rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(
@@ -439,9 +572,15 @@ def parity_phase(dev, seed, cfg):
         return torch.stack(outs, 1)                  # (4, 16, vocab)
 
     with torch.inference_mode():
+        reset_counts(counters)
         lk = run(gpu, params, dev, None)
+        n_qmm = counters["qmatmul"].launches
         forced = lk.argmax(-1)                       # kernel path's tokens
         lp = run(cpu, cparams, "cpu", forced)
+    want_qmm = 2 * cfg.n_layers * 16 if quant_mode != "none" else 0
+    print(f"  weights {quant_mode if quant_mode != 'none' else 'fp32'}: "
+          f"{n_qmm} qmatmul launches on the card (expected {want_qmm})")
+    assert n_qmm == want_qmm, "parity: qmatmul launches"
     err = float((lk - lp).abs().max())
     top2 = lp.topk(2, dim=-1).values
     margin = top2[..., 0] - top2[..., 1]
@@ -454,6 +593,64 @@ def parity_phase(dev, seed, cfg):
     assert torch.isfinite(lk).all() and torch.isfinite(lp).all()
     assert err <= LOGIT_TOL, f"parity: logit error {err}"
     assert bool(agree[confident].all()), "parity: confident token differs"
+
+
+def engines_phase(dev, seed, cfg):
+    """Phase 5, continued: the continuous engine (monolithic prefill)
+    against the wave engine on the card, fp32, the same 8 requests (all in
+    the 128 bucket, so both engines prefill each prompt padded alike).
+    Each request's tokens must agree up to the first position whose top-2
+    margin (the model re-run on that request alone) is within
+    ``LOGIT_TOL``; past it the two continue from different tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import init_params
+    from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
+
+    cfg = cfg.replace(param_dtype="float32")
+    model = build_model(cfg, dev)
+    params = init_params(model.param_specs(), seed, torch.float32, dev)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(33, 129, 8)]
+    kw = dict(max_batch=4, prefill_buckets=(32, 128), max_new_tokens=16)
+    outs = []
+    for cls in (Engine, ContinuousEngine):
+        eng = cls(model, params, ServeConfig(**kw))
+        for p in prompts:
+            eng.submit(p)
+        outs.append({r.uid: r.out_tokens for r in eng.run()})
+    torch.cuda.synchronize()
+    wave, cont = outs
+    assert sorted(wave) == sorted(cont) == list(range(1, 9))
+    view = model.decode_view(params)
+    same, margins = 0, []
+    with torch.inference_mode():
+        for uid in sorted(wave):
+            a, b = wave[uid], cont[uid]
+            j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if j is None and len(a) == len(b) == 16:
+                same += 1
+                continue
+            assert j is not None, f"engines: request {uid} lengths differ"
+            toks = torch.zeros((1, 128), dtype=torch.long, device=dev)
+            toks[0, 128 - len(prompts[uid - 1]):] = torch.tensor(
+                prompts[uid - 1])
+            logits, cache = model.prefill(
+                view, {"tokens": toks}, model.init_cache(1,
+                                                         dtype=torch.float32))
+            for t in a[:j]:
+                logits, cache = model.decode_step(
+                    view, torch.tensor([[t]], device=dev), cache, 0)
+            top2 = logits[0].topk(2).values
+            margins.append((uid, j, float(top2[0] - top2[1])))
+    print(f"  continuous (monolithic) vs wave, fp32: {same}/8 requests "
+          f"token-identical; first divergences (request, position, top-2 "
+          f"margin): {margins}", flush=True)
+    assert all(mg <= LOGIT_TOL for _, _, mg in margins), \
+        "engines: tokens differ where the margin exceeds the tolerance"
 
 
 def ablation_phase(dev, seed, cfg, counters, kernels, worst):
@@ -475,11 +672,10 @@ def ablation_phase(dev, seed, cfg, counters, kernels, worst):
 
     def first_forward(name, model, params, tokens):
         shared.update(params=params, tokens=tokens)
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counts(counters)
         out = model.forward(params, tokens)
         torch.cuda.synchronize()
-        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        launches[name] = read_counts(counters)
         by_kernel[name] = device_profile(
             lambda: model.forward(params, tokens), n=2)
         if name == "pallas":
@@ -604,10 +800,10 @@ def ablation_phase(dev, seed, cfg, counters, kernels, worst):
 
     n = cfg.n_layers
     want = {"pallas": dict(cumsum_last=n, ssd_chunk=n, pwl_activate=3 * n,
-                           mamba2_step=0, mamba2_prefill=0),
+                           mamba2_step=0, mamba2_prefill=0, qmatmul=0),
             "+ActiBA (k=32)": dict(cumsum_last=0, ssd_chunk=0,
                                    pwl_activate=3 * n, mamba2_step=0,
-                                   mamba2_prefill=0)}
+                                   mamba2_prefill=0, qmatmul=0)}
     for name, w in want.items():
         assert launches[name] == w, f"ablation {name}: launches " \
             f"{launches[name]} expected {w}"
@@ -705,10 +901,13 @@ def witness_forward(params, cfg, tokens, tables=None, perturb=0.0):
 
 
 def _to_cpu(tree):
+    from repro_torch.nn.quant import QuantTensor
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
+    if isinstance(tree, QuantTensor):
+        return tree.apply(lambda a: a.cpu())
     return tree.cpu()
 
 
@@ -731,7 +930,8 @@ def time_call(fn, n=30, warmup=3):
 
 OUR_KERNELS = ("mamba2_step_kernel", "gated_norm_kernel", "conv_act_kernel",
                "ssd_scan_kernel", "cumsum_last_kernel", "ssd_chunk_kernel",
-               "pwl_activate_kernel")
+               "pwl_activate_kernel", "qmm_gemv_kernel", "qmm_drain_kernel",
+               "qmm_tiled_kernel")
 
 
 def device_profile(fn, n=10):
@@ -760,10 +960,11 @@ def _ours(by):
     return sum(v for k, v in by.items() if any(o in k for o in OUR_KERNELS))
 
 
-def step_breakdown(engine):
+def step_breakdown(engine, label):
     """One full-width decode step and one prefill (b = 4, l = 128) of the
-    served model: host wall per call, device time per call from the
-    profiler, the device's busy share, and the largest kernels."""
+    served model (``label``: its weights): host wall per call, device
+    time per call from the profiler, the device's busy share, and the
+    largest kernels."""
     import torch
     model, params = engine.model, engine.params
     b = engine.cfg.max_batch
@@ -794,7 +995,7 @@ def step_breakdown(engine):
                   f"not measured (the profiler saw none)")
             continue
         top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
-        print(f"  {name} (b={b}, model): wall {host_ms:.3f} ms, device "
+        print(f"  {name} (b={b}, {label} model): wall {host_ms:.3f} ms, device "
               f"{dev_ms:.3f} ms ({100 * dev_ms / host_ms:.1f}% busy), "
               f"ported kernels {_ours(by):.3f} ms", flush=True)
         for k, v in top:
@@ -855,10 +1056,51 @@ def pwl_ops(numel, table):
     return numel * (2 + 4 * (table.num_segments - 1))
 
 
-def _bound(nbytes, ops):
+def _bound(nbytes, ops, flop_per_s=FP32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOP_PER_S * 1e3
+    t_ops = ops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def qmatmul_times(dev, kernels, paths, worst):
+    """Phase 7's qmatmul rows: the serve path's shapes in bf16, decode (m =
+    4 slots, the GEMV kernel) and chunked prefill (m = 4 x 64, the tiled
+    kernel), in_proj and out_proj; the row of each path is its in_proj.
+    Bound: bytes (x, q, scale, out once) at HBM rate or 2 m k n operations
+    at bf16 tensor-core rate (the int8 weights widen exactly to bf16).
+    Library: one ``torch.matmul`` of x with the int8 payload cast once to
+    bf16 (the same contraction, before the per-channel scale)."""
+    import torch
+    rows = []
+    for path, m in (("gemv", 4), ("tiled", 256)):
+        for proj, k, n in (("in_proj", D_MODEL, D_IN_PROJ),
+                           ("out_proj", D_INNER, D_MODEL)):
+            args, _ = qmatmul_inputs(m, k, n, dev, torch.bfloat16,
+                                     seed=40 + m + n)
+            x, q, scale = args
+            out = kernels["qmatmul"](*args)
+            ms = time_call(lambda: kernels["qmatmul"](*args))
+            plain_ms = time_call(lambda: kernels["qmatmul_plain"](*args))
+            dev_ms = _ours(device_profile(lambda: kernels["qmatmul"](*args)))
+            qc = q.to(x.dtype)
+            lib_ms = time_call(lambda: torch.matmul(x, qc))
+            bound_ms, bound_by = _bound(_bytes(x, q, scale, out),
+                                        2 * m * k * n, BF16_TC_FLOP_PER_S)
+            print(f"  qmatmul {path} {proj} bf16 x ({m}, {k}) q ({k}, {n}): "
+                  f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}),"
+                  f" library {lib_ms:.4f} ms (torch.matmul on the bf16 "
+                  f"cast); {paths[path]} launches of this path in the W8 "
+                  f"continuous serve run", flush=True)
+            if proj == "in_proj":
+                rows.append(dict(
+                    name=f"qmatmul_{path}", route="cuda",
+                    source="src/repro_torch/csrc/qmatmul.cu",
+                    replaces="src/repro/kernels/qmatmul.py:85",
+                    launches=paths[path], max_abs_err=worst["qmatmul"],
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=lib_ms))
+    return rows
 
 
 def times_phase(dev, kernels, launches, steps, waves, worst, tables):
@@ -962,7 +1204,19 @@ def times_phase(dev, kernels, launches, steps, waves, worst, tables):
                  else "none: no single PyTorch call")
               + f"; {launches[name]} launches in the pallas() forward",
               flush=True)
-    return rows
+    return rows + qmatmul_times(dev, kernels, launches["qmatmul_paths"],
+                                worst)
+
+
+def engines_summary(engines):
+    """The serve metrics of each engine run side by side."""
+    keys = ("requests", "generated_tokens", "tokens_per_s", "ttft_mean_s",
+            "ttft_p99_s", "slot_occupancy", "token_latency_s")
+    for label, eng in engines:
+        m = eng.metrics.summary()
+        print(f"  {label:34s} " + ", ".join(
+            f"{k} {m[k]:.4f}" if isinstance(m[k], float) else f"{k} {m[k]}"
+            for k in keys), flush=True)
 
 
 def main() -> int:
@@ -975,7 +1229,7 @@ def main() -> int:
     from repro_torch.core.pwl import table_for
     from repro_torch.core.xamba import XambaConfig
     from repro_torch.kernels import actiba, build, cumba, decode_step, \
-        prefill_chunk, ssd_chunk
+        prefill_chunk, qmatmul, ssd_chunk
     from repro_torch.launch import serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1008,12 +1262,15 @@ def main() -> int:
         "ssd_chunk_plain": ssd_chunk.ssd_chunk_plain,
         "pwl_activate": actiba.pwl_activate,
         "pwl_activate_plain": actiba.pwl_activate_plain,
+        "qmatmul": qmatmul.qmatmul,
+        "qmatmul_plain": qmatmul.qmatmul_plain,
     }
     counters = {"mamba2_step": decode_step.mamba2_step,
                 "mamba2_prefill": prefill_chunk.mamba2_prefill,
                 "cumsum_last": cumba.cumsum_last,
                 "ssd_chunk": ssd_chunk.ssd_chunk,
-                "pwl_activate": actiba.pwl_activate}
+                "pwl_activate": actiba.pwl_activate,
+                "qmatmul": qmatmul.qmatmul}
     pallas = XambaConfig.pallas()
     tables = {k: table_for(k, pallas) for k in ("silu", "softplus")}
 
@@ -1027,9 +1284,17 @@ def main() -> int:
     with torch.inference_mode():
         serve_modes_phase(serve.main, counters, get_config("mamba2-130m"),
                           dev)
+    print("== 4b. serve (mamba2-130m, continuous engine, chunk 64)",
+          flush=True)
+    w8_engine, w8_launches, qmm_paths = continuous_phase(
+        serve.main, counters, CONT_ARGV + ["--quant", "w8"])
+    launches.update(qmatmul=w8_launches["qmatmul"], qmatmul_paths=qmm_paths)
+    cont_engine, _, _ = continuous_phase(serve.main, counters, CONT_ARGV)
 
     print("== 5. path parity (fp32, kernel path vs plain path)", flush=True)
-    parity_phase(dev, 1, get_config("mamba2-130m"))
+    parity_phase(dev, 1, get_config("mamba2-130m"), counters)
+    parity_phase(dev, 1, get_config("mamba2-130m"), counters, "w8")
+    engines_phase(dev, 3, get_config("mamba2-130m"))
 
     print("== 6. ablation (fp32 forward, b=4, l=300)", flush=True)
     launches.update({k: v for k, v in ablation_phase(
@@ -1040,7 +1305,11 @@ def main() -> int:
     with torch.inference_mode():
         rows = times_phase(dev, kernels, launches, steps, waves, worst,
                            tables)
-        step_breakdown(engine)
+        step_breakdown(engine, "bf16")
+        step_breakdown(w8_engine, "W8")
+    engines_summary((("wave, bf16 (8 requests)", engine),
+                     ("continuous chunk 64, bf16 (12)", cont_engine),
+                     ("continuous chunk 64, W8 (12)", w8_engine)))
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(smi)

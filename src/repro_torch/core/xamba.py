@@ -15,8 +15,11 @@ port runs them:
 * ``actiba=True`` swaps SiLU and softplus for their piecewise-linear
   tables (``core/pwl.py``), inside the fused kernels and elementwise in
   the unfused chain.
-* ``quant != "none"`` (W8 weights) is not ported yet:
-  :meth:`XambaConfig.require_ported` raises ``NotImplementedError``.
+* ``quant`` (W8 weights): the CLI and callers quantize the params with
+  ``nn/quant.py: quantize_params_for_mode``; every mode applies a
+  quantized weight through ``quant.qdot``, the hand-written ``qmatmul``
+  kernel on the GPU (whatever its backend tag) and the JAX XLA backend's
+  arithmetic on the CPU.
 """
 from __future__ import annotations
 
@@ -58,12 +61,6 @@ class XambaConfig:
                 f"prefill mode {self.prefill!r} not in {PREFILL_MODES}")
         if self.actiba_segments < 2:
             raise ValueError("actiba_segments must be >= 2")
-
-    def require_ported(self) -> None:
-        """Raise ``NotImplementedError`` for options the port lacks."""
-        if self.quant != "none":
-            raise NotImplementedError(
-                f"quant mode {self.quant!r} (W8 weights) is not ported yet")
 
     # ---- presets (the JAX package's) ---------------------------------------
     @classmethod

@@ -14,7 +14,8 @@ import torch
 from repro_torch.core import pwl
 from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import actiba as _act, cumba as _cumba, \
-    decode_step as _ds, prefill_chunk as _pc, ssd_chunk as _ssd
+    decode_step as _ds, prefill_chunk as _pc, qmatmul as _qm, \
+    ssd_chunk as _ssd
 
 
 def _plain_into(out, res):
@@ -91,3 +92,13 @@ def ssd_chunk(x_c, A_cum, B_c, C_c):
     if x_c.is_cuda:
         return _ssd.ssd_chunk(x_c, A_cum, B_c, C_c)
     return _ssd.ssd_chunk_plain(x_c, A_cum, B_c, C_c)
+
+
+def qmatmul(x, q, scale, *, table=None, qv=None, vscale=None):
+    """W8 dequant-matmul (kernel 10): ``epi((x @ q) * scale) [* ((x @ qv)
+    * vscale)]`` in ``x``'s dtype; x (m, k), q / qv (k, n) int8, scale /
+    vscale (n,) fp32."""
+    kw = dict(table=table, qv=qv, vscale=vscale)
+    if x.is_cuda:
+        return _qm.qmatmul(x.contiguous(), q, scale, **kw)
+    return _qm.qmatmul_plain(x, q, scale, **kw)

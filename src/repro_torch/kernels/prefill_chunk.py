@@ -3,7 +3,8 @@
 Port of ``repro.kernels.prefill_chunk``:
 
 * :func:`project_in` — the in-projection that produces the z / xbc / dt
-  streams (a plain matmul, as XLA ran it in the JAX package);
+  streams (a plain matmul, as XLA ran it in the JAX package, or under W8
+  the ``qmatmul`` kernel);
 * :func:`mamba2_prefill` — the wrapper around ``csrc/prefill_chunk.cu``
   (causal conv + SiLU over the sequence, then one block per (batch, head)
   walking the chunks in order with the state in shared memory) followed
@@ -43,9 +44,11 @@ _LAUNCH = ("prefill_chunk", "mamba2_prefill_launch",
            + [common.P, common.I, common.P, common.I, common.P])
 
 
-def project_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` producing the z/xbc/dt streams, in ``x``'s dtype."""
-    return torch.matmul(x, w.to(x.dtype))
+def project_in(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` producing the z/xbc/dt streams, in ``x``'s dtype; ``w``
+    an fp weight or a ``QuantTensor`` (W8: ``quant.qdot``, the qmatmul
+    kernel on the GPU), as ``nn/layers.py: linear``."""
+    return layers.linear({"w": w}, x)
 
 
 def _chunk_scan(xdt, a, B, C, state, g: int):

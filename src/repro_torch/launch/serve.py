@@ -1,11 +1,13 @@
 """Serving CLI: ``python -m repro_torch.launch.serve --arch mamba2-130m``
-— batched random requests through the wave engine on the GPU (or
-``--device cpu``), with weights drawn from ``--seed``.
+— batched random requests through the wave or continuous engine on the
+GPU (or ``--device cpu``), with weights drawn from ``--seed``.
 
-Takes the JAX CLI's wave-engine flags, ``--decode-mode`` and
-``--prefill-mode`` among them (``naive`` = the unfused op chains); the
-continuous engine's flags come with that engine.  ActiBA has no flag, as
-in the JAX CLI: it comes with the ``XambaConfig`` presets.
+Takes the JAX CLI's flags for what the port serves: ``--engine``,
+``--decode-mode`` / ``--prefill-mode`` (``naive`` = the unfused op
+chains), ``--prefill-chunk`` / ``--prefill-token-budget`` (the continuous
+engine's chunked prefill) and ``--quant`` (W8 weights through the
+``qmatmul`` kernel).  ActiBA has no flag, as in the JAX CLI: it comes
+with the ``XambaConfig`` presets.
 """
 from __future__ import annotations
 
@@ -15,10 +17,11 @@ import logging
 import numpy as np
 
 from repro_torch.configs import get_config
-from repro_torch.core.xamba import DECODE_MODES, PREFILL_MODES
+from repro_torch.core.xamba import DECODE_MODES, PREFILL_MODES, QUANT_MODES
 from repro_torch.models import build_model
+from repro_torch.nn import quant
 from repro_torch.nn.params import init_params
-from repro_torch.serve import Engine, ServeConfig
+from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -28,6 +31,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-130m")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--engine", choices=("wave", "continuous"),
+                    default="wave")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--max-new", type=int, default=16)
@@ -41,26 +46,54 @@ def main(argv=None):
     ap.add_argument("--prefill-mode", default=None, choices=PREFILL_MODES,
                     help="XambaConfig.prefill mode for the multi-token "
                          "prefill (naive = the unfused op chain)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill: prompts advance this many tokens "
+                         "per engine step, interleaved with decode "
+                         "(continuous engine only; default: monolithic "
+                         "bucketed prefill)")
+    ap.add_argument("--prefill-token-budget", type=int, default=0,
+                    help="max prefill tokens per engine step under "
+                         "--prefill-chunk (0 = one chunk call per step)")
+    ap.add_argument("--quant", default="none", choices=QUANT_MODES,
+                    help="W8 weight-only quantization of the big linear "
+                         "weights (every w8 mode runs the qmatmul kernel "
+                         "on the GPU)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; 'cpu' "
                          "runs the kernels' plain PyTorch versions)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+    if args.prefill_chunk and args.engine != "continuous":
+        log.warning("--prefill-chunk only applies to --engine continuous; "
+                    "the wave engine keeps monolithic bucketed prefill")
 
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.decode_mode:
         cfg = cfg.with_decode_mode(args.decode_mode)
     if args.prefill_mode:
         cfg = cfg.with_prefill_mode(args.prefill_mode)
+    if args.quant != "none":
+        cfg = cfg.with_quant(args.quant)
     model = build_model(cfg, args.device)
     params = init_params(model.param_specs(), args.seed, cfg.dtype,
                          model.device)
+    if args.quant != "none":
+        params = quant.quantize_params_for_mode(params, args.quant)
+        s = quant.quant_summary(params)
+        log.info("quant %s: %d tensors int8, %.1f MB (%.2fx vs fp32)",
+                 args.quant, s["quantized_tensors"], s["bytes"] / 1e6,
+                 s["compression"])
     scfg = ServeConfig(max_batch=args.batch, prefill_buckets=(32, 128),
                        max_new_tokens=args.max_new,
                        temperature=args.temperature, seed=args.seed,
-                       policy=args.policy)
-    engine = Engine(model, params, scfg)
+                       policy=args.policy,
+                       prefill_chunk=(args.prefill_chunk
+                                      if args.engine == "continuous"
+                                      else None),
+                       prefill_token_budget=args.prefill_token_budget)
+    engine_cls = ContinuousEngine if args.engine == "continuous" else Engine
+    engine = engine_cls(model, params, scfg)
 
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):

@@ -9,7 +9,9 @@ once per weight set (the engine serves from it).  The serving cache is
 the JAX package's stacked layout, ``Mamba2State`` with a leading
 ``n_layers`` axis: conv (L, b, w-1, dxbc) in the model dtype and ssm
 (L, b, h, p, n) fp32.  Each step allocates the next cache once and every
-layer's kernel writes its new state straight into its slice of it.
+layer's kernel writes its new state straight into its slice of it.  The
+continuous engine's API (``prefill_chunk``, ``cache_batch_axes``,
+``export_state`` / ``import_state``) addresses rows on batch axis 1.
 """
 from __future__ import annotations
 
@@ -32,7 +34,6 @@ class MambaLM:
                 f"family {cfg.family!r} is not ported yet (only mamba2)")
         if not cfg.tie_embeddings:
             raise NotImplementedError("untied embeddings are not ported yet")
-        cfg.xamba.require_ported()
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -100,6 +101,39 @@ class MambaLM:
         x = layers.embed(params["embed"], batch["tokens"])
         x, new_cache = self._trunk(params, x, cache)
         return self._logits(params, x[:, -1]), new_cache
+
+    def prefill_chunk(self, params, tokens, cache, index
+                      ) -> Tuple[torch.Tensor, Any]:
+        """One prompt slice ``tokens`` (b, l) with carried state -> (last
+        logits (b, V) fp32, cache).  ``index`` is accepted for API
+        uniformity and ignored: the conv tail and SSM state carry position,
+        so a chunk is the whole-sequence trunk re-entered with the previous
+        chunk's state."""
+        del index
+        return self.prefill(params, {"tokens": tokens}, cache)
+
+    def cache_batch_axes(self, cache) -> ssm.Mamba2State:
+        """Each cache leaf's batch axis: 1 behind the stacked layer axis."""
+        return ssm.Mamba2State(*(1 for _ in cache))
+
+    def export_state(self, cache, index, rows) -> ssm.Mamba2State:
+        """Snapshot of ``rows``' state: fresh tensors (batch ``len(rows)``)
+        on the cache's device, never views of ``cache``.  ``index`` (tokens
+        consumed) is ignored: the state is O(1) in sequence length."""
+        del index
+        idx = torch.as_tensor(list(rows), device=cache.conv.device)
+        return ssm.Mamba2State(*(leaf.index_select(ax, idx) for leaf, ax in
+                                 zip(cache, self.cache_batch_axes(cache))))
+
+    def import_state(self, cache, index, rows, snapshot) -> ssm.Mamba2State:
+        """Write snapshot row ``j`` into ``cache`` row ``rows[j]`` in place
+        (the inverse of :meth:`export_state`); returns ``cache``."""
+        del index
+        idx = torch.as_tensor(list(rows), device=cache.conv.device)
+        for leaf, snap, ax in zip(cache, snapshot,
+                                  self.cache_batch_axes(cache)):
+            leaf.index_copy_(ax, idx, snap.to(leaf.device, leaf.dtype))
+        return cache
 
     def decode_step(self, params, token, cache, index) -> Tuple[torch.Tensor,
                                                                 Any]:

@@ -11,6 +11,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.nn import quant
 from repro_torch.nn.params import ParamSpec
 
 
@@ -19,8 +20,12 @@ def linear_specs(d_in: int, d_out: int) -> dict:
 
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in ``x``'s dtype (the Mamba-2 projections have no bias)."""
-    return torch.matmul(x, p["w"].to(x.dtype))
+    """``x @ w`` in ``x``'s dtype (the Mamba-2 projections have no bias);
+    a quantized weight (``nn/quant.py``) goes through ``quant.qdot``."""
+    w = p["w"]
+    if quant.is_quantized(w):
+        return quant.qdot(x, w).to(x.dtype)
+    return torch.matmul(x, w.to(x.dtype))
 
 
 def norm_specs(d: int) -> dict:

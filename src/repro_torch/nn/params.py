@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.nn.quant import QuantTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,10 +63,13 @@ def _leaves(tree):
 
 
 def split_layers(stacked: Any) -> List[Any]:
-    """Cut every leaf's leading layer axis into per-layer trees."""
+    """Cut every leaf's leading layer axis into per-layer trees (both
+    leaves of a ``QuantTensor``)."""
     def one(tree, i):
         if isinstance(tree, dict):
             return {k: one(v, i) for k, v in tree.items()}
+        if isinstance(tree, QuantTensor):
+            return tree.apply(lambda a: a[i].contiguous())
         return tree[i].contiguous()
     n = next(_leaves(stacked)).shape[0]
     return [one(stacked, i) for i in range(n)]
@@ -103,12 +107,19 @@ def from_jax_params(tree: Dict[str, Any], cfg, device: DeviceLike = None
                     ) -> Dict[str, Any]:
     """The JAX package's params (nested dicts of numpy arrays, the stacked
     scan-over-layers layout) as the port's params: the same leaves with
-    the same dtypes on ``device``, ``layers`` split per layer."""
+    the same dtypes on ``device``, ``layers`` split per layer.  A W8
+    weight (the JAX ``QuantTensor``, its ``q`` and ``scale`` leaves
+    numpy) becomes the port's :class:`~repro_torch.nn.quant.QuantTensor`
+    with the same backend tag, one per layer."""
     dev = resolve_device(device)
 
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
+        if hasattr(t, "q") and hasattr(t, "scale"):
+            return QuantTensor(_tensor_from_numpy(t.q).to(dev),
+                               _tensor_from_numpy(t.scale).to(dev),
+                               t.backend)
         return _tensor_from_numpy(t).to(dev)
 
     out = conv(tree)

@@ -8,8 +8,7 @@ keeps every live request of a wave at the same position.
 The model runs on its own device; the engine moves token ids there and
 logits back to the host for sampling (``serve/sampling.py``, numpy), so
 greedy outputs are those of the JAX engine on the same weights.  The
-continuous engine and its robustness, tracing and speculation hooks come
-in a later slice.
+continuous engine (``serve/continuous.py``) shares :class:`EngineBase`.
 """
 from __future__ import annotations
 
@@ -29,7 +28,10 @@ from repro_torch.serve.state_pool import StatePool
 
 @dataclasses.dataclass
 class ServeConfig:
-    """The wave engine's fields of the JAX package's ``ServeConfig``."""
+    """The JAX package's ``ServeConfig`` fields that the port serves.  The
+    robustness, tracing, speculation and prefix-cache fields are not
+    ported, so passing one is a ``TypeError``; in particular there is no
+    ``backend_fallback``: a failed kernel launch raises."""
 
     max_batch: int = 8
     prefill_buckets: Sequence[int] = (32, 128, 512)
@@ -39,6 +41,15 @@ class ServeConfig:
     temperature: float = 0.0    # 0 => greedy
     seed: int = 0
     policy: str = "fcfs"        # admission order: fcfs | priority
+    # -- chunked prefill (continuous engine only; the wave engine ignores
+    # both) -------------------------------------------------------------
+    # Chunk size in tokens: prompts left-pad to a chunk multiple and
+    # prefill one chunk call per poll, interleaved with the decode step.
+    # None keeps the monolithic bucketed prefill.
+    prefill_chunk: Optional[int] = None
+    # Prompt tokens per poll, counted as chunk per prefilling slot per
+    # chunk call; 0 = exactly one chunk call per poll.
+    prefill_token_budget: int = 0
 
 
 class EngineBase:
@@ -69,14 +80,28 @@ class EngineBase:
         self._scheduler.submit(req)
         return req.uid
 
-    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+    def _host_logits(self, logits: torch.Tensor) -> np.ndarray:
+        """Logits on the host as fp32 numpy, rows counted (non-finite
+        ones apart) in the metrics."""
         host = logits.float().cpu().numpy()
         self.metrics.record_logits(
             host.shape[0], int((~np.isfinite(host).all(axis=-1)).sum()))
-        out = sampling.sample(host, self.cfg.temperature,
+        return host
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        out = sampling.sample(self._host_logits(logits),
+                              self.cfg.temperature,
                               sampling.step_rng(self.cfg.seed, self._step))
         self._step += 1
         return out
+
+    def _sample_rows(self, logits: torch.Tensor, uids: Sequence[int],
+                     positions: Sequence[int]) -> np.ndarray:
+        """Keyed sampling (continuous engine): a row's noise is a function
+        of ``(seed, uid, position)`` alone (``sampling.sample_keyed``)."""
+        return sampling.sample_keyed(self._host_logits(logits),
+                                     self.cfg.temperature, self.cfg.seed,
+                                     uids, positions)
 
     @property
     def expired(self) -> List[Request]:

@@ -1,5 +1,5 @@
-"""Serving metrics: the subset of ``repro.serve.metrics`` that the wave
-engine and the CLI read.
+"""Serving metrics: the subset of ``repro.serve.metrics`` that the two
+engines and the CLI read.
 
 Definitions (the JAX package's):
 
@@ -97,6 +97,9 @@ class ServeMetrics:
         self.wall_s = 0.0
         self.logit_rows = 0
         self.nonfinite_logit_rows = 0
+        self.prefill_chunks = 0
+        self.prefill_tokens = 0
+        self.prefill_time_s = 0.0
 
     def record_arrival(self) -> None:
         self.arrivals += 1
@@ -120,6 +123,13 @@ class ServeMetrics:
         self.decode_steps += 1
         self.decode_time_s += dt_s
         self.live_slot_s += live_slots * dt_s
+
+    def record_prefill(self, tokens: int, dt_s: float) -> None:
+        """One prefill call (a monolithic bucket or one chunk) that
+        consumed ``tokens`` prompt tokens (pad included) in ``dt_s``."""
+        self.prefill_chunks += 1
+        self.prefill_tokens += tokens
+        self.prefill_time_s += dt_s
 
     def record_wall(self, dt_s: float) -> None:
         self.wall_s += dt_s
@@ -147,6 +157,9 @@ class ServeMetrics:
             "ttft_mean_s": self.ttft.mean,
             "ttft_p50_s": self.ttft.percentile(0.50),
             "ttft_p99_s": self.ttft.percentile(0.99),
+            "prefill_chunks": self.prefill_chunks,
+            "prefill_tokens": self.prefill_tokens,
+            "prefill_time_s": self.prefill_time_s,
             "latency_mean_s": self.latency.mean,
             "decode_steps": self.decode_steps,
             "token_latency_s": (self.decode_time_s / self.decode_steps

@@ -1,9 +1,9 @@
 """Request admission: queue policy, priorities, deadlines, bucketing.
 
-Port of ``repro.serve.scheduler`` (without the tracer hooks, which come
-with the continuous engine): FCFS or priority ordering, deadline-based
-load shedding, and the prompt -> prefill-bucket mapping with explicit
-truncation accounting.
+Port of ``repro.serve.scheduler`` (without the tracer hooks): FCFS or
+priority ordering, deadline-based load shedding, the prompt ->
+prefill-bucket mapping with explicit truncation accounting, and the
+chunked prefill's padded span (``chunk_span``).
 """
 from __future__ import annotations
 
@@ -50,6 +50,26 @@ def bucket_for(buckets: Sequence[int], length: int) -> Tuple[int, bool]:
     return buckets[-1], True
 
 
+def chunk_span(buckets: Sequence[int], chunk: int, length: int) -> int:
+    """Padded prefill length under chunked prefill: the prompt (capped at
+    the largest bucket, the monolithic path's truncation rule) left-pads
+    to the next ``chunk`` multiple, at least one chunk, so an empty or
+    short prompt still gives a first token."""
+    capped = min(max(length, 1), buckets[-1])
+    return -(-capped // chunk) * chunk
+
+
+def flag_truncation(req: Request, buckets: Sequence[int]) -> None:
+    """Mark (and warn about) a prompt that overflows the largest bucket."""
+    bucket, truncated = bucket_for(buckets, len(req.prompt))
+    if truncated:
+        req.truncated = True
+        log.warning(
+            "request %d: prompt length %d exceeds largest prefill bucket "
+            "%d; truncating to the last %d tokens", req.uid,
+            len(req.prompt), bucket, bucket)
+
+
 def build_request(uid: int, prompt: Sequence[int], max_new_tokens: int, *,
                   priority: int = 0, deadline_s: Optional[float] = None,
                   on_token=None, buckets: Sequence[int] = (),
@@ -61,13 +81,7 @@ def build_request(uid: int, prompt: Sequence[int], max_new_tokens: int, *,
                   deadline_s=deadline_s, arrival_s=time.time(),
                   on_token=on_token)
     if buckets:
-        bucket, truncated = bucket_for(buckets, len(req.prompt))
-        if truncated:
-            req.truncated = True
-            log.warning(
-                "request %d: prompt length %d exceeds largest prefill bucket "
-                "%d; truncating to the last %d tokens", req.uid,
-                len(req.prompt), bucket, bucket)
+        flag_truncation(req, buckets)
     if metrics is not None:
         metrics.record_arrival()
         if req.truncated:

@@ -12,7 +12,8 @@ import torch
 from repro_torch.core import pwl
 from repro_torch.core.xamba import XambaConfig
 from repro_torch.kernels import actiba, cumba, decode_step as ds, ops, \
-    prefill_chunk as pc, ssd_chunk as sc
+    prefill_chunk as pc, qmatmul as qm, ssd_chunk as sc
+from repro_torch.nn import quant
 
 pytestmark = pytest.mark.cuda
 
@@ -247,9 +248,81 @@ def test_pallas_forward_launches_kernels_7_12_13(dev):
     assert float((lg.cpu() - lc).abs().max()) <= 1e-3
 
 
+def _qmm_inputs(dev, dtype, m, k, n, variant, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=gen).to(dev).to(dtype)
+    qt = quant.quantize_tensor(torch.randn(k, n, generator=gen).to(dev))
+    kw = dict(table=pwl.get_table("silu", segments=16)
+              if variant != "plain" else None)
+    if variant == "gated":
+        qv = quant.quantize_tensor(torch.randn(k, n, generator=gen).to(dev))
+        kw.update(qv=qv.q, vscale=qv.scale.reshape(-1))
+    return x, qt.q, qt.scale.reshape(-1), kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["plain", "pwl", "gated"])
+@pytest.mark.parametrize("m,k,n", [(3, 200, 333), (8, 1536, 768),
+                                   (1, 768, 3352), (70, 200, 130)])
+def test_qmatmul_kernel_matches_plain(dev, dtype, variant, m, k, n):
+    """The GEMV path (m <= 8: n not a multiple of 4, split k, one row)
+    and the tiled path (ragged m and n), in every form, against the plain
+    version; a second call gives the same bits."""
+    x, q, scale, kw = _qmm_inputs(dev, dtype, m, k, n, variant, m + k + n)
+    before = qm.qmatmul.launches
+    got = qm.qmatmul(x, q, scale, **kw)
+    assert qm.qmatmul.launches == before + 1
+    assert torch.equal(qm.qmatmul(x, q, scale, **kw), got)
+    _close(got, qm.qmatmul_plain(x, q, scale, **kw), TOL[dtype, "stream"],
+           f"qmatmul {variant}")
+
+
+def test_qmatmul_refuses_bad_inputs(dev):
+    x, q, scale, _ = _qmm_inputs(dev, torch.float32, 4, 64, 96, "plain", 0)
+    with pytest.raises(ValueError, match="int8"):
+        qm.qmatmul(x, q.float(), scale)
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        qm.qmatmul(x, q, scale.bfloat16())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        qm.qmatmul(x.cpu(), q.cpu(), scale.cpu())
+    with pytest.raises(ValueError, match="come together"):
+        qm.qmatmul(x, q, scale, qv=q)
+
+
+@pytest.mark.parametrize("mode", ["w8", "w8_pallas", "w8_pallas_interpret"])
+def test_every_w8_mode_runs_the_kernel(dev, mode):
+    """Whatever the backend tag, a quantized model on the card runs every
+    projection through the kernel (two per layer per prefill and per
+    decode step), near the CPU's plain path."""
+    from repro_torch.models import ModelConfig, build_model
+    from repro_torch.nn.params import init_params
+    cfg = ModelConfig(name="m", vocab_size=64, d_model=64, n_layers=2,
+                      d_state=16, ssm_head_dim=16, chunk_size=64,
+                      param_dtype="float32").with_quant(mode)
+    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+    params = quant.quantize_params_for_mode(
+        init_params(gpu.param_specs(), 0, torch.float32, "cpu"), mode)
+    toks = torch.randint(1, 64, (2, 64), generator=torch.Generator()
+                         .manual_seed(0))
+    before = qm.qmatmul.launches
+    with torch.inference_mode():
+        gp = _to(params, dev)
+        lg, cg = gpu.prefill(gp, {"tokens": toks.to(dev)},
+                             gpu.init_cache(2, dtype=torch.float32))
+        lg2, _ = gpu.decode_step(gp, toks[:, :1].to(dev), cg, 64)
+        lc, cc = cpu.prefill(params, {"tokens": toks},
+                             cpu.init_cache(2, dtype=torch.float32))
+        lc2, _ = cpu.decode_step(params, toks[:, :1], cc, 64)
+    assert qm.qmatmul.launches - before == 2 * 2 * cfg.n_layers
+    assert float((lg.cpu() - lc).abs().max()) <= 1e-3
+    assert float((lg2.cpu() - lc2).abs().max()) <= 1e-3
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
+    if isinstance(tree, quant.QuantTensor):
+        return tree.apply(lambda a: a.to(dev))
     return tree.to(dev)

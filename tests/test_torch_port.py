@@ -1,6 +1,6 @@
 """The port's package rules: the weight bridge, no JAX imports, no silent
 CPU fallback, a clear refusal of options that are not ported, and the
-modes that are."""
+modes that are (W8 among them)."""
 import os
 import pathlib
 import subprocess
@@ -14,12 +14,14 @@ import torch
 
 from repro.core.xamba import XambaConfig as JXamba
 from repro.models import ModelConfig as JModelConfig, build_model as jbuild
+from repro.nn import quant as jquant
 from repro.nn.params import init_params as jinit
 from repro_torch.configs import get_config
 from repro_torch.core.xamba import XambaConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve as tserve
 from repro_torch.models import ModelConfig, build_model
+from repro_torch.nn import quant as tquant
 from repro_torch.nn.params import from_jax_params, init_params
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -118,27 +120,32 @@ def test_default_device_raises_without_gpu():
 
 
 @pytest.mark.parametrize("cfg", [
-    ModelConfig(**DIMS).with_quant("w8"),
-    ModelConfig(**DIMS, tie_embeddings=False)],
-    ids=["w8", "untied"])
+    ModelConfig(**DIMS, tie_embeddings=False)], ids=["untied"])
 def test_unported_modes_raise(cfg):
     with pytest.raises(NotImplementedError):
         build_model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("xamba", [
-    dict(decode="naive"), dict(prefill="naive"), dict(actiba=True)],
-    ids=["decode_naive", "prefill_naive", "actiba"])
+    dict(decode="naive"), dict(prefill="naive"), dict(actiba=True),
+    dict(quant="w8")],
+    ids=["decode_naive", "prefill_naive", "actiba", "w8"])
 def test_formerly_unported_modes_build_and_match_jax(xamba):
-    """The modes that raised before the XAMBA technique path was ported
-    build, and a prefill (l = 32, chunk 16: the fused path unless prefill
-    is naive) plus a decode step match the JAX package's logits."""
+    """The modes that raised before the XAMBA technique path and W8 were
+    ported build, and a prefill (l = 32, chunk 16: the fused path unless
+    prefill is naive) plus a decode step match the JAX package's logits.
+    Under ``quant`` both sides quantize their params for the mode."""
     dims = dict(DIMS, param_dtype="float32")
     jm = jbuild(JModelConfig(**dims, xamba=JXamba(**xamba)))
     jp = jinit(jm.param_specs(), jax.random.PRNGKey(1), jnp.float32)
     tm = build_model(ModelConfig(**dims, xamba=XambaConfig(**xamba)),
                      device="cpu")
     tp = from_jax_params(jax.tree.map(np.asarray, jp), tm.cfg, device="cpu")
+    mode = xamba.get("quant", "none")
+    jp = jquant.quantize_params_for_mode(jp, mode)
+    tp = tquant.quantize_params_for_mode(tp, mode)
+    assert tquant.is_quantized(tp["layers"][0]["mixer"]["in_proj"]["w"]) \
+        == (mode != "none")
     toks = np.random.default_rng(2).integers(1, 64, size=(2, 32))
     jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
                         jm.init_cache(2, dtype=jnp.float32))
