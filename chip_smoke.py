@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives ``src/repro_torch`` (never JAX) at the full width of mamba2-130m:
+Drives ``src/repro_torch`` (never JAX) at the full width of mamba2-130m
+and of mamba-130m (Mamba-1):
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — ``nvcc`` builds every kernel from ``src/repro_torch/csrc``;
@@ -15,7 +16,10 @@ Drives ``src/repro_torch`` (never JAX) at the full width of mamba2-130m:
    ``qmatmul`` (W8) at mamba2-130m's in_proj and out_proj shapes with
    m = 4, 8, 256 and 512, at mamba2-2.7b's at m = 4, and in its PWL and
    gated forms at (512, 768) x (768, 2048), each run twice and held to
-   give the same bits;
+   give the same bits; ``mamba1_step`` at mamba-130m's widths (b = 1 and
+   4, and with the ActiBA tables), ``sscan_step`` at (4, 1536, 16) with
+   and without D, ``ssd_step`` at mamba2-130m's step widths (b = 4), each
+   also run twice for the same bits;
 4. serve   — the wave engine through ``repro_torch.launch.serve``: 8
    requests, batch 4, prompts of 4-128 tokens, 16 new tokens, greedy,
    bf16 weights from ``--seed``; every token in the vocabulary, every
@@ -27,14 +31,23 @@ Drives ``src/repro_torch`` (never JAX) at the full width of mamba2-130m:
    with ``--quant w8`` and without: 12 requests, batch 4, 16 new tokens;
    24 ``mamba2_step`` launches per decode step, 24 ``mamba2_prefill`` per
    chunk call, and 48 ``qmatmul`` per decode step and per chunk call
-   under W8 (none without);
+   under W8 (none without).  4c: mamba-130m through the same CLI, the
+   continuous engine (chunk 64, 12 requests, with and without W8) and
+   the wave engine: 24 ``mamba1_step`` launches per decode step, 48
+   ``qmatmul`` per decode step and per chunk call under W8, no mamba2
+   kernel;
 5. parity  — the same model in fp32, kernel path on the card against the
    plain path on the CPU, teacher-forced over 16 greedy tokens of 4
    prompts, with fp32 weights and with W8 weights: tokens agree
    wherever the plain path's top-2 margin exceeds the logit tolerance.
    Then the continuous engine (monolithic prefill) against the wave
    engine on the card, fp32: the same tokens until the first position
-   whose top-2 margin is within the logit tolerance;
+   whose top-2 margin is within the logit tolerance.  5b: the same for
+   mamba-130m, held to an fp64 witness (``witness_mamba1``): the card
+   no farther from it than ``M1_WITNESS_X`` times the CPU plain path
+   is (and at least ``LOGIT_TOL``).  5c: ``ssd_decode_step`` and
+   ``selective_scan_decode_step`` in ``pallas`` mode, one launch of
+   kernels 3 and 4 each, against their ``naive`` modes;
 6. ablation — the paper's Fig. 4a variants (``examples/xamba_ablation.py``:
    baseline, +CumBA, +ReduBA, +CumBA+ReduBA, +ActiBA) and ``pallas()``
    through ``repro_torch.launch.ablation``: ``MambaLM.forward`` of the fp32
@@ -48,9 +61,9 @@ Drives ``src/repro_torch`` (never JAX) at the full width of mamba2-130m:
    first two are held to the phase-3 limits on the operands that forward
    gave them;
 7. times   — each kernel and its plain version at the shapes its path
-   gives it (CUDA events, median), launches, the bound; the W8 decode
-   step beside the bf16 one, and the engines' serve metrics side by
-   side.
+   gives it (CUDA events, median), launches, the bound; the decode step
+   of each model, bf16 beside W8, and the engines' serve metrics side
+   by side.  Each phase's seconds are printed after it.
 
 Any failure raises (exit code 1).  Without a GPU it exits 1 before doing
 anything.  The second line from the end is the ``kernels`` JSON record,
@@ -137,6 +150,18 @@ QMM_CASES = (("in_proj", D_MODEL, D_IN_PROJ, (4, 8, 256, 512)),
              ("2.7b out_proj", 5120, 2560, (4,)))
 # The PWL and gated forms at an MLP-like shape: (m, k, n).
 QMM_MLP = (512, 768, 2048)
+# mamba-130m's mixer (src/repro/configs/mamba_130m.py): d_inner 1536,
+# d_state 16, dt_rank 48, conv width 4.
+M1_D_INNER, M1_D_STATE, M1_DT_RANK = 2 * D_MODEL, 16, 48
+# The mamba-130m parity phase holds the card's logits to an fp64 witness
+# of the function (``witness_mamba1``): no farther from it than
+# M1_WITNESS_X times the CPU plain path's distance from it, and at least
+# LOGIT_TOL.  This random model amplifies fp32 rounding: its states reach
+# ~1e5, and a one-ulp (2^-24) relative change of the embeddings moves its
+# fp32 logits by up to 6.7e-3 on the CPU (PERF.md), so the card and the
+# CPU, which round differently in every layer, are compared through
+# their accuracy, not with each other at LOGIT_TOL.
+M1_WITNESS_X = 2.0
 
 
 def reset_counts(counters) -> None:
@@ -203,6 +228,59 @@ def prefill_inputs(b, l, dev, dtype, seed):
         A=-torch.exp(torch.randn(N_HEADS, generator=g) * 0.3).to(dev),
         D=_rand(g, (N_HEADS,), 0.2, dev, f32),
         norm_scale=(torch.randn(D_INNER, generator=g).abs() + 0.5).to(dev))
+
+
+def mamba1_inputs(b, dev, dtype, seed):
+    """Full-width mamba-130m step operands: xs_raw and z as the halves of
+    one in_proj output (strided views, as the model hands them over), the
+    streams in ``dtype``, the state and parameters fp32 as the model's
+    ``decode_view`` gives them."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    f32 = torch.float32
+    di, n, r = M1_D_INNER, M1_D_STATE, M1_DT_RANK
+    xz = _rand(g, (b, 2 * di), 1.0, dev, dtype)
+    return dict(
+        xs_raw=xz[:, :di], z=xz[:, di:],
+        conv_state=_rand(g, (b, WIDTH - 1, di), 1.0, dev, dtype),
+        ssm_state=_rand(g, (b, di, n), 1.0, dev, f32),
+        conv_w=_rand(g, (WIDTH, di), 0.3, dev, f32),
+        conv_b=_rand(g, (di,), 0.1, dev, f32),
+        xproj_w=_rand(g, (di, r + 2 * n), di ** -0.5, dev, f32),
+        dtproj_w=_rand(g, (r, di), 0.1, dev, f32),
+        dtproj_b=_rand(g, (di,), 0.1, dev, f32),
+        A=-torch.exp(torch.randn(di, n, generator=g) * 0.5).to(dev),
+        D=_rand(g, (di,), 1.0, dev, f32))
+
+
+def sscan_inputs(b, dev, dtype, seed, with_d=True):
+    """Kernel 4's operands at mamba-130m's widths: state (b, 1536, 16)
+    fp32, u (b, 1536) in ``dtype``, dt, A, B, C (and D) fp32."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    f32 = torch.float32
+    di, n = M1_D_INNER, M1_D_STATE
+    return (_rand(g, (b, di, n), 1.0, dev, f32), _rand(g, (b, di), 1.0, dev,
+                                                        dtype),
+            torch.rand(b, di, generator=g).mul(0.5).to(dev),
+            -torch.exp(torch.randn(di, n, generator=g) * 0.5).to(dev),
+            _rand(g, (b, n), 1.0, dev, f32), _rand(g, (b, n), 1.0, dev, f32),
+            _rand(g, (di,), 1.0, dev, f32) if with_d else None)
+
+
+def ssd_step_inputs(b, dev, dtype, seed):
+    """Kernel 3's operands at mamba2-130m's step widths: state (b, 24, 64,
+    128) fp32, x (b, 24, 64) in ``dtype``, dt (b, 24), A (24,), B, C (b,
+    1, 128) fp32."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    f32 = torch.float32
+    return (_rand(g, (b, N_HEADS, HEAD_DIM, D_STATE), 1.0, dev, f32),
+            _rand(g, (b, N_HEADS, HEAD_DIM), 1.0, dev, dtype),
+            torch.rand(b, N_HEADS, generator=g).mul(0.5).to(dev),
+            -torch.rand(N_HEADS, generator=g).mul(1.9).add(0.1).to(dev),
+            _rand(g, (b, N_GROUPS, D_STATE), 1.0, dev, f32),
+            _rand(g, (b, N_GROUPS, D_STATE), 1.0, dev, f32))
 
 
 def _bf16_steps(diff, r):
@@ -285,7 +363,8 @@ def kernel_cases(dev, kernels, tables):
     import torch
     kw = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM)
     worst = {k: 0.0 for k in ("mamba2_step", "mamba2_prefill", "cumsum_last",
-                              "ssd_chunk", "pwl_activate", "qmatmul")}
+                              "ssd_chunk", "pwl_activate", "qmatmul",
+                              "mamba1_step", "sscan_step", "ssd_step")}
     fails = []
     ktab = dict(silu_table=tables["silu"], softplus_table=tables["softplus"])
     pact = {k: (lambda v, t=t: kernels["pwl_activate_plain"](v, t))
@@ -295,6 +374,17 @@ def kernel_cases(dev, kernels, tables):
         err, bad = compare(f"{kernel} {case}", got, want, dn, outs)
         worst[kernel] = max(worst[kernel], err)
         fails.extend(bad)
+
+    def twice(kernel, case, call, plain, dn, outs=FUSED_OUTS):
+        """``call()`` twice (the same bits both times) against
+        ``plain()``."""
+        got, again = call(), call()
+        want = plain()
+        torch.cuda.synchronize(dev)
+        check(kernel, case, got, want, dn, outs)
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
+            print(f"  {kernel} {case}: a second call gave other bits FAIL")
+            fails.append(f"{kernel} {case} repeat")
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
@@ -343,6 +433,26 @@ def kernel_cases(dev, kernels, tables):
             if dtype == torch.float32:
                 print(f"    bit-identical to the plain version: "
                       f"{bool(torch.equal(got, want))}")
+        m1kw = dict(dt_rank=M1_DT_RANK)
+        for b in (1, 4):
+            ins = mamba1_inputs(b, dev, dtype, seed=50 + b)
+            twice("mamba1_step", f"{dn} b={b}",
+                  lambda: kernels["mamba1_step"](**ins, **m1kw),
+                  lambda: kernels["mamba1_step_plain"](**ins, **m1kw), dn)
+        twice("mamba1_step", f"{dn} b=4 actiba",
+              lambda: kernels["mamba1_step"](**ins, **m1kw, **ktab),
+              lambda: kernels["mamba1_step_plain"](**ins, **m1kw, **pact), dn)
+        bare = (("ssm", "state"), ("y", "stream"))
+        for with_d in (True, False):
+            args = sscan_inputs(4, dev, dtype, seed=60, with_d=with_d)
+            twice("sscan_step", f"{dn} b=4 d={M1_D_INNER} n={M1_D_STATE} "
+                  + ("with D" if with_d else "without D"),
+                  lambda: kernels["sscan_step"](*args),
+                  lambda: kernels["sscan_step_plain"](*args), dn, bare)
+        args = ssd_step_inputs(4, dev, dtype, seed=61)
+        twice("ssd_step", f"{dn} b=4 h={N_HEADS} p={HEAD_DIM} n={D_STATE} "
+              f"g={N_GROUPS}", lambda: kernels["ssd_step"](*args),
+              lambda: kernels["ssd_step_plain"](*args), dn, bare)
         for case, args, qkw in qmatmul_cases(dev, dtype, tables):
             got = kernels["qmatmul"](*args, **qkw)
             again = kernels["qmatmul"](*args, **qkw)
@@ -394,6 +504,22 @@ SERVE_ARGV = ["--arch", "mamba2-130m", "--requests", "8", "--batch", "4",
               "--seed", "0"]
 
 
+def path_launches(cfg, steps, prefills, w8=False) -> dict:
+    """The launches a serve run of ``cfg`` must make: each decode step
+    runs the family's fused step once a layer; a mamba2 prefill (a wave
+    or a chunk call) the fused prefill once a layer (mamba1's prefill is
+    plain ops); under W8 every decode step and prefill call runs two
+    qmatmuls a layer (in_proj, out_proj)."""
+    n = cfg.n_layers
+    step = "mamba2_step" if cfg.family == "mamba2" else "mamba1_step"
+    want = {step: n * steps}
+    if cfg.family == "mamba2":
+        want["mamba2_prefill"] = n * prefills
+    if w8:
+        want["qmatmul"] = 2 * n * (steps + prefills)
+    return want
+
+
 def serve_phase(serve_main, counters, argv):
     """Phase 4: the CLI's wave engine; returns (engine, launches, steps,
     waves)."""
@@ -414,14 +540,12 @@ def serve_phase(serve_main, counters, argv):
     assert all(0 <= t < cfg.vocab_size for t in toks), "serve: token id"
     assert m["logit_rows"] > 0 and m["nonfinite_logit_rows"] == 0, \
         f"serve: non-finite logits {m['nonfinite_logit_rows']}"
-    want = dict({k: 0 for k in launches},
-                mamba2_step=cfg.n_layers * steps,
-                mamba2_prefill=cfg.n_layers * waves)
+    want = dict({k: 0 for k in launches}, **path_launches(
+        cfg, steps=steps, prefills=waves))
     print(f"  launches {launches} expected {want} "
           f"({waves} waves, {steps} decode steps, {cfg.n_layers} layers)")
     assert launches == want, "serve: kernel launch counts"
-    assert want["mamba2_step"] > 0 and want["mamba2_prefill"] > 0, \
-        "serve: a kernel idle"
+    assert steps > 0 and waves > 0, "serve: a kernel idle"
     st = engine.stats(done)
     print(f"  generated {st['generated_tokens']} tokens in "
           f"{st['wall_s']:.4f} s of waves: {st['tokens_per_s']:.1f} tok/s; "
@@ -518,12 +642,12 @@ def continuous_phase(serve_main, counters, argv):
     assert m["logit_rows"] > 0 and m["nonfinite_logit_rows"] == 0, \
         f"continuous {label}: non-finite logits {m['nonfinite_logit_rows']}"
     n = cfg.n_layers
-    want = dict({k: 0 for k in launches}, mamba2_step=n * steps,
-                mamba2_prefill=n * calls,
-                qmatmul=2 * n * (steps + calls) if w8 else 0)
+    want = dict({k: 0 for k in launches}, **path_launches(
+        cfg, steps=steps, prefills=calls, w8=w8))
     want_paths = dict(gemv=2 * n * steps if w8 else 0,
                       tiled=2 * n * calls if w8 else 0)
-    print(f"  continuous {label} (chunk 64): launches {launches}, qmatmul "
+    print(f"  continuous {cfg.name} {label} (chunk 64): launches "
+          f"{launches}, qmatmul "
           f"by path {paths}; expected {want}, {want_paths} ({steps} decode "
           f"steps, {calls} chunk calls, {n} layers)")
     assert launches == want and paths == want_paths, \
@@ -542,7 +666,11 @@ def continuous_phase(serve_main, counters, argv):
 def parity_phase(dev, seed, cfg, counters, quant_mode="none"):
     """Phase 5: fp32 kernel path (card) vs plain path (CPU), teacher
     forced over the kernel path's own greedy tokens; ``quant_mode``
-    quantizes the fp32 weights first (the same int8 weights on both)."""
+    quantizes the fp32 weights first (the same int8 weights on both).
+    The logit tolerance is ``LOGIT_TOL``; for mamba1 (family ``mamba``)
+    the card is held to the fp64 witness instead, within ``M1_WITNESS_X``
+    times the CPU plain path's distance from it (at least
+    ``LOGIT_TOL``).  Returns the tolerance used for the margins."""
     import numpy as np
     import torch
     from repro_torch.models import build_model
@@ -574,34 +702,104 @@ def parity_phase(dev, seed, cfg, counters, quant_mode="none"):
     with torch.inference_mode():
         reset_counts(counters)
         lk = run(gpu, params, dev, None)
-        n_qmm = counters["qmatmul"].launches
+        counts = read_counts(counters)
         forced = lk.argmax(-1)                       # kernel path's tokens
         lp = run(cpu, cparams, "cpu", forced)
-    want_qmm = 2 * cfg.n_layers * 16 if quant_mode != "none" else 0
-    print(f"  weights {quant_mode if quant_mode != 'none' else 'fp32'}: "
-          f"{n_qmm} qmatmul launches on the card (expected {want_qmm})")
-    assert n_qmm == want_qmm, "parity: qmatmul launches"
-    err = float((lk - lp).abs().max())
+    tol, err = LOGIT_TOL, float((lk - lp).abs().max())
+    if cfg.family == "mamba":
+        t0 = time.perf_counter()
+        lw = witness_mamba1(cparams, cfg, prompts, forced)
+        cpu_err = float((lp.double() - lw).abs().max())
+        tol = max(LOGIT_TOL, M1_WITNESS_X * cpu_err)
+        card_err = float((lk.double() - lw).abs().max())
+        print(f"  fp64 witness ({time.perf_counter() - t0:.1f} s): CPU plain "
+              f"path {cpu_err:.3e} from it, the card {card_err:.3e} (tol "
+              f"{tol:.3e}); card vs CPU {err:.3e}")
+        assert card_err <= tol, f"parity: card {card_err} from the witness"
+        err = card_err
+    want = dict({k: 0 for k in counts}, **path_launches(
+        cfg, steps=15, prefills=1, w8=quant_mode != "none"))
+    print(f"  {cfg.name}, weights "
+          f"{quant_mode if quant_mode != 'none' else 'fp32'}: launches on "
+          f"the card {counts} (expected {want})")
+    assert counts == want, "parity: launches"
     top2 = lp.topk(2, dim=-1).values
     margin = top2[..., 0] - top2[..., 1]
-    confident = margin > LOGIT_TOL
+    confident = margin > tol
     agree = (lk.argmax(-1) == lp.argmax(-1))
-    print(f"  logits max_abs_err {err:.3e} (tol {LOGIT_TOL:.0e}); "
+    print(f"  logits max_abs_err {err:.3e} (tol {tol:.3e}"
+          + (", against the witness" if cfg.family == "mamba" else "")
+          + "); "
           f"{int(confident.sum())}/{confident.numel()} positions above the "
           f"margin, {int(agree[confident].sum())} agree; "
           f"{int(agree.sum())}/{agree.numel()} agree overall", flush=True)
     assert torch.isfinite(lk).all() and torch.isfinite(lp).all()
-    assert err <= LOGIT_TOL, f"parity: logit error {err}"
+    assert err <= tol, f"parity: logit error {err}"
     assert bool(agree[confident].all()), "parity: confident token differs"
+    return tol
 
 
-def engines_phase(dev, seed, cfg):
+def witness_mamba1(params, cfg, prompts, forced):
+    """fp64 logits (b, 16, V) of a Mamba-1 model on the CPU, written out
+    apart from the port: fed token by token (the prompt, then the 15
+    forced tokens), each block as Mamba-1 defines it (RMSNorm,
+    in-projection, causal conv, SiLU, x_proj, softplus of dt_proj, the
+    selective-scan recurrence, the D skip, the SiLU(z) gate,
+    out-projection, residual); the final RMSNorm and the tied unembed at
+    the last prompt position and after each forced token."""
+    import torch
+
+    def d(t):
+        return t.detach().to("cpu", torch.float64)
+
+    def rms(x, s):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * s
+
+    di, n = cfg.expand * cfg.d_model, cfg.d_state
+    r = cfg.dt_rank or math.ceil(cfg.d_model / 16)
+    table = d(params["embed"]["table"])
+    lays = [{"ln": d(p["ln"]["scale"]), "in": d(p["mixer"]["in_proj"]["w"]),
+             "cw": d(p["mixer"]["conv"]["w"]), "cb": d(p["mixer"]["conv"]["b"]),
+             "xp": d(p["mixer"]["x_proj"]["w"]),
+             "dw": d(p["mixer"]["dt_proj"]["w"]),
+             "db": d(p["mixer"]["dt_proj"]["b"]),
+             "A": -torch.exp(d(p["mixer"]["A_log"])), "D": d(p["mixer"]["D"]),
+             "out": d(p["mixer"]["out_proj"]["w"])} for p in params["layers"]]
+    fnorm = d(params["final_norm"]["scale"])
+    seq = torch.cat([prompts.cpu(), forced[:, :15].cpu()], dim=1)
+    b = seq.shape[0]
+    conv = [torch.zeros(b, cfg.d_conv - 1, di, dtype=torch.float64)
+            for _ in lays]
+    ssm = [torch.zeros(b, di, n, dtype=torch.float64) for _ in lays]
+    outs = []
+    for t in range(seq.shape[1]):
+        x = table[seq[:, t]]
+        for i, L in enumerate(lays):
+            xz = rms(x, L["ln"]) @ L["in"]
+            win = torch.cat([conv[i], xz[:, None, :di]], dim=1)
+            conv[i] = win[:, 1:]
+            u = (win * L["cw"]).sum(1) + L["cb"]
+            u = u * torch.sigmoid(u)
+            dbc = u @ L["xp"]
+            dt = torch.nn.functional.softplus(dbc[:, :r] @ L["dw"] + L["db"])
+            ssm[i] = ssm[i] * torch.exp(dt[..., None] * L["A"]) + \
+                (dt * u)[..., None] * dbc[:, None, r:r + n]
+            y = (ssm[i] * dbc[:, None, r + n:]).sum(-1) + L["D"] * u
+            z = xz[:, di:]
+            x = x + (y * z * torch.sigmoid(z)) @ L["out"]
+        if t >= prompts.shape[1] - 1:
+            outs.append(rms(x, fnorm) @ table.t())
+    return torch.stack(outs, 1)
+
+
+def engines_phase(dev, seed, cfg, tol=LOGIT_TOL):
     """Phase 5, continued: the continuous engine (monolithic prefill)
     against the wave engine on the card, fp32, the same 8 requests (all in
     the 128 bucket, so both engines prefill each prompt padded alike).
     Each request's tokens must agree up to the first position whose top-2
-    margin (the model re-run on that request alone) is within
-    ``LOGIT_TOL``; past it the two continue from different tokens."""
+    margin (the model re-run on that request alone) is within ``tol``
+    (the parity phase's); past it the two continue from different
+    tokens."""
     import numpy as np
     import torch
     from repro_torch.models import build_model
@@ -646,11 +844,41 @@ def engines_phase(dev, seed, cfg):
                     view, torch.tensor([[t]], device=dev), cache, 0)
             top2 = logits[0].topk(2).values
             margins.append((uid, j, float(top2[0] - top2[1])))
-    print(f"  continuous (monolithic) vs wave, fp32: {same}/8 requests "
-          f"token-identical; first divergences (request, position, top-2 "
-          f"margin): {margins}", flush=True)
-    assert all(mg <= LOGIT_TOL for _, _, mg in margins), \
+    print(f"  {cfg.name} continuous (monolithic) vs wave, fp32: {same}/8 "
+          f"requests token-identical; first divergences (request, "
+          f"position, top-2 margin): {margins}", flush=True)
+    assert all(mg <= tol for _, _, mg in margins), \
         "engines: tokens differ where the margin exceeds the tolerance"
+
+
+def bare_updates_phase(dev, counters):
+    """Phase 5c: one call each of ``ssd_decode_step(mode="pallas")`` (at
+    mamba2-130m's step widths) and ``selective_scan_decode_step(mode=
+    "pallas")`` (mamba-130m's) on the card, fp32, b = 4: each launches
+    its kernel exactly once and matches the function's ``naive`` mode
+    within phase 3's limits.  Returns the launches by kernel."""
+    import torch
+    from repro_torch.core import selective_scan, ssd
+    launches, fails = {}, []
+    for name, fn, args in (
+            ("ssd_step", ssd.ssd_decode_step,
+             ssd_step_inputs(4, dev, torch.float32, seed=62)),
+            ("sscan_step", selective_scan.selective_scan_decode_step,
+             sscan_inputs(4, dev, torch.float32, seed=63))):
+        reset_counts(counters)
+        got = fn(*args, mode="pallas")
+        torch.cuda.synchronize(dev)
+        counts = read_counts(counters)
+        want = fn(*args, mode="naive")
+        launches[name] = counts[name]
+        print(f"  {fn.__name__}(mode='pallas'): launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        assert counts == dict({k: 0 for k in counts}, **{name: 1}), \
+            f"bare updates: {name} launches"
+        fails += compare(f"{fn.__name__} pallas vs naive", got, want,
+                         "float32", (("ssm", "state"), ("y", "stream")))[1]
+    assert not fails, f"bare updates: {fails}"
+    return launches
 
 
 def ablation_phase(dev, seed, cfg, counters, kernels, worst):
@@ -805,6 +1033,7 @@ def ablation_phase(dev, seed, cfg, counters, kernels, worst):
                                    pwl_activate=3 * n, mamba2_step=0,
                                    mamba2_prefill=0, qmatmul=0)}
     for name, w in want.items():
+        w = dict({k: 0 for k in launches[name]}, **w)
         assert launches[name] == w, f"ablation {name}: launches " \
             f"{launches[name]} expected {w}"
     for name, _ in ablation.VARIANTS[:4]:
@@ -931,7 +1160,8 @@ def time_call(fn, n=30, warmup=3):
 OUR_KERNELS = ("mamba2_step_kernel", "gated_norm_kernel", "conv_act_kernel",
                "ssd_scan_kernel", "cumsum_last_kernel", "ssd_chunk_kernel",
                "pwl_activate_kernel", "qmm_gemv_kernel", "qmm_drain_kernel",
-               "qmm_tiled_kernel")
+               "qmm_tiled_kernel", "mamba1_conv_xproj_kernel",
+               "mamba1_scan_kernel", "sscan_step_kernel", "ssd_step_kernel")
 
 
 def device_profile(fn, n=10):
@@ -1054,6 +1284,19 @@ def ssd_chunk_ops(b, c, L, h, g, p, n):
 def pwl_ops(numel, table):
     """m0*x + c0, then a subtraction, max, product and sum per breakpoint."""
     return numel * (2 + 4 * (table.num_segments - 1))
+
+
+def mamba1_bound(ins, outs):
+    """Kernel 5's bound: inputs once and outputs once over HBM, vs its
+    fp32 operations: per row the conv (2 w di), x_proj (2 di (r+2n)),
+    dt_proj (2 r di), ~7 per state element (dt*A, exp, the decay, dt*u*B
+    and the sum, *C and its sum) and ~20 per channel for the
+    activations, the D skip and the gate."""
+    b = ins["z"].shape[0]
+    di, n, r = M1_D_INNER, M1_D_STATE, M1_DT_RANK
+    ops = b * (2 * WIDTH * di + 2 * di * (r + 2 * n) + 2 * r * di
+               + 7 * di * n + 20 * di)
+    return _bound(_bytes(*ins.values(), *outs), ops)
 
 
 def _bound(nbytes, ops, flop_per_s=FP32_FLOP_PER_S):
@@ -1208,6 +1451,65 @@ def times_phase(dev, kernels, launches, steps, waves, worst, tables):
                                 worst)
 
 
+def mamba1_times(dev, kernels, launches, steps, worst, tables):
+    """Phase 7's rows for kernels 5, 4 and 3: kernel 5 at the mamba-130m
+    serve shapes (b = 4, bf16; launches and steps of the continuous bf16
+    run), the bare updates at b = 4 in fp32 (launches of phase 5c)."""
+    import torch
+    rows = []
+    kw = dict(dt_rank=M1_DT_RANK)
+    ins = mamba1_inputs(4, dev, torch.bfloat16, seed=70)
+    outs = kernels["mamba1_step"](**ins, **kw)
+    ms = time_call(lambda: kernels["mamba1_step"](**ins, **kw))
+    plain_ms = time_call(lambda: kernels["mamba1_step_plain"](**ins, **kw))
+    dev_ms = _ours(device_profile(lambda: kernels["mamba1_step"](**ins,
+                                                                 **kw)))
+    bound_ms, bound_by = mamba1_bound(ins, outs)
+    rows.append(dict(
+        name="mamba1_step", route="cuda",
+        source="src/repro_torch/csrc/mamba1_step.cu",
+        replaces="src/repro/kernels/decode_step.py:221",
+        launches=launches["mamba1_step"], max_abs_err=worst["mamba1_step"],
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None))
+    print(f"  mamba1_step b=4 bf16: kernel {ms:.4f} ms (device time of its "
+          f"two kernels {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); "
+          f"{launches['mamba1_step'] / steps:.0f} launches per decode step; "
+          f"library: no single PyTorch call", flush=True)
+    ktab = dict(silu_table=tables["silu"], softplus_table=tables["softplus"])
+    ms_a = time_call(lambda: kernels["mamba1_step"](**ins, **kw, **ktab))
+    dev_a = _ours(device_profile(
+        lambda: kernels["mamba1_step"](**ins, **kw, **ktab)))
+    print(f"  mamba1_step b=4 bf16 with the ActiBA tables: kernel {ms_a:.4f} "
+          f"ms (device {dev_a:.4f} ms)", flush=True)
+    for name, src, where, args, ops in (
+            ("sscan_step", "mamba1_step.cu",
+             "src/repro/kernels/decode_step.py:113",
+             sscan_inputs(4, dev, torch.float32, seed=71),
+             (7 * M1_D_STATE + 2) * 4 * M1_D_INNER),
+            ("ssd_step", "decode_step.cu",
+             "src/repro/kernels/decode_step.py:76",
+             ssd_step_inputs(4, dev, torch.float32, seed=72),
+             (5 * D_STATE + 2) * 4 * N_HEADS * HEAD_DIM)):
+        outs = kernels[name](*args)
+        ms = time_call(lambda: kernels[name](*args))
+        plain_ms = time_call(lambda: kernels[name + "_plain"](*args))
+        dev_ms = _ours(device_profile(lambda: kernels[name](*args)))
+        tensors = [a for a in args if a is not None]
+        bound_ms, bound_by = _bound(_bytes(*tensors, *outs), ops)
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=where, launches=launches[name], max_abs_err=worst[name],
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None))
+        print(f"  {name} fp32 state {tuple(args[0].shape)}: kernel {ms:.4f} "
+              f"ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); library: no single PyTorch "
+              f"call; {launches[name]} launch in phase 5c", flush=True)
+    return rows
+
+
 def engines_summary(engines):
     """The serve metrics of each engine run side by side."""
     keys = ("requests", "generated_tokens", "tokens_per_s", "ttft_mean_s",
@@ -1264,52 +1566,97 @@ def main() -> int:
         "pwl_activate_plain": actiba.pwl_activate_plain,
         "qmatmul": qmatmul.qmatmul,
         "qmatmul_plain": qmatmul.qmatmul_plain,
+        "mamba1_step": decode_step.mamba1_step,
+        "mamba1_step_plain": decode_step.mamba1_step_plain,
+        "sscan_step": decode_step.sscan_step,
+        "sscan_step_plain": decode_step.sscan_step_plain,
+        "ssd_step": decode_step.ssd_step,
+        "ssd_step_plain": decode_step.ssd_step_plain,
     }
     counters = {"mamba2_step": decode_step.mamba2_step,
                 "mamba2_prefill": prefill_chunk.mamba2_prefill,
                 "cumsum_last": cumba.cumsum_last,
                 "ssd_chunk": ssd_chunk.ssd_chunk,
                 "pwl_activate": actiba.pwl_activate,
-                "qmatmul": qmatmul.qmatmul}
+                "qmatmul": qmatmul.qmatmul,
+                "mamba1_step": decode_step.mamba1_step,
+                "sscan_step": decode_step.sscan_step,
+                "ssd_step": decode_step.ssd_step}
+    secs = {}
+
+    def phase(title):
+        """Print a phase's heading and the seconds the last one took."""
+        now = time.perf_counter()
+        if secs:
+            last = next(reversed(secs))
+            secs[last] = now - secs[last]
+            print(f"  ({last}: {secs[last]:.1f} s)", flush=True)
+        if title:
+            print(f"== {title}", flush=True)
+            secs[title] = now
     pallas = XambaConfig.pallas()
     tables = {k: table_for(k, pallas) for k in ("silu", "softplus")}
 
-    print("== 3. kernels vs plain (full width)", flush=True)
+    phase("3. kernels vs plain (full width)")
     with torch.inference_mode():
         worst = kernel_cases(dev, kernels, tables)
 
-    print("== 4. serve (mamba2-130m, bf16, wave engine)", flush=True)
+    phase("4. serve (mamba2-130m, bf16, wave engine)")
     engine, launches, steps, waves = serve_phase(serve.main, counters,
                                                  SERVE_ARGV)
     with torch.inference_mode():
         serve_modes_phase(serve.main, counters, get_config("mamba2-130m"),
                           dev)
-    print("== 4b. serve (mamba2-130m, continuous engine, chunk 64)",
-          flush=True)
+    phase("4b. serve (mamba2-130m, continuous engine, chunk 64)")
     w8_engine, w8_launches, qmm_paths = continuous_phase(
         serve.main, counters, CONT_ARGV + ["--quant", "w8"])
     launches.update(qmatmul=w8_launches["qmatmul"], qmatmul_paths=qmm_paths)
     cont_engine, _, _ = continuous_phase(serve.main, counters, CONT_ARGV)
 
-    print("== 5. path parity (fp32, kernel path vs plain path)", flush=True)
+    phase("4c. serve (mamba-130m: wave, continuous chunk 64, W8)")
+    m1_argv = [a if a != "mamba2-130m" else "mamba-130m" for a in CONT_ARGV]
+    m1_engine, m1_launches, _ = continuous_phase(serve.main, counters,
+                                                 m1_argv)
+    launches["mamba1_step"] = m1_launches["mamba1_step"]
+    m1_steps = m1_engine.metrics.summary()["decode_steps"]
+    m1_w8_engine, _, _ = continuous_phase(serve.main, counters,
+                                          m1_argv + ["--quant", "w8"])
+    m1_wave, _, _, _ = serve_phase(
+        serve.main, counters,
+        [a if a != "mamba2-130m" else "mamba-130m" for a in SERVE_ARGV])
+
+    phase("5. path parity (fp32, kernel path vs plain path)")
     parity_phase(dev, 1, get_config("mamba2-130m"), counters)
     parity_phase(dev, 1, get_config("mamba2-130m"), counters, "w8")
     engines_phase(dev, 3, get_config("mamba2-130m"))
+    phase("5b. path parity (mamba-130m, fp32)")
+    m1_tol = parity_phase(dev, 1, get_config("mamba-130m"), counters)
+    engines_phase(dev, 3, get_config("mamba-130m"), m1_tol)
+    phase("5c. bare updates (kernels 3 and 4 through core/)")
+    with torch.inference_mode():
+        launches.update(bare_updates_phase(dev, counters))
 
-    print("== 6. ablation (fp32 forward, b=4, l=300)", flush=True)
+    phase("6. ablation (fp32 forward, b=4, l=300)")
     launches.update({k: v for k, v in ablation_phase(
         dev, 2, get_config("mamba2-130m"), counters, kernels, worst).items()
         if k in ("cumsum_last", "ssd_chunk", "pwl_activate")})
 
-    print("== 7. times", flush=True)
+    phase("7. times")
     with torch.inference_mode():
         rows = times_phase(dev, kernels, launches, steps, waves, worst,
                            tables)
-        step_breakdown(engine, "bf16")
-        step_breakdown(w8_engine, "W8")
-    engines_summary((("wave, bf16 (8 requests)", engine),
-                     ("continuous chunk 64, bf16 (12)", cont_engine),
-                     ("continuous chunk 64, W8 (12)", w8_engine)))
+        rows += mamba1_times(dev, kernels, launches, m1_steps, worst, tables)
+        step_breakdown(engine, "mamba2-130m bf16")
+        step_breakdown(w8_engine, "mamba2-130m W8")
+        step_breakdown(m1_engine, "mamba-130m bf16")
+        step_breakdown(m1_w8_engine, "mamba-130m W8")
+    engines_summary((("mamba2 wave, bf16 (8 requests)", engine),
+                     ("mamba2 continuous 64, bf16 (12)", cont_engine),
+                     ("mamba2 continuous 64, W8 (12)", w8_engine),
+                     ("mamba1 wave, bf16 (8 requests)", m1_wave),
+                     ("mamba1 continuous 64, bf16 (12)", m1_engine),
+                     ("mamba1 continuous 64, W8 (12)", m1_w8_engine)))
+    phase(None)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(smi)

@@ -10,9 +10,9 @@ a port of ``repro.core.ssd``.
   chunk is a multiple of 64.
 * :func:`ssd_reference` — the exact sequential recurrence, the oracle.
 * :func:`ssd_decode_step` — the single-token update in ``naive`` /
-  ``cumba`` mode.  Its ``pallas`` mode would be kernel 3
-  (``kernels/decode_step.py:76 ssd_step``), which no model path calls and
-  which is not ported: it raises.
+  ``cumba`` mode, and in ``pallas`` modes TPU kernel 3 through
+  ``kernels/ops.py: ssd_step`` (the hand-written kernel on a CUDA tensor,
+  its plain version on a CPU tensor); no model path calls it.
 
 Shapes follow the Mamba-2 convention:
   x:  (batch, seqlen, nheads, headdim)        -- values
@@ -217,15 +217,15 @@ def ssd_decode_step(state: torch.Tensor, x_t: torch.Tensor,
 
     * ``naive`` — the state->output contraction as broadcast-multiply +
       ReduceSum (the dense op structure the paper measured);
-    * ``cumba`` — that contraction as one einsum over grouped heads.
+    * ``cumba`` — that contraction as one einsum over grouped heads;
+    * ``pallas`` / ``pallas_interpret`` — the bare-update kernel 3.
 
     state: (b, h, p, n); x_t: (b, h, p); dt_t: (b, h); B_t, C_t: (b, g, n).
     Returns (new_state fp32, y_t (b, h, p) in ``x_t``'s dtype).
     """
     if mode in ("pallas", "pallas_interpret"):
-        raise NotImplementedError(
-            f"ssd_decode_step mode {mode!r} is TPU kernel 3 "
-            "(kernels/decode_step.py:76 ssd_step), which is not ported yet")
+        from repro_torch.kernels import ops
+        return ops.ssd_step(state, x_t, dt_t, A, B_t, C_t)
     b, h, p, n = state.shape
     g = B_t.shape[1]
     hpg = h // g

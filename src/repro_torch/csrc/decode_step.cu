@@ -23,7 +23,36 @@
 // Under ActiBA the conv's SiLU and dt's softplus are PWL tables (silu_tab,
 // sp_tab; null for the exact functions), as the TPU kernel's silu and
 // softplus callables are (decode_step.py:159-160).
+//
+// ssd_step replaces the TPU kernel decode_step.py:76 ssd_step, the bare
+// SSD update without the conv, the activations or the norm (dt comes in
+// raw): the same (batch, head) grid and the same head update.
 #include "common.cuh"
+
+// One head's p x n state: s'[pi][k] = s[pi][k] decay + (dt x[pi]) B[k],
+// written to ns, one warp per state row, lanes along n.  done(pi, y) gets
+// y = s'[pi] . C on lane 0 of the row's warp.
+template <typename F>
+__device__ __forceinline__ void ssd_head_update(
+    const float* __restrict__ s, float* __restrict__ ns, const float* xs,
+    const float* Bv, const float* Cv, float dtf, float decay, int p, int n,
+    F done) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int pi = warp; pi < p; pi += nwarps) {
+    const float dx = dtf * xs[pi];
+    const float* srow = s + static_cast<size_t>(pi) * n;
+    float* nrow = ns + static_cast<size_t>(pi) * n;
+    float part = 0.f;
+    for (int k = lane; k < n; k += 32) {
+      const float v = srow[k] * decay + dx * Bv[k];
+      nrow[k] = v;
+      part += v * Cv[k];
+    }
+    part = warp_sum(part);
+    if (lane == 0) done(pi, part);
+  }
+}
 
 template <typename T>
 __global__ void mamba2_step_kernel(
@@ -79,23 +108,43 @@ __global__ void mamba2_step_kernel(
       sp_nk);
   const float decay = expf(dtf * A[hi]);
   const float dh = D[hi];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
   const size_t sbase = (static_cast<size_t>(bi) * h + hi) * p * n;
-  for (int pi = warp; pi < p; pi += nwarps) {
-    const float dx = dtf * xs[pi];
-    const float* srow = ssm_state + sbase + static_cast<size_t>(pi) * n;
-    float* nrow = new_ssm + sbase + static_cast<size_t>(pi) * n;
-    float part = 0.f;
-    for (int k = lane; k < n; k += 32) {
-      const float s = srow[k] * decay + dx * Bv[k];
-      nrow[k] = s;
-      part += s * Cv[k];
-    }
-    part = warp_sum(part);
-    if (lane == 0)
-      ypre[static_cast<size_t>(bi) * di + hi * p + pi] = part + dh * xs[pi];
+  float* yrow = ypre + static_cast<size_t>(bi) * di + hi * p;
+  ssd_head_update(ssm_state + sbase, new_ssm + sbase, xs, Bv, Cv, dtf, decay,
+                  p, n, [&](int pi, float part) {
+                    yrow[pi] = part + dh * xs[pi];
+                  });
+}
+
+template <typename T>
+__global__ void ssd_step_kernel(const float* __restrict__ state,
+                                const T* __restrict__ x,
+                                const float* __restrict__ dt,
+                                const float* __restrict__ A,
+                                const float* __restrict__ B,
+                                const float* __restrict__ C,
+                                float* __restrict__ new_state,
+                                T* __restrict__ y, int h, int p, int g,
+                                int n) {
+  extern __shared__ float smem[];
+  float* xs = smem;      // (p,)  this head's x
+  float* Bv = xs + p;    // (n,)  B of this head's group
+  float* Cv = Bv + n;    // (n,)  C
+  const int bi = blockIdx.x, hi = blockIdx.y, gi = hi / (h / g);
+  const size_t hrow = static_cast<size_t>(bi) * h + hi;
+  const size_t grow = (static_cast<size_t>(bi) * g + gi) * n;
+  for (int c = threadIdx.x; c < p; c += blockDim.x) xs[c] = to_f(x[hrow * p + c]);
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    Bv[k] = B[grow + k];
+    Cv[k] = C[grow + k];
   }
+  __syncthreads();
+  const float dtf = dt[hrow];
+  const size_t sbase = hrow * p * n;
+  T* yrow = y + hrow * p;
+  ssd_head_update(state + sbase, new_state + sbase, xs, Bv, Cv, dtf,
+                  expf(dtf * A[hi]), p, n,
+                  [&](int pi, float part) { yrow[pi] = from_f<T>(part); });
 }
 
 // xbc rows of dxbc values at row stride xbc_rs, dt rows of h values at
@@ -124,5 +173,24 @@ extern "C" int mamba2_step_launch(
       static_cast<T*>(new_conv), static_cast<float*>(new_ssm), h, p, g, n,
       width, static_cast<const float*>(silu_tab), silu_nk,
       static_cast<const float*>(sp_tab), sp_nk));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// state (b, h, p, n) fp32; x (b, h, p) T; dt (b, h), A (h,) and B / C
+// (b, g, n) fp32.  Writes new_state (b, h, p, n) fp32 and y (b, h, p) T.
+extern "C" int ssd_step_launch(int dtype, const void* state, const void* x,
+                               const void* dt, const void* A, const void* B,
+                               const void* C, void* new_state, void* y,
+                               int b, int h, int p, int g, int n,
+                               void* stream) {
+  if (b == 0) return 0;
+  const dim3 grid(b, h);
+  const size_t smem = static_cast<size_t>(p + 2 * n) * sizeof(float);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH_T(dtype, ssd_step_kernel<T><<<grid, 128, smem, s>>>(
+      static_cast<const float*>(state), static_cast<const T*>(x),
+      static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<const float*>(B), static_cast<const float*>(C),
+      static_cast<float*>(new_state), static_cast<T*>(y), h, p, g, n));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,22 @@
-"""Fused Mamba-2 single-token step: the CUDA kernel and its plain version.
+"""Single-token steps: the CUDA kernels and their plain versions.
 
-Port of ``repro.kernels.decode_step.mamba2_step`` (the TPU kernel) and
-its oracle ``repro.kernels.ref.mamba2_step_ref``:
+Ports of the TPU kernels of ``repro.kernels.decode_step`` and their
+oracles in ``repro.kernels.ref``:
+
+* :func:`mamba2_step` (TPU kernel 1) and :func:`mamba1_step` (kernel 5):
+  the fused mixer steps, below;
+* :func:`ssd_step` (kernel 3) and :func:`sscan_step` (kernel 4): the bare
+  SSD and selective-scan updates (``csrc/decode_step.cu`` and
+  ``csrc/mamba1_step.cu``), reached through ``core/ssd.py:
+  ssd_decode_step`` and ``core/selective_scan.py:
+  selective_scan_decode_step`` in ``pallas`` modes.
+
+Each wrapper takes CUDA tensors only and counts its calls in
+``.launches``; each ``*_plain`` version is the same function in plain
+PyTorch with an fp32 interior, the CPU path and what the kernel is held
+to on the card.
+
+The Mamba-2 step (``mamba2_step`` / ``mamba2_step_ref``):
 
 * :func:`mamba2_step` — the wrapper around ``csrc/decode_step.cu``
   (conv shift + SiLU + softplus(dt) + SSD update + D skip, grid (batch,
@@ -21,6 +36,13 @@ stream dtype; ssm_state (b, h, p, n) fp32; conv_w (w, dxbc); conv_b
 (dxbc,); dt_bias / A / D (h,); norm_scale (di,).  ``A`` is the negative
 decay rate ``-exp(A_log)``.  Returns (y (b, di) gated, pre-``out_proj``;
 new_conv; new_ssm).
+
+The Mamba-1 step (``mamba1_step`` / ``mamba1_step_ref``): xs_raw, z
+(b, di) — the ``in_proj`` halves; conv_state (b, w-1, di); ssm_state
+(b, di, n) fp32; xproj_w (di, r+2n); dtproj_w (r, di); dtproj_b (di,); A
+(di, n) negative; D (di,).  Returns (y (b, di) = (s'.C + D u) silu(z),
+formed in fp32 and cast once to z's dtype; new_conv in conv_state's
+dtype; new_ssm fp32).
 """
 from __future__ import annotations
 
@@ -127,3 +149,208 @@ def mamba2_step(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b, dt_bias,
 
 
 mamba2_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Bare updates: kernels 3 and 4
+# ---------------------------------------------------------------------------
+_SSD_LAUNCH = ("decode_step", "ssd_step_launch",
+               [common.I] + [common.P] * 8 + [common.I] * 5 + [common.P])
+_SSCAN_LAUNCH = ("mamba1_step", "sscan_step_launch",
+                 [common.I] + [common.P] * 9 + [common.I] * 3 + [common.P])
+
+
+def ssd_step_plain(state, x_t, dt_t, A, B_t, C_t):
+    """Plain PyTorch port of ``ssd_step_ref``: state (b, h, p, n); x_t
+    (b, h, p); dt_t (b, h) (no softplus); A (h,); B_t, C_t (b, g, n).
+    Returns (new_state fp32, y (b, h, p) in x_t's dtype)."""
+    hpg = state.shape[1] // B_t.shape[1]
+    Bh = B_t.float().repeat_interleave(hpg, dim=1)
+    Ch = C_t.float().repeat_interleave(hpg, dim=1)
+    dtf = dt_t.float()
+    decay = torch.exp(dtf * A.float()[None, :])
+    dBx = dtf[..., None, None] * Bh[:, :, None, :] * x_t.float()[..., None]
+    new = state.float() * decay[..., None, None] + dBx
+    y = torch.einsum("bhpn,bhn->bhp", new, Ch)
+    return new, y.to(x_t.dtype)
+
+
+def _f32(t):
+    return t.float().contiguous()
+
+
+def ssd_step(state, x_t, dt_t, A, B_t, C_t):
+    """The CUDA kernel (contract as :func:`ssd_step_plain`); grid (batch,
+    head), the mamba2 step's head update.  dt, A, B and C are read as
+    fp32 (cast here if they are not)."""
+    dev = state.device
+    common.require(dev.type == "cuda", "ssd_step takes CUDA tensors; the "
+                   "CPU path is ssd_step_plain")
+    b, h, p, n = state.shape
+    g = B_t.shape[1]
+    common.check_cuda(dev, x_t=x_t, dt_t=dt_t, A=A, B_t=B_t, C_t=C_t)
+    common.require(state.dtype == torch.float32 and state.is_contiguous(),
+                   "ssd_step: state must be contiguous fp32 (b, h, p, n)")
+    common.require(tuple(x_t.shape) == (b, h, p)
+                   and tuple(dt_t.shape) == (b, h) and tuple(A.shape) == (h,)
+                   and tuple(B_t.shape) == tuple(C_t.shape) == (b, g, n)
+                   and h % g == 0, "ssd_step: shapes")
+    x_t = x_t.contiguous()
+    new = torch.empty_like(state)
+    y = torch.empty_like(x_t)
+    dt_t, A, B_t, C_t = (_f32(t) for t in (dt_t, A, B_t, C_t))
+    err = common.launcher(*_SSD_LAUNCH)(
+        common.stream_code(x_t), common.ptr(state), common.ptr(x_t),
+        common.ptr(dt_t), common.ptr(A), common.ptr(B_t), common.ptr(C_t),
+        common.ptr(new), common.ptr(y), b, h, p, g, n, common.stream(dev))
+    common.check_launch(err, "decode_step", "ssd_step kernel")
+    ssd_step.launches += 1
+    return new, y
+
+
+ssd_step.launches = 0
+
+
+def sscan_step_plain(state, u_t, delta_t, A, B_t, C_t, D=None):
+    """Plain PyTorch port of ``sscan_step_ref``: state (b, d, n); u_t,
+    delta_t (b, d); A (d, n); B_t, C_t (b, n); D (d,) or ``None``.
+    Returns (new_state fp32, y (b, d) in u_t's dtype)."""
+    dtf = delta_t.float()
+    decay = torch.exp(dtf[..., None] * A.float()[None])
+    dBu = (dtf * u_t.float())[..., None] * B_t.float()[:, None, :]
+    new = state.float() * decay + dBu
+    y = torch.einsum("bdn,bn->bd", new, C_t.float())
+    if D is not None:
+        y = y + u_t.float() * D.float()[None]
+    return new, y.to(u_t.dtype)
+
+
+def sscan_step(state, u_t, delta_t, A, B_t, C_t, D=None):
+    """The CUDA kernel (contract as :func:`sscan_step_plain`); one thread
+    per (row, channel).  delta, A, B, C and D are read as fp32 (cast here
+    if they are not); ``D=None`` is passed as a null pointer, no skip."""
+    dev = state.device
+    common.require(dev.type == "cuda", "sscan_step takes CUDA tensors; the "
+                   "CPU path is sscan_step_plain")
+    b, d, n = state.shape
+    common.check_cuda(dev, u_t=u_t, delta_t=delta_t, A=A, B_t=B_t, C_t=C_t,
+                      **({} if D is None else {"D": D}))
+    common.require(state.dtype == torch.float32 and state.is_contiguous(),
+                   "sscan_step: state must be contiguous fp32 (b, d, n)")
+    common.require(tuple(u_t.shape) == tuple(delta_t.shape) == (b, d)
+                   and tuple(A.shape) == (d, n)
+                   and tuple(B_t.shape) == tuple(C_t.shape) == (b, n)
+                   and (D is None or tuple(D.shape) == (d,)),
+                   "sscan_step: shapes")
+    u_t = u_t.contiguous()
+    new = torch.empty_like(state)
+    y = torch.empty_like(u_t)
+    delta_t, A, B_t, C_t = (_f32(t) for t in (delta_t, A, B_t, C_t))
+    d_ptr = 0 if D is None else common.ptr(_f32(D))
+    err = common.launcher(*_SSCAN_LAUNCH)(
+        common.stream_code(u_t), common.ptr(state), common.ptr(u_t),
+        common.ptr(delta_t), common.ptr(A), common.ptr(B_t),
+        common.ptr(C_t), d_ptr, common.ptr(new), common.ptr(y), b, d, n,
+        common.stream(dev))
+    common.check_launch(err, "mamba1_step", "sscan_step kernel")
+    sscan_step.launches += 1
+    return new, y
+
+
+sscan_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The fused Mamba-1 step: kernel 5
+# ---------------------------------------------------------------------------
+_M1_LAUNCH = ("mamba1_step", "mamba1_step_launch",
+              [common.I, common.P, common.I, common.P, common.I]
+              + [common.P] * 13 + [common.I] * 5
+              + [common.P, common.I, common.P, common.I, common.P])
+M1_CONV_CH = 64          # csrc/mamba1_step.cu CONV_CH: channels per block
+
+
+def mamba1_step_plain(xs_raw, z, conv_state, ssm_state, conv_w, conv_b,
+                      xproj_w, dtproj_w, dtproj_b, A, D, *, dt_rank: int,
+                      silu: Callable = F.silu,
+                      softplus: Callable = F.softplus):
+    """Plain PyTorch port of ``mamba1_step_ref`` (fp32 interior)."""
+    n = ssm_state.shape[-1]
+    r = dt_rank
+    conv_out, new_conv = layers.causal_conv1d_step(
+        {"w": conv_w, "b": conv_b}, xs_raw.float(), conv_state.float())
+    xs = silu(conv_out)
+    dbc = torch.matmul(xs, xproj_w.float())
+    dt_low, B, C = torch.split(dbc, [r, n, n], dim=-1)
+    dt = softplus(torch.matmul(dt_low, dtproj_w.float())
+                  + dtproj_b.float()[None])
+    new, y = sscan_step_plain(ssm_state, xs, dt, A, B, C, D)
+    out = y * silu(z.float())
+    return out.to(z.dtype), new_conv.to(conv_state.dtype), new
+
+
+def mamba1_step(xs_raw, z, conv_state, ssm_state, conv_w, conv_b, xproj_w,
+                dtproj_w, dtproj_b, A, D, *, dt_rank: int, out=None,
+                silu_table: Optional[PWLTable] = None,
+                softplus_table: Optional[PWLTable] = None):
+    """The CUDA kernel (contract as :func:`mamba1_step_plain`, with the
+    activations' ActiBA tables in place of callables, ``None`` = exact):
+    two launches, conv + SiLU + x_proj partial sums over 64-channel
+    blocks, then their fixed-order sum, dt_proj, softplus, the update and
+    the gate over 128-channel blocks.  The parameters (conv_w, conv_b,
+    xproj_w, dtproj_w, dtproj_b, A, D) must be contiguous fp32; xs_raw and
+    z may be views of one ``in_proj`` output.  ``out`` = (new_conv,
+    new_ssm) buffers to write the new state into instead of fresh ones."""
+    dev = z.device
+    common.require(dev.type == "cuda", "mamba1_step takes CUDA tensors; "
+                   "the CPU path is mamba1_step_plain")
+    b, di = z.shape
+    n = ssm_state.shape[-1]
+    r = dt_rank
+    width = conv_w.shape[0]
+    common.check_f32("mamba1_step", conv_w=conv_w, conv_b=conv_b,
+                     xproj_w=xproj_w, dtproj_w=dtproj_w, dtproj_b=dtproj_b,
+                     A=A, D=D)
+    common.check_cuda(dev, xs_raw=xs_raw, conv_state=conv_state,
+                      ssm_state=ssm_state, conv_w=conv_w, conv_b=conv_b,
+                      xproj_w=xproj_w, dtproj_w=dtproj_w, dtproj_b=dtproj_b,
+                      A=A, D=D)
+    for name, t in (("xs_raw", xs_raw), ("conv_state", conv_state)):
+        common.require(t.dtype == z.dtype,
+                       f"mamba1_step: {name} is {t.dtype}, z is {z.dtype}")
+    common.require(tuple(xs_raw.shape) == (b, di),
+                   "mamba1_step: xs_raw must be (b, di) like z")
+    common.require(tuple(conv_state.shape) == (b, width - 1, di)
+                   and conv_state.is_contiguous(),
+                   "mamba1_step: conv_state must be contiguous (b, w-1, di)")
+    common.require(tuple(ssm_state.shape) == (b, di, n)
+                   and ssm_state.dtype == torch.float32
+                   and ssm_state.is_contiguous(),
+                   "mamba1_step: ssm_state must be contiguous fp32 (b, di, n)")
+    common.require(conv_w.shape == (width, di) and conv_b.shape == (di,)
+                   and xproj_w.shape == (di, r + 2 * n)
+                   and dtproj_w.shape == (r, di)
+                   and dtproj_b.shape == D.shape == (di,)
+                   and A.shape == (di, n), "mamba1_step: parameter shapes")
+    nblk = -(-di // M1_CONV_CH)
+    scratch = torch.empty(b * (di + nblk * (r + 2 * n)), dtype=torch.float32,
+                          device=dev)
+    y = torch.empty((b, di), dtype=z.dtype, device=dev)
+    new_conv, new_ssm = common.outputs(out, conv_state, ssm_state,
+                                       "mamba1_step")
+    err = common.launcher(*_M1_LAUNCH)(
+        common.stream_code(z), common.ptr(xs_raw),
+        common.row_stride(xs_raw, "xs_raw"), common.ptr(z),
+        common.row_stride(z, "z"), common.ptr(conv_state),
+        common.ptr(ssm_state), common.ptr(conv_w), common.ptr(conv_b),
+        common.ptr(xproj_w), common.ptr(dtproj_w), common.ptr(dtproj_b),
+        common.ptr(A), common.ptr(D), common.ptr(scratch), common.ptr(y),
+        common.ptr(new_conv), common.ptr(new_ssm), b, di, n, r, width,
+        *table_args(silu_table, dev), *table_args(softplus_table, dev),
+        common.stream(dev))
+    common.check_launch(err, "mamba1_step", "mamba1_step kernels")
+    mamba1_step.launches += 1
+    return y, new_conv, new_ssm
+
+
+mamba1_step.launches = 0

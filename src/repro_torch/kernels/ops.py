@@ -53,6 +53,35 @@ def mamba2_decode_step(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
     return _plain_into(out, _ds.mamba2_step_plain(*args, **kw))
 
 
+def mamba1_decode_step(xs_raw, z, conv_state, ssm_state, conv_w, conv_b,
+                       xproj_w, dtproj_w, dtproj_b, A, D, *, dt_rank: int,
+                       xamba=None, out=None):
+    """Fused Mamba-1 single-token step (conv + SiLU + x_proj / dt_proj +
+    softplus + selective scan + SiLU(z) gate, kernel 5); shapes as
+    ``kernels/decode_step.py``.  ``out`` = (new_conv, new_ssm) buffers
+    that receive the new state."""
+    args = (xs_raw, z, conv_state, ssm_state, conv_w, conv_b, xproj_w,
+            dtproj_w, dtproj_b, A, D)
+    kw = dict(dt_rank=dt_rank, **_activations(xamba, z.is_cuda))
+    if z.is_cuda:
+        return _ds.mamba1_step(*args, **kw, out=out)
+    return _plain_into(out, _ds.mamba1_step_plain(*args, **kw))
+
+
+def ssd_step(state, x_t, dt_t, A, B_t, C_t):
+    """The bare SSD update (kernel 3) -> (new_state fp32, y)."""
+    if state.is_cuda:
+        return _ds.ssd_step(state, x_t, dt_t, A, B_t, C_t)
+    return _ds.ssd_step_plain(state, x_t, dt_t, A, B_t, C_t)
+
+
+def sscan_step(state, u_t, delta_t, A, B_t, C_t, D=None):
+    """The bare selective-scan update (kernel 4) -> (new_state fp32, y)."""
+    if state.is_cuda:
+        return _ds.sscan_step(state, u_t, delta_t, A, B_t, C_t, D)
+    return _ds.sscan_step_plain(state, u_t, delta_t, A, B_t, C_t, D)
+
+
 def mamba2_prefill(x, in_w, conv_state, ssm_state, conv_w, conv_b, dt_bias,
                    A, D, norm_scale, *, ngroups: int, head_dim: int,
                    chunk: int, xamba=None, out=None):

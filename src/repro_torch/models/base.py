@@ -1,5 +1,6 @@
 """Model configuration: the ``repro.models.base.ModelConfig`` fields that
-the Mamba-2 family uses, with ``dtype`` as a ``torch.dtype``."""
+the Mamba-1 and Mamba-2 families use, with ``dtype`` as a
+``torch.dtype``."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,7 +15,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Mamba-2 subset of the JAX package's one-config-for-all-families."""
+    """Mamba subset of the JAX package's one-config-for-all-families."""
 
     name: str = "model"
     family: str = "mamba2"
@@ -23,13 +24,17 @@ class ModelConfig:
     n_layers: int = 4
     tie_embeddings: bool = True
 
-    # -- SSM (mamba2) ---------------------------------------------------------
+    # -- SSM (mamba / mamba2) -------------------------------------------------
     d_state: int = 16
     d_conv: int = 4
     expand: int = 2
     ssm_head_dim: int = 64
     ssm_ngroups: int = 1
     chunk_size: int = 256
+    dt_rank: int = 0              # 0 -> ceil(d_model/16) (mamba1)
+    # mamba1 prefill: core/selective_scan.py mode (associative | sequential
+    # | chunked).
+    scan_mode: str = "associative"
     ssd_dtype: str = "float32"    # SSD big-matmul dtype (bf16 = perf mode)
 
     param_dtype: str = "bfloat16"

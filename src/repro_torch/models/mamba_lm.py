@@ -1,17 +1,20 @@
-"""The Mamba-2 language model (port of ``repro.models.mamba_lm``,
-``family="mamba2"``).
+"""The Mamba language models (port of ``repro.models.mamba_lm``):
+``family="mamba2"`` (SSD) and ``family="mamba"`` (Mamba-1, selective
+scan).
 
-Block = RMSNorm -> SSD mixer -> residual; final RMSNorm; tied logits in
-fp32.  Params are plain dicts of tensors with the
-layer trunk as a per-layer list, walked by a Python loop.
-:meth:`MambaLM.decode_view` adds each mixer's kernel operands in fp32,
-once per weight set (the engine serves from it).  The serving cache is
-the JAX package's stacked layout, ``Mamba2State`` with a leading
-``n_layers`` axis: conv (L, b, w-1, dxbc) in the model dtype and ssm
-(L, b, h, p, n) fp32.  Each step allocates the next cache once and every
-layer's kernel writes its new state straight into its slice of it.  The
-continuous engine's API (``prefill_chunk``, ``cache_batch_axes``,
-``export_state`` / ``import_state``) addresses rows on batch axis 1.
+Block = RMSNorm -> mixer -> residual; final RMSNorm; tied logits in
+fp32.  Params are plain dicts of tensors with the layer trunk as a
+per-layer list, walked by a Python loop.  :meth:`MambaLM.decode_view`
+adds each mixer's kernel operands in fp32, once per weight set (the
+engine serves from it).  The serving cache is the JAX package's stacked
+layout, the family's state with a leading ``n_layers`` axis: mamba2's
+``Mamba2State`` conv (L, b, w-1, dxbc) in the model dtype and ssm
+(L, b, h, p, n) fp32; mamba1's ``Mamba1State`` conv (L, b, w-1, d_inner)
+and ssm (L, b, d_inner, n) fp32.  Each step allocates the next cache once
+and every layer's kernel writes its new state straight into its slice of
+it.  The continuous engine's API (``prefill_chunk``, ``cache_batch_axes``,
+``export_state`` / ``import_state``) addresses rows on batch axis 1 and
+works on either family.
 """
 from __future__ import annotations
 
@@ -25,22 +28,37 @@ from repro_torch.nn import layers, ssm
 from repro_torch.nn.params import stack_specs
 
 
+# family -> the prefix of its mixer's functions in ``nn/ssm.py``
+# (``<prefix>_specs``, ``_kernel_operands``, ``_apply``, ``_init_state``),
+# looked up at call time.
+_MIXERS = {"mamba2": "mamba2", "mamba": "mamba1"}
+
+
 class MambaLM:
-    """family == "mamba2" (SSD); runs on ``device`` (default ``cuda``)."""
+    """family == "mamba" (Mamba-1, selective scan) or "mamba2" (SSD);
+    runs on ``device`` (default ``cuda``)."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
-        if cfg.family != "mamba2":
+        if cfg.family not in _MIXERS:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (only mamba2)")
+                f"family {cfg.family!r} is not ported yet; have "
+                f"{sorted(_MIXERS)}")
         if not cfg.tie_embeddings:
             raise NotImplementedError("untied embeddings are not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._prefix = _MIXERS[cfg.family]
+        self._state = ssm.Mamba2State if cfg.family == "mamba2" else \
+            ssm.Mamba1State
+
+    def _fn(self, name: str):
+        """The family's mixer function ``<prefix>_<name>`` of nn/ssm.py."""
+        return getattr(ssm, f"{self._prefix}_{name}")
 
     def param_specs(self) -> dict:
         cfg = self.cfg
         block = {"ln": layers.norm_specs(cfg.d_model),
-                 "mixer": ssm.mamba2_specs(cfg)}
+                 "mixer": self._fn("specs")(cfg)}
         return {
             "embed": layers.embed_specs(cfg.vocab_size, cfg.d_model),
             "final_norm": layers.norm_specs(cfg.d_model),
@@ -49,23 +67,24 @@ class MambaLM:
 
     def decode_view(self, params) -> dict:
         """``params`` with each layer's mixer carrying its kernel operands
-        (``ssm.mamba2_kernel_operands``: fp32, ``A = -exp(A_log)``), so no
-        step casts them again.  Build it once per weight set; ``prefill``
-        and ``decode_step`` take either form."""
+        (``ssm.mamba{1,2}_kernel_operands``: fp32, ``A = -exp(A_log)``),
+        so no step casts them again.  Build it once per weight set;
+        ``prefill`` and ``decode_step`` take either form."""
         return dict(params, layers=[
-            dict(p, mixer=dict(p["mixer"], kernel=ssm.mamba2_kernel_operands(
-                p["mixer"]))) for p in params["layers"]])
+            dict(p, mixer=dict(p["mixer"], kernel=self._fn(
+                "kernel_operands")(p["mixer"]))) for p in params["layers"]])
 
     # ---------------- trunk ----------------
-    def _trunk(self, params, x: torch.Tensor, cache: ssm.Mamba2State
-               ) -> Tuple[torch.Tensor, ssm.Mamba2State]:
-        new = ssm.Mamba2State(torch.empty_like(cache.conv),
-                              torch.empty_like(cache.ssm))
+    def _trunk(self, params, x: torch.Tensor, cache
+               ) -> Tuple[torch.Tensor, Any]:
+        new = self._state(torch.empty_like(cache.conv),
+                          torch.empty_like(cache.ssm))
+        apply = self._fn("apply")
         for i, p in enumerate(params["layers"]):
-            h, _ = ssm.mamba2_apply(
+            h, _ = apply(
                 p["mixer"], self.cfg, layers.norm(p["ln"], x),
-                ssm.Mamba2State(cache.conv[i], cache.ssm[i]),
-                out=ssm.Mamba2State(new.conv[i], new.ssm[i]))
+                self._state(cache.conv[i], cache.ssm[i]),
+                out=self._state(new.conv[i], new.ssm[i]))
             x = x + h
         return x, new
 
@@ -79,21 +98,20 @@ class MambaLM:
         quality benchmark's entry point)."""
         x = layers.embed(params["embed"], tokens)
         for p in params["layers"]:
-            h, _ = ssm.mamba2_apply(p["mixer"], self.cfg,
-                                    layers.norm(p["ln"], x))
+            h, _ = self._fn("apply")(p["mixer"], self.cfg,
+                                     layers.norm(p["ln"], x))
             x = x + h
         return self._logits(params, x)
 
     # ---------------- serving ----------------
     def init_cache(self, batch: int, max_seq: int = 0,
-                   dtype: torch.dtype = torch.bfloat16) -> ssm.Mamba2State:
+                   dtype: torch.dtype = torch.bfloat16):
         """Zero state for ``batch`` rows (O(1) in ``max_seq``)."""
         del max_seq
-        one = ssm.mamba2_init_state(self.cfg, batch, dtype, self.device)
+        one = self._fn("init_state")(self.cfg, batch, dtype, self.device)
         n = self.cfg.n_layers
-        return ssm.Mamba2State(
-            one.conv.new_zeros((n,) + tuple(one.conv.shape)),
-            one.ssm.new_zeros((n,) + tuple(one.ssm.shape)))
+        return self._state(*(leaf.new_zeros((n,) + tuple(leaf.shape))
+                             for leaf in one))
 
     def prefill(self, params, batch, cache) -> Tuple[torch.Tensor, Any]:
         """Whole prompt ``batch["tokens"]`` (b, l) -> (last logits (b, V)
@@ -112,20 +130,20 @@ class MambaLM:
         del index
         return self.prefill(params, {"tokens": tokens}, cache)
 
-    def cache_batch_axes(self, cache) -> ssm.Mamba2State:
+    def cache_batch_axes(self, cache):
         """Each cache leaf's batch axis: 1 behind the stacked layer axis."""
-        return ssm.Mamba2State(*(1 for _ in cache))
+        return self._state(*(1 for _ in cache))
 
-    def export_state(self, cache, index, rows) -> ssm.Mamba2State:
+    def export_state(self, cache, index, rows):
         """Snapshot of ``rows``' state: fresh tensors (batch ``len(rows)``)
         on the cache's device, never views of ``cache``.  ``index`` (tokens
         consumed) is ignored: the state is O(1) in sequence length."""
         del index
         idx = torch.as_tensor(list(rows), device=cache.conv.device)
-        return ssm.Mamba2State(*(leaf.index_select(ax, idx) for leaf, ax in
-                                 zip(cache, self.cache_batch_axes(cache))))
+        return self._state(*(leaf.index_select(ax, idx) for leaf, ax in
+                             zip(cache, self.cache_batch_axes(cache))))
 
-    def import_state(self, cache, index, rows, snapshot) -> ssm.Mamba2State:
+    def import_state(self, cache, index, rows, snapshot):
         """Write snapshot row ``j`` into ``cache`` row ``rows[j]`` in place
         (the inverse of :meth:`export_state`); returns ``cache``."""
         del index

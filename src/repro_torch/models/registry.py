@@ -5,7 +5,7 @@ from repro_torch.core.device import DeviceLike
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.mamba_lm import MambaLM
 
-_FAMILIES = {"mamba2": MambaLM}
+_FAMILIES = {"mamba": MambaLM, "mamba2": MambaLM}
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None):

@@ -24,7 +24,7 @@ from repro_torch.nn.quant import QuantTensor
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"           # normal | zeros | ones
+    init: str = "normal"           # normal | zeros | ones | small_normal
     scale: Optional[float] = None  # stddev; default 1/sqrt(fan-in)
 
 
@@ -44,6 +44,8 @@ def _init_one(spec: ParamSpec, gen: torch.Generator,
     # The JAX package's rule, on the (possibly stacked) declared shape.
     fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
     std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
+    if spec.init == "small_normal":
+        std = 0.02
     return (torch.randn(spec.shape, generator=gen, dtype=torch.float32)
             * std).to(dtype)
 

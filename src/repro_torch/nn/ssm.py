@@ -1,4 +1,5 @@
-"""The Mamba-2 (SSD) mixer: port of the Mamba-2 part of ``repro.nn.ssm``.
+"""The Mamba-2 (SSD) and Mamba-1 (selective-scan) mixers: ports of
+``repro.nn.ssm``.
 
 ``mamba2_apply`` handles both the multi-token prefill (with or without a
 carried state) and the single-token decode step with the same params:
@@ -14,17 +15,28 @@ carried state) and the single-token decode step with the same params:
   fp32, a seqlen that is not a chunk multiple, or a ``pallas`` chunk that
   is not a multiple of 64.  Each reason is logged once per shape.
 
+``mamba1_apply`` is the Mamba-1 mixer with the same contract:
+
+* decode, modes ``cumba`` / ``pallas*``: the fused step (kernel 5 on the
+  GPU) through ``kernels/ops.py``; mode ``naive``: the unfused dense step
+  (``_mamba1_decode_naive``);
+* prefill: plain ops, as in the JAX package (which has no Pallas kernel
+  there): in_proj -> conv -> SiLU -> x_proj -> dt_proj -> softplus ->
+  ``core/selective_scan.py: selective_scan(mode=cfg.scan_mode)`` ->
+  SiLU(z) gate -> out_proj.
+
 ActiBA reaches the fused kernels as PWL tables (``xamba``) and the
-unfused chain through ``core/pwl.py: activation`` (kernel 12 on the GPU).
+unfused chains through ``core/pwl.py: activation`` (kernel 12 on the GPU).
 """
 from __future__ import annotations
 
 import logging
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import pwl, ssd as ssd_mod
+from repro_torch.core import pwl, selective_scan as sscan, ssd as ssd_mod
 from repro_torch.kernels import ops
 from repro_torch.nn import layers
 from repro_torch.nn.params import ParamSpec
@@ -86,9 +98,12 @@ def mamba2_kernel_operands(params: dict) -> dict:
             "norm_scale": f32(params["norm"]["scale"])}
 
 
-def _operands(params: dict) -> dict:
-    return params["kernel"] if "kernel" in params else \
-        mamba2_kernel_operands(params)
+def _operands(params: dict, build=None) -> dict:
+    """The view's kernel operands, else ``build(params)`` (default
+    :func:`mamba2_kernel_operands`)."""
+    if "kernel" in params:
+        return params["kernel"]
+    return (build or mamba2_kernel_operands)(params)
 
 
 def _into(out: Optional[Mamba2State], new: Mamba2State) -> Mamba2State:
@@ -222,3 +237,138 @@ def mamba2_apply(params: dict, cfg, x: torch.Tensor,
         h = layers.linear(params["out_proj"], y.to(x.dtype))
         new_state = Mamba2State(new_conv, new_ssm)
     return h, new_state if state is not None else None
+
+
+# ============================================================================
+# Mamba-1 mixer (selective scan)
+# ============================================================================
+
+class Mamba1State(NamedTuple):
+    conv: torch.Tensor   # (b, d_conv-1, d_inner), stream dtype
+    ssm: torch.Tensor    # (b, d_inner, d_state), fp32
+
+
+def mamba1_dims(cfg):
+    """(d_inner, d_state, dt_rank); dt_rank 0 means ceil(d_model / 16)."""
+    return (cfg.expand * cfg.d_model, cfg.d_state,
+            cfg.dt_rank or math.ceil(cfg.d_model / 16))
+
+
+def mamba1_specs(cfg) -> dict:
+    d = cfg.d_model
+    d_inner, n, r = mamba1_dims(cfg)
+    return {
+        "in_proj": layers.linear_specs(d, 2 * d_inner),
+        "conv": layers.conv1d_specs(d_inner, cfg.d_conv),
+        "x_proj": layers.linear_specs(d_inner, r + 2 * n),
+        "dt_proj": {"w": ParamSpec((r, d_inner), scale=0.1),
+                    "b": ParamSpec((d_inner,), init="small_normal")},
+        "A_log": ParamSpec((d_inner, n), init="ones"),
+        "D": ParamSpec((d_inner,), init="ones"),
+        "out_proj": layers.linear_specs(d_inner, d),
+    }
+
+
+def mamba1_init_state(cfg, batch: int, dtype: torch.dtype,
+                      device: torch.device) -> Mamba1State:
+    d_inner, n, _ = mamba1_dims(cfg)
+    return Mamba1State(
+        conv=torch.zeros((batch, cfg.d_conv - 1, d_inner), dtype=dtype,
+                         device=device),
+        ssm=torch.zeros((batch, d_inner, n), dtype=torch.float32,
+                        device=device))
+
+
+def mamba1_kernel_operands(params: dict) -> dict:
+    """The Mamba-1 mixer's parameters as kernel 5 takes them: contiguous
+    fp32, with ``A = -exp(A_log)`` (d_inner, n); built once per weight set
+    by the model's ``decode_view``, as :func:`mamba2_kernel_operands`."""
+    def f32(t):
+        return t.float().contiguous()
+    return {"conv_w": f32(params["conv"]["w"]),
+            "conv_b": f32(params["conv"]["b"]),
+            "xproj_w": f32(params["x_proj"]["w"]),
+            "dtproj_w": f32(params["dt_proj"]["w"]),
+            "dtproj_b": f32(params["dt_proj"]["b"]),
+            "A": -torch.exp(params["A_log"].float()),
+            "D": f32(params["D"])}
+
+
+def _mamba1_dt(params: dict, cfg, xs: torch.Tensor, softplus):
+    """x_proj -> (dt_low, B, C); dt = softplus(dt_low @ dt_proj + b), the
+    products in the stream dtype and the softplus in fp32, as the JAX
+    package's unfused chain takes them."""
+    _, n, r = mamba1_dims(cfg)
+    dt, B, C = torch.split(layers.linear(params["x_proj"], xs), [r, n, n],
+                           dim=-1)
+    dt = torch.matmul(dt, params["dt_proj"]["w"].to(dt.dtype)) + \
+        params["dt_proj"]["b"].to(dt.dtype)
+    return softplus(dt.float()), B, C
+
+
+def _mamba1_decode_naive(params: dict, cfg, x: torch.Tensor,
+                         state: Mamba1State, out: Optional[Mamba1State]
+                         ) -> Tuple[torch.Tensor, Mamba1State]:
+    """The unfused dense step (the NPU-baseline op chain): seq-axis
+    (b, 1, d) operands, per-tap conv slices, and the state contraction as
+    multiply + ReduceSum."""
+    silu = pwl.activation("silu", cfg.xamba)
+    softplus = pwl.activation("softplus", cfg.xamba)
+    xs, z = torch.chunk(layers.linear(params["in_proj"], x), 2, dim=-1)
+    xs, new_conv = layers.causal_conv1d(params["conv"], xs, state.conv)
+    xs = silu(xs)
+    dt, B, C = _mamba1_dt(params, cfg, xs, softplus)
+    new_ssm, y = sscan.selective_scan_decode_step(
+        state.ssm, xs[:, 0], dt[:, 0], -torch.exp(params["A_log"].float()),
+        B[:, 0], C[:, 0], params["D"], mode="naive")
+    y = y[:, None] * silu(z)
+    h = layers.linear(params["out_proj"], y.to(x.dtype))
+    return h, _into(out, Mamba1State(new_conv, new_ssm))
+
+
+def _mamba1_decode(params: dict, cfg, x: torch.Tensor, state: Mamba1State,
+                   out: Optional[Mamba1State]
+                   ) -> Tuple[torch.Tensor, Mamba1State]:
+    """Single-token step; x: (b, 1, d).  ``naive`` runs the unfused chain;
+    ``cumba`` and ``pallas*`` the fused step on (b, d) operands."""
+    if cfg.xamba.decode == "naive":
+        return _mamba1_decode_naive(params, cfg, x, state, out)
+    _, _, r = mamba1_dims(cfg)
+    xs_raw, z = torch.chunk(layers.linear(params["in_proj"], x[:, 0]), 2,
+                            dim=-1)
+    y, new_conv, new_ssm = ops.mamba1_decode_step(
+        xs_raw, z, state.conv, state.ssm,
+        **_operands(params, mamba1_kernel_operands), dt_rank=r,
+        xamba=cfg.xamba, out=out)
+    h = layers.linear(params["out_proj"], y.to(x.dtype))[:, None]
+    return h, Mamba1State(new_conv, new_ssm)
+
+
+def mamba1_apply(params: dict, cfg, x: torch.Tensor,
+                 state: Optional[Mamba1State] = None,
+                 out: Optional[Mamba1State] = None,
+                 ) -> Tuple[torch.Tensor, Optional[Mamba1State]]:
+    """x: (b, l, d).  l == 1 with a state -> decode step (unless
+    ``cfg.force_prefill_path``); else the prefill chain.  ``out``:
+    buffers that receive the new state (with ``state`` only)."""
+    b, l, _ = x.shape
+    if state is not None and l == 1 and not cfg.force_prefill_path:
+        return _mamba1_decode(params, cfg, x, state, out)
+
+    init = state if state is not None else \
+        mamba1_init_state(cfg, b, x.dtype, x.device)
+    silu = pwl.activation("silu", cfg.xamba)
+    softplus = pwl.activation("softplus", cfg.xamba)
+    xs, z = torch.chunk(layers.linear(params["in_proj"], x), 2, dim=-1)
+    xs, new_conv = layers.causal_conv1d(params["conv"], xs, init.conv)
+    xs = silu(xs)
+    dt, B, C = _mamba1_dt(params, cfg, xs, softplus)
+    y, new_ssm = sscan.selective_scan(
+        xs, dt, -torch.exp(params["A_log"].float()), B, C, params["D"],
+        mode=cfg.scan_mode, initial_state=init.ssm, xamba=cfg.xamba,
+        return_final_state=True)
+    y = y * silu(z)
+    h = layers.linear(params["out_proj"], y.to(x.dtype))
+    if state is None:
+        return h, None
+    return h, _into(out, Mamba1State(new_conv.to(init.conv.dtype), new_ssm))

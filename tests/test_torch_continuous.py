@@ -5,8 +5,10 @@ Greedy outputs of ``repro_torch.serve.ContinuousEngine`` and
 carried across with ``from_jax_params``) and the same requests are
 token-identical: monolithic and chunked prefill, with and without a
 prefill token budget, W8, more requests than slots, EOS on the prefill
-token and one-token budgets.  Also the state pool's row operations, the
-model's snapshot API, the scheduler's chunk span and the CLI.
+token and one-token budgets, for mamba2 and for the reduced mamba-130m
+(Mamba-1; ``Mamba1State`` rows in the same pools).  Also the state
+pool's row operations, the model's snapshot API, the scheduler's chunk
+span and the CLI.
 """
 import dataclasses
 
@@ -34,19 +36,33 @@ V = 64
 DIMS = dict(name="mamba2", family="mamba2", vocab_size=V, d_model=32,
             n_layers=2, d_state=8, ssm_head_dim=8, chunk_size=64,
             param_dtype="float32")
+# The reduced mamba-130m (configs/mamba_130m.py: REDUCED) in fp32.
+MAMBA1_DIMS = dict(name="mamba-130m", family="mamba", vocab_size=512,
+                   d_model=128, n_layers=2, d_state=16, d_conv=4, expand=2,
+                   dt_rank=8, param_dtype="float32")
+FAMILY_DIMS = {"mamba2": DIMS, "mamba1": MAMBA1_DIMS}
 # Prompts in both buckets (one truncated past 128), more than the slots.
 LENGTHS = (5, 40, 17, 90, 3, 140)
 SERVE = dict(max_batch=2, prefill_buckets=(32, 128), max_new_tokens=6)
 
 
-def _pair(w8=False, seed=0):
+def _family_cases(cases):
+    """``cases`` (pytest.param's) for mamba2 under their own ids, then for
+    mamba1 with ids prefixed ``mamba1-``."""
+    return [pytest.param(fam, *c.values, id=c.id if fam == "mamba2"
+                         else f"mamba1-{c.id}")
+            for fam in FAMILY_DIMS for c in cases]
+
+
+def _pair(w8=False, seed=0, family="mamba2"):
     """(JAX model, JAX params, port model, port params), one weight set;
     ``w8``: quantized in JAX and carried across."""
-    jm = jbuild(JModelConfig(**DIMS))
+    dims = FAMILY_DIMS[family]
+    jm = jbuild(JModelConfig(**dims))
     jp = jinit(jm.param_specs(), jax.random.PRNGKey(seed), jnp.float32)
     if w8:
         jp = jquant.quantize_params(jp)
-    tm = build_model(ModelConfig(**DIMS), device="cpu")
+    tm = build_model(ModelConfig(**dims), device="cpu")
     tp = from_jax_params(jax.tree.map(np.asarray, jp), tm.cfg, device="cpu")
     return jm, jp, tm, tp
 
@@ -62,14 +78,16 @@ def _serve(engine, prompts, budgets=None):
     return {r.uid: r.out_tokens for r in engine.run()}
 
 
-@pytest.mark.parametrize("w8", [False, True], ids=["fp32", "w8"])
-@pytest.mark.parametrize("chunk,budget", [(None, 0), (16, 0), (16, 48)],
-                         ids=["monolithic", "chunk16", "chunk16_budget48"])
-def test_continuous_greedy_matches_jax_engine(chunk, budget, w8):
+@pytest.mark.parametrize("family,chunk,budget,w8", _family_cases(
+    [pytest.param(c, b, w, id=f"{cid}-{wid}")
+     for w, wid in ((False, "fp32"), (True, "w8"))
+     for (c, b), cid in (((None, 0), "monolithic"), ((16, 0), "chunk16"),
+                         ((16, 48), "chunk16_budget48"))]))
+def test_continuous_greedy_matches_jax_engine(family, chunk, budget, w8):
     """Token-identical greedy outputs; rows are admitted mid-decode (six
     requests, two slots) and the chunked path's prompts span up to eight
     chunks of 16."""
-    jm, jp, tm, tp = _pair(w8)
+    jm, jp, tm, tp = _pair(w8, family=family)
     kw = dict(SERVE, prefill_chunk=chunk, prefill_token_budget=budget)
     prompts = _prompts()
     jout = _serve(JContinuous(jm, jp, JServeConfig(**kw)), prompts)
@@ -84,12 +102,13 @@ def test_continuous_greedy_matches_jax_engine(chunk, budget, w8):
         assert m["prefill_tokens"] % chunk == 0
 
 
-@pytest.mark.parametrize("chunk", [None, 16], ids=["monolithic", "chunk16"])
-def test_continuous_eos_on_prefill_token_and_one_token_budget(chunk):
+@pytest.mark.parametrize("family,chunk", _family_cases(
+    [pytest.param(None, id="monolithic"), pytest.param(16, id="chunk16")]))
+def test_continuous_eos_on_prefill_token_and_one_token_budget(family, chunk):
     """A request whose first token is EOS and a request with a one-token
     budget end at prefill and free their slot: the same outputs as the
     JAX engine, the EOS request holding exactly its first token."""
-    jm, jp, tm, tp = _pair(seed=2)
+    jm, jp, tm, tp = _pair(seed=2, family=family)
     prompts = _prompts(seed=8, lengths=(12, 33, 7, 20, 50))
     kw = dict(SERVE, prefill_chunk=chunk)
     first = _serve(ContinuousEngine(tm, tp, ServeConfig(**kw)), prompts)
@@ -104,12 +123,20 @@ def test_continuous_eos_on_prefill_token_and_one_token_budget(chunk):
 
 
 def test_continuous_monolithic_matches_wave_engine():
-    """The port's two engines serve the same greedy tokens."""
-    _, _, tm, tp = _pair(seed=4)
-    prompts = _prompts(seed=5, lengths=(5, 40, 17, 90, 3))
-    wave = _serve(Engine(tm, tp, ServeConfig(**SERVE)), prompts)
-    cont = _serve(ContinuousEngine(tm, tp, ServeConfig(**SERVE)), prompts)
-    assert cont == wave
+    """The port's two engines serve the same greedy tokens, for each
+    family.  Each engine left-pads a prompt to its prefill bucket, the
+    wave engine to its wave's longest prompt's, so a prompt is padded
+    alike in both only where both pick the same bucket; the mamba1
+    prompts are all in the 128 bucket (with mamba2's mixed buckets the
+    JAX package's two engines also part for mamba1)."""
+    lengths = {"mamba2": (5, 40, 17, 90, 3), "mamba1": (40, 90, 33, 100, 60)}
+    for family in FAMILY_DIMS:
+        _, _, tm, tp = _pair(seed=4, family=family)
+        prompts = _prompts(seed=5, lengths=lengths[family])
+        wave = _serve(Engine(tm, tp, ServeConfig(**SERVE)), prompts)
+        cont = _serve(ContinuousEngine(tm, tp, ServeConfig(**SERVE)),
+                      prompts)
+        assert cont == wave, family
 
 
 def test_serve_config_has_no_unported_fields():
@@ -135,8 +162,14 @@ def _filled_pool(tm, slots=3):
 def test_state_pool_row_ops_round_trip():
     """insert / extract / reset / clone / restore move whole rows on the
     batch axis (1, behind the layer axis), in place on the arena, and
-    what comes out is a copy, never a view of the arena."""
-    _, _, tm, _ = _pair()
+    what comes out is a copy, never a view of the arena; for each
+    family's state."""
+    for family in FAMILY_DIMS:
+        _, _, tm, _ = _pair(family=family)
+        _pool_round_trip(tm)
+
+
+def _pool_round_trip(tm):
     pool = _filled_pool(tm)
     arena = [leaf.data_ptr() for leaf in pool.cache]
     before = [leaf.clone() for leaf in pool.cache]
@@ -161,8 +194,14 @@ def test_state_pool_row_ops_round_trip():
 
 def test_export_import_state_round_trip():
     """``export_state`` / ``import_state`` are inverses over rows, and a
-    chunk carried through an exported row equals one carried in place."""
-    _, _, tm, tp = _pair(seed=6)
+    chunk carried through an exported row equals one carried in place;
+    for each family's state."""
+    for family in FAMILY_DIMS:
+        _, _, tm, tp = _pair(seed=6, family=family)
+        _export_import(tm, tp)
+
+
+def _export_import(tm, tp):
     pool = _filled_pool(tm, slots=2)
     snap = tm.export_state(pool.cache, 16, [1, 0])
     swapped = tm.import_state(

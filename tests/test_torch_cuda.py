@@ -326,3 +326,151 @@ def _to(tree, dev):
     if isinstance(tree, quant.QuantTensor):
         return tree.apply(lambda a: a.to(dev))
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1: the fused step (kernel 5) and the bare updates (kernels 3, 4)
+# ---------------------------------------------------------------------------
+def _m1_inputs(dev, dtype, b, di, n, r, w, seed):
+    """Kernel 5's operands: xs_raw and z as the two halves of one
+    in_proj output (strided views), the parameters contiguous fp32."""
+    gen = torch.Generator().manual_seed(seed)
+    f32 = torch.float32
+    rnd = lambda *s, scale=1.0, dtype=f32: (
+        torch.randn(s, generator=gen) * scale).to(dev).to(dtype)
+    xz = rnd(b, 2 * di, dtype=dtype)
+    return dict(
+        xs_raw=xz[:, :di], z=xz[:, di:], conv_state=rnd(b, w - 1, di,
+                                                        dtype=dtype),
+        ssm_state=rnd(b, di, n), conv_w=rnd(w, di, scale=0.3),
+        conv_b=rnd(di, scale=0.1), xproj_w=rnd(di, r + 2 * n, scale=0.05),
+        dtproj_w=rnd(r, di, scale=0.1), dtproj_b=rnd(di, scale=0.1),
+        A=-torch.exp(torch.randn(di, n, generator=gen) * 0.5).to(dev),
+        D=rnd(di))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,di,n,r", [(1, 96, 8, 6), (3, 200, 16, 13),
+                                      (4, 1536, 16, 48)])
+def test_mamba1_kernel_matches_plain(dev, dtype, b, di, n, r):
+    """Ragged channel blocks (di not a multiple of 64 or 128), one row and
+    several; a second call gives the same bits."""
+    ins = _m1_inputs(dev, dtype, b, di, n, r, 4, seed=di + n)
+    before = ds.mamba1_step.launches
+    got = ds.mamba1_step(**ins, dt_rank=r)
+    assert ds.mamba1_step.launches == before + 1
+    again = ds.mamba1_step(**ins, dt_rank=r)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    _check(got, ds.mamba1_step_plain(**ins, dt_rank=r), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba1_kernel_with_actiba_tables_matches_plain(dev, dtype):
+    xamba = XambaConfig.full()
+    ins = _m1_inputs(dev, dtype, 2, 256, 16, 8, 4, seed=7)
+    got = ops.mamba1_decode_step(*ins.values(), dt_rank=8, xamba=xamba)
+    plain = dict(silu=lambda v: pwl.eval_pwl(pwl.table_for("silu", xamba), v),
+                 softplus=lambda v: pwl.eval_pwl(
+                     pwl.table_for("softplus", xamba), v))
+    _check(got, ds.mamba1_step_plain(**ins, dt_rank=8, **plain), dtype)
+    exact = ds.mamba1_step(**ins, dt_rank=8)
+    assert not torch.equal(got[0], exact[0])
+
+
+def test_mamba1_kernel_writes_into_out_and_refuses_bad_inputs(dev):
+    ins = _m1_inputs(dev, torch.bfloat16, 2, 128, 16, 8, 4, seed=8)
+    fresh = ds.mamba1_step(**ins, dt_rank=8)
+    out = (torch.empty_like(ins["conv_state"]),
+           torch.empty_like(ins["ssm_state"]))
+    got = ds.mamba1_step(**ins, dt_rank=8, out=out)
+    assert got[1] is out[0] and got[2] is out[1]
+    assert all(torch.equal(a, r) for a, r in zip(got, fresh))
+    with pytest.raises(ValueError, match="xproj_w must be contiguous fp32"):
+        ds.mamba1_step(**dict(ins, xproj_w=ins["xproj_w"].bfloat16()),
+                       dt_rank=8)
+    with pytest.raises(ValueError, match="parameter shapes"):
+        ds.mamba1_step(**ins, dt_rank=7)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ds.mamba1_step(**{k: v.cpu() for k, v in ins.items()}, dt_rank=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_d", [True, False], ids=["D", "noD"])
+def test_sscan_kernel_matches_plain(dev, dtype, with_d):
+    gen = torch.Generator().manual_seed(9)
+    b, d, n = 3, 200, 16
+    rnd = lambda *s: torch.randn(s, generator=gen).to(dev)
+    args = (rnd(b, d, n), rnd(b, d).to(dtype), rnd(b, d).abs() * 0.5,
+            -rnd(d, n).abs() - 0.1, rnd(b, n), rnd(b, n),
+            rnd(d) if with_d else None)
+    before = ds.sscan_step.launches
+    got = ops.sscan_step(*args)
+    assert ds.sscan_step.launches == before + 1
+    assert all(torch.equal(a, g) for a, g in zip(ops.sscan_step(*args), got))
+    for name, a, r in zip(("ssm", "y"), got, ds.sscan_step_plain(*args)):
+        _close(a, r, TOL[dtype, "state" if name == "ssm" else "stream"], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,p,g,n", [(4, 8, 2, 16), (6, 40, 1, 96)])
+def test_ssd_step_kernel_matches_plain(dev, dtype, h, p, g, n):
+    gen = torch.Generator().manual_seed(h + n)
+    b = 3
+    rnd = lambda *s: torch.randn(s, generator=gen).to(dev)
+    args = (rnd(b, h, p, n), rnd(b, h, p).to(dtype), rnd(b, h).abs() * 0.5,
+            -rnd(h).abs() - 0.1, rnd(b, g, n), rnd(b, g, n))
+    before = ds.ssd_step.launches
+    got = ops.ssd_step(*args)
+    assert ds.ssd_step.launches == before + 1
+    assert all(torch.equal(a, g) for a, g in zip(ops.ssd_step(*args), got))
+    for name, a, r in zip(("ssm", "y"), got, ds.ssd_step_plain(*args)):
+        _close(a, r, TOL[dtype, "state" if name == "ssm" else "stream"], name)
+
+
+def test_mamba1_model_on_the_card_launches_kernel_5(dev):
+    """A 2-layer mamba1 model: each decode step launches kernel 5 once a
+    layer, and prefill and steps sit near the CPU plain path's logits;
+    ``selective_scan_decode_step`` and ``ssd_decode_step`` in ``pallas``
+    mode launch kernels 4 and 3 once each."""
+    from repro_torch.core import selective_scan as tsscan, ssd as tssd
+    from repro_torch.models import ModelConfig, build_model
+    from repro_torch.nn.params import init_params
+    cfg = ModelConfig(name="m", family="mamba", vocab_size=64, d_model=64,
+                      n_layers=2, d_state=16, param_dtype="float32")
+    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+    params = init_params(gpu.param_specs(), 0, torch.float32, "cpu")
+    toks = torch.randint(1, 64, (2, 24), generator=torch.Generator()
+                         .manual_seed(0))
+    before = ds.mamba1_step.launches
+    with torch.inference_mode():
+        gp = gpu.decode_view(_to(params, dev))
+        lg, cg = gpu.prefill(gp, {"tokens": toks.to(dev)},
+                             gpu.init_cache(2, dtype=torch.float32))
+        lc, cc = cpu.prefill(params, {"tokens": toks},
+                             cpu.init_cache(2, dtype=torch.float32))
+        for t in range(3):
+            lg, cg = gpu.decode_step(gp, toks[:, t:t + 1].to(dev), cg, t)
+            lc, cc = cpu.decode_step(params, toks[:, t:t + 1], cc, t)
+            assert float((lg.cpu() - lc).abs().max()) <= 1e-3
+    assert ds.mamba1_step.launches - before == 3 * cfg.n_layers
+    gen = torch.Generator().manual_seed(1)
+    st = torch.randn(2, 64, 16, generator=gen).to(dev)
+    u, dt = torch.randn(2, 64).to(dev), torch.rand(2, 64).to(dev)
+    A, B, C = -torch.rand(64, 16).to(dev), torch.randn(2, 16).to(dev), \
+        torch.randn(2, 16).to(dev)
+    b4 = ds.sscan_step.launches
+    got = tsscan.selective_scan_decode_step(st, u, dt, A, B, C,
+                                            mode="pallas")
+    assert ds.sscan_step.launches == b4 + 1
+    want = tsscan.selective_scan_decode_step(st, u, dt, A, B, C,
+                                             mode="naive")
+    assert all(float((a - r).abs().max()) <= 1e-4 for a, r in zip(got, want))
+    st = torch.randn(2, 4, 8, 16).to(dev)
+    b3 = ds.ssd_step.launches
+    args = (st, torch.randn(2, 4, 8).to(dev), torch.rand(2, 4).to(dev),
+            -torch.rand(4).to(dev), torch.randn(2, 1, 16).to(dev),
+            torch.randn(2, 1, 16).to(dev))
+    got = tssd.ssd_decode_step(*args, mode="pallas")
+    assert ds.ssd_step.launches == b3 + 1
+    want = tssd.ssd_decode_step(*args, mode="naive")
+    assert all(float((a - r).abs().max()) <= 1e-4 for a, r in zip(got, want))

@@ -203,7 +203,10 @@ def test_registry():
             cfg.vocab_size, cfg.chunk_size) == (768, 24, 128, 64, 50288, 256)
     assert cfg.dtype == torch.bfloat16
     assert get_config("mamba2-130m", reduced=True).n_layers == 2
-    for arch in ("mamba-130m", "gemma-2b"):
+    cfg = get_config("mamba-130m")
+    assert (cfg.family, cfg.d_model, cfg.n_layers, cfg.d_state, cfg.dt_rank,
+            cfg.vocab_size) == ("mamba", 768, 24, 16, 48, 50280)
+    for arch in ("recurrentgemma-2b", "gemma-2b"):
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config(arch)
 

@@ -191,17 +191,24 @@ def test_reduce_sum_and_mean_match_jax(mode):
 
 
 def test_unported_kernel_modes_raise():
-    """Kernels 14 and 3 are reached only through these modes; they raise
-    and name the kernel instead of running a stand-in."""
+    """Kernel 14 is reached only through these modes; it raises and names
+    the kernel instead of running a stand-in.  Kernel 3, ported since,
+    runs there instead: on the CPU its plain version, against the JAX
+    package's ``ssd_decode_step`` in the same mode (interpret)."""
     x = torch.ones(3, 4)
+    rng = np.random.default_rng(12)
+    args = (rng.normal(size=(2, 4, 8, 16)), rng.normal(size=(2, 4, 8)),
+            rng.uniform(0.01, 1.0, size=(2, 4)), -rng.uniform(0.1, 2, 4),
+            rng.normal(size=(2, 2, 16)), rng.normal(size=(2, 2, 16)))
+    args = [a.astype(np.float32) for a in args]
+    want = jssd.ssd_decode_step(*map(jnp.asarray, args),
+                                mode="pallas_interpret")
     for mode in ("pallas", "pallas_interpret"):
         with pytest.raises(NotImplementedError, match="kernel 14"):
             treduce.reduce_sum(x, mode=mode)
-        with pytest.raises(NotImplementedError, match="kernel 3"):
-            tssd.ssd_decode_step(torch.zeros(1, 2, 4, 3), torch.ones(1, 2, 4),
-                                 torch.ones(1, 2), -torch.ones(2),
-                                 torch.ones(1, 1, 3), torch.ones(1, 1, 3),
-                                 mode=mode)
+        got = tssd.ssd_decode_step(*map(_t, args), mode=mode)
+        for a, r in zip(got, want):
+            assert _err(a, r) <= 1e-5
 
 
 # ---------------------------------------------------------------------------
