@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives ``src/repro_torch`` (never JAX) at the full width of mamba2-130m
-and of mamba-130m (Mamba-1):
+Drives ``src/repro_torch`` (never JAX) at the full width of mamba2-130m,
+of mamba-130m (Mamba-1) and of recurrentgemma-2b:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — ``nvcc`` builds every kernel from ``src/repro_torch/csrc``;
@@ -13,6 +13,11 @@ and of mamba-130m (Mamba-1):
    ``cumsum_last`` on the SSD chain's (4, 24, 2, 256) prefix sums,
    ``ssd_chunk`` at b = 4, two chunks of 256, and ``pwl_activate`` with
    the SiLU and softplus tables on the chain's xBC and dt streams;
+   ``rglru_step`` at recurrentgemma-2b's width (b = 1 and 4, exact and
+   with the sigmoid / softplus / gelu tables), ``rg_lru_scan`` at (4,
+   256, 2560) and (4, 300, 2560), ``matmul_pwl`` (gelu table, plain and
+   gated) at m = 4 and 512 against (2560, 7680), each run twice for the
+   same bits;
    ``qmatmul`` (W8) at mamba2-130m's in_proj and out_proj shapes with
    m = 4, 8, 256 and 512, at mamba2-2.7b's at m = 4, and in its PWL and
    gated forms at (512, 768) x (768, 2048), each run twice and held to
@@ -35,7 +40,15 @@ and of mamba-130m (Mamba-1):
    continuous engine (chunk 64, 12 requests, with and without W8) and
    the wave engine: 24 ``mamba1_step`` launches per decode step, 48
    ``qmatmul`` per decode step and per chunk call under W8, no mamba2
-   kernel;
+   kernel.  4d: recurrentgemma-2b at full width and depth, bf16, through
+   the CLI's wave engine (8 requests) and continuous engine (chunk 64,
+   12 requests): 18 ``rglru_step`` launches per decode step and no other
+   kernel; then on the same weights an ``Engine`` under ``pallas()`` (18
+   ``rglru_step`` + 26 ``matmul_pwl`` per decode step, 26 ``matmul_pwl``
+   per prefill), ``RecurrentGemma.loss`` at b = 2, l = 256 under
+   ``pallas()`` (18 ``rg_lru_scan``, 26 ``matmul_pwl``) and without
+   ActiBA (a finite loss), and one continuous request with a 2304-token
+   prompt in chunks of 256 (the 2048-slot ring wraps) and 16 new tokens;
 5. parity  — the same model in fp32, kernel path on the card against the
    plain path on the CPU, teacher-forced over 16 greedy tokens of 4
    prompts, with fp32 weights and with W8 weights: tokens agree
@@ -47,7 +60,11 @@ and of mamba-130m (Mamba-1):
    no farther from it than ``M1_WITNESS_X`` times the CPU plain path
    is (and at least ``LOGIT_TOL``).  5c: ``ssd_decode_step`` and
    ``selective_scan_decode_step`` in ``pallas`` mode, one launch of
-   kernels 3 and 4 each, against their ``naive`` modes;
+   kernels 3 and 4 each, against their ``naive`` modes.  5d:
+   recurrentgemma-2b at full width and depth 5 in fp32, the card against
+   the CPU's plain path within ``RG_SENS_X`` times the CPU's response to
+   a one-ulp move of the embeddings, the loss under ``pallas()`` (with
+   and without ActiBA) the same way, and continuous against wave;
 6. ablation — the paper's Fig. 4a variants (``examples/xamba_ablation.py``:
    baseline, +CumBA, +ReduBA, +CumBA+ReduBA, +ActiBA) and ``pallas()``
    through ``repro_torch.launch.ablation``: ``MambaLM.forward`` of the fp32
@@ -72,6 +89,7 @@ the last line the device record.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import pathlib
@@ -162,6 +180,17 @@ M1_D_INNER, M1_D_STATE, M1_DT_RANK = 2 * D_MODEL, 16, 48
 # CPU, which round differently in every layer, are compared through
 # their accuracy, not with each other at LOGIT_TOL.
 M1_WITNESS_X = 2.0
+# recurrentgemma-2b (src/repro/configs/recurrentgemma_2b.py): lru_width =
+# d_model = 2560, d_ff 7680 (GeGLU), 18 recurrent and 8 attention layers.
+RG_W, RG_D_FF = 2560, 7680
+# Its fp32 parity phase (depth 5) holds the card to the CPU plain path
+# within RG_SENS_X times the CPU's own response to moving every embedding
+# element by one ulp (and at least LOGIT_TOL): the card and the CPU round
+# differently in every layer, and that reading says how far this random
+# model carries one rounding to the logits.
+RG_SENS_X = 4.0
+# The ring phase: one prompt longer than the 2048-token window, chunked.
+RG_RING_PROMPT, RG_RING_CHUNK = 2304, 256
 
 
 def reset_counts(counters) -> None:
@@ -283,6 +312,49 @@ def ssd_step_inputs(b, dev, dtype, seed):
             _rand(g, (b, N_GROUPS, D_STATE), 1.0, dev, f32))
 
 
+def rglru_inputs(b, dev, dtype, seed):
+    """Kernel 6's operands at recurrentgemma-2b's width: u, gate and the
+    conv tail in ``dtype``, h fp32, the gate weights in ``dtype`` (as the
+    model stores them) at std 1/sqrt(w), so that the gates sit in the
+    sigmoid's working range; the small parameters fp32, as the model's
+    ``decode_view`` hands them over."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    f32, w = torch.float32, RG_W
+    return dict(
+        u=_rand(g, (b, w), 1.0, dev, dtype),
+        gate=_rand(g, (b, w), 1.0, dev, dtype),
+        conv_state=_rand(g, (b, WIDTH - 1, w), 1.0, dev, dtype),
+        h_state=_rand(g, (b, w), 1.0, dev, f32),
+        conv_w=_rand(g, (WIDTH, w), 0.5, dev, f32),
+        conv_b=_rand(g, (w,), 0.1, dev, f32),
+        rg_w=_rand(g, (w, w), w ** -0.5, dev, dtype),
+        rg_b=_rand(g, (w,), 0.1, dev, f32),
+        ig_w=_rand(g, (w, w), w ** -0.5, dev, dtype),
+        ig_b=_rand(g, (w,), 0.1, dev, f32),
+        lam=_rand(g, (w,), 0.5, dev, f32))
+
+
+def rg_scan_inputs(b, l, dev, dtype, seed):
+    """Kernel 8's operands: decays a in (0, 1) and inputs b, (b, l, 2560)
+    in ``dtype``."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand((b, l, RG_W), generator=g).to(dev).to(dtype),
+            _rand(g, (b, l, RG_W), 1.0, dev, dtype))
+
+
+def mpwl_inputs(m, dev, dtype, seed, gated):
+    """Kernel 11's operands at recurrentgemma-2b's MLP: x (m, 2560), wg
+    (and wi, gated) (2560, 7680) at std 1/sqrt(2560), all in ``dtype``."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    x = _rand(g, (m, RG_W), 1.0, dev, dtype)
+    w = _rand(g, (RG_W, RG_D_FF), RG_W ** -0.5, dev, dtype)
+    v = _rand(g, (RG_W, RG_D_FF), RG_W ** -0.5, dev, dtype) if gated else None
+    return x, w, v
+
+
 def _bf16_steps(diff, r):
     """``diff`` in bf16 steps at ``|r|`` (the spacing of bf16 values
     there: 2^(floor(log2|r|) - 7))."""
@@ -358,17 +430,18 @@ def chain_inputs(dev, dtype, seed):
 def kernel_cases(dev, kernels, tables):
     """Phase 3: every kernel against its plain version on the card.  Every
     case is printed; the phase fails at its end if any output failed.
-    ``tables``: the ActiBA tables (``silu``, ``softplus``) of
-    ``XambaConfig.pallas()``."""
+    ``tables``: the ActiBA tables (``silu``, ``softplus``, ``sigmoid``,
+    ``gelu``) of ``XambaConfig.pallas()``."""
     import torch
     kw = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM)
     worst = {k: 0.0 for k in ("mamba2_step", "mamba2_prefill", "cumsum_last",
                               "ssd_chunk", "pwl_activate", "qmatmul",
-                              "mamba1_step", "sscan_step", "ssd_step")}
+                              "mamba1_step", "sscan_step", "ssd_step",
+                              "rglru_step", "rg_lru_scan", "matmul_pwl")}
     fails = []
     ktab = dict(silu_table=tables["silu"], softplus_table=tables["softplus"])
-    pact = {k: (lambda v, t=t: kernels["pwl_activate_plain"](v, t))
-            for k, t in tables.items()}
+    pact = {k: (lambda v, t=tables[k]: kernels["pwl_activate_plain"](v, t))
+            for k in ("silu", "softplus")}
 
     def check(kernel, case, got, want, dn, outs=FUSED_OUTS):
         err, bad = compare(f"{kernel} {case}", got, want, dn, outs)
@@ -453,6 +526,37 @@ def kernel_cases(dev, kernels, tables):
         twice("ssd_step", f"{dn} b=4 h={N_HEADS} p={HEAD_DIM} n={D_STATE} "
               f"g={N_GROUPS}", lambda: kernels["ssd_step"](*args),
               lambda: kernels["ssd_step_plain"](*args), dn, bare)
+        rtab = {f"{k}_table": tables[k] for k in ("sigmoid", "softplus",
+                                                    "gelu")}
+        ract = {k: (lambda v, t=tables[k]: kernels["pwl_activate_plain"](
+            v, t)) for k in ("sigmoid", "softplus", "gelu")}
+        rg_outs = (("y", "stream"), ("conv", "stream"), ("h", "state"))
+        for b in (1, 4):
+            ins = rglru_inputs(b, dev, dtype, seed=80 + b)
+            twice("rglru_step", f"{dn} b={b} w={RG_W}",
+                  lambda: kernels["rglru_step"](**ins),
+                  lambda: kernels["rglru_step_plain"](**ins), dn, rg_outs)
+            twice("rglru_step", f"{dn} b={b} w={RG_W} actiba",
+                  lambda: kernels["rglru_step"](**ins, **rtab),
+                  lambda: kernels["rglru_step_plain"](**ins, **ract), dn,
+                  rg_outs)
+        for l in (256, 300):
+            a, bb = rg_scan_inputs(4, l, dev, dtype, seed=90 + l)
+            twice("rg_lru_scan", f"{dn} (4, {l}, {RG_W})",
+                  lambda: (kernels["rg_lru_scan"](a, bb),),
+                  lambda: (kernels["rg_lru_scan_plain"](a, bb),), dn,
+                  (("h", "stream"),))
+        for m in (4, 512):
+            for gated in (False, True):
+                x, w, v = mpwl_inputs(m, dev, dtype, seed=m + gated,
+                                      gated=gated)
+                twice("matmul_pwl", f"{dn} {'gated' if gated else 'pwl'} "
+                      f"(gelu table) x ({m}, {RG_W}) w ({RG_W}, {RG_D_FF})",
+                      lambda: (kernels["matmul_pwl"](x, w, tables["gelu"],
+                                                     v),),
+                      lambda: (kernels["matmul_pwl_plain"](
+                          x, w, tables["gelu"], v),), dn,
+                      (("out", "stream"),))
         for case, args, qkw in qmatmul_cases(dev, dtype, tables):
             got = kernels["qmatmul"](*args, **qkw)
             again = kernels["qmatmul"](*args, **qkw)
@@ -506,11 +610,22 @@ SERVE_ARGV = ["--arch", "mamba2-130m", "--requests", "8", "--batch", "4",
 
 def path_launches(cfg, steps, prefills, w8=False) -> dict:
     """The launches a serve run of ``cfg`` must make: each decode step
-    runs the family's fused step once a layer; a mamba2 prefill (a wave
-    or a chunk call) the fused prefill once a layer (mamba1's prefill is
+    runs the family's fused step once a layer (recurrentgemma: once a
+    recurrent layer); a mamba2 prefill (a wave or a chunk call) the fused
+    prefill once a layer (mamba1's and recurrentgemma's prefills are
     plain ops); under W8 every decode step and prefill call runs two
-    qmatmuls a layer (in_proj, out_proj)."""
+    qmatmuls a layer (in_proj, out_proj); under ActiBA with a ``pallas``
+    CumBA mode recurrentgemma's MLP runs ``matmul_pwl`` once a layer in
+    every decode step and prefill call."""
     n = cfg.n_layers
+    if cfg.family == "recurrentgemma":
+        pattern = cfg.block_pattern
+        n_rec = sum(pattern[i % len(pattern)] == "recurrent"
+                    for i in range(n))
+        want = {"rglru_step": n_rec * steps}
+        if cfg.xamba.actiba and cfg.xamba.cumba.startswith("pallas"):
+            want["matmul_pwl"] = n * (steps + prefills)
+        return want
     step = "mamba2_step" if cfg.family == "mamba2" else "mamba1_step"
     want = {step: n * steps}
     if cfg.family == "mamba2":
@@ -682,7 +797,7 @@ def parity_phase(dev, seed, cfg, counters, quant_mode="none"):
     cpu = build_model(cfg, "cpu")
     params = quant.quantize_params_for_mode(
         init_params(gpu.param_specs(), seed, torch.float32, dev), quant_mode)
-    cparams = _to_cpu(params)
+    cparams = _move(params, "cpu")
     rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(
         rng.integers(1, cfg.vocab_size, size=(4, 128)).astype(np.int64))
@@ -837,11 +952,11 @@ def engines_phase(dev, seed, cfg, tol=LOGIT_TOL):
             toks[0, 128 - len(prompts[uid - 1]):] = torch.tensor(
                 prompts[uid - 1])
             logits, cache = model.prefill(
-                view, {"tokens": toks}, model.init_cache(1,
-                                                         dtype=torch.float32))
-            for t in a[:j]:
+                view, {"tokens": toks}, model.init_cache(1, 128 + 16,
+                                                         torch.float32))
+            for i, t in enumerate(a[:j]):
                 logits, cache = model.decode_step(
-                    view, torch.tensor([[t]], device=dev), cache, 0)
+                    view, torch.tensor([[t]], device=dev), cache, 128 + i)
             top2 = logits[0].topk(2).values
             margins.append((uid, j, float(top2[0] - top2[1])))
     print(f"  {cfg.name} continuous (monolithic) vs wave, fp32: {same}/8 "
@@ -849,6 +964,307 @@ def engines_phase(dev, seed, cfg, tol=LOGIT_TOL):
           f"position, top-2 margin): {margins}", flush=True)
     assert all(mg <= tol for _, _, mg in margins), \
         "engines: tokens differ where the margin exceeds the tolerance"
+
+
+RG_SERVE_ARGV = ["--arch", "recurrentgemma-2b", "--requests", "8", "--batch",
+                 "4", "--prompt-len", "128", "--max-new", "16",
+                 "--temperature", "0", "--seed", "0"]
+RG_CONT_ARGV = ["--arch", "recurrentgemma-2b", "--engine", "continuous",
+                "--prefill-chunk", "64", "--requests", "12", "--batch", "4",
+                "--prompt-len", "128", "--max-new", "16", "--temperature",
+                "0", "--seed", "0"]
+
+
+def rgemma_modes_phase(engine, counters, dev):
+    """Phase 4d, continued, on the served full-width bf16 weights
+    (``engine``'s): an ``Engine`` under ``XambaConfig.pallas()`` (18
+    ``rglru_step`` per decode step; 26 ``matmul_pwl`` per decode step,
+    GEMV, and per prefill, tiled); one ``RecurrentGemma.loss`` forward
+    under ``pallas()`` at b = 2, l = 256 (18 ``rg_lru_scan``, 26
+    ``matmul_pwl``), and under ``pallas()`` without ActiBA (kernel 8 with
+    the exact activations), whose loss must be finite; then one continuous
+    request with a 2304-token prompt in chunks of 256, past the 2048-slot
+    ring, and 16 new tokens.  Returns the launches of kernels 8 and 11 and
+    kernel 11's by path.
+
+    Under ActiBA the outputs are counted, not required finite: at this
+    random init the RG-LRU gates' pre-activations lie far below the
+    sigmoid table's fitted range (-6.26), where the table extrapolates
+    its end slope and goes negative, so a = exp(-8 softplus(lam) r)
+    exceeds 1 and the recurrence overflows.  That is the function the
+    JAX package defines (``core/pwl.py``: no clamp), not a kernel fault:
+    phase 3 holds every kernel to its plain version in range."""
+    import numpy as np
+    import torch
+    from repro_torch.core.xamba import XambaConfig
+    from repro_torch.models import build_model
+    from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
+
+    model, params = engine.model, engine.params
+    cfg = model.cfg
+    n, n_rec = cfg.n_layers, model.n_rec
+    pmodel = build_model(cfg.replace(xamba=XambaConfig.pallas()), dev)
+    eng = Engine(pmodel, params, ServeConfig(
+        max_batch=4, prefill_buckets=(32, 128), max_new_tokens=6))
+    rng = np.random.default_rng(5)
+    for length in (20, 7, 30, 12, 100, 128, 90, 64):   # a 32 wave, a 128 one
+        eng.submit(rng.integers(1, cfg.vocab_size, length).tolist())
+    reset_counts(counters)
+    done = eng.run()
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    paths = dict(counters["matmul_pwl"].path_launches)
+    m = eng.metrics.summary()
+    steps, waves = m["decode_steps"], 2
+    toks = [t for r in done for t in r.out_tokens]
+    print(f"  pallas() + ActiBA (Engine): {len(done)} requests, {len(toks)} "
+          f"tokens, {steps} decode steps, {waves} waves; "
+          f"{m['nonfinite_logit_rows']} of {m['logit_rows']} logit rows not "
+          f"finite; launches {dict((k, v) for k, v in launches.items() if v)}"
+          f", matmul_pwl by path {paths}", flush=True)
+    assert len(done) == 8 and all(len(r.out_tokens) == 6 for r in done)
+    assert all(0 <= t < cfg.vocab_size for t in toks)
+    assert launches["rglru_step"] == n_rec * steps
+    assert launches["matmul_pwl"] == n * (steps + waves)
+    assert paths == {"gemv": n * steps, "tiled": n * waves}
+    assert launches["rg_lru_scan"] == 0
+    out = {"matmul_pwl": launches["matmul_pwl"], "matmul_pwl_paths": paths}
+
+    g = torch.Generator().manual_seed(6)
+    toks = torch.randint(1, cfg.vocab_size, (2, 256), generator=g).to(dev)
+    exact = build_model(cfg.replace(xamba=dataclasses.replace(
+        XambaConfig.pallas(), actiba=False)), dev)
+    for label, mdl, want in (("pallas()", pmodel, (n_rec, n)),
+                             ("pallas() without ActiBA", exact, (n_rec, 0))):
+        reset_counts(counters)
+        loss, met = mdl.loss(params, {"tokens": toks, "labels": toks})
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        print(f"  loss under {label} (b=2, l=256): {float(loss):.4f}, "
+              f"accuracy {float(met['accuracy']):.4f}; launches "
+              f"{dict((k, v) for k, v in launches.items() if v)}",
+              flush=True)
+        assert (launches["rg_lru_scan"], launches["matmul_pwl"]) == want
+        assert launches["rglru_step"] == 0
+    assert bool(torch.isfinite(loss)), "loss: not finite"
+    out["rg_lru_scan"] = n_rec
+
+    ring = ContinuousEngine(model, params, ServeConfig(
+        max_batch=4, prefill_buckets=(RG_RING_PROMPT,), max_new_tokens=16,
+        prefill_chunk=RG_RING_CHUNK))
+    T = ring.pool.cache.k.shape[2]
+    assert T == cfg.sliding_window < ring.max_seq, "ring: the cache layout"
+    ring.submit(rng.integers(1, cfg.vocab_size, RG_RING_PROMPT).tolist())
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    done = ring.run()
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    m = ring.metrics.summary()
+    toks = done[0].out_tokens if done else []
+    print(f"  ring: a {RG_RING_PROMPT}-token prompt in {m['prefill_chunks']} "
+          f"chunk calls of {RG_RING_CHUNK} into a {T}-slot ring, "
+          f"{len(toks)} tokens {toks[:8]}... in "
+          f"{time.perf_counter() - t0:.3f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    assert len(done) == 1 and len(toks) == 16
+    assert all(0 <= t < cfg.vocab_size for t in toks)
+    assert m["nonfinite_logit_rows"] == 0 and m["logit_rows"] > 0
+    assert m["prefill_chunks"] == RG_RING_PROMPT // RG_RING_CHUNK
+    assert launches["rglru_step"] == n_rec * m["decode_steps"]
+    return out
+
+
+def _rg_logits(model, params, prompts, forced, device):
+    """(b, 16, V) logits: the prompt's last, then 15 teacher-forced decode
+    steps at their positions."""
+    import torch
+    b, l = prompts.shape
+    cache = model.init_cache(b, l + 16, torch.float32)
+    logits, cache = model.prefill(params, {"tokens": prompts.to(device)},
+                                  cache)
+    outs = [logits.cpu()]
+    for t in range(15):
+        tok = forced[:, t:t + 1] if forced is not None else \
+            outs[-1].argmax(-1, keepdim=True)
+        logits, cache = model.decode_step(params, tok.to(device), cache,
+                                          l + t)
+        outs.append(logits.cpu())
+    return torch.stack(outs, 1)
+
+
+def _nudged(params):
+    """``params`` with every embedding element moved up by one ulp."""
+    import torch
+    table = params["embed"]["table"]
+    return dict(params, embed={"table": torch.nextafter(
+        table, torch.full_like(table, float("inf")))})
+
+
+def rgemma_parity_phase(dev, seed, counters):
+    """Phase 5d: recurrentgemma-2b at full width and depth 5 (one group
+    and a two-layer tail), fp32.  The card against the CPU plain path,
+    teacher-forced over 16 greedy tokens of 4 prompts of 64, within
+    ``RG_SENS_X`` times the CPU's response to a one-ulp move of every
+    embedding element; then ``loss`` under ``pallas()`` (4 launches of
+    kernel 8, 5 of kernel 11) at b = 2, l = 128, held the same way.
+    Returns the logit tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.xamba import XambaConfig
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import init_params
+
+    cfg = get_config("recurrentgemma-2b").replace(n_layers=5,
+                                                  param_dtype="float32")
+    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+    params = init_params(gpu.param_specs(), seed, torch.float32, "cpu")
+    gparams = gpu.decode_view(_move(params, dev))
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, size=(4, 64)).astype(np.int64))
+    with torch.inference_mode():
+        reset_counts(counters)
+        lk = _rg_logits(gpu, gparams, prompts, None, dev)
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        forced = lk.argmax(-1)
+        t0 = time.perf_counter()
+        lp = _rg_logits(cpu, params, prompts, forced, "cpu")
+        lp1 = _rg_logits(cpu, _nudged(params), prompts, forced, "cpu")
+    sens = float((lp1 - lp).abs().max())
+    tol = max(LOGIT_TOL, RG_SENS_X * sens)
+    err = float((lk - lp).abs().max())
+    want = dict({k: 0 for k in counts}, **path_launches(cfg, 15, 1))
+    top2 = lp.topk(2, dim=-1).values
+    confident = (top2[..., 0] - top2[..., 1]) > tol
+    agree = lk.argmax(-1) == lp.argmax(-1)
+    print(f"  depth 5 fp32, logits up to {float(lp.abs().max()):.3f}: a "
+          f"one-ulp move of the embeddings moves the CPU's logits by "
+          f"{sens:.3e} ({time.perf_counter() - t0:.1f} s on the CPU); card "
+          f"vs CPU {err:.3e} (tol {tol:.3e}); "
+          f"{int(confident.sum())}/{confident.numel()} positions above the "
+          f"margin, {int(agree[confident].sum())} agree; "
+          f"{int(agree.sum())}/{agree.numel()} agree overall; launches on "
+          f"the card {counts} (expected {want})", flush=True)
+    assert counts == want, "rgemma parity: launches"
+    assert torch.isfinite(lk).all() and torch.isfinite(lp).all()
+    assert err <= tol, f"rgemma parity: logit error {err}"
+    assert bool(agree[confident].all()), "rgemma parity: token differs"
+
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(1, cfg.vocab_size, (2, 128), generator=g)
+    batch = {"tokens": toks, "labels": toks}
+    for label, xamba, want in (
+            ("pallas()", XambaConfig.pallas(), (4, 5)),
+            ("pallas() without ActiBA", dataclasses.replace(
+                XambaConfig.pallas(), actiba=False), (4, 0))):
+        pcfg = cfg.replace(xamba=xamba)
+        pgpu, pcpu = build_model(pcfg, dev), build_model(pcfg, "cpu")
+        with torch.inference_mode():
+            reset_counts(counters)
+            lg = float(pgpu.loss(gparams, {k: v.to(dev) for k, v in
+                                           batch.items()})[0])
+            counts = read_counts(counters)
+            lc = float(pcpu.loss(params, batch)[0])
+            lc1 = float(pcpu.loss(_nudged(params), batch)[0])
+        ltol = max(LOGIT_TOL, RG_SENS_X * abs(lc1 - lc))
+        print(f"  loss under {label} (b=2, l=128): card {lg:.6f}, CPU "
+              f"{lc:.6f} (one-ulp move {abs(lc1 - lc):.3e}; tol "
+              f"{ltol:.3e}); launches "
+              f"{dict((k, v) for k, v in counts.items() if v)}", flush=True)
+        assert (counts["rg_lru_scan"], counts["matmul_pwl"]) == want
+        if math.isfinite(lc):
+            assert abs(lg - lc) <= ltol, f"rgemma parity: loss ({label})"
+        else:
+            # ActiBA's overflow at this init (rgemma_modes_phase): the
+            # card computes the same function, so it overflows too.
+            assert xamba.actiba and not math.isfinite(lg), \
+                f"rgemma parity: loss ({label}) not finite"
+    return tol
+
+
+def rgemma_times(dev, kernels, launches, worst, tables):
+    """Phase 7's rows for kernels 6, 8 and 11 at recurrentgemma-2b's serve
+    shapes: kernel 6 at b = 4, bf16 (launches of the continuous bf16 CLI
+    run); kernel 8 at (4, 256, 2560) fp32 (the loss run's launches);
+    kernel 11 gated with the gelu table, bf16, GEMV at m = 4 and tiled at
+    m = 512 (the pallas() Engine run's launches by path).  Library for
+    kernel 11: its two ``torch.matmul`` products alone."""
+    import torch
+    rows = []
+    ins = rglru_inputs(4, dev, torch.bfloat16, seed=100)
+    outs = kernels["rglru_step"](**ins)
+    ms = time_call(lambda: kernels["rglru_step"](**ins))
+    plain_ms = time_call(lambda: kernels["rglru_step_plain"](**ins))
+    dev_ms = _ours(device_profile(lambda: kernels["rglru_step"](**ins)))
+    ops = 2 * 2 * 4 * RG_W * RG_W + 40 * 4 * RG_W
+    bound_ms, bound_by = _bound(_bytes(*ins.values(), *outs), ops)
+    rows.append(dict(
+        name="rglru_step", route="cuda",
+        source="src/repro_torch/csrc/rglru_step.cu",
+        replaces="src/repro/kernels/decode_step.py:282",
+        launches=launches["rglru_step"], max_abs_err=worst["rglru_step"],
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None))
+    print(f"  rglru_step b=4 bf16 w={RG_W}: kernel {ms:.4f} ms (device time "
+          f"of its two kernels {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}); library: no single "
+          f"PyTorch call; {launches['rglru_step']} launches in the "
+          f"continuous serve run", flush=True)
+    rtab = {f"{k}_table": tables[k] for k in ("sigmoid", "softplus", "gelu")}
+    ms_a = time_call(lambda: kernels["rglru_step"](**ins, **rtab))
+    dev_a = _ours(device_profile(lambda: kernels["rglru_step"](**ins,
+                                                               **rtab)))
+    print(f"  rglru_step b=4 bf16 with the ActiBA tables: kernel {ms_a:.4f} "
+          f"ms (device {dev_a:.4f} ms)", flush=True)
+
+    a, bb = rg_scan_inputs(4, 256, dev, torch.float32, seed=101)
+    h = kernels["rg_lru_scan"](a, bb)
+    ms = time_call(lambda: kernels["rg_lru_scan"](a, bb))
+    plain_ms = time_call(lambda: kernels["rg_lru_scan_plain"](a, bb), n=5)
+    dev_ms = _ours(device_profile(lambda: kernels["rg_lru_scan"](a, bb)))
+    bound_ms, bound_by = _bound(_bytes(a, bb, h), 2 * a.numel())
+    rows.append(dict(
+        name="rg_lru_scan", route="cuda", source="src/repro_torch/csrc/rg_lru.cu",
+        replaces="src/repro/kernels/rg_lru.py:55",
+        launches=launches["rg_lru_scan"], max_abs_err=worst["rg_lru_scan"],
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None))
+    print(f"  rg_lru_scan fp32 {tuple(a.shape)}: kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({bound_by}); library: no single PyTorch call; "
+          f"{launches['rg_lru_scan']} launches in the pallas() loss",
+          flush=True)
+
+    paths = launches["matmul_pwl_paths"]
+    for path, m in (("gemv", 4), ("tiled", 512)):
+        x, w, v = mpwl_inputs(m, dev, torch.bfloat16, seed=102 + m,
+                              gated=True)
+        args = (x, w, tables["gelu"], v)
+        out = kernels["matmul_pwl"](*args)
+        ms = time_call(lambda: kernels["matmul_pwl"](*args))
+        plain_ms = time_call(lambda: kernels["matmul_pwl_plain"](*args))
+        dev_ms = _ours(device_profile(lambda: kernels["matmul_pwl"](*args)))
+        lib_ms = time_call(lambda: (torch.matmul(x, w), torch.matmul(x, v)))
+        bound_ms, bound_by = _bound(_bytes(x, w, v, out),
+                                    2 * 2 * m * RG_W * RG_D_FF,
+                                    BF16_TC_FLOP_PER_S)
+        rows.append(dict(
+            name=f"matmul_pwl_{path}", route="cuda",
+            source="src/repro_torch/csrc/matmul_pwl.cu",
+            replaces="src/repro/kernels/matmul_pwl.py:69",
+            launches=paths[path], max_abs_err=worst["matmul_pwl"], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms))
+        print(f"  matmul_pwl {path} gated bf16 x ({m}, {RG_W}) w, v ({RG_W}, "
+              f"{RG_D_FF}): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), library {lib_ms:.4f} ms (its two torch.matmul "
+              f"products alone); {paths[path]} launches of this path in "
+              f"the pallas() Engine run", flush=True)
+    return rows
 
 
 def bare_updates_phase(dev, counters):
@@ -938,7 +1354,7 @@ def ablation_phase(dev, seed, cfg, counters, kernels, worst):
                                   xamba=XambaConfig.pallas()), "cpu")
     t0 = time.perf_counter()
     with torch.inference_mode():
-        logits["pallas (CPU plain)"] = cpu.forward(_to_cpu(params),
+        logits["pallas (CPU plain)"] = cpu.forward(_move(params, "cpu"),
                                                    tokens.cpu())
     print(f"  CPU forward of pallas() {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -1129,15 +1545,16 @@ def witness_forward(params, cfg, tokens, tables=None, perturb=0.0):
         d(params["embed"]["table"]).t()
 
 
-def _to_cpu(tree):
+def _move(tree, device):
+    """``tree`` (params, a list or a ``QuantTensor``) on ``device``."""
     from repro_torch.nn.quant import QuantTensor
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: _move(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_cpu(v) for v in tree]
+        return [_move(v, device) for v in tree]
     if isinstance(tree, QuantTensor):
-        return tree.apply(lambda a: a.cpu())
-    return tree.cpu()
+        return tree.apply(lambda a: a.to(device))
+    return tree.to(device)
 
 
 def time_call(fn, n=30, warmup=3):
@@ -1159,9 +1576,11 @@ def time_call(fn, n=30, warmup=3):
 
 OUR_KERNELS = ("mamba2_step_kernel", "gated_norm_kernel", "conv_act_kernel",
                "ssd_scan_kernel", "cumsum_last_kernel", "ssd_chunk_kernel",
-               "pwl_activate_kernel", "qmm_gemv_kernel", "qmm_drain_kernel",
-               "qmm_tiled_kernel", "mamba1_conv_xproj_kernel",
-               "mamba1_scan_kernel", "sscan_step_kernel", "ssd_step_kernel")
+               "pwl_activate_kernel", "gemm::gemv_kernel",
+               "gemm::drain_kernel", "gemm::tiled_kernel",
+               "mamba1_conv_xproj_kernel", "mamba1_scan_kernel",
+               "sscan_step_kernel", "ssd_step_kernel", "rglru_gates_kernel",
+               "rglru_update_kernel", "rg_lru_scan_kernel")
 
 
 def device_profile(fn, n=10):
@@ -1202,13 +1621,13 @@ def step_breakdown(engine, label):
 
     def prefill():
         return model.prefill(params, {"tokens": toks},
-                             model.init_cache(b, dtype=model.cfg.dtype))
+                             model.init_cache(b, 129, model.cfg.dtype))
 
     _, cache = prefill()
     tok = toks[:, :1]
 
     def decode():
-        return model.decode_step(params, tok, cache, 0)
+        return model.decode_step(params, tok, cache, 128)
 
     for name, fn in (("decode step", decode), ("prefill l=128", prefill)):
         fn()
@@ -1531,7 +1950,7 @@ def main() -> int:
     from repro_torch.core.pwl import table_for
     from repro_torch.core.xamba import XambaConfig
     from repro_torch.kernels import actiba, build, cumba, decode_step, \
-        prefill_chunk, qmatmul, ssd_chunk
+        matmul_pwl, prefill_chunk, qmatmul, rg_lru, ssd_chunk
     from repro_torch.launch import serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1572,6 +1991,12 @@ def main() -> int:
         "sscan_step_plain": decode_step.sscan_step_plain,
         "ssd_step": decode_step.ssd_step,
         "ssd_step_plain": decode_step.ssd_step_plain,
+        "rglru_step": decode_step.rglru_step,
+        "rglru_step_plain": decode_step.rglru_step_plain,
+        "rg_lru_scan": rg_lru.rg_lru_scan,
+        "rg_lru_scan_plain": rg_lru.rg_lru_scan_plain,
+        "matmul_pwl": matmul_pwl.matmul_pwl,
+        "matmul_pwl_plain": matmul_pwl.matmul_pwl_plain,
     }
     counters = {"mamba2_step": decode_step.mamba2_step,
                 "mamba2_prefill": prefill_chunk.mamba2_prefill,
@@ -1581,7 +2006,10 @@ def main() -> int:
                 "qmatmul": qmatmul.qmatmul,
                 "mamba1_step": decode_step.mamba1_step,
                 "sscan_step": decode_step.sscan_step,
-                "ssd_step": decode_step.ssd_step}
+                "ssd_step": decode_step.ssd_step,
+                "rglru_step": decode_step.rglru_step,
+                "rg_lru_scan": rg_lru.rg_lru_scan,
+                "matmul_pwl": matmul_pwl.matmul_pwl}
     secs = {}
 
     def phase(title):
@@ -1595,7 +2023,8 @@ def main() -> int:
             print(f"== {title}", flush=True)
             secs[title] = now
     pallas = XambaConfig.pallas()
-    tables = {k: table_for(k, pallas) for k in ("silu", "softplus")}
+    tables = {k: table_for(k, pallas) for k in ("silu", "softplus",
+                                                "sigmoid", "gelu")}
 
     phase("3. kernels vs plain (full width)")
     with torch.inference_mode():
@@ -1625,6 +2054,15 @@ def main() -> int:
         serve.main, counters,
         [a if a != "mamba2-130m" else "mamba-130m" for a in SERVE_ARGV])
 
+    phase("4d. serve (recurrentgemma-2b: wave, continuous chunk 64, "
+          "pallas(), loss, ring)")
+    rg_wave, _, _, _ = serve_phase(serve.main, counters, RG_SERVE_ARGV)
+    rg_engine, rg_launches, _ = continuous_phase(serve.main, counters,
+                                                 RG_CONT_ARGV)
+    launches["rglru_step"] = rg_launches["rglru_step"]
+    with torch.inference_mode():
+        launches.update(rgemma_modes_phase(rg_engine, counters, dev))
+
     phase("5. path parity (fp32, kernel path vs plain path)")
     parity_phase(dev, 1, get_config("mamba2-130m"), counters)
     parity_phase(dev, 1, get_config("mamba2-130m"), counters, "w8")
@@ -1635,6 +2073,10 @@ def main() -> int:
     phase("5c. bare updates (kernels 3 and 4 through core/)")
     with torch.inference_mode():
         launches.update(bare_updates_phase(dev, counters))
+    phase("5d. path parity (recurrentgemma-2b, depth 5, fp32)")
+    rg_tol = rgemma_parity_phase(dev, 1, counters)
+    engines_phase(dev, 3, get_config("recurrentgemma-2b").replace(n_layers=5),
+                  rg_tol)
 
     phase("6. ablation (fp32 forward, b=4, l=300)")
     launches.update({k: v for k, v in ablation_phase(
@@ -1646,16 +2088,20 @@ def main() -> int:
         rows = times_phase(dev, kernels, launches, steps, waves, worst,
                            tables)
         rows += mamba1_times(dev, kernels, launches, m1_steps, worst, tables)
+        rows += rgemma_times(dev, kernels, launches, worst, tables)
         step_breakdown(engine, "mamba2-130m bf16")
         step_breakdown(w8_engine, "mamba2-130m W8")
         step_breakdown(m1_engine, "mamba-130m bf16")
         step_breakdown(m1_w8_engine, "mamba-130m W8")
+        step_breakdown(rg_engine, "recurrentgemma-2b bf16")
     engines_summary((("mamba2 wave, bf16 (8 requests)", engine),
                      ("mamba2 continuous 64, bf16 (12)", cont_engine),
                      ("mamba2 continuous 64, W8 (12)", w8_engine),
                      ("mamba1 wave, bf16 (8 requests)", m1_wave),
                      ("mamba1 continuous 64, bf16 (12)", m1_engine),
-                     ("mamba1 continuous 64, W8 (12)", m1_w8_engine)))
+                     ("mamba1 continuous 64, W8 (12)", m1_w8_engine),
+                     ("rgemma wave, bf16 (8 requests)", rg_wave),
+                     ("rgemma continuous 64, bf16 (12)", rg_engine)))
     phase(None)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 

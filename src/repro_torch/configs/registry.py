@@ -1,8 +1,8 @@
 """Architecture config registry: ``--arch <id>`` resolution.
 
-The Mamba-2 (mamba2-130m) and Mamba-1 (mamba-130m) paths are ported;
-every other architecture of the JAX package's registry raises
-``NotImplementedError`` here.
+The Mamba-2 (mamba2-130m), Mamba-1 (mamba-130m) and RecurrentGemma
+(recurrentgemma-2b) paths are ported; every other architecture of the
+JAX package's registry raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from repro_torch.models.base import ModelConfig
 _ARCHS: Dict[str, str] = {
     "mamba2-130m": "mamba2_130m",
     "mamba-130m": "mamba_130m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 

@@ -47,11 +47,13 @@ from repro_torch.core import segsum as xsegsum
 from repro_torch.core.xamba import XambaConfig
 
 
-def _associative(decay: torch.Tensor, dBu: torch.Tensor, h0: torch.Tensor
-                 ) -> torch.Tensor:
+def linear_scan(decay: torch.Tensor, dBu: torch.Tensor, h0: torch.Tensor
+                ) -> torch.Tensor:
     """Inclusive scan of ``(a, b) . (a', b') = (a a', b a' + b')`` over the
     time axis 1 (Hillis–Steele: log2(l) rounds), with the initial state
-    folded in afterwards.  Returns every state (b, l, d, n)."""
+    ``h0`` (the operands without their time axis) folded in afterwards:
+    every state ``h_t = a_t h_{t-1} + b_t``, shaped like ``decay``.  Also
+    the RG-LRU's carried-state prefill (``nn/ssm.py``)."""
     a, h = decay, dBu
     l = a.shape[1]
     off = 1
@@ -126,7 +128,7 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         y = torch.stack(ys, dim=1) if ys else uf.new_zeros((b, 0, d))
         hT = h
     elif mode == "associative":
-        h_all = _associative(torch.exp(dA), dBu, h0)
+        h_all = linear_scan(torch.exp(dA), dBu, h0)
         y = torch.einsum("bldn,bln->bld", h_all, Cf)
         hT = h_all[:, -1]
     elif mode == "chunked":

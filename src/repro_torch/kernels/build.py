@@ -5,7 +5,8 @@ PyTorch headers) is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library under ``<repo>/build/kernels/`` (listed in
 ``.gitignore``) and loaded with ``ctypes``.  The build runs at first use,
 one ``nvcc`` per source, all started together; a library whose name
-carries its source's content hash is reused until the source changes.
+carries the hash of its source and of the shared headers (``*.cuh``) is
+reused until one of them changes.
 
 Nothing here runs at import time: this module imports on a machine
 without ``nvcc`` or a GPU, and only :func:`library` needs them.
@@ -24,7 +25,8 @@ from typing import Dict
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("decode_step", "prefill_chunk", "gated_norm", "actiba", "cumba",
-           "ssd_chunk", "qmatmul", "mamba1_step")
+           "ssd_chunk", "qmatmul", "mamba1_step", "rglru_step", "rg_lru",
+           "matmul_pwl")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,8 +46,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes() + \
-        (CSRC / "common.cuh").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

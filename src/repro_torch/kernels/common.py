@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.kernels import build
 
+# dtype codes of the kernels' streams (and of bf16 / fp32 weights).
 STREAM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 P = ctypes.c_void_p

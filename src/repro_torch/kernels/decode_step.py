@@ -3,8 +3,9 @@
 Ports of the TPU kernels of ``repro.kernels.decode_step`` and their
 oracles in ``repro.kernels.ref``:
 
-* :func:`mamba2_step` (TPU kernel 1) and :func:`mamba1_step` (kernel 5):
-  the fused mixer steps, below;
+* :func:`mamba2_step` (TPU kernel 1), :func:`mamba1_step` (kernel 5) and
+  :func:`rglru_step` (kernel 6, recurrentgemma's RG-LRU): the fused mixer
+  steps, below;
 * :func:`ssd_step` (kernel 3) and :func:`sscan_step` (kernel 4): the bare
   SSD and selective-scan updates (``csrc/decode_step.cu`` and
   ``csrc/mamba1_step.cu``), reached through ``core/ssd.py:
@@ -43,6 +44,13 @@ The Mamba-1 step (``mamba1_step`` / ``mamba1_step_ref``): xs_raw, z
 (di, n) negative; D (di,).  Returns (y (b, di) = (s'.C + D u) silu(z),
 formed in fp32 and cast once to z's dtype; new_conv in conv_state's
 dtype; new_ssm fp32).
+
+The RG-LRU step (``rglru_step`` / ``rglru_step_ref``): u, gate (b, w) —
+the ``in_x`` / ``in_gate`` projections; conv_state (b, wc-1, w) in u's
+dtype; h_state (b, w) fp32; conv_w (wc, w), conv_b (w,); rg_w, ig_w (w, w)
+with (w,) biases; lam (w,).  Returns (y (b, w) = h' gelu(gate), formed in
+fp32 and cast once to u's dtype, pre-``out``; new_conv; new_h fp32).  The
+conv has no SiLU; gelu is the tanh form.
 """
 from __future__ import annotations
 
@@ -55,6 +63,7 @@ from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import common
 from repro_torch.kernels.actiba import table_args
 from repro_torch.kernels.gated_norm import gated_norm_cuda, gated_norm_plain
+from repro_torch.kernels.qmatmul import GEMV_M, split_k
 from repro_torch.nn import layers
 
 _LAUNCH = ("decode_step", "mamba2_step_launch",
@@ -354,3 +363,103 @@ def mamba1_step(xs_raw, z, conv_state, ssm_state, conv_w, conv_b, xproj_w,
 
 
 mamba1_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The fused RG-LRU step: kernel 6
+# ---------------------------------------------------------------------------
+_RG_LAUNCH = ("rglru_step", "rglru_step_launch",
+              [common.I, common.I] + [common.P] * 15 + [common.I] * 5
+              + [common.P, common.I] * 3 + [common.P])
+RG_LRU_C = 8.0             # Griffin's fixed gate exponent
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def rglru_step_plain(u, gate, conv_state, h_state, conv_w, conv_b, rg_w,
+                     rg_b, ig_w, ig_b, lam, *,
+                     sigmoid: Callable = torch.sigmoid,
+                     softplus: Callable = F.softplus,
+                     gelu: Callable = _gelu_tanh):
+    """Plain PyTorch port of ``rglru_step_ref`` (fp32 interior)."""
+    u_c, new_conv = layers.causal_conv1d_step(
+        {"w": conv_w, "b": conv_b}, u.float(), conv_state.float())
+    r = sigmoid(torch.matmul(u_c, rg_w.float()) + rg_b.float()[None])
+    i = sigmoid(torch.matmul(u_c, ig_w.float()) + ig_b.float()[None])
+    log_a = -RG_LRU_C * softplus(lam.float())[None] * r
+    a = torch.exp(log_a)
+    gated_in = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
+                                          1e-12)) * (i * u_c)
+    h_new = a * h_state.float() + gated_in
+    out = h_new * gelu(gate.float())
+    return out.to(u.dtype), new_conv.to(conv_state.dtype), h_new
+
+
+def rglru_step(u, gate, conv_state, h_state, conv_w, conv_b, rg_w, rg_b,
+               ig_w, ig_b, lam, *, out=None,
+               sigmoid_table: Optional[PWLTable] = None,
+               softplus_table: Optional[PWLTable] = None,
+               gelu_table: Optional[PWLTable] = None):
+    """The CUDA kernel (contract as :func:`rglru_step_plain`, with the
+    activations' ActiBA tables in place of callables, ``None`` = exact):
+    two launches, the split-k GEMV of both gate weights (the conv step
+    computed as its input), then the update, one thread per (row,
+    channel).  conv_w, conv_b, rg_b, ig_b and lam must be contiguous fp32
+    (the model's ``decode_view``); rg_w and ig_w contiguous fp32 or bf16,
+    read as they are stored.  ``out`` = (new_conv, new_h) buffers to write
+    the new state into instead of fresh ones."""
+    dev = u.device
+    common.require(dev.type == "cuda", "rglru_step takes CUDA tensors; the "
+                   "CPU path is rglru_step_plain")
+    b, w = u.shape
+    width = conv_w.shape[0]
+    common.check_f32("rglru_step", conv_w=conv_w, conv_b=conv_b, rg_b=rg_b,
+                     ig_b=ig_b, lam=lam, h_state=h_state)
+    common.check_cuda(dev, gate=gate, conv_state=conv_state, h_state=h_state,
+                      conv_w=conv_w, conv_b=conv_b, rg_w=rg_w, rg_b=rg_b,
+                      ig_w=ig_w, ig_b=ig_b, lam=lam)
+    for name, t in (("gate", gate), ("conv_state", conv_state)):
+        common.require(t.dtype == u.dtype,
+                       f"rglru_step: {name} is {t.dtype}, u is {u.dtype}")
+    common.require(u.is_contiguous() and gate.is_contiguous()
+                   and tuple(gate.shape) == (b, w),
+                   "rglru_step: u and gate must be contiguous (b, w)")
+    common.require(tuple(conv_state.shape) == (b, width - 1, w)
+                   and conv_state.is_contiguous(),
+                   "rglru_step: conv_state must be contiguous (b, wc-1, w)")
+    common.require(tuple(h_state.shape) == (b, w), "rglru_step: h_state "
+                   "must be (b, w)")
+    common.require(conv_w.shape == (width, w) and width >= 2
+                   and conv_b.shape == rg_b.shape == ig_b.shape == lam.shape
+                   == (w,), "rglru_step: parameter shapes")
+    for name, t in (("rg_w", rg_w), ("ig_w", ig_w)):
+        common.require(t.dtype in common.STREAM_DTYPES and t.dtype == rg_w.dtype
+                       and t.is_contiguous() and tuple(t.shape) == (w, w),
+                       f"rglru_step: {name} must be contiguous fp32 or bf16 "
+                       f"({w}, {w}) like rg_w, got {t.dtype} "
+                       f"{tuple(t.shape)}")
+    splits = split_k(min(b, GEMV_M), w, w)
+    partial = torch.empty((splits * 2 * min(b, GEMV_M) * w,),
+                          dtype=torch.float32, device=dev)
+    vec4 = w % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
+                              for t in (rg_w, ig_w))
+    y = torch.empty_like(u)
+    new_conv, new_h = common.outputs(out, conv_state, h_state, "rglru_step")
+    err = common.launcher(*_RG_LAUNCH)(
+        common.stream_code(u), common.stream_code(rg_w), common.ptr(u),
+        common.ptr(gate), common.ptr(conv_state), common.ptr(h_state),
+        common.ptr(conv_w), common.ptr(conv_b), common.ptr(rg_w),
+        common.ptr(rg_b), common.ptr(ig_w), common.ptr(ig_b),
+        common.ptr(lam), common.ptr(partial), common.ptr(y),
+        common.ptr(new_conv), common.ptr(new_h), b, w, width, splits,
+        int(vec4), *table_args(sigmoid_table, dev),
+        *table_args(softplus_table, dev), *table_args(gelu_table, dev),
+        common.stream(dev))
+    common.check_launch(err, "rglru_step", "rglru_step kernels")
+    rglru_step.launches += 1
+    return y, new_conv, new_h
+
+
+rglru_step.launches = 0

@@ -1,0 +1,89 @@
+"""ActiBA's drain-fused matrix product: the CUDA kernel and its plain
+version.
+
+Port of ``repro.kernels.matmul_pwl.matmul_pwl`` (TPU kernel 11) and its
+oracle ``repro.kernels.ref.matmul_pwl_ref``:
+
+    out = pwl(x @ w) [* (x @ v)]
+
+x (m, k) fp32 or bf16; w, v (k, n) fp32 or bf16 (one dtype); the output
+in x's dtype.  ``pwl`` is an ActiBA table; ``v`` gives the gated form of
+the GeGLU / SwiGLU MLPs.
+
+* :func:`matmul_pwl` — the wrapper around ``csrc/matmul_pwl.cu`` (the
+  bodies of ``qmatmul.cu`` in ``gemm.cuh`` on a bf16 / fp32 weight
+  loader): the split-k GEMV for m <= 8 (decode) and the tiled product
+  above (prefill).  CUDA tensors only; calls are counted in
+  ``matmul_pwl.launches`` and, by the path they took, in
+  ``matmul_pwl.path_launches``.
+* :func:`matmul_pwl_plain` — the same arithmetic in PyTorch: fp32 sums,
+  the PWL table in ``eval_pwl``'s order, the gate multiplied once; the
+  CPU path, and what the kernel is held to on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.pwl import PWLTable, eval_pwl
+from repro_torch.kernels import common
+from repro_torch.kernels.actiba import table_args
+from repro_torch.kernels.qmatmul import GEMV_M, split_k
+
+_LAUNCH = ("matmul_pwl", "matmul_pwl_launch",
+           [common.I, common.I] + [common.P] * 5 + [common.I] * 5
+           + [common.P, common.I, common.P])
+
+
+def matmul_pwl_plain(x: torch.Tensor, w: torch.Tensor, table: PWLTable,
+                     v: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version (``matmul_pwl_ref``)."""
+    xf = x.float()
+    out = eval_pwl(table, torch.matmul(xf, w.float()))
+    if v is not None:
+        out = out * torch.matmul(xf, v.float())
+    return out.to(x.dtype)
+
+
+def matmul_pwl(x: torch.Tensor, w: torch.Tensor, table: PWLTable,
+               v: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The CUDA kernel (contract as :func:`matmul_pwl_plain`); ``x``,
+    ``w`` and ``v`` contiguous."""
+    dev = x.device
+    common.require(dev.type == "cuda", "matmul_pwl takes CUDA tensors; the "
+                   "CPU path is matmul_pwl_plain")
+    common.require(x.ndim == 2 and x.is_contiguous(),
+                   f"matmul_pwl: x must be contiguous (m, k), got "
+                   f"{tuple(x.shape)}")
+    common.require(table is not None, "matmul_pwl: a PWL table is required")
+    m, k = x.shape
+    n = w.shape[-1]
+    weights = dict(w=w) if v is None else dict(w=w, v=v)
+    for name, t in weights.items():
+        common.require(t.dtype in common.STREAM_DTYPES and t.dtype == w.dtype
+                       and t.is_contiguous() and tuple(t.shape) == (k, n),
+                       f"matmul_pwl: {name} must be contiguous fp32 or bf16 "
+                       f"({k}, {n}) like w, got {t.dtype} {tuple(t.shape)}")
+    common.check_cuda(dev, **weights)
+    splits = split_k(m, k, n)
+    partial = torch.empty((splits * len(weights), m, n), dtype=torch.float32,
+                          device=dev) if splits > 1 else None
+    vec4 = n % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
+                              for t in weights.values())
+    out = torch.empty((m, n), dtype=x.dtype, device=dev)
+    err = common.launcher(*_LAUNCH)(
+        common.stream_code(x), common.stream_code(w), common.ptr(x),
+        common.ptr(w), common.ptr(v) if v is not None else None,
+        common.ptr(out), common.ptr(partial) if partial is not None else None,
+        m, k, n, splits, int(vec4), *table_args(table, dev),
+        common.stream(dev))
+    common.check_launch(err, "matmul_pwl", "matmul_pwl kernel")
+    matmul_pwl.launches += 1
+    matmul_pwl.path_launches["gemv" if m <= GEMV_M else "tiled"] += 1
+    return out
+
+
+matmul_pwl.launches = 0
+# The same calls by the path they took (GEMV or tiled kernel).
+matmul_pwl.path_launches = {"gemv": 0, "tiled": 0}

@@ -4,7 +4,8 @@ version.  There is no fallback from the one to the other and no mode
 string that picks the plain version on the card.
 
 ``xamba`` (an ``XambaConfig``) carries ActiBA into the fused kernels: the
-kernel takes the PWL tables of SiLU and softplus, the plain version the
+kernel takes the PWL tables of its activations (SiLU and softplus; the
+RG-LRU step sigmoid, softplus and GeLU), the plain version the
 activations of ``core/pwl.py: activation``.
 """
 from __future__ import annotations
@@ -14,8 +15,8 @@ import torch
 from repro_torch.core import pwl
 from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import actiba as _act, cumba as _cumba, \
-    decode_step as _ds, prefill_chunk as _pc, qmatmul as _qm, \
-    ssd_chunk as _ssd
+    decode_step as _ds, matmul_pwl as _mpwl, prefill_chunk as _pc, \
+    qmatmul as _qm, rg_lru as _rg, ssd_chunk as _ssd
 
 
 def _plain_into(out, res):
@@ -99,6 +100,38 @@ def mamba2_prefill(x, in_w, conv_state, ssm_state, conv_w, conv_b, dt_bias,
     if x.is_cuda:
         return _pc.mamba2_prefill(*args, **kw, out=out)
     return _plain_into(out, _pc.mamba2_prefill_plain(*args, **kw))
+
+
+def rglru_decode_step(u, gate, conv_state, h_state, conv_w, conv_b, rg_w,
+                      rg_b, ig_w, ig_b, lam, *, xamba=None, out=None):
+    """Fused RG-LRU single-token step (conv + sigmoid gates + recurrence +
+    GeLU output gate, kernel 6); shapes as ``kernels/decode_step.py``.
+    ``out`` = (new_conv, new_h) buffers that receive the new state."""
+    args = (u, gate, conv_state, h_state, conv_w, conv_b, rg_w, rg_b, ig_w,
+            ig_b, lam)
+    names = ("sigmoid", "softplus", "gelu")
+    if u.is_cuda:
+        return _ds.rglru_step(*args, out=out, **{
+            f"{k}_table": pwl.table_for(k, xamba) for k in names})
+    return _plain_into(out, _ds.rglru_step_plain(*args, **{
+        k: pwl.activation(k, xamba) for k in names}))
+
+
+def rg_lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU recurrence h_t = a_t h_{t-1} + b_t from zero over axis 1
+    (kernel 8)."""
+    if a.is_cuda:
+        return _rg.rg_lru_scan(a, b)
+    return _rg.rg_lru_scan_plain(a, b)
+
+
+def matmul_pwl(x: torch.Tensor, w: torch.Tensor, table: PWLTable,
+               v=None) -> torch.Tensor:
+    """ActiBA's drain-fused product ``pwl(x @ w) [* (x @ v)]`` in ``x``'s
+    dtype (kernel 11); x (m, k), w / v (k, n)."""
+    if x.is_cuda:
+        return _mpwl.matmul_pwl(x.contiguous(), w, table, v)
+    return _mpwl.matmul_pwl_plain(x, w, table, v)
 
 
 def actiba_activate(x: torch.Tensor, table: PWLTable) -> torch.Tensor:

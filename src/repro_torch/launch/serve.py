@@ -1,13 +1,15 @@
 """Serving CLI: ``python -m repro_torch.launch.serve --arch mamba2-130m``
-— batched random requests through the wave or continuous engine on the
-GPU (or ``--device cpu``), with weights drawn from ``--seed``.
+(or ``mamba-130m``, ``recurrentgemma-2b``) — batched random requests
+through the wave or continuous engine on the GPU (or ``--device cpu``),
+with weights drawn from ``--seed``.
 
 Takes the JAX CLI's flags for what the port serves: ``--engine``,
 ``--decode-mode`` / ``--prefill-mode`` (``naive`` = the unfused op
 chains), ``--prefill-chunk`` / ``--prefill-token-budget`` (the continuous
 engine's chunked prefill) and ``--quant`` (W8 weights through the
-``qmatmul`` kernel).  ActiBA has no flag, as in the JAX CLI: it comes
-with the ``XambaConfig`` presets.
+``qmatmul`` kernel; not ported for recurrentgemma, where any mode but
+``none`` raises ``NotImplementedError``).  ActiBA has no flag, as in the
+JAX CLI: it comes with the ``XambaConfig`` presets.
 """
 from __future__ import annotations
 
@@ -69,6 +71,10 @@ def main(argv=None):
                     "the wave engine keeps monolithic bucketed prefill")
 
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.quant != "none" and cfg.family == "recurrentgemma":
+        raise NotImplementedError(
+            f"--quant {args.quant}: W8 weights for {args.arch} are not "
+            f"ported yet")
     if args.decode_mode:
         cfg = cfg.with_decode_mode(args.decode_mode)
     if args.prefill_mode:

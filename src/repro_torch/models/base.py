@@ -1,10 +1,13 @@
 """Model configuration: the ``repro.models.base.ModelConfig`` fields that
-the Mamba-1 and Mamba-2 families use, with ``dtype`` as a
-``torch.dtype``."""
+the Mamba-1, Mamba-2 and RecurrentGemma families use, with ``dtype`` as a
+``torch.dtype``; and the shared helpers ``chunk_positions`` and
+``cross_entropy_loss``."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.xamba import XambaConfig
@@ -13,9 +16,39 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
+def chunk_positions(index, batch: int, seq: int) -> np.ndarray:
+    """(b, s) absolute positions (int64, on the host) of a prefill chunk
+    whose first token sits at ``index`` (an int or ``(b,)``)."""
+    idx = np.asarray(index, np.int64)
+    if idx.ndim == 0:
+        idx = np.full((batch,), idx, np.int64)
+    return idx[:, None] + np.arange(seq, dtype=np.int64)[None, :]
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       z_loss: float = 1e-4) -> Tuple[torch.Tensor, dict]:
+    """Token-level CE with the z-loss; labels < 0 are ignored (the JAX
+    package's ``cross_entropy_loss``)."""
+    logits = logits.float()
+    valid = labels >= 0
+    labels_safe = labels.clamp_min(0)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    denom = valid.sum().clamp_min(1)
+    zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    loss = torch.where(valid, nll, zero).sum() / denom
+    hit = (logits.argmax(-1) == labels_safe).to(logits.dtype)
+    acc = torch.where(valid, hit, zero).sum() / denom
+    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Mamba subset of the JAX package's one-config-for-all-families."""
+    """The subset of the JAX package's one-config-for-all-families that the
+    ported families read."""
 
     name: str = "model"
     family: str = "mamba2"
@@ -23,6 +56,24 @@ class ModelConfig:
     d_model: int = 512
     n_layers: int = 4
     tie_embeddings: bool = True
+
+    # -- attention (recurrentgemma's local attention) -------------------------
+    n_heads: int = 8
+    n_kv_heads: int = 8
+    head_dim: int = 64
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    sliding_window: Optional[int] = None
+    attn_logit_softcap: Optional[float] = None
+    attn_probs_bf16: bool = False  # cast softmax probs to bf16 before PV
+
+    # -- mlp ------------------------------------------------------------------
+    d_ff: int = 2048
+    mlp_type: str = "swiglu"      # swiglu | geglu
+
+    # -- norms / embeddings ---------------------------------------------------
+    norm_type: str = "rmsnorm"    # rmsnorm | gemma_rmsnorm
+    embed_scale: bool = False     # gemma: x *= sqrt(d_model)
 
     # -- SSM (mamba / mamba2) -------------------------------------------------
     d_state: int = 16
@@ -37,7 +88,20 @@ class ModelConfig:
     scan_mode: str = "associative"
     ssd_dtype: str = "float32"    # SSD big-matmul dtype (bf16 = perf mode)
 
+    # -- recurrentgemma -------------------------------------------------------
+    lru_width: int = 0
+    block_pattern: Tuple[str, ...] = ()   # e.g. ("recurrent", "recurrent",
+    #                                       "attention")
+
+    # -- execution policies ---------------------------------------------------
     param_dtype: str = "bfloat16"
+    # The JAX package's training / layout knobs, kept for parity: the port
+    # never rematerializes and always walks its layers in a Python loop.
+    remat: str = "none"
+    scan_layers: bool = True
+    # The flash-attention kernel (TPU kernel 9) is not ported: attention
+    # without a logit soft-cap raises under ``use_flash``.
+    use_flash: bool = False
     # A one-token call with a state takes the prefill path, not the step.
     force_prefill_path: bool = False
     xamba: XambaConfig = XambaConfig()

@@ -4,8 +4,10 @@ from __future__ import annotations
 from repro_torch.core.device import DeviceLike
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.mamba_lm import MambaLM
+from repro_torch.models.recurrentgemma import RecurrentGemma
 
-_FAMILIES = {"mamba": MambaLM, "mamba2": MambaLM}
+_FAMILIES = {"mamba": MambaLM, "mamba2": MambaLM,
+             "recurrentgemma": RecurrentGemma}
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None):

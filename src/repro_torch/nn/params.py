@@ -1,12 +1,19 @@
 """Parameter specs, random init, and the bridge from the JAX package's params.
 
 A model's parameters are a nested dict of :class:`ParamSpec`, declared
-once (``models/mamba_lm.py: param_specs``).  As in the JAX package the
-layer trunk is declared stacked (``stack_specs``: a leading ``n_layers``
-axis), so one draw covers every layer of a leaf with the same init scale
-as ``repro.nn.params._init_one``; :func:`split_layers` then cuts the
-stacked leaves into the per-layer dicts the port's Python layer loop
-reads.
+once (``models/*.py: param_specs``).  As in the JAX package the layer
+trunk is declared stacked, so one draw covers every layer of a leaf with
+the same init scale as ``repro.nn.params._init_one`` (the fan-in of a
+stacked weight is its leading axis):
+
+* the Mamba models' ``layers`` (``stack_specs``: a leading ``n_layers``
+  axis);
+* RecurrentGemma's ``groups`` (a leading ``n_groups`` axis on each
+  pattern position ``"0"``, ``"1"``, ...) and its unstacked ``tail``
+  (``"0"``, ``"1"``, ... of the layers past the last whole group).
+
+:func:`per_layer` then turns either into ``layers``: the list of
+per-layer dicts the port's Python layer loop reads.
 """
 from __future__ import annotations
 
@@ -77,6 +84,27 @@ def split_layers(stacked: Any) -> List[Any]:
     return [one(stacked, i) for i in range(n)]
 
 
+def _by_int(tree: Dict[str, Any]) -> List[Any]:
+    return [tree[k] for k in sorted(tree, key=int)]
+
+
+def per_layer(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """``tree`` with its layer trunk as ``layers``, a per-layer list: the
+    stacked ``layers`` split, or RecurrentGemma's ``groups`` (layer
+    ``g * P + j`` is group ``g`` of position ``j``) followed by its
+    ``tail``."""
+    if "layers" in tree:
+        return dict(tree, layers=split_layers(tree["layers"]))
+    groups = _by_int(tree["groups"]) if "groups" in tree else []
+    stacked = [split_layers(g) for g in groups]
+    layers = [stacked[j][g] for g in range(len(stacked[0]) if stacked
+                                           else 0)
+              for j in range(len(stacked))]
+    layers += _by_int(tree.get("tail", {}))
+    rest = {k: v for k, v in tree.items() if k not in ("groups", "tail")}
+    return dict(rest, layers=layers)
+
+
 def init_params(specs: Dict[str, Any], seed: int,
                 dtype: torch.dtype = torch.bfloat16,
                 device: DeviceLike = None) -> Dict[str, Any]:
@@ -86,13 +114,14 @@ def init_params(specs: Dict[str, Any], seed: int,
     Leaves are drawn in sorted-key order.  The draws are not JAX's: the
     same seed gives other numbers than ``repro.nn.params.init_params``;
     tests that compare the packages carry JAX's params across with
-    :func:`from_jax_params`.  ``specs["layers"]`` is stacked
-    (:func:`stack_specs`) and comes back as a per-layer list.
+    :func:`from_jax_params`.  The stacked trunk (``layers``, or
+    ``groups`` and ``tail``) comes back as a per-layer list
+    (:func:`per_layer`).
     """
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
-    tree = _map_specs(specs, lambda s: _init_one(s, gen, dtype).to(dev))
-    return dict(tree, layers=split_layers(tree["layers"]))
+    return per_layer(_map_specs(
+        specs, lambda s: _init_one(s, gen, dtype).to(dev)))
 
 
 def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -108,8 +137,9 @@ def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
 def from_jax_params(tree: Dict[str, Any], cfg, device: DeviceLike = None
                     ) -> Dict[str, Any]:
     """The JAX package's params (nested dicts of numpy arrays, the stacked
-    scan-over-layers layout) as the port's params: the same leaves with
-    the same dtypes on ``device``, ``layers`` split per layer.  A W8
+    scan-over-layers layout, or RecurrentGemma's ``groups`` and ``tail``)
+    as the port's params: the same leaves with the same dtypes on
+    ``device``, the trunk as a per-layer list (:func:`per_layer`).  A W8
     weight (the JAX ``QuantTensor``, its ``q`` and ``scale`` leaves
     numpy) becomes the port's :class:`~repro_torch.nn.quant.QuantTensor`
     with the same backend tag, one per layer."""
@@ -124,9 +154,8 @@ def from_jax_params(tree: Dict[str, Any], cfg, device: DeviceLike = None
                                t.backend)
         return _tensor_from_numpy(t).to(dev)
 
-    out = conv(tree)
-    layers = split_layers(out["layers"])
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"params hold {len(layers)} layers, the config "
-                         f"{cfg.n_layers}")
-    return dict(out, layers=layers)
+    out = per_layer(conv(tree))
+    if len(out["layers"]) != cfg.n_layers:
+        raise ValueError(f"params hold {len(out['layers'])} layers, the "
+                         f"config {cfg.n_layers}")
+    return out

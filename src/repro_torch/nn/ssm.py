@@ -1,5 +1,5 @@
-"""The Mamba-2 (SSD) and Mamba-1 (selective-scan) mixers: ports of
-``repro.nn.ssm``.
+"""The Mamba-2 (SSD) and Mamba-1 (selective-scan) mixers and the RG-LRU
+recurrent block: ports of ``repro.nn.ssm``.
 
 ``mamba2_apply`` handles both the multi-token prefill (with or without a
 carried state) and the single-token decode step with the same params:
@@ -24,6 +24,19 @@ carried state) and the single-token decode step with the same params:
   there): in_proj -> conv -> SiLU -> x_proj -> dt_proj -> softplus ->
   ``core/selective_scan.py: selective_scan(mode=cfg.scan_mode)`` ->
   SiLU(z) gate -> out_proj.
+
+``rglru_apply`` is recurrentgemma's RG-LRU block (Griffin), with the
+same contract:
+
+* decode, modes ``cumba`` / ``pallas*``: the fused step (kernel 6 on the
+  GPU) through ``kernels/ops.py``; mode ``naive``: the unfused dense step
+  (``_rglru_decode_naive``);
+* prefill: in_x / in_gate projections -> causal conv (no SiLU) -> the
+  sigmoid gates -> the recurrence h_t = a_t h_{t-1} + b_t -> GeLU(gate)
+  -> out.  With a carried state the recurrence is the associative scan
+  (``core/selective_scan.py: linear_scan``) from ``h0``; without one
+  (the cache-less trunk) under a ``pallas`` CumBA mode it is kernel 8
+  (``ops.rg_lru_scan``), exactly where the JAX package dispatches it.
 
 ActiBA reaches the fused kernels as PWL tables (``xamba``) and the
 unfused chains through ``core/pwl.py: activation`` (kernel 12 on the GPU).
@@ -106,13 +119,14 @@ def _operands(params: dict, build=None) -> dict:
     return (build or mamba2_kernel_operands)(params)
 
 
-def _into(out: Optional[Mamba2State], new: Mamba2State) -> Mamba2State:
-    """The new state written into the caller's ``out`` buffers, if any
-    (the fused kernels write there directly)."""
+def _into(out, new):
+    """The new state (any of the mixers' two-leaf states) written into the
+    caller's ``out`` buffers, if any (the fused kernels write there
+    directly)."""
     if out is None:
         return new
-    out.conv.copy_(new.conv)
-    out.ssm.copy_(new.ssm)
+    for o, n in zip(out, new):
+        o.copy_(n)
     return out
 
 
@@ -372,3 +386,133 @@ def mamba1_apply(params: dict, cfg, x: torch.Tensor,
     if state is None:
         return h, None
     return h, _into(out, Mamba1State(new_conv.to(init.conv.dtype), new_ssm))
+
+
+# ============================================================================
+# RG-LRU recurrent block (recurrentgemma / Griffin)
+# ============================================================================
+# Griffin's fixed gate exponent (``repro.kernels.common.RG_LRU_C``).
+_RG_C = 8.0
+
+
+class RGLRUState(NamedTuple):
+    conv: torch.Tensor   # (b, d_conv-1, lru_width), cache dtype
+    h: torch.Tensor      # (b, lru_width), fp32
+
+
+def rglru_specs(cfg) -> dict:
+    d, w = cfg.d_model, cfg.lru_width
+    return {
+        "in_x": layers.linear_specs(d, w),
+        "in_gate": layers.linear_specs(d, w),
+        "conv": layers.conv1d_specs(w, cfg.d_conv),
+        "rg": layers.linear_specs(w, w, bias=True),
+        "ig": layers.linear_specs(w, w, bias=True),
+        "lam": ParamSpec((w,), init="ones", scale=1.0),
+        "out": layers.linear_specs(w, d),
+    }
+
+
+def rglru_init_state(cfg, batch: int, dtype: torch.dtype,
+                     device: torch.device) -> RGLRUState:
+    return RGLRUState(
+        conv=torch.zeros((batch, cfg.d_conv - 1, cfg.lru_width), dtype=dtype,
+                         device=device),
+        h=torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
+                      device=device))
+
+
+def rglru_kernel_operands(params: dict) -> dict:
+    """The block's step operands as kernel 6 takes them: the small ones
+    (conv, biases, ``lam``) contiguous fp32, the w x w gate weights as they
+    are stored (the kernel widens bf16 exactly; an fp32 copy would double
+    its bytes).  Built once per weight set by the model's
+    ``decode_view``."""
+    def f32(t):
+        return t.float().contiguous()
+    return {"conv_w": f32(params["conv"]["w"]),
+            "conv_b": f32(params["conv"]["b"]),
+            "rg_w": params["rg"]["w"].contiguous(),
+            "rg_b": f32(params["rg"]["b"]),
+            "ig_w": params["ig"]["w"].contiguous(),
+            "ig_b": f32(params["ig"]["b"]),
+            "lam": f32(params["lam"])}
+
+
+def _rglru_gates(params: dict, cfg, u: torch.Tensor):
+    """(a, gated input) of the recurrence from the conv output ``u`` (the
+    stream dtype), in fp32: the sigmoid gates r, i through the biased
+    rg / ig projections, a = exp(-8 softplus(lam) r)."""
+    sigmoid = pwl.activation("sigmoid", cfg.xamba)
+    softplus = pwl.activation("softplus", cfg.xamba)
+    r = sigmoid(layers.linear(params["rg"], u).float())
+    i = sigmoid(layers.linear(params["ig"], u).float())
+    log_a = -_RG_C * softplus(params["lam"].float()) * r
+    gated_in = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
+                                          1e-12)) * (i * u.float())
+    return torch.exp(log_a), gated_in
+
+
+def _rglru_decode_naive(params: dict, cfg, x: torch.Tensor,
+                        state: RGLRUState, out: Optional[RGLRUState]
+                        ) -> Tuple[torch.Tensor, RGLRUState]:
+    """The unfused dense step (the NPU-baseline op chain): seq-axis
+    (b, 1, d) operands and the per-tap conv."""
+    gelu = pwl.activation("gelu", cfg.xamba)
+    u = layers.linear(params["in_x"], x)                     # (b, 1, w)
+    gate = layers.linear(params["in_gate"], x)
+    u, new_conv = layers.causal_conv1d(params["conv"], u, state.conv)
+    a, gated_in = _rglru_gates(params, cfg, u)
+    h_new = a[:, 0] * state.h + gated_in[:, 0]
+    y = h_new[:, None].to(x.dtype) * gelu(gate)
+    h = layers.linear(params["out"], y)
+    return h, _into(out, RGLRUState(new_conv.to(state.conv.dtype), h_new))
+
+
+def _rglru_decode(params: dict, cfg, x: torch.Tensor, state: RGLRUState,
+                  out: Optional[RGLRUState]
+                  ) -> Tuple[torch.Tensor, RGLRUState]:
+    """Single-token step; x: (b, 1, d).  ``naive`` runs the unfused chain;
+    ``cumba`` and ``pallas*`` the fused step on (b, w) operands (its
+    output y = h' gelu(gate) formed in fp32 and cast once, as the TPU
+    kernel forms it)."""
+    if cfg.xamba.decode == "naive":
+        return _rglru_decode_naive(params, cfg, x, state, out)
+    u = layers.linear(params["in_x"], x[:, 0])
+    gate = layers.linear(params["in_gate"], x[:, 0])
+    y, new_conv, h_new = ops.rglru_decode_step(
+        u, gate, state.conv, state.h,
+        **_operands(params, rglru_kernel_operands), xamba=cfg.xamba, out=out)
+    h = layers.linear(params["out"], y.to(x.dtype))[:, None]
+    return h, RGLRUState(new_conv, h_new)
+
+
+def rglru_apply(params: dict, cfg, x: torch.Tensor,
+                state: Optional[RGLRUState] = None,
+                out: Optional[RGLRUState] = None,
+                ) -> Tuple[torch.Tensor, Optional[RGLRUState]]:
+    """x: (b, l, d).  l == 1 with a state -> decode step (unless
+    ``cfg.force_prefill_path``); else the prefill chain.  ``out``:
+    buffers that receive the new state (with ``state`` only)."""
+    b, l, _ = x.shape
+    xamba = cfg.xamba
+    if state is not None and l == 1 and not cfg.force_prefill_path:
+        return _rglru_decode(params, cfg, x, state, out)
+    gelu = pwl.activation("gelu", xamba)
+    u = layers.linear(params["in_x"], x)                     # (b, l, w)
+    gate = layers.linear(params["in_gate"], x)
+    u, new_conv = layers.causal_conv1d(
+        params["conv"], u, None if state is None else state.conv)
+    a, gated_in = _rglru_gates(params, cfg, u)
+    if state is None and xamba.cumba in ("pallas", "pallas_interpret"):
+        h = ops.rg_lru_scan(a, gated_in)
+    else:
+        h0 = state.h if state is not None else \
+            a.new_zeros((b, cfg.lru_width))
+        h = sscan.linear_scan(a, gated_in, h0)
+    y = h.to(x.dtype) * gelu(gate)
+    o = layers.linear(params["out"], y)
+    if state is None:
+        return o, None
+    return o, _into(out, RGLRUState(new_conv.to(state.conv.dtype),
+                                    h[:, -1]))

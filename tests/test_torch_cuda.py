@@ -474,3 +474,143 @@ def test_mamba1_model_on_the_card_launches_kernel_5(dev):
     assert ds.ssd_step.launches == b3 + 1
     want = tssd.ssd_decode_step(*args, mode="naive")
     assert all(float((a - r).abs().max()) <= 1e-4 for a, r in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma: kernels 6 (rglru_step), 8 (rg_lru_scan), 11 (matmul_pwl)
+# ---------------------------------------------------------------------------
+def _rg_inputs(dev, dtype, wdtype, b, w, seed):
+    gen = torch.Generator().manual_seed(seed)
+    f32 = torch.float32
+    r = lambda *s, scale=1.0, dtype=dtype: (
+        torch.randn(s, generator=gen) * scale).to(dev).to(dtype)
+    return dict(u=r(b, w), gate=r(b, w), conv_state=r(b, 3, w),
+                h_state=r(b, w, dtype=f32), conv_w=r(4, w, scale=0.5, dtype=f32),
+                conv_b=r(w, scale=0.1, dtype=f32),
+                rg_w=r(w, w, scale=w ** -0.5, dtype=wdtype),
+                rg_b=r(w, scale=0.1, dtype=f32),
+                ig_w=r(w, w, scale=w ** -0.5, dtype=wdtype),
+                ig_b=r(w, scale=0.1, dtype=f32),
+                lam=r(w, scale=0.5, dtype=f32))
+
+
+def _rg_check(got, want, dtype):
+    for name, a, r in zip(("y", "conv", "h"), got, want):
+        _close(a, r, TOL[dtype, "state" if name == "h" else "stream"], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,w", [(1, 96), (3, 200), (11, 256)])
+def test_rglru_kernel_matches_plain(dev, dtype, b, w):
+    """Kernel 6 at uneven widths (w not a multiple of 128, rows past one
+    group of 8), bf16 weights under a bf16 stream; a second call gives
+    the same bits."""
+    ins = _rg_inputs(dev, dtype, dtype, b, w, seed=b + w)
+    before = ds.rglru_step.launches
+    got = ds.rglru_step(**ins)
+    assert ds.rglru_step.launches == before + 1
+    assert all(torch.equal(a, g) for a, g in zip(ds.rglru_step(**ins), got))
+    _rg_check(got, ds.rglru_step_plain(**ins), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_with_actiba_tables_matches_plain(dev, dtype):
+    """Kernel 6 under ``XambaConfig.pallas()`` through ``ops``: the
+    sigmoid, softplus and gelu tables, fp32 weights under either stream;
+    ``out`` buffers receive the new state."""
+    xamba = XambaConfig.pallas()
+    ins = _rg_inputs(dev, dtype, torch.float32, 4, 160, seed=7)
+    out = (torch.empty_like(ins["conv_state"]),
+           torch.empty_like(ins["h_state"]))
+    got = ops.rglru_decode_step(*ins.values(), xamba=xamba, out=out)
+    assert got[1] is out[0] and got[2] is out[1]
+    want = ds.rglru_step_plain(*ins.values(), **{
+        k: (lambda v, t=pwl.table_for(k, xamba): actiba.pwl_activate_plain(
+            v, t)) for k in ("sigmoid", "softplus", "gelu")})
+    _rg_check(got, want, dtype)
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        ds.rglru_step(**dict(ins, lam=ins["lam"].bfloat16()))
+    with pytest.raises(ValueError, match="conv_state"):
+        ds.rglru_step(**dict(ins, conv_state=ins["conv_state"][:, :2]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 37, 70), (3, 256, 300)])
+def test_rg_lru_scan_kernel_matches_plain_bit_for_bit(dev, dtype, shape):
+    """Kernel 8 rounds each multiply and add as its plain version does:
+    the same bits, at a ragged channel count and length."""
+    gen = torch.Generator().manual_seed(sum(shape))
+    a = torch.rand(shape, generator=gen).to(dev).to(dtype)
+    b = torch.randn(shape, generator=gen).to(dev).to(dtype)
+    before = ops._rg.rg_lru_scan.launches
+    got = ops.rg_lru_scan(a, b)
+    assert ops._rg.rg_lru_scan.launches == before + 1
+    assert torch.equal(got, ops._rg.rg_lru_scan_plain(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gated", [False, True], ids=["pwl", "gated"])
+@pytest.mark.parametrize("m,k,n", [(3, 200, 333), (8, 1536, 768),
+                                   (70, 200, 130)])
+def test_matmul_pwl_kernel_matches_plain(dev, dtype, gated, m, k, n):
+    """Kernel 11 on its GEMV (m <= 8) and tiled paths, weights in the
+    stream dtype; a second call gives the same bits."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen).to(dev).to(dtype)
+    w, v = ((torch.randn(k, n, generator=gen) * k ** -0.5).to(dev).to(dtype)
+            for _ in range(2))
+    table = pwl.get_table("gelu", segments=32)
+    args = (x, w, table, v if gated else None)
+    mp = ops._mpwl
+    before = mp.matmul_pwl.launches
+    got = ops.matmul_pwl(*args)
+    assert mp.matmul_pwl.launches == before + 1
+    assert torch.equal(ops.matmul_pwl(*args), got)
+    _close(got, mp.matmul_pwl_plain(*args), TOL[dtype, "stream"],
+           "matmul_pwl")
+    with pytest.raises(ValueError, match="like w"):
+        mp.matmul_pwl(x, w, table, v.float() if dtype != torch.float32
+                      else v.bfloat16())
+
+
+def test_rgemma_model_on_the_card_launches_kernels_6_8_11(dev):
+    """A 5-layer recurrentgemma (one group and a two-layer tail, a window
+    of 8 that the decode wraps): each decode step launches kernel 6 once
+    a recurrent layer; under ``pallas()`` every MLP call is kernel 11 and
+    the cache-less loss runs kernel 8 once a recurrent layer; logits near
+    the CPU plain path's."""
+    from repro_torch.models import ModelConfig, build_model
+    from repro_torch.nn.params import init_params
+    base = ModelConfig(name="rg", family="recurrentgemma", vocab_size=64,
+                       d_model=32, n_layers=5, n_heads=4, n_kv_heads=1,
+                       head_dim=8, d_ff=96, mlp_type="geglu", lru_width=32,
+                       sliding_window=8, norm_type="gemma_rmsnorm",
+                       embed_scale=True, attn_logit_softcap=30.0,
+                       param_dtype="float32")
+    toks = torch.randint(1, 64, (2, 12), generator=torch.Generator()
+                         .manual_seed(0))
+    for xamba in (XambaConfig.optimized(), XambaConfig.pallas()):
+        cfg = base.replace(xamba=xamba)
+        gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+        params = init_params(gpu.param_specs(), 0, torch.float32, "cpu")
+        counts = (ds.rglru_step, ops._mpwl.matmul_pwl, ops._rg.rg_lru_scan)
+        before = [f.launches for f in counts]
+        with torch.inference_mode():
+            gp = gpu.decode_view(_to(params, dev))
+            lg, cg = gpu.prefill(gp, {"tokens": toks.to(dev)},
+                                 gpu.init_cache(2, 24, torch.float32))
+            lc, cc = cpu.prefill(params, {"tokens": toks},
+                                 cpu.init_cache(2, 24, torch.float32))
+            for t in range(6):
+                lg, cg = gpu.decode_step(gp, toks[:, t:t + 1].to(dev), cg,
+                                         12 + t)
+                lc, cc = cpu.decode_step(params, toks[:, t:t + 1], cc, 12 + t)
+                assert float((lg.cpu() - lc).abs().max()) <= 1e-3
+            batch = {"tokens": toks, "labels": toks}
+            loss_g = gpu.loss(gp, {k: v.to(dev) for k, v in batch.items()})[0]
+            loss_c = cpu.loss(params, batch)[0]
+            assert abs(float(loss_g) - float(loss_c)) <= 1e-4
+        got = [f.launches - b for f, b in zip(counts, before)]
+        pallas = xamba.actiba
+        assert got == [6 * 4, (1 + 6 + 1) * 5 if pallas else 0,
+                       4 if pallas else 0], got

@@ -206,9 +206,14 @@ def test_registry():
     cfg = get_config("mamba-130m")
     assert (cfg.family, cfg.d_model, cfg.n_layers, cfg.d_state, cfg.dt_rank,
             cfg.vocab_size) == ("mamba", 768, 24, 16, 48, 50280)
-    for arch in ("recurrentgemma-2b", "gemma-2b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch)
+    cfg = get_config("recurrentgemma-2b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.lru_width,
+            cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+            cfg.vocab_size, cfg.sliding_window, cfg.attn_logit_softcap) == (
+        "recurrentgemma", 26, 2560, 2560, 10, 1, 256, 7680, 256000, 2048,
+        30.0)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_config("gemma-2b")
 
 
 def test_cli_serves_on_cpu():
