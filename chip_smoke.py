@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Drives ``src/repro_torch`` (never JAX) at the full width of mamba2-130m,
-of mamba-130m (Mamba-1) and of recurrentgemma-2b:
+of mamba-130m (Mamba-1), of recurrentgemma-2b, of gemma-2b and of
+qwen1.5-4b:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — ``nvcc`` builds every kernel from ``src/repro_torch/csrc``;
@@ -24,7 +25,11 @@ of mamba-130m (Mamba-1) and of recurrentgemma-2b:
    give the same bits; ``mamba1_step`` at mamba-130m's widths (b = 1 and
    4, and with the ActiBA tables), ``sscan_step`` at (4, 1536, 16) with
    and without D, ``ssd_step`` at mamba2-130m's step widths (b = 4), each
-   also run twice for the same bits;
+   also run twice for the same bits; ``flash_attention`` at gemma-2b's
+   prefill (b = 4, L = 128, 8 query heads and 1 KV head of 256), ragged
+   (L = 300), under a 64-token window, not causal (L = 100), at
+   qwen1.5-4b's MHA (20 heads of 128, L = 512) and at b = 1, L = 4096;
+   ``reduce_rows`` at (2048, 2048) and (1000, 300); each twice;
 4. serve   — the wave engine through ``repro_torch.launch.serve``: 8
    requests, batch 4, prompts of 4-128 tokens, 16 new tokens, greedy,
    bf16 weights from ``--seed``; every token in the vocabulary, every
@@ -48,7 +53,15 @@ of mamba-130m (Mamba-1) and of recurrentgemma-2b:
    per prefill), ``RecurrentGemma.loss`` at b = 2, l = 256 under
    ``pallas()`` (18 ``rg_lru_scan``, 26 ``matmul_pwl``) and without
    ActiBA (a finite loss), and one continuous request with a 2304-token
-   prompt in chunks of 256 (the 2048-slot ring wraps) and 16 new tokens;
+   prompt in chunks of 256 (the 2048-slot ring wraps) and 16 new tokens.
+   4e: gemma-2b at full width and depth, bf16, ``use_flash=True``, one
+   weight set: the wave engine (4 requests, prompts 4-128, 16 greedy
+   tokens; 18 ``flash_attention`` launches for its prefill, none per
+   decode step), the continuous engine with chunk 64 (no kernel), one
+   4096-token prompt at b = 1 (past the 2048-key blocked threshold: 18
+   launches) and the ``loss`` forward at b = 1, l = 512 (18 launches).
+   4f: qwen1.5-4b at full width, depth 4 (of 40), untied ``lm_head``,
+   the wave engine: 4 launches for its prefill;
 5. parity  — the same model in fp32, kernel path on the card against the
    plain path on the CPU, teacher-forced over 16 greedy tokens of 4
    prompts, with fp32 weights and with W8 weights: tokens agree
@@ -64,7 +77,12 @@ of mamba-130m (Mamba-1) and of recurrentgemma-2b:
    recurrentgemma-2b at full width and depth 5 in fp32, the card against
    the CPU's plain path within ``RG_SENS_X`` times the CPU's response to
    a one-ulp move of the embeddings, the loss under ``pallas()`` (with
-   and without ActiBA) the same way, and continuous against wave;
+   and without ActiBA) the same way, and continuous against wave.  5e:
+   gemma-2b at full width and depth 2 in fp32 with ``use_flash``, the
+   card against the CPU's plain path the same way, and on the card
+   ``use_flash`` on against off.  5f: ``reduce_sum`` and ``mean`` in
+   ``pallas`` mode at (2048, 2048), one launch of kernel 14 each,
+   against their ``naive`` modes;
 6. ablation — the paper's Fig. 4a variants (``examples/xamba_ablation.py``:
    baseline, +CumBA, +ReduBA, +CumBA+ReduBA, +ActiBA) and ``pallas()``
    through ``repro_torch.launch.ablation``: ``MambaLM.forward`` of the fp32
@@ -78,9 +96,10 @@ of mamba-130m (Mamba-1) and of recurrentgemma-2b:
    first two are held to the phase-3 limits on the operands that forward
    gave them;
 7. times   — each kernel and its plain version at the shapes its path
-   gives it (CUDA events, median), launches, the bound; the decode step
-   of each model, bf16 beside W8, and the engines' serve metrics side
-   by side.  Each phase's seconds are printed after it.
+   gives it (CUDA events, median), launches, the bound, and a PyTorch
+   call computing the same function where there is one; the decode step
+   and prefill of each model, bf16 beside W8, and the engines' serve
+   metrics side by side.  Each phase's seconds are printed after it.
 
 Any failure raises (exit code 1).  Without a GPU it exits 1 before doing
 anything.  The second line from the end is the ``kernels`` JSON record,
@@ -90,6 +109,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import pathlib
@@ -191,6 +211,29 @@ RG_W, RG_D_FF = 2560, 7680
 RG_SENS_X = 4.0
 # The ring phase: one prompt longer than the 2048-token window, chunked.
 RG_RING_PROMPT, RG_RING_CHUNK = 2304, 256
+# Kernel 9's cases (label, b, hq, hkv, L, head_dim, causal, window):
+# gemma-2b's prefill (src/repro/configs/gemma_2b.py: 8 query heads, 1 KV
+# head of 256) at the wave engine's bucket, ragged, under a window and not
+# causal (held to attention_ref's plain version); qwen1.5-4b's MHA (20
+# heads of 128); gemma's 4096-token prompt.
+FLASH_CASES = (("gemma prefill", 4, 8, 1, 128, 256, True, None),
+               ("ragged", 4, 8, 1, 300, 256, True, None),
+               ("qwen MHA", 4, 20, 20, 512, 128, True, None),
+               ("window 64", 4, 8, 1, 300, 256, True, 64),
+               ("non-causal", 4, 8, 1, 100, 256, False, None),
+               ("long", 1, 8, 1, 4096, 256, True, None))
+# Kernel 14's cases: paper Fig. 1's ReduceSum
+# (benchmarks/bench_fig1_op_breakdown.py) and a ragged one, (m, n).
+REDUCE_CASES = ((2048, 2048), (1000, 300))
+# The gemma-2b phases: the 4096-token prompt (past the blocked-attention
+# threshold of 2048 keys) and the loss forward's length.
+GEMMA_LONG, GEMMA_LOSS_L = 4096, 512
+# qwen1.5-4b is served at full width and this depth (of 40), for the
+# script's time.
+QWEN_DEPTH = 4
+# The gemma-2b parity phase's depth (fp32, full width; the CPU holds a
+# second copy of the weights).
+GEMMA_PARITY_DEPTH = 2
 
 
 def reset_counts(counters) -> None:
@@ -355,6 +398,15 @@ def mpwl_inputs(m, dev, dtype, seed, gated):
     return x, w, v
 
 
+def flash_inputs(b, hq, hkv, l, d, dev, dtype, seed):
+    """Kernel 9's q, k, v as the model hands them over: (b, l, h, d)
+    projections seen as (b, h, l, d), no copy."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return tuple(_rand(g, (b, l, h, d), 1.0, dev, dtype).transpose(1, 2)
+                 for h in (hq, hkv, hkv))
+
+
 def _bf16_steps(diff, r):
     """``diff`` in bf16 steps at ``|r|`` (the spacing of bf16 values
     there: 2^(floor(log2|r|) - 7))."""
@@ -437,7 +489,8 @@ def kernel_cases(dev, kernels, tables):
     worst = {k: 0.0 for k in ("mamba2_step", "mamba2_prefill", "cumsum_last",
                               "ssd_chunk", "pwl_activate", "qmatmul",
                               "mamba1_step", "sscan_step", "ssd_step",
-                              "rglru_step", "rg_lru_scan", "matmul_pwl")}
+                              "rglru_step", "rg_lru_scan", "matmul_pwl",
+                              "flash_attention", "reduce_rows")}
     fails = []
     ktab = dict(silu_table=tables["silu"], softplus_table=tables["softplus"])
     pact = {k: (lambda v, t=tables[k]: kernels["pwl_activate_plain"](v, t))
@@ -557,6 +610,24 @@ def kernel_cases(dev, kernels, tables):
                       lambda: (kernels["matmul_pwl_plain"](
                           x, w, tables["gelu"], v),), dn,
                       (("out", "stream"),))
+        for label, b, hq, hkv, l, d, causal, window in FLASH_CASES:
+            q, k, v = flash_inputs(b, hq, hkv, l, d, dev, dtype,
+                                   seed=l + d + hq)
+            fkw = dict(causal=causal, window=window)
+            twice("flash_attention", f"{dn} {label}: b={b} hq={hq} "
+                  f"hkv={hkv} L={l} d={d}"
+                  + ("" if causal else " not causal")
+                  + (f" window {window}" if window else ""),
+                  lambda: (kernels["flash_attention"](q, k, v, **fkw),),
+                  lambda: (kernels["flash_attention_plain"](q, k, v, **fkw),),
+                  dn, (("out", "stream"),))
+        for m, n in REDUCE_CASES:
+            x = _rand(torch.Generator().manual_seed(m + n), (m, n), 1.0, dev,
+                      dtype)
+            twice("reduce_rows", f"{dn} ({m}, {n})",
+                  lambda: (kernels["reduce_rows"](x),),
+                  lambda: (kernels["reduce_rows_plain"](x),), dn,
+                  (("sum", "stream"),))
         for case, args, qkw in qmatmul_cases(dev, dtype, tables):
             got = kernels["qmatmul"](*args, **qkw)
             again = kernels["qmatmul"](*args, **qkw)
@@ -1267,6 +1338,327 @@ def rgemma_times(dev, kernels, launches, worst, tables):
     return rows
 
 
+def _count_params(params):
+    """Elements of every tensor in a params tree (dicts and lists)."""
+    if isinstance(params, dict):
+        return sum(_count_params(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(_count_params(v) for v in params)
+    return params.numel()
+
+
+def _transformer(arch, dev, **overrides):
+    """(model, params) of ``arch`` at full width with ``use_flash=True``,
+    bf16 weights from seed 0, built once."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import init_params
+    cfg = get_config(arch, use_flash=True, **overrides)
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev)
+    params = init_params(model.param_specs(), 0, cfg.dtype, dev)
+    torch.cuda.synchronize()
+    print(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{_count_params(params) / 1e9:.3f} B parameters in bf16 "
+          f"({'tied' if cfg.tie_embeddings else 'untied lm_head'}), init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return model, params
+
+
+def transformer_serve(engine, counters, prompts, want_flash, label):
+    """Serve ``prompts`` through ``engine`` (16 tokens each unless the
+    engine says fewer); every token in the vocabulary, every logit row
+    finite, and ``flash_attention`` launched exactly ``want_flash(metrics)``
+    times, no other kernel.  Returns the launches."""
+    import torch
+    cfg = engine.model.cfg
+    for p in prompts:
+        engine.submit(p)
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    m = engine.metrics.summary()
+    new = engine.cfg.max_new_tokens
+    toks = [t for r in done for t in r.out_tokens]
+    assert len(done) == len(prompts) and all(
+        len(r.out_tokens) == new for r in done), f"{label}: token counts"
+    assert all(0 <= t < cfg.vocab_size for t in toks), f"{label}: token id"
+    assert m["logit_rows"] > 0 and m["nonfinite_logit_rows"] == 0, \
+        f"{label}: non-finite logits {m['nonfinite_logit_rows']}"
+    want = dict({k: 0 for k in launches}, flash_attention=want_flash(m))
+    print(f"  {label}: {len(done)} requests (prompts "
+          f"{sorted(len(p) for p in prompts)}), {len(toks)} tokens, "
+          f"{m['decode_steps']} decode steps, {m['prefill_chunks']} chunk "
+          f"calls; launches {({k: v for k, v in launches.items() if v})} "
+          f"(expected flash_attention {want['flash_attention']}); "
+          f"{m['tokens_per_s']:.1f} tok/s, ttft_mean_s {m['ttft_mean_s']:.4f}"
+          f", ttft_p99_s {m['ttft_p99_s']:.4f}, decode step mean "
+          f"{m['token_latency_s'] * 1e3:.3f} ms; wall {wall:.3f} s",
+          flush=True)
+    assert launches == want, f"{label}: kernel launch counts"
+    return launches
+
+
+def gemma_phase(dev, counters):
+    """Phase 4e: gemma-2b at full width and depth, bf16, ``use_flash``,
+    one weight set: the wave engine (4 requests, prompts 4-128, 16 greedy
+    tokens: 18 ``flash_attention`` launches for its one prefill, none per
+    decode step), the continuous engine with chunk 64 (no kernel: the
+    chunked prefill attends with tensor code, as in JAX), one 4096-token
+    prompt at b = 1 through the wave engine (past the 2048-key blocked
+    threshold: 18 launches) and the ``loss`` forward at b = 1, l = 512
+    (18 launches, finite).  Returns (wave engine, continuous engine,
+    launches of kernel 9 by run)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
+
+    model, params = _transformer("gemma-2b", dev)
+    n, vocab = model.cfg.n_layers, model.cfg.vocab_size
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, vocab, int(n_)).tolist()
+               for n_ in [128] + rng.integers(4, 129, 3).tolist()]
+    kw = dict(max_batch=4, prefill_buckets=(32, 128), max_new_tokens=16)
+    wave = Engine(model, params, ServeConfig(**kw))
+    out = {"flash_attention": transformer_serve(
+        wave, counters, prompts, lambda m: n, "wave (one prefill)")[
+            "flash_attention"]}
+    cont = ContinuousEngine(model, params, ServeConfig(**kw,
+                                                       prefill_chunk=64))
+    transformer_serve(cont, counters, prompts, lambda m: 0,
+                      "continuous, chunk 64")
+    long = Engine(model, params, ServeConfig(
+        max_batch=1, prefill_buckets=(GEMMA_LONG,), max_new_tokens=4))
+    out["flash_attention_long"] = transformer_serve(
+        long, counters, [rng.integers(1, vocab, GEMMA_LONG).tolist()],
+        lambda m: n, f"wave, one {GEMMA_LONG}-token prompt")[
+            "flash_attention"]
+    toks = torch.from_numpy(rng.integers(1, vocab, (1, GEMMA_LOSS_L))).to(dev)
+    reset_counts(counters)
+    with torch.inference_mode():
+        loss, met = model.loss(params, {"tokens": toks, "labels": toks})
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    print(f"  loss (b=1, l={GEMMA_LOSS_L}): {float(loss):.4f}, accuracy "
+          f"{float(met['accuracy']):.4f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    assert launches == dict({k: 0 for k in launches}, flash_attention=n), \
+        "gemma loss: launches"
+    assert bool(torch.isfinite(loss)), "gemma loss: not finite"
+    return wave, cont, out
+
+
+def qwen_phase(dev, counters):
+    """Phase 4f: qwen1.5-4b at full width and depth ``QWEN_DEPTH`` (of 40:
+    cut for the script's time), bf16, ``use_flash``: the wave engine, 4
+    requests of 4-128 tokens and 16 greedy tokens through the untied
+    ``lm_head``, ``QWEN_DEPTH`` launches of kernel 9 for its prefill.
+    Returns the engine."""
+    import numpy as np
+    from repro_torch.serve import Engine, ServeConfig
+    model, params = _transformer("qwen1.5-4b", dev, n_layers=QWEN_DEPTH)
+    print(f"  depth cut to {QWEN_DEPTH} of 40 layers for the script's time",
+          flush=True)
+    assert "lm_head" in params, "qwen: the lm_head is untied"
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, model.cfg.vocab_size, int(n_)).tolist()
+               for n_ in [128] + rng.integers(4, 129, 3).tolist()]
+    eng = Engine(model, params, ServeConfig(
+        max_batch=4, prefill_buckets=(32, 128), max_new_tokens=16))
+    transformer_serve(eng, counters, prompts, lambda m: QWEN_DEPTH,
+                      "wave (one prefill)")
+    return eng
+
+
+def gemma_parity_phase(dev, seed, counters):
+    """Phase 5e: gemma-2b at full width and depth ``GEMMA_PARITY_DEPTH``,
+    fp32, ``use_flash``.  The card (kernel 9 in each prefill) against the
+    CPU's plain path, teacher-forced over 16 greedy tokens of 4 prompts of
+    64, within ``RG_SENS_X`` times the CPU's response to a one-ulp move of
+    every embedding element (at least ``LOGIT_TOL``); then on the card
+    ``use_flash`` on against off, each greedy on its own: the same tokens
+    up to the first position whose top-2 margin is within that
+    tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import init_params
+
+    cfg = get_config("gemma-2b", use_flash=True).replace(
+        n_layers=GEMMA_PARITY_DEPTH, param_dtype="float32")
+    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+    off = build_model(cfg.replace(use_flash=False), dev)
+    params = init_params(gpu.param_specs(), seed, torch.float32, "cpu")
+    gparams = _move(params, dev)
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, size=(4, 64)).astype(np.int64))
+    with torch.inference_mode():
+        reset_counts(counters)
+        lk = _rg_logits(gpu, gparams, prompts, None, dev)
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        lo = _rg_logits(off, gparams, prompts, None, dev)
+        forced = lk.argmax(-1)
+        t0 = time.perf_counter()
+        lp = _rg_logits(cpu, params, prompts, forced, "cpu")
+        lp1 = _rg_logits(cpu, _nudged(params), prompts, forced, "cpu")
+    sens = float((lp1 - lp).abs().max())
+    tol = max(LOGIT_TOL, RG_SENS_X * sens)
+    err = float((lk - lp).abs().max())
+    top2 = lp.topk(2, dim=-1).values
+    confident = (top2[..., 0] - top2[..., 1]) > tol
+    agree = lk.argmax(-1) == lp.argmax(-1)
+    want = dict({k: 0 for k in counts}, flash_attention=cfg.n_layers)
+    cpu_s = time.perf_counter() - t0
+    print(f"  depth {cfg.n_layers} fp32, logits up to "
+          f"{float(lp.abs().max()):.3f}: a one-ulp move of the embeddings "
+          f"moves the CPU's logits by {sens:.3e} ({cpu_s:.1f} s on the "
+          f"CPU); card vs CPU {err:.3e} (tol {tol:.3e}); "
+          f"{int(confident.sum())}/{confident.numel()} positions above the "
+          f"margin, {int(agree[confident].sum())} agree; launches on the "
+          f"card {({k: v for k, v in counts.items() if v})} (expected "
+          f"{cfg.n_layers} flash_attention)", flush=True)
+    assert counts == want, "gemma parity: launches"
+    assert torch.isfinite(lk).all() and torch.isfinite(lp).all()
+    assert err <= tol, f"gemma parity: logit error {err}"
+    assert bool(agree[confident].all()), "gemma parity: token differs"
+    same, firsts = 0, []
+    ton, toff = lk.argmax(-1), lo.argmax(-1)
+    for i in range(ton.shape[0]):
+        diff = (ton[i] != toff[i]).nonzero()
+        if not len(diff):
+            same += 1
+            continue
+        j = int(diff[0])
+        t2 = lk[i, j].topk(2).values
+        firsts.append((i, j, float(t2[0] - t2[1])))
+    before = float((lk - lo).abs().max()) if not firsts else float(
+        (lk[:, :min(j for _, j, _ in firsts)] -
+         lo[:, :min(j for _, j, _ in firsts)]).abs().max())
+    print(f"  use_flash on vs off on the card: {same}/4 prompts "
+          f"token-identical over 16 tokens; logits {before:.3e} apart "
+          f"before any divergence; first divergences (prompt, position, "
+          f"top-2 margin): {firsts}", flush=True)
+    assert before <= tol, "use_flash on vs off: logits"
+    assert all(mg <= tol for _, _, mg in firsts), \
+        "use_flash on vs off: tokens differ above the margin"
+    return tol
+
+
+def reduba_phase(dev, counters):
+    """Phase 5f: ``core/reduce.py: reduce_sum(mode="pallas")`` over axis 0
+    and ``mean(mode="pallas")`` over the last axis (the transpose a copy)
+    of paper Fig. 1's (2048, 2048) fp32 operand on the card: each
+    launches kernel 14 once and matches its ``naive`` mode within phase
+    3's limits.  Returns the launches."""
+    import torch
+    from repro_torch.core import reduce as red
+    x = _rand(torch.Generator().manual_seed(7), REDUCE_CASES[0], 1.0, dev,
+              torch.float32)
+    fails, total = [], 0
+    for name, fn, axis in (("reduce_sum", red.reduce_sum, 0),
+                           ("mean", red.mean, -1)):
+        reset_counts(counters)
+        got = fn(x, axis=axis, mode="pallas")
+        torch.cuda.synchronize(dev)
+        counts = read_counts(counters)
+        want = fn(x, axis=axis, mode="naive")
+        print(f"  {name}(mode='pallas', axis={axis}) of "
+              f"{tuple(x.shape)}: launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        assert counts == dict({k: 0 for k in counts}, reduce_rows=1), \
+            f"reduba: {name} launches"
+        total += counts["reduce_rows"]
+        fails += compare(f"{name} pallas vs naive", (got,), (want,),
+                         "float32", (("out", "stream"),))[1]
+    assert not fails, f"reduba: {fails}"
+    return {"reduce_rows": total}
+
+
+def transformer_times(dev, kernels, launches, worst):
+    """Phase 7's rows for kernels 9 and 14.  Kernel 9 in bf16 at
+    gemma-2b's wave prefill (b = 4, L = 128) and at its 4096-token prompt
+    (b = 1), causal, the (b, s, h, d) layout: bound by the bytes of q, k,
+    v and out, or the operations of the causal pairs this run needs (4 d
+    a pair: q.k and p.v) at the bf16 tensor-core rate (the fp32 CUDA-core
+    time printed beside it); library: ``scaled_dot_product_attention``
+    (``enable_gqa``), timed only.  Kernel 14 at (2048, 2048) fp32 over
+    four operands in turn (past the L2; the launches of phase 5f);
+    library: ``torch.sum(x, 0)``."""
+    import torch
+    import torch.nn.functional as F
+    rows = []
+    for name, (b, l), runs in (
+            ("flash_attention", (4, 128), "the gemma-2b wave serve's prefill"),
+            ("flash_attention_long", (1, GEMMA_LONG),
+             f"the {GEMMA_LONG}-token prompt's prefill")):
+        hq, hkv, d = 8, 1, 256
+        q, k, v = flash_inputs(b, hq, hkv, l, d, dev, torch.bfloat16,
+                               seed=200 + l)
+        out = kernels["flash_attention"](q, k, v, causal=True)
+        ms = time_call(lambda: kernels["flash_attention"](q, k, v,
+                                                          causal=True))
+        plain_ms = time_call(lambda: kernels["flash_attention_plain"](
+            q, k, v, causal=True), n=10)
+        dev_ms = _ours(device_profile(lambda: kernels["flash_attention"](
+            q, k, v, causal=True)))
+        lib_ms = time_call(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        ops = 4 * d * (l * (l + 1) // 2) * b * hq
+        nbytes = _bytes(q, k, v, out)
+        bound_ms, bound_by = _bound(nbytes, ops, BF16_TC_FLOP_PER_S)
+        fp32_ms = ops / FP32_FLOP_PER_S * 1e3
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:92",
+            launches=launches[name], max_abs_err=worst["flash_attention"],
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms))
+        print(f"  flash_attention bf16 b={b} hq={hq} hkv={hkv} L={l} d={d} "
+              f"causal: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP; "
+              f"{fp32_ms:.4f} ms at the fp32 CUDA-core rate), library "
+              f"{lib_ms:.4f} ms (scaled_dot_product_attention); "
+              f"{launches[name]} launches in {runs}", flush=True)
+
+    # Four operands in turn (67 MB, past the 50 MB L2), so that each call
+    # reads its input from HBM as the bound assumes: one 16.8 MB operand
+    # timed alone stays in L2.
+    m, n = REDUCE_CASES[0]
+    g = torch.Generator().manual_seed(201)
+    xs = itertools.cycle([_rand(g, (m, n), 1.0, dev, torch.float32)
+                          for _ in range(4)])
+    x = next(xs)
+    out = kernels["reduce_rows"](x)
+    ms = time_call(lambda: kernels["reduce_rows"](next(xs)))
+    plain_ms = time_call(lambda: kernels["reduce_rows_plain"](next(xs)))
+    dev_ms = _ours(device_profile(lambda: kernels["reduce_rows"](next(xs)),
+                                  n=12))
+    lib_ms = time_call(lambda: torch.sum(next(xs), 0))
+    bound_ms, bound_by = _bound(_bytes(x, out), m * n)
+    rows.append(dict(
+        name="reduce_rows", route="cuda",
+        source="src/repro_torch/csrc/reduba.cu",
+        replaces="src/repro/kernels/reduba.py:35",
+        launches=launches["reduce_rows"], max_abs_err=worst["reduce_rows"],
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=lib_ms))
+    print(f"  reduce_rows fp32 ({m}, {n}): kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({bound_by}), library {lib_ms:.4f} ms (torch.sum(x, 0)); "
+          f"four operands in turn, past the L2; {launches['reduce_rows']} "
+          f"launches in phase 5f", flush=True)
+    return rows
+
+
 def bare_updates_phase(dev, counters):
     """Phase 5c: one call each of ``ssd_decode_step(mode="pallas")`` (at
     mamba2-130m's step widths) and ``selective_scan_decode_step(mode=
@@ -1580,7 +1972,9 @@ OUR_KERNELS = ("mamba2_step_kernel", "gated_norm_kernel", "conv_act_kernel",
                "gemm::drain_kernel", "gemm::tiled_kernel",
                "mamba1_conv_xproj_kernel", "mamba1_scan_kernel",
                "sscan_step_kernel", "ssd_step_kernel", "rglru_gates_kernel",
-               "rglru_update_kernel", "rg_lru_scan_kernel")
+               "rglru_update_kernel", "rg_lru_scan_kernel",
+               "flash_attention_kernel", "reduce_rows_kernel",
+               "reduce_partials_kernel")
 
 
 def device_profile(fn, n=10):
@@ -1950,7 +2344,8 @@ def main() -> int:
     from repro_torch.core.pwl import table_for
     from repro_torch.core.xamba import XambaConfig
     from repro_torch.kernels import actiba, build, cumba, decode_step, \
-        matmul_pwl, prefill_chunk, qmatmul, rg_lru, ssd_chunk
+        flash_attention, matmul_pwl, prefill_chunk, qmatmul, reduba, rg_lru, \
+        ssd_chunk
     from repro_torch.launch import serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1997,6 +2392,10 @@ def main() -> int:
         "rg_lru_scan_plain": rg_lru.rg_lru_scan_plain,
         "matmul_pwl": matmul_pwl.matmul_pwl,
         "matmul_pwl_plain": matmul_pwl.matmul_pwl_plain,
+        "flash_attention": flash_attention.flash_attention,
+        "flash_attention_plain": flash_attention.flash_attention_plain,
+        "reduce_rows": reduba.reduce_rows,
+        "reduce_rows_plain": reduba.reduce_rows_plain,
     }
     counters = {"mamba2_step": decode_step.mamba2_step,
                 "mamba2_prefill": prefill_chunk.mamba2_prefill,
@@ -2009,7 +2408,9 @@ def main() -> int:
                 "ssd_step": decode_step.ssd_step,
                 "rglru_step": decode_step.rglru_step,
                 "rg_lru_scan": rg_lru.rg_lru_scan,
-                "matmul_pwl": matmul_pwl.matmul_pwl}
+                "matmul_pwl": matmul_pwl.matmul_pwl,
+                "flash_attention": flash_attention.flash_attention,
+                "reduce_rows": reduba.reduce_rows}
     secs = {}
 
     def phase(title):
@@ -2063,6 +2464,13 @@ def main() -> int:
     with torch.inference_mode():
         launches.update(rgemma_modes_phase(rg_engine, counters, dev))
 
+    phase("4e. serve (gemma-2b, use_flash: wave, continuous chunk 64, "
+          f"{GEMMA_LONG}-token prompt, loss)")
+    gemma_wave, gemma_cont, gemma_launches = gemma_phase(dev, counters)
+    launches.update(gemma_launches)
+    phase(f"4f. serve (qwen1.5-4b, depth {QWEN_DEPTH}, use_flash, wave)")
+    qwen_wave = qwen_phase(dev, counters)
+
     phase("5. path parity (fp32, kernel path vs plain path)")
     parity_phase(dev, 1, get_config("mamba2-130m"), counters)
     parity_phase(dev, 1, get_config("mamba2-130m"), counters, "w8")
@@ -2077,6 +2485,12 @@ def main() -> int:
     rg_tol = rgemma_parity_phase(dev, 1, counters)
     engines_phase(dev, 3, get_config("recurrentgemma-2b").replace(n_layers=5),
                   rg_tol)
+    phase(f"5e. path parity (gemma-2b, depth {GEMMA_PARITY_DEPTH}, fp32, "
+          "use_flash)")
+    gemma_parity_phase(dev, 1, counters)
+    phase("5f. ReduBA (kernel 14 through core/reduce.py)")
+    with torch.inference_mode():
+        launches.update(reduba_phase(dev, counters))
 
     phase("6. ablation (fp32 forward, b=4, l=300)")
     launches.update({k: v for k, v in ablation_phase(
@@ -2089,11 +2503,13 @@ def main() -> int:
                            tables)
         rows += mamba1_times(dev, kernels, launches, m1_steps, worst, tables)
         rows += rgemma_times(dev, kernels, launches, worst, tables)
+        rows += transformer_times(dev, kernels, launches, worst)
         step_breakdown(engine, "mamba2-130m bf16")
         step_breakdown(w8_engine, "mamba2-130m W8")
         step_breakdown(m1_engine, "mamba-130m bf16")
         step_breakdown(m1_w8_engine, "mamba-130m W8")
         step_breakdown(rg_engine, "recurrentgemma-2b bf16")
+        step_breakdown(gemma_wave, "gemma-2b bf16 use_flash")
     engines_summary((("mamba2 wave, bf16 (8 requests)", engine),
                      ("mamba2 continuous 64, bf16 (12)", cont_engine),
                      ("mamba2 continuous 64, W8 (12)", w8_engine),
@@ -2101,7 +2517,11 @@ def main() -> int:
                      ("mamba1 continuous 64, bf16 (12)", m1_engine),
                      ("mamba1 continuous 64, W8 (12)", m1_w8_engine),
                      ("rgemma wave, bf16 (8 requests)", rg_wave),
-                     ("rgemma continuous 64, bf16 (12)", rg_engine)))
+                     ("rgemma continuous 64, bf16 (12)", rg_engine),
+                     ("gemma wave, bf16 flash (4)", gemma_wave),
+                     ("gemma continuous 64, bf16 (4)", gemma_cont),
+                     (f"qwen wave, depth {QWEN_DEPTH}, flash (4)",
+                      qwen_wave)))
     phase(None)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -1,8 +1,9 @@
 """Architecture config registry: ``--arch <id>`` resolution.
 
-The Mamba-2 (mamba2-130m), Mamba-1 (mamba-130m) and RecurrentGemma
-(recurrentgemma-2b) paths are ported; every other architecture of the
-JAX package's registry raises ``NotImplementedError`` here.
+The Mamba-2 (mamba2-130m), Mamba-1 (mamba-130m), RecurrentGemma
+(recurrentgemma-2b) and dense transformer (gemma-2b, qwen1.5-4b) paths
+are ported; every other architecture of the JAX package's registry
+raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ _ARCHS: Dict[str, str] = {
     "mamba2-130m": "mamba2_130m",
     "mamba-130m": "mamba_130m",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "gemma-2b": "gemma_2b",
+    "qwen1.5-4b": "qwen15_4b",
 }
 
 

@@ -9,8 +9,10 @@
   fp32 accumulation, as the JAX package's ``jnp.einsum`` outside any
   Pallas kernel.
 
-``reduce_sum`` in a ``pallas`` mode would be kernel 14
-(``kernels/reduba.py: reduce_rows``), which is not ported: it raises.
+``reduce_sum`` in a ``pallas`` mode runs kernel 14 (``kernels/ops.py:
+reduba_sum``, ``reduce_rows`` of the transpose; its plain version on a
+CPU tensor); ``mean`` divides any mode's sum in fp32 at least, as the
+JAX package's ``np.float32`` divisor promotes it.
 """
 from __future__ import annotations
 
@@ -33,9 +35,8 @@ def reduce_sum(x: torch.Tensor, axis: int = 0, mode: str = "reduba"
         ones = torch.ones((moved.shape[-1],), dtype=acc, device=x.device)
         return torch.matmul(moved.to(acc), ones).to(x.dtype)
     if mode in ("pallas", "pallas_interpret"):
-        raise NotImplementedError(
-            f"reduce_sum mode {mode!r} is TPU kernel 14 "
-            "(kernels/reduba.py:35 reduce_rows), which is not ported yet")
+        from repro_torch.kernels import ops
+        return ops.reduba_sum(torch.movedim(x, axis, -1))
     raise ValueError(f"unknown reduce mode {mode!r}")
 
 
@@ -78,4 +79,5 @@ def contract(spec: str, lhs: torch.Tensor, rhs: torch.Tensor,
 def mean(x: torch.Tensor, axis: int = -1, mode: str = "reduba"
          ) -> torch.Tensor:
     n = x.shape[axis]
-    return reduce_sum(x, axis=axis, mode=mode) / float(n)
+    total = reduce_sum(x, axis=axis, mode=mode)
+    return total.to(torch.promote_types(total.dtype, torch.float32)) / n

@@ -26,7 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("decode_step", "prefill_chunk", "gated_norm", "actiba", "cumba",
            "ssd_chunk", "qmatmul", "mamba1_step", "rglru_step", "rg_lru",
-           "matmul_pwl")
+           "matmul_pwl", "flash_attention", "reduba")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

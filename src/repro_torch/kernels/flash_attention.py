@@ -1,0 +1,117 @@
+"""Flash attention (causal / sliding window / GQA), forward: the CUDA
+kernel and its plain version.
+
+Port of ``repro.kernels.flash_attention._flash_forward`` (TPU kernel 9)
+and its oracle ``repro.kernels.ref.attention_ref``.  Layouts are the JAX
+package's: q (b, hq, Lq, d); k, v (b, hkv, Lk, d) with hq % hkv == 0;
+query head h reads key / value head h // (hq / hkv).  Scores in fp32
+(q scaled by ``scale``, default d^-0.5, before the product), masked at
+-1e30, softmax, the product with v in fp32, the output in q's dtype.
+Masks are left-aligned: query i and key j are both positions from 0.
+
+* :func:`flash_attention` — the wrapper around ``csrc/flash_attention.cu``
+  (online softmax over 64-key tiles, one block per 64-query tile, batch
+  and head).  CUDA tensors only; any strides whose last axis is
+  contiguous, so ``nn/attention.py`` hands it the (b, s, h, d) projections
+  moved to (b, h, s, d) without a copy, and the output keeps q's layout.
+  Calls are counted in ``flash_attention.launches``.
+* :func:`flash_attention_plain` — ``attention_ref`` in PyTorch: the CPU
+  path, and what the kernel is held to on the card.
+
+Keys past Lk are always masked, so both equal ``attention_ref`` in every
+case.  The TPU kernel does not mask its zero-padded keys when attention
+is not causal: there, with Lk no multiple of 128, it attends to them.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import common
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128, 256)
+
+_LAUNCH = ("flash_attention", "flash_attention_launch",
+           [common.I, common.P, common.P, common.P, common.P, common.P,
+            common.I, common.I, common.I, common.I, common.I, common.I,
+            common.I, common.I, common.F, common.P])
+
+
+def _mask(lq: int, lk: int, causal: bool, window: Optional[int], dev
+          ) -> torch.Tensor:
+    q_ids = torch.arange(lq, device=dev)[:, None]
+    k_ids = torch.arange(lk, device=dev)[None, :]
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (k_ids <= q_ids)
+    if window is not None:
+        mask = mask & (k_ids > q_ids - window)
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version (``attention_ref``); the query heads of a
+    group attend to their key / value head without replicating it."""
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    scale = float(scale if scale is not None else d ** -0.5)
+    qg = (q.float() * scale).reshape(b, hkv, hq // hkv, lq, d)
+    s = torch.einsum("bgqld,bgkd->bgqlk", qg, k.float())
+    s = torch.where(_mask(lq, lk, causal, window, q.device), s, NEG_INF)
+    out = torch.einsum("bgqlk,bgkd->bgqld", torch.softmax(s, dim=-1),
+                       v.float())
+    return out.reshape(b, hq, lq, d).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """The CUDA kernel (contract as :func:`flash_attention_plain`)."""
+    dev = q.device
+    common.require(dev.type == "cuda", "flash_attention takes CUDA tensors; "
+                   "the CPU path is flash_attention_plain")
+    common.check_cuda(dev, k=k, v=v)
+    common.require(q.ndim == 4 and k.ndim == 4 and k.shape == v.shape,
+                   f"flash_attention: q (b, hq, Lq, d), k and v (b, hkv, Lk, "
+                   f"d), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                   f"{tuple(v.shape)}")
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    common.require(k.shape[0] == b and k.shape[3] == d and hq % hkv == 0
+                   and lk >= 1, f"flash_attention: k / v {tuple(k.shape)} "
+                   f"do not match q {tuple(q.shape)}")
+    common.require(d in HEAD_DIMS, f"flash_attention: head_dim {d} not in "
+                   f"{HEAD_DIMS}")
+    common.require(q.dtype == k.dtype == v.dtype,
+                   f"flash_attention: one dtype, got {q.dtype}, {k.dtype}, "
+                   f"{v.dtype}")
+    common.require(window is None or window >= 1,
+                   f"flash_attention: window {window}")
+    common.require(b * hq <= 65535, f"flash_attention: b * hq = {b * hq} "
+                   f"past the grid's limit")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        common.require(t.stride(-1) == 1, f"flash_attention: {name}'s last "
+                       f"axis must be contiguous, strides {t.stride()}")
+    # empty_like keeps a dense q's layout: a (b, s, h, d) buffer seen as
+    # (b, h, s, d) comes back the same way.
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(
+        *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
+    scale = float(scale if scale is not None else d ** -0.5)
+    err = common.launcher(*_LAUNCH)(
+        common.stream_code(q), common.ptr(q), common.ptr(k), common.ptr(v),
+        common.ptr(out), ctypes.addressof(strides), b, hq, hkv, lq, lk, d,
+        int(causal), 0 if window is None else int(window), scale,
+        common.stream(dev))
+    common.check_launch(err, "flash_attention", "flash_attention kernel")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -15,8 +15,9 @@ import torch
 from repro_torch.core import pwl
 from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import actiba as _act, cumba as _cumba, \
-    decode_step as _ds, matmul_pwl as _mpwl, prefill_chunk as _pc, \
-    qmatmul as _qm, rg_lru as _rg, ssd_chunk as _ssd
+    decode_step as _ds, flash_attention as _fa, matmul_pwl as _mpwl, \
+    prefill_chunk as _pc, qmatmul as _qm, reduba as _red, rg_lru as _rg, \
+    ssd_chunk as _ssd
 
 
 def _plain_into(out, res):
@@ -146,6 +147,25 @@ def cumba_cumsum(x: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         return _cumba.cumsum_last(x.contiguous())
     return _cumba.cumsum_last_plain(x)
+
+
+def reduba_sum(x: torch.Tensor) -> torch.Tensor:
+    """ReduBA: the sum over the trailing axis, as ``reduce_rows`` (kernel
+    14) of the (last, rest) transpose."""
+    x2 = x.reshape(-1, x.shape[-1]).t()
+    out = _red.reduce_rows(x2) if x.is_cuda else _red.reduce_rows_plain(x2)
+    return out.reshape(x.shape[:-1])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None, scale=None
+                    ) -> torch.Tensor:
+    """Flash attention (kernel 9): q (b, hq, Lq, d), k / v (b, hkv, Lk, d)
+    -> (b, hq, Lq, d) in q's dtype; masks left-aligned."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    if q.is_cuda:
+        return _fa.flash_attention(q, k, v, **kw)
+    return _fa.flash_attention_plain(q, k, v, **kw)
 
 
 def ssd_chunk(x_c, A_cum, B_c, C_c):

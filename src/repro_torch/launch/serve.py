@@ -1,15 +1,16 @@
 """Serving CLI: ``python -m repro_torch.launch.serve --arch mamba2-130m``
-(or ``mamba-130m``, ``recurrentgemma-2b``) — batched random requests
-through the wave or continuous engine on the GPU (or ``--device cpu``),
-with weights drawn from ``--seed``.
+(or ``mamba-130m``, ``recurrentgemma-2b``, ``gemma-2b``, ``qwen1.5-4b``)
+— batched random requests through the wave or continuous engine on the
+GPU (or ``--device cpu``), with weights drawn from ``--seed``.
 
 Takes the JAX CLI's flags for what the port serves: ``--engine``,
 ``--decode-mode`` / ``--prefill-mode`` (``naive`` = the unfused op
 chains), ``--prefill-chunk`` / ``--prefill-token-budget`` (the continuous
 engine's chunked prefill) and ``--quant`` (W8 weights through the
-``qmatmul`` kernel; not ported for recurrentgemma, where any mode but
-``none`` raises ``NotImplementedError``).  ActiBA has no flag, as in the
-JAX CLI: it comes with the ``XambaConfig`` presets.
+``qmatmul`` kernel; not ported for recurrentgemma and the transformer,
+where any mode but ``none`` raises ``NotImplementedError``).  ActiBA has
+no flag, as in the JAX CLI: it comes with the ``XambaConfig`` presets;
+nor has the flash attention kernel (``use_flash``, a config override).
 """
 from __future__ import annotations
 
@@ -71,7 +72,8 @@ def main(argv=None):
                     "the wave engine keeps monolithic bucketed prefill")
 
     cfg = get_config(args.arch, reduced=args.reduced)
-    if args.quant != "none" and cfg.family == "recurrentgemma":
+    if args.quant != "none" and cfg.family in ("recurrentgemma",
+                                               "transformer"):
         raise NotImplementedError(
             f"--quant {args.quant}: W8 weights for {args.arch} are not "
             f"ported yet")

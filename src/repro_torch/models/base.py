@@ -1,7 +1,7 @@
 """Model configuration: the ``repro.models.base.ModelConfig`` fields that
-the Mamba-1, Mamba-2 and RecurrentGemma families use, with ``dtype`` as a
-``torch.dtype``; and the shared helpers ``chunk_positions`` and
-``cross_entropy_loss``."""
+the Mamba-1, Mamba-2, RecurrentGemma and dense transformer families use,
+with ``dtype`` as a ``torch.dtype``; and the shared helpers
+``chunk_positions`` and ``cross_entropy_loss``."""
 from __future__ import annotations
 
 import dataclasses
@@ -57,7 +57,7 @@ class ModelConfig:
     n_layers: int = 4
     tie_embeddings: bool = True
 
-    # -- attention (recurrentgemma's local attention) -------------------------
+    # -- attention (the transformer; recurrentgemma's local attention) --------
     n_heads: int = 8
     n_kv_heads: int = 8
     head_dim: int = 64
@@ -93,15 +93,23 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ()   # e.g. ("recurrent", "recurrent",
     #                                       "attention")
 
+    # -- transformer variants that are not ported (the model refuses them) ----
+    moe: bool = False
+    frontend: Optional[str] = None        # vision_stub | audio_stub
+
     # -- execution policies ---------------------------------------------------
     param_dtype: str = "bfloat16"
     # The JAX package's training / layout knobs, kept for parity: the port
     # never rematerializes and always walks its layers in a Python loop.
     remat: str = "none"
     scan_layers: bool = True
-    # The flash-attention kernel (TPU kernel 9) is not ported: attention
-    # without a logit soft-cap raises under ``use_flash``.
+    # Whole-sequence attention without a logit soft-cap runs the flash
+    # attention kernel (TPU kernel 9; ``nn/attention.py: full_attention``).
     use_flash: bool = False
+    # Kept as a name only: the device decides what runs (the kernel on a
+    # CUDA tensor, its plain version on a CPU one), as with the
+    # ``pallas_interpret`` modes.
+    flash_interpret: bool = False
     # A one-token call with a state takes the prefill path, not the step.
     force_prefill_path: bool = False
     xamba: XambaConfig = XambaConfig()

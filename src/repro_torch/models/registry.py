@@ -5,9 +5,10 @@ from repro_torch.core.device import DeviceLike
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.mamba_lm import MambaLM
 from repro_torch.models.recurrentgemma import RecurrentGemma
+from repro_torch.models.transformer import TransformerLM
 
 _FAMILIES = {"mamba": MambaLM, "mamba2": MambaLM,
-             "recurrentgemma": RecurrentGemma}
+             "recurrentgemma": RecurrentGemma, "transformer": TransformerLM}
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None):

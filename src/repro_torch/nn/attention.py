@@ -1,12 +1,15 @@
 """Multi-head attention (GQA/MQA) with a KV cache, RoPE and a sliding
 window: a port of ``repro.nn.attention`` in plain PyTorch ops.
 
-The JAX package computes this outside any Pallas kernel on the ported
-path (``full_attention`` takes the flash kernel only without a logit
-soft-cap, and recurrentgemma has one), so the port keeps it as tensor
-code: scores and softmax in fp32, masks of ``-1e30``, the soft-cap on the
-scores before masking.  The flash-attention kernel (TPU kernel 9) is not
-ported: ``use_flash`` without a soft-cap raises.
+Scores and softmax in fp32, masks of ``-1e30``, the soft-cap on the
+scores before masking, as tensor code, except where the JAX package
+takes its Pallas kernel: ``full_attention`` (the cache-less forward and
+the whole-prompt prefill) with ``use_flash`` and no logit soft-cap runs
+the flash-attention kernel (TPU kernel 9, ``kernels/ops.py:
+flash_attention``; its plain version on a CPU tensor), ahead of the
+blocked form, as the JAX package orders them.  The kernel's masks are
+left-aligned, the tensor path's right-aligned: they agree for
+self-attention (as many queries as keys), the only caller.
 
 Layouts are the JAX package's: q (b, s, nq, hd), k / v (b, t, nkv, hd),
 caches (b, T, nkv, hd).  Two cache layouts: **linear** (position p in
@@ -30,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.nn import layers
 
 NEG_INF = -1e30
@@ -189,9 +193,10 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    probs_bf16: bool = False) -> torch.Tensor:
     """q (b, s, nq, hd); k, v (b, t, nkv, hd) -> (b, s, nq, hd)."""
     if use_flash and logit_softcap is None:
-        raise NotImplementedError(
-            "use_flash: the flash-attention kernel (TPU kernel 9) is not "
-            "ported")
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal,
+                                  window=window)
+        return out.transpose(1, 2)
     if k.shape[1] > BLOCKED_ATTN_THRESHOLD:
         return blocked_attention(q, k, v, causal=causal, window=window,
                                  logit_softcap=logit_softcap,
@@ -383,3 +388,15 @@ def apply(params: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
                              logit_softcap=softcap)
     y = layers.linear(params["wo"], o.reshape(b, s, nq * hd))
     return y, new_cache
+
+
+def snapshot_keep_len(T: int, index: Optional[int],
+                      window: Optional[int]) -> int:
+    """The KV positions a snapshot of a cache of ``T`` slots keeps after
+    ``index`` consumed tokens (the JAX package's byte-accounting rule):
+    a ring (``T == window``) whole, since which slots hold what depends on
+    the position; a linear cache ``[0, index)``, the rest being zeros;
+    everything when ``index`` is ``None``."""
+    if window is not None and T == window:
+        return T
+    return T if index is None else max(0, min(int(index), T))

@@ -6,8 +6,8 @@ trunk is declared stacked, so one draw covers every layer of a leaf with
 the same init scale as ``repro.nn.params._init_one`` (the fan-in of a
 stacked weight is its leading axis):
 
-* the Mamba models' ``layers`` (``stack_specs``: a leading ``n_layers``
-  axis);
+* the Mamba models' and the transformer's ``layers`` (``stack_specs``: a
+  leading ``n_layers`` axis);
 * RecurrentGemma's ``groups`` (a leading ``n_groups`` axis on each
   pattern position ``"0"``, ``"1"``, ...) and its unstacked ``tail``
   (``"0"``, ``"1"``, ... of the layers past the last whole group).

@@ -614,3 +614,53 @@ def test_rgemma_model_on_the_card_launches_kernels_6_8_11(dev):
         pallas = xamba.actiba
         assert got == [6 * 4, (1 + 6 + 1) * 5 if pallas else 0,
                        4 if pallas else 0], got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,causal,window", [
+    (2, 4, 2, 256, 256, 64, True, None), (1, 2, 2, 128, 384, 128, True, None),
+    (2, 4, 1, 200, 200, 32, True, 64), (1, 2, 2, 100, 100, 64, False, None),
+    (2, 8, 1, 130, 130, 256, True, None)],
+    ids=["gqa", "lq<lk", "window", "noncausal-ragged", "mqa-d256"])
+def test_flash_attention_kernel_matches_plain(dev, dtype, b, hq, hkv, lq, lk,
+                                              d, causal, window):
+    """Kernel 9 against ``attention_ref``'s plain version (keys past Lk
+    masked even when not causal), the same bits on a second call; the
+    (b, s, h, d) layout ``nn/attention.py`` passes, without a copy."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator().manual_seed(lq + d)
+    q, k, v = (torch.randn(s, generator=gen).to(dev).to(dtype) for s in
+               ((b, lq, hq, d), (b, lk, hkv, d), (b, lk, hkv, d)))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(causal=causal, window=window)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    assert fa.flash_attention.launches == before + 2
+    assert got.stride() == q.stride()
+    torch.cuda.synchronize(dev)
+    _close(got, fa.flash_attention_plain(q, k, v, **kw),
+           TOL[dtype, "stream"], "out")
+    assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q[..., :d - 8], k[..., :d - 8], v[..., :d - 8])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2048, 2048), (1000, 300), (1, 7),
+                                   (5000, 129)])
+def test_reduce_rows_kernel_matches_plain(dev, dtype, shape):
+    """Kernel 14 against ``torch.sum`` in fp32, at one and at many row
+    splits, the same bits on a second call; through ``reduce_sum`` in
+    ``pallas`` mode once a call."""
+    from repro_torch.core import reduce as red
+    from repro_torch.kernels import reduba
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(
+        shape[0])).to(dev).to(dtype)
+    before = reduba.reduce_rows.launches
+    got = reduba.reduce_rows(x)
+    assert torch.equal(got, reduba.reduce_rows(x))
+    torch.cuda.synchronize(dev)
+    _close(got, reduba.reduce_rows_plain(x), TOL[dtype, "stream"], "sum")
+    assert torch.equal(red.reduce_sum(x, axis=0, mode="pallas"), got)
+    assert reduba.reduce_rows.launches == before + 3

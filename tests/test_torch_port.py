@@ -213,7 +213,7 @@ def test_registry():
         "recurrentgemma", 26, 2560, 2560, 10, 1, 256, 7680, 256000, 2048,
         30.0)
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("gemma-2b")
+        get_config("deepseek-7b")
 
 
 def test_cli_serves_on_cpu():

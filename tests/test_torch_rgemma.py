@@ -294,8 +294,10 @@ def test_attention_decode_across_a_ring_wrap_matches_jax(index, T):
 
 def test_blocked_attention_and_flash_refusal():
     """Past 2048 kv positions the whole-sequence path is the blocked
-    online softmax, as JAX's; ``use_flash`` without a soft-cap raises
-    (kernel 9 is not ported)."""
+    online softmax, as JAX's; ``use_flash`` does not change that with a
+    soft-cap (recurrentgemma's: the flash kernel has none), and without
+    one takes kernel 9 (its plain version here) ahead of the blocked
+    form, as JAX orders them."""
     rng = np.random.default_rng(6)
     q = rng.normal(size=(1, 40, 2, 8)).astype(np.float32)
     k, v = (rng.normal(size=(1, 2100, 1, 8)).astype(np.float32)
@@ -303,12 +305,16 @@ def test_blocked_attention_and_flash_refusal():
     want = jattn.blocked_attention(jnp.asarray(q), jnp.asarray(k),
                                    jnp.asarray(v), causal=True, window=300,
                                    logit_softcap=30.0)
-    got = tattn.full_attention(_t(q), _t(k), _t(v), causal=True, window=300,
-                               logit_softcap=30.0)
-    assert _rel(got, want) <= RTOL
-    with pytest.raises(NotImplementedError, match="kernel 9"):
-        tattn.full_attention(_t(q), _t(k), _t(v), causal=True, window=None,
-                             use_flash=True)
+    for use_flash in (False, True):
+        got = tattn.full_attention(_t(q), _t(k), _t(v), causal=True,
+                                   window=300, logit_softcap=30.0,
+                                   use_flash=use_flash)
+        assert _rel(got, want) <= RTOL
+    got = tattn.full_attention(_t(q), _t(k), _t(v), causal=True, window=None,
+                               use_flash=True)
+    want = jref.attention_ref(*(jnp.moveaxis(jnp.asarray(a), 2, 1)
+                                for a in (q, k, v)), causal=True)
+    assert _rel(got, jnp.moveaxis(want, 1, 2)) <= RTOL
 
 
 # ---------------------------------------------------------------------------

@@ -191,11 +191,10 @@ def test_reduce_sum_and_mean_match_jax(mode):
 
 
 def test_unported_kernel_modes_raise():
-    """Kernel 14 is reached only through these modes; it raises and names
-    the kernel instead of running a stand-in.  Kernel 3, ported since,
-    runs there instead: on the CPU its plain version, against the JAX
-    package's ``ssd_decode_step`` in the same mode (interpret)."""
-    x = torch.ones(3, 4)
+    """Kernels 14 and 3, ported since, run in these modes: on the CPU
+    their plain versions, against the JAX package's ``reduce_sum`` and
+    ``ssd_decode_step`` in the same mode (interpret)."""
+    x = np.random.default_rng(11).normal(size=(3, 4)).astype(np.float32)
     rng = np.random.default_rng(12)
     args = (rng.normal(size=(2, 4, 8, 16)), rng.normal(size=(2, 4, 8)),
             rng.uniform(0.01, 1.0, size=(2, 4)), -rng.uniform(0.1, 2, 4),
@@ -204,8 +203,9 @@ def test_unported_kernel_modes_raise():
     want = jssd.ssd_decode_step(*map(jnp.asarray, args),
                                 mode="pallas_interpret")
     for mode in ("pallas", "pallas_interpret"):
-        with pytest.raises(NotImplementedError, match="kernel 14"):
-            treduce.reduce_sum(x, mode=mode)
+        assert _err(treduce.reduce_sum(_t(x), mode=mode),
+                    jreduce.reduce_sum(jnp.asarray(x),
+                                       mode="pallas_interpret")) <= 1e-5
         got = tssd.ssd_decode_step(*map(_t, args), mode=mode)
         for a, r in zip(got, want):
             assert _err(a, r) <= 1e-5
