@@ -29,7 +29,11 @@ qwen1.5-4b:
    prefill (b = 4, L = 128, 8 query heads and 1 KV head of 256), ragged
    (L = 300), under a 64-token window, not causal (L = 100), at
    qwen1.5-4b's MHA (20 heads of 128, L = 512) and at b = 1, L = 4096;
-   ``reduce_rows`` at (2048, 2048) and (1000, 300); each twice;
+   ``reduce_rows`` at (2048, 2048) and (1000, 300); each twice.  Kernels
+   9 and 11 print the body each case took by their path counts (bf16:
+   the tensor-core ``wgmma`` body above the GEMV's m <= 8; fp32: the
+   SIMT body) and fail a case that took another than the shape rule
+   names;
 4. serve   — the wave engine through ``repro_torch.launch.serve``: 8
    requests, batch 4, prompts of 4-128 tokens, 16 new tokens, greedy,
    bf16 weights from ``--seed``; every token in the vocabulary, every
@@ -50,10 +54,11 @@ qwen1.5-4b:
    12 requests): 18 ``rglru_step`` launches per decode step and no other
    kernel; then on the same weights an ``Engine`` under ``pallas()`` (18
    ``rglru_step`` + 26 ``matmul_pwl`` per decode step, 26 ``matmul_pwl``
-   per prefill), ``RecurrentGemma.loss`` at b = 2, l = 256 under
-   ``pallas()`` (18 ``rg_lru_scan``, 26 ``matmul_pwl``) and without
-   ActiBA (a finite loss), and one continuous request with a 2304-token
-   prompt in chunks of 256 (the 2048-slot ring wraps) and 16 new tokens.
+   per prefill on the ``wgmma`` body), ``RecurrentGemma.loss`` at b = 2,
+   l = 256 under ``pallas()`` (18 ``rg_lru_scan``, 26 ``matmul_pwl``) and
+   without ActiBA (a finite loss), and one continuous request with a
+   2304-token prompt in chunks of 256 (the 2048-slot ring wraps) and 16
+   new tokens.
    4e: gemma-2b at full width and depth, bf16, ``use_flash=True``, one
    weight set: the wave engine (4 requests, prompts 4-128, 16 greedy
    tokens; 18 ``flash_attention`` launches for its prefill, none per
@@ -99,7 +104,10 @@ qwen1.5-4b:
    gives it (CUDA events, median), launches, the bound, and a PyTorch
    call computing the same function where there is one; the decode step
    and prefill of each model, bf16 beside W8, and the engines' serve
-   metrics side by side.  Each phase's seconds are printed after it.
+   metrics side by side; the SIMT bodies of kernels 9 and 11 (PR 16's)
+   on the same bf16 inputs beside their ``wgmma`` bodies, and ptxas's
+   report of the ``wgmma`` bodies.  Each phase's seconds are printed
+   after it.
 
 Any failure raises (exit code 1).  Without a GPU it exits 1 before doing
 anything.  The second line from the end is the ``kernels`` JSON record,
@@ -512,6 +520,20 @@ def kernel_cases(dev, kernels, tables):
             print(f"  {kernel} {case}: a second call gave other bits FAIL")
             fails.append(f"{kernel} {case} repeat")
 
+    def routed(kernel, case, rule, call, plain, dn, outs):
+        """``twice``, with the body both calls took by the wrapper's path
+        counts: it must be ``rule``, the body the shape rule names (the
+        tensor-core ``wgmma`` body for bf16 operands TMA can read)."""
+        counts = kernels[kernel].path_launches
+        before = dict(counts)
+        twice(kernel, case, call, plain, dn, outs)
+        took = {k: v - before[k] for k, v in counts.items() if v != before[k]}
+        ok = took == {rule: 2}
+        print(f"    body: {took} (the shape rule names {rule})"
+              + ("" if ok else " FAIL"), flush=True)
+        if not ok:
+            fails.append(f"{kernel} {case} body")
+
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         for b in (1, 4):
@@ -603,24 +625,29 @@ def kernel_cases(dev, kernels, tables):
             for gated in (False, True):
                 x, w, v = mpwl_inputs(m, dev, dtype, seed=m + gated,
                                       gated=gated)
-                twice("matmul_pwl", f"{dn} {'gated' if gated else 'pwl'} "
-                      f"(gelu table) x ({m}, {RG_W}) w ({RG_W}, {RG_D_FF})",
-                      lambda: (kernels["matmul_pwl"](x, w, tables["gelu"],
-                                                     v),),
-                      lambda: (kernels["matmul_pwl_plain"](
-                          x, w, tables["gelu"], v),), dn,
-                      (("out", "stream"),))
+                rule = "gemv" if m <= 8 else (
+                    "wgmma" if dtype == torch.bfloat16 else "tiled")
+                routed("matmul_pwl", f"{dn} {'gated' if gated else 'pwl'} "
+                       f"(gelu table) x ({m}, {RG_W}) w ({RG_W}, {RG_D_FF})",
+                       rule,
+                       lambda: (kernels["matmul_pwl"](x, w, tables["gelu"],
+                                                      v),),
+                       lambda: (kernels["matmul_pwl_plain"](
+                           x, w, tables["gelu"], v),), dn,
+                       (("out", "stream"),))
         for label, b, hq, hkv, l, d, causal, window in FLASH_CASES:
             q, k, v = flash_inputs(b, hq, hkv, l, d, dev, dtype,
                                    seed=l + d + hq)
             fkw = dict(causal=causal, window=window)
-            twice("flash_attention", f"{dn} {label}: b={b} hq={hq} "
-                  f"hkv={hkv} L={l} d={d}"
-                  + ("" if causal else " not causal")
-                  + (f" window {window}" if window else ""),
-                  lambda: (kernels["flash_attention"](q, k, v, **fkw),),
-                  lambda: (kernels["flash_attention_plain"](q, k, v, **fkw),),
-                  dn, (("out", "stream"),))
+            routed("flash_attention", f"{dn} {label}: b={b} hq={hq} "
+                   f"hkv={hkv} L={l} d={d}"
+                   + ("" if causal else " not causal")
+                   + (f" window {window}" if window else ""),
+                   "wgmma" if dtype == torch.bfloat16 else "simt",
+                   lambda: (kernels["flash_attention"](q, k, v, **fkw),),
+                   lambda: (kernels["flash_attention_plain"](q, k, v,
+                                                             **fkw),),
+                   dn, (("out", "stream"),))
         for m, n in REDUCE_CASES:
             x = _rand(torch.Generator().manual_seed(m + n), (m, n), 1.0, dev,
                       dtype)
@@ -1050,13 +1077,14 @@ def rgemma_modes_phase(engine, counters, dev):
     """Phase 4d, continued, on the served full-width bf16 weights
     (``engine``'s): an ``Engine`` under ``XambaConfig.pallas()`` (18
     ``rglru_step`` per decode step; 26 ``matmul_pwl`` per decode step,
-    GEMV, and per prefill, tiled); one ``RecurrentGemma.loss`` forward
-    under ``pallas()`` at b = 2, l = 256 (18 ``rg_lru_scan``, 26
-    ``matmul_pwl``), and under ``pallas()`` without ActiBA (kernel 8 with
-    the exact activations), whose loss must be finite; then one continuous
-    request with a 2304-token prompt in chunks of 256, past the 2048-slot
-    ring, and 16 new tokens.  Returns the launches of kernels 8 and 11 and
-    kernel 11's by path.
+    GEMV, and per prefill, the bf16 ``wgmma`` body); one
+    ``RecurrentGemma.loss`` forward under ``pallas()`` at b = 2, l = 256
+    (18 ``rg_lru_scan``, 26 ``matmul_pwl``, ``wgmma``), and under
+    ``pallas()`` without ActiBA (kernel 8 with the exact activations),
+    whose loss must be finite; then one continuous request with a
+    2304-token prompt in chunks of 256, past the 2048-slot ring, and 16
+    new tokens.  Returns the launches of kernels 8 and 11 and
+    kernel 11's by path, and the ``pallas()`` engine.
 
     Under ActiBA the outputs are counted, not required finite: at this
     random init the RG-LRU gates' pre-activations lie far below the
@@ -1097,7 +1125,7 @@ def rgemma_modes_phase(engine, counters, dev):
     assert all(0 <= t < cfg.vocab_size for t in toks)
     assert launches["rglru_step"] == n_rec * steps
     assert launches["matmul_pwl"] == n * (steps + waves)
-    assert paths == {"gemv": n * steps, "tiled": n * waves}
+    assert paths == {"gemv": n * steps, "wgmma": n * waves, "tiled": 0}
     assert launches["rg_lru_scan"] == 0
     out = {"matmul_pwl": launches["matmul_pwl"], "matmul_pwl_paths": paths}
 
@@ -1111,10 +1139,12 @@ def rgemma_modes_phase(engine, counters, dev):
         loss, met = mdl.loss(params, {"tokens": toks, "labels": toks})
         torch.cuda.synchronize()
         launches = read_counts(counters)
+        paths = dict(counters["matmul_pwl"].path_launches)
         print(f"  loss under {label} (b=2, l=256): {float(loss):.4f}, "
               f"accuracy {float(met['accuracy']):.4f}; launches "
-              f"{dict((k, v) for k, v in launches.items() if v)}",
-              flush=True)
+              f"{dict((k, v) for k, v in launches.items() if v)}, "
+              f"matmul_pwl by path {paths}", flush=True)
+        assert paths == {"gemv": 0, "wgmma": want[1], "tiled": 0}
         assert (launches["rg_lru_scan"], launches["matmul_pwl"]) == want
         assert launches["rglru_step"] == 0
     assert bool(torch.isfinite(loss)), "loss: not finite"
@@ -1143,7 +1173,7 @@ def rgemma_modes_phase(engine, counters, dev):
     assert m["nonfinite_logit_rows"] == 0 and m["logit_rows"] > 0
     assert m["prefill_chunks"] == RG_RING_PROMPT // RG_RING_CHUNK
     assert launches["rglru_step"] == n_rec * m["decode_steps"]
-    return out
+    return out, eng
 
 
 def _rg_logits(model, params, prompts, forced, device):
@@ -1314,6 +1344,7 @@ def rgemma_times(dev, kernels, launches, worst, tables):
         x, w, v = mpwl_inputs(m, dev, torch.bfloat16, seed=102 + m,
                               gated=True)
         args = (x, w, tables["gelu"], v)
+        body = "gemv" if path == "gemv" else "wgmma"
         out = kernels["matmul_pwl"](*args)
         ms = time_call(lambda: kernels["matmul_pwl"](*args))
         plain_ms = time_call(lambda: kernels["matmul_pwl_plain"](*args))
@@ -1326,15 +1357,28 @@ def rgemma_times(dev, kernels, launches, worst, tables):
             name=f"matmul_pwl_{path}", route="cuda",
             source="src/repro_torch/csrc/matmul_pwl.cu",
             replaces="src/repro/kernels/matmul_pwl.py:69",
-            launches=paths[path], max_abs_err=worst["matmul_pwl"], ms=ms,
+            launches=paths[body], max_abs_err=worst["matmul_pwl"], ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=lib_ms))
-        print(f"  matmul_pwl {path} gated bf16 x ({m}, {RG_W}) w, v ({RG_W}, "
-              f"{RG_D_FF}): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), library {lib_ms:.4f} ms (its two torch.matmul "
-              f"products alone); {paths[path]} launches of this path in "
-              f"the pallas() Engine run", flush=True)
+        print(f"  matmul_pwl {path} ({body} body) gated bf16 x ({m}, {RG_W}) "
+              f"w, v ({RG_W}, {RG_D_FF}): kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), library {lib_ms:.4f} ms (its "
+              f"two torch.matmul products alone); {paths[body]} launches of "
+              f"this body in the pallas() Engine run", flush=True)
+    # The SIMT tiled body (PR 16's) on the same bf16 operands, same card.
+    simt_ms = time_call(lambda: simt_matmul_pwl(*args))
+    simt_dev = _ours(device_profile(lambda: simt_matmul_pwl(*args)))
+    print(f"  matmul_pwl m=512 gated bf16 on the SIMT tiled body (not "
+          f"counted): kernel {simt_ms:.4f} ms (device {simt_dev:.4f} ms): "
+          f"the wgmma body is {simt_dev / max(dev_ms, 1e-9):.1f}x faster in "
+          f"device time", flush=True)
+    for gated in (0, 1):
+        print(f"  matmul_pwl wgmma body ({'gated' if gated else 'pwl'}): "
+              f"{wgmma_smem('matmul_pwl', 'matmul_pwl_wgmma_smem', gated)} "
+              f"bytes of dynamic shared memory", flush=True)
+    for line in ptxas_lines("matmul_pwl", "matmul_pwl_wgmma_kernel"):
+        print(f"    ptxas {line}")
     return rows
 
 
@@ -1390,16 +1434,22 @@ def transformer_serve(engine, counters, prompts, want_flash, label):
     assert m["logit_rows"] > 0 and m["nonfinite_logit_rows"] == 0, \
         f"{label}: non-finite logits {m['nonfinite_logit_rows']}"
     want = dict({k: 0 for k in launches}, flash_attention=want_flash(m))
+    body = "wgmma" if cfg.dtype == torch.bfloat16 else "simt"
+    paths = dict(counters["flash_attention"].path_launches)
     print(f"  {label}: {len(done)} requests (prompts "
           f"{sorted(len(p) for p in prompts)}), {len(toks)} tokens, "
           f"{m['decode_steps']} decode steps, {m['prefill_chunks']} chunk "
           f"calls; launches {({k: v for k, v in launches.items() if v})} "
-          f"(expected flash_attention {want['flash_attention']}); "
+          f"(expected flash_attention {want['flash_attention']}, by body "
+          f"{paths}); "
           f"{m['tokens_per_s']:.1f} tok/s, ttft_mean_s {m['ttft_mean_s']:.4f}"
           f", ttft_p99_s {m['ttft_p99_s']:.4f}, decode step mean "
           f"{m['token_latency_s'] * 1e3:.3f} ms; wall {wall:.3f} s",
           flush=True)
     assert launches == want, f"{label}: kernel launch counts"
+    assert paths == dict({"wgmma": 0, "simt": 0},
+                         **{body: want["flash_attention"]}), \
+        f"{label}: kernel 9's bodies"
     return launches
 
 
@@ -1443,11 +1493,14 @@ def gemma_phase(dev, counters):
         loss, met = model.loss(params, {"tokens": toks, "labels": toks})
     torch.cuda.synchronize()
     launches = read_counts(counters)
+    paths = dict(counters["flash_attention"].path_launches)
     print(f"  loss (b=1, l={GEMMA_LOSS_L}): {float(loss):.4f}, accuracy "
           f"{float(met['accuracy']):.4f}; launches "
-          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+          f"{ {k: v for k, v in launches.items() if v} }, kernel 9 by body "
+          f"{paths}", flush=True)
     assert launches == dict({k: 0 for k in launches}, flash_attention=n), \
         "gemma loss: launches"
+    assert paths == {"wgmma": n, "simt": 0}, "gemma loss: kernel 9's body"
     assert bool(torch.isfinite(loss)), "gemma loss: not finite"
     return wave, cont, out
 
@@ -1482,7 +1535,8 @@ def gemma_parity_phase(dev, seed, counters):
     every embedding element (at least ``LOGIT_TOL``); then on the card
     ``use_flash`` on against off, each greedy on its own: the same tokens
     up to the first position whose top-2 margin is within that
-    tolerance."""
+    tolerance.  Returns kernel 9's launches on the card (the fp32 SIMT
+    body)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1503,6 +1557,7 @@ def gemma_parity_phase(dev, seed, counters):
         lk = _rg_logits(gpu, gparams, prompts, None, dev)
         torch.cuda.synchronize()
         counts = read_counts(counters)
+        paths = dict(counters["flash_attention"].path_launches)
         lo = _rg_logits(off, gparams, prompts, None, dev)
         forced = lk.argmax(-1)
         t0 = time.perf_counter()
@@ -1523,8 +1578,11 @@ def gemma_parity_phase(dev, seed, counters):
           f"{int(confident.sum())}/{confident.numel()} positions above the "
           f"margin, {int(agree[confident].sum())} agree; launches on the "
           f"card {({k: v for k, v in counts.items() if v})} (expected "
-          f"{cfg.n_layers} flash_attention)", flush=True)
+          f"{cfg.n_layers} flash_attention, fp32: the SIMT body; by body "
+          f"{paths})", flush=True)
     assert counts == want, "gemma parity: launches"
+    assert paths == {"wgmma": 0, "simt": cfg.n_layers}, \
+        "gemma parity: kernel 9's body"
     assert torch.isfinite(lk).all() and torch.isfinite(lp).all()
     assert err <= tol, f"gemma parity: logit error {err}"
     assert bool(agree[confident].all()), "gemma parity: token differs"
@@ -1548,7 +1606,7 @@ def gemma_parity_phase(dev, seed, counters):
     assert before <= tol, "use_flash on vs off: logits"
     assert all(mg <= tol for _, _, mg in firsts), \
         "use_flash on vs off: tokens differ above the margin"
-    return tol
+    return paths["simt"]
 
 
 def reduba_phase(dev, counters):
@@ -1584,13 +1642,16 @@ def reduba_phase(dev, counters):
 def transformer_times(dev, kernels, launches, worst):
     """Phase 7's rows for kernels 9 and 14.  Kernel 9 in bf16 at
     gemma-2b's wave prefill (b = 4, L = 128) and at its 4096-token prompt
-    (b = 1), causal, the (b, s, h, d) layout: bound by the bytes of q, k,
-    v and out, or the operations of the causal pairs this run needs (4 d
-    a pair: q.k and p.v) at the bf16 tensor-core rate (the fp32 CUDA-core
-    time printed beside it); library: ``scaled_dot_product_attention``
-    (``enable_gqa``), timed only.  Kernel 14 at (2048, 2048) fp32 over
-    four operands in turn (past the L2; the launches of phase 5f);
-    library: ``torch.sum(x, 0)``."""
+    (b = 1), causal, the (b, s, h, d) layout (the ``wgmma`` body): bound by
+    the bytes of q, k, v and out, or the operations of the causal pairs
+    this run needs (4 d a pair: q.k and p.v) at the bf16 tensor-core rate
+    (the fp32 CUDA-core time, the design's own 6 d a pair at the bf16
+    rate, and the SIMT body on the same inputs printed beside it); and the
+    fp32 SIMT body at phase 5e's shape (b = 4, L = 64, bound at the fp32
+    CUDA-core rate, the launches of 5e); library:
+    ``scaled_dot_product_attention`` (``enable_gqa``), timed only.
+    Kernel 14 at (2048, 2048) fp32 over four operands in turn (past the
+    L2; the launches of phase 5f); library: ``torch.sum(x, 0)``."""
     import torch
     import torch.nn.functional as F
     rows = []
@@ -1614,6 +1675,10 @@ def transformer_times(dev, kernels, launches, worst):
         nbytes = _bytes(q, k, v, out)
         bound_ms, bound_by = _bound(nbytes, ops, BF16_TC_FLOP_PER_S)
         fp32_ms = ops / FP32_FLOP_PER_S * 1e3
+        # The design's own tensor-core work: P V in two bf16 terms.
+        design_ms = 1.5 * ops / BF16_TC_FLOP_PER_S * 1e3
+        simt_ms = time_call(lambda: simt_flash(q, k, v), n=10)
+        simt_dev = _ours(device_profile(lambda: simt_flash(q, k, v)))
         rows.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/flash_attention.cu",
@@ -1625,9 +1690,45 @@ def transformer_times(dev, kernels, launches, worst):
               f"causal: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP; "
-              f"{fp32_ms:.4f} ms at the fp32 CUDA-core rate), library "
-              f"{lib_ms:.4f} ms (scaled_dot_product_attention); "
-              f"{launches[name]} launches in {runs}", flush=True)
+              f"{fp32_ms:.4f} ms at the fp32 CUDA-core rate; the design's "
+              f"6 d operations a pair {design_ms:.4f} ms at the bf16 rate), "
+              f"library {lib_ms:.4f} ms (scaled_dot_product_attention); "
+              f"{launches[name]} launches in {runs}; the SIMT body (PR "
+              f"16's, not counted) {simt_ms:.4f} ms (device {simt_dev:.4f} "
+              f"ms, {simt_dev / max(dev_ms, 1e-9):.1f}x the wgmma body's)",
+              flush=True)
+    # The fp32 (SIMT) body at phase 5e's shape: gemma-2b, b = 4, L = 64.
+    b, l, hq, hkv, d = 4, 64, 8, 1, 256
+    q, k, v = flash_inputs(b, hq, hkv, l, d, dev, torch.float32, seed=264)
+    out = kernels["flash_attention"](q, k, v, causal=True)
+    ms = time_call(lambda: kernels["flash_attention"](q, k, v, causal=True))
+    plain_ms = time_call(lambda: kernels["flash_attention_plain"](
+        q, k, v, causal=True))
+    dev_ms = _ours(device_profile(lambda: kernels["flash_attention"](
+        q, k, v, causal=True)))
+    lib_ms = time_call(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    ops = 4 * d * (l * (l + 1) // 2) * b * hq
+    bound_ms, bound_by = _bound(_bytes(q, k, v, out), ops)
+    rows.append(dict(
+        name="flash_attention_fp32", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:92",
+        launches=launches["flash_attention_fp32"],
+        max_abs_err=worst["flash_attention"], ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+    print(f"  flash_attention fp32 (SIMT body) b={b} hq={hq} hkv={hkv} L={l} "
+          f"d={d} causal: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, the fp32 "
+          f"CUDA-core rate), library {lib_ms:.4f} ms "
+          f"(scaled_dot_product_attention, fp32); "
+          f"{launches['flash_attention_fp32']} launches in phase 5e",
+          flush=True)
+    print(f"  flash_attention wgmma body at d = 256: "
+          f"{wgmma_smem('flash_attention', 'flash_attention_wgmma_smem', 256)}"
+          f" bytes of dynamic shared memory", flush=True)
+    for line in ptxas_lines("flash_attention", "flash_attention_wgmma_kernel"):
+        print(f"    ptxas {line}")
 
     # Four operands in turn (67 MB, past the 50 MB L2), so that each call
     # reads its input from HBM as the bound assumes: one 16.8 MB operand
@@ -1970,6 +2071,7 @@ OUR_KERNELS = ("mamba2_step_kernel", "gated_norm_kernel", "conv_act_kernel",
                "ssd_scan_kernel", "cumsum_last_kernel", "ssd_chunk_kernel",
                "pwl_activate_kernel", "gemm::gemv_kernel",
                "gemm::drain_kernel", "gemm::tiled_kernel",
+               "matmul_pwl_wgmma_kernel", "flash_attention_wgmma_kernel",
                "mamba1_conv_xproj_kernel", "mamba1_scan_kernel",
                "sscan_step_kernel", "ssd_step_kernel", "rglru_gates_kernel",
                "rglru_update_kernel", "rg_lru_scan_kernel",
@@ -2043,6 +2145,64 @@ def step_breakdown(engine, label):
               f"ported kernels {_ours(by):.3f} ms", flush=True)
         for k, v in top:
             print(f"    {v:.4f} ms  {k[:90]}")
+
+
+def simt_matmul_pwl(x, w, table, v):
+    """Kernel 11's SIMT tiled body on bf16 operands, through its C
+    launcher (the shape rule sends them to the ``wgmma`` body): the PR 16
+    body timed beside the new one on the same card; not counted."""
+    import torch
+    from repro_torch.kernels import common, matmul_pwl
+    from repro_torch.kernels.actiba import table_args
+    (m, k), n = x.shape, w.shape[1]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    vp = v.data_ptr() if v is not None else None
+    err = common.launcher(*matmul_pwl._LAUNCH)(
+        1, 1, x.data_ptr(), w.data_ptr(), vp, out.data_ptr(), None, m, k, n,
+        1, int(n % 4 == 0), *table_args(table, x.device),
+        common.stream(x.device))
+    common.check_launch(err, "matmul_pwl", "matmul_pwl SIMT body")
+    return out
+
+
+def simt_flash(q, k, v):
+    """Kernel 9's SIMT body on bf16 q, k, v (causal), through its C
+    launcher, as ``simt_matmul_pwl``."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import common, flash_attention
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(
+        *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
+    (b, hq, lq, d), (hkv, lk) = q.shape, k.shape[1:3]
+    err = common.launcher(*flash_attention._LAUNCH)(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ctypes.addressof(strides), b, hq, hkv, lq, lk, d, 1, 0, d ** -0.5,
+        common.stream(q.device))
+    common.check_launch(err, "flash_attention", "flash_attention SIMT body")
+    return out
+
+
+def ptxas_lines(source, needle):
+    """ptxas's report (registers, spills) of each entry function of
+    ``source`` whose name holds ``needle``, from this run's build log."""
+    from repro_torch.kernels import build
+    out, cur = [], None
+    for line in str(build.BUILD_LOG.get(source, "")).splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1] if needle in line else None
+        elif cur and ("registers" in line or "spill" in line):
+            out.append(f"{cur}: {line.strip()}")
+    return out or [f"{source}: not built in this run"]
+
+
+def wgmma_smem(source, fn_name, arg):
+    """The dynamic shared memory a ``wgmma`` body's launch asks for."""
+    import ctypes
+    from repro_torch.kernels import build
+    fn = getattr(build.library(source), fn_name)
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(arg)
 
 
 def _bytes(*ts):
@@ -2462,7 +2622,8 @@ def main() -> int:
                                                  RG_CONT_ARGV)
     launches["rglru_step"] = rg_launches["rglru_step"]
     with torch.inference_mode():
-        launches.update(rgemma_modes_phase(rg_engine, counters, dev))
+        rg_modes, rg_pallas = rgemma_modes_phase(rg_engine, counters, dev)
+    launches.update(rg_modes)
 
     phase("4e. serve (gemma-2b, use_flash: wave, continuous chunk 64, "
           f"{GEMMA_LONG}-token prompt, loss)")
@@ -2487,7 +2648,7 @@ def main() -> int:
                   rg_tol)
     phase(f"5e. path parity (gemma-2b, depth {GEMMA_PARITY_DEPTH}, fp32, "
           "use_flash)")
-    gemma_parity_phase(dev, 1, counters)
+    launches["flash_attention_fp32"] = gemma_parity_phase(dev, 1, counters)
     phase("5f. ReduBA (kernel 14 through core/reduce.py)")
     with torch.inference_mode():
         launches.update(reduba_phase(dev, counters))
@@ -2509,6 +2670,7 @@ def main() -> int:
         step_breakdown(m1_engine, "mamba-130m bf16")
         step_breakdown(m1_w8_engine, "mamba-130m W8")
         step_breakdown(rg_engine, "recurrentgemma-2b bf16")
+        step_breakdown(rg_pallas, "recurrentgemma-2b bf16 pallas()")
         step_breakdown(gemma_wave, "gemma-2b bf16 use_flash")
     engines_summary((("mamba2 wave, bf16 (8 requests)", engine),
                      ("mamba2 continuous 64, bf16 (12)", cont_engine),

@@ -10,11 +10,16 @@ query head h reads key / value head h // (hq / hkv).  Scores in fp32
 Masks are left-aligned: query i and key j are both positions from 0.
 
 * :func:`flash_attention` — the wrapper around ``csrc/flash_attention.cu``
-  (online softmax over 64-key tiles, one block per 64-query tile, batch
-  and head).  CUDA tensors only; any strides whose last axis is
-  contiguous, so ``nn/attention.py`` hands it the (b, s, h, d) projections
-  moved to (b, h, s, d) without a copy, and the output keeps q's layout.
-  Calls are counted in ``flash_attention.launches``.
+  (online softmax over 64-key tiles): bf16 q, k and v that TMA can read
+  take the tensor-core body (``wgmma``: S = q k^T in bf16 with fp32 sums,
+  P V with P split into two bf16 terms), everything else (fp32, views TMA
+  cannot read) the SIMT body of fp32 FMAs; :func:`path` names the body
+  from dtypes, strides and alignment alone.  CUDA tensors only; any
+  strides whose last axis is contiguous, so ``nn/attention.py`` hands it
+  the (b, s, h, d) projections moved to (b, h, s, d) without a copy, and
+  the output keeps q's layout.  Calls are counted in
+  ``flash_attention.launches`` and, by body, in
+  ``flash_attention.path_launches``.
 * :func:`flash_attention_plain` — ``attention_ref`` in PyTorch: the CPU
   path, and what the kernel is held to on the card.
 
@@ -38,6 +43,8 @@ _LAUNCH = ("flash_attention", "flash_attention_launch",
            [common.I, common.P, common.P, common.P, common.P, common.P,
             common.I, common.I, common.I, common.I, common.I, common.I,
             common.I, common.I, common.F, common.P])
+_WGMMA = ("flash_attention", "flash_attention_wgmma_launch",
+          [common.P] * 5 + [common.I] * 8 + [common.F, common.P])
 
 
 def _mask(lq: int, lk: int, causal: bool, window: Optional[int], dev
@@ -67,6 +74,28 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bgqlk,bgkd->bgqld", torch.softmax(s, dim=-1),
                        v.float())
     return out.reshape(b, hq, lq, d).to(q.dtype)
+
+
+def _tma_strides(t: torch.Tensor) -> tuple:
+    """Element strides of ``t``'s (b, h, s) axes as the tensor maps take
+    them: an axis of extent 1 is never stepped, so it gets the span of the
+    axes inside it (TMA wants every stride a multiple of 16 bytes)."""
+    b, h, s, d = t.shape
+    ss = t.stride(2) if s > 1 else d
+    hs = t.stride(1) if h > 1 else ss * s
+    return (t.stride(0) if b > 1 else hs * h), hs, ss
+
+
+def path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The body a call takes, from dtypes, strides and alignment alone:
+    ``"wgmma"`` when q, k and v are bf16 with 16-byte aligned bases and
+    (b, h, s) strides that are multiples of 8 elements (TMA's rule; every
+    model path), else ``"simt"``."""
+    ts = (q, k, v)
+    if all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
+           and all(st % 8 == 0 for st in _tma_strides(t)) for t in ts):
+        return "wgmma"
+    return "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -101,17 +130,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # empty_like keeps a dense q's layout: a (b, s, h, d) buffer seen as
     # (b, h, s, d) comes back the same way.
     out = torch.empty_like(q)
+    body = path(q, k, v)
+    ins = [_tma_strides(t) if body == "wgmma" else t.stride()[:3]
+           for t in (q, k, v)]
     strides = (ctypes.c_longlong * 12)(
-        *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
+        *(st for t in ins for st in t), *out.stride()[:3])
     scale = float(scale if scale is not None else d ** -0.5)
-    err = common.launcher(*_LAUNCH)(
-        common.stream_code(q), common.ptr(q), common.ptr(k), common.ptr(v),
-        common.ptr(out), ctypes.addressof(strides), b, hq, hkv, lq, lk, d,
-        int(causal), 0 if window is None else int(window), scale,
-        common.stream(dev))
-    common.check_launch(err, "flash_attention", "flash_attention kernel")
+    args = (common.ptr(q), common.ptr(k), common.ptr(v), common.ptr(out),
+            ctypes.addressof(strides), b, hq, hkv, lq, lk, d, int(causal),
+            0 if window is None else int(window), scale, common.stream(dev))
+    if body == "wgmma":
+        err = common.launcher(*_WGMMA)(*args)
+    else:
+        err = common.launcher(*_LAUNCH)(common.stream_code(q), *args)
+    common.check_launch(err, "flash_attention", f"flash_attention {body} "
+                        f"kernel")
     flash_attention.launches += 1
+    flash_attention.path_launches[body] += 1
     return out
 
 
 flash_attention.launches = 0
+# The same calls by the body they took (bf16 tensor cores, SIMT).
+flash_attention.path_launches = {"wgmma": 0, "simt": 0}

@@ -10,12 +10,14 @@ x (m, k) fp32 or bf16; w, v (k, n) fp32 or bf16 (one dtype); the output
 in x's dtype.  ``pwl`` is an ActiBA table; ``v`` gives the gated form of
 the GeGLU / SwiGLU MLPs.
 
-* :func:`matmul_pwl` — the wrapper around ``csrc/matmul_pwl.cu`` (the
-  bodies of ``qmatmul.cu`` in ``gemm.cuh`` on a bf16 / fp32 weight
-  loader): the split-k GEMV for m <= 8 (decode) and the tiled product
-  above (prefill).  CUDA tensors only; calls are counted in
-  ``matmul_pwl.launches`` and, by the path they took, in
-  ``matmul_pwl.path_launches``.
+* :func:`matmul_pwl` — the wrapper around ``csrc/matmul_pwl.cu``: the
+  split-k GEMV for m <= 8 (decode, ``gemm.cuh``), and above it (prefill)
+  the bf16 tensor-core body (``wgmma`` fed by TMA) when x, w and v are
+  all bf16 and TMA can read them, else the SIMT tiled product of
+  ``gemm.cuh`` (fp32 operands, and shapes TMA cannot read).
+  :func:`path` names the body from dtypes, shapes and alignment alone.
+  CUDA tensors only; calls are counted in ``matmul_pwl.launches`` and, by
+  the body they took, in ``matmul_pwl.path_launches``.
 * :func:`matmul_pwl_plain` — the same arithmetic in PyTorch: fp32 sums,
   the PWL table in ``eval_pwl``'s order, the gate multiplied once; the
   CPU path, and what the kernel is held to on the card.
@@ -34,6 +36,8 @@ from repro_torch.kernels.qmatmul import GEMV_M, split_k
 _LAUNCH = ("matmul_pwl", "matmul_pwl_launch",
            [common.I, common.I] + [common.P] * 5 + [common.I] * 5
            + [common.P, common.I, common.P])
+_WGMMA = ("matmul_pwl", "matmul_pwl_wgmma_launch",
+          [common.P] * 4 + [common.I] * 3 + [common.P, common.I, common.P])
 
 
 def matmul_pwl_plain(x: torch.Tensor, w: torch.Tensor, table: PWLTable,
@@ -44,6 +48,23 @@ def matmul_pwl_plain(x: torch.Tensor, w: torch.Tensor, table: PWLTable,
     if v is not None:
         out = out * torch.matmul(xf, v.float())
     return out.to(x.dtype)
+
+
+def path(x: torch.Tensor, w: torch.Tensor,
+         v: Optional[torch.Tensor] = None) -> str:
+    """The body a call takes, from dtypes, shapes and alignment alone:
+    ``"gemv"`` for m <= ``GEMV_M``; ``"wgmma"`` when x, w (and v) are all
+    bf16, k and n are multiples of 8 and every base is 16-byte aligned
+    (TMA's rule for the tensor maps); else ``"tiled"``, the SIMT body."""
+    m, k = x.shape
+    n = w.shape[-1]
+    if m <= GEMV_M:
+        return "gemv"
+    ts = (x, w) if v is None else (x, w, v)
+    if all(t.dtype == torch.bfloat16 for t in ts) and k % 8 == 0 \
+            and n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in ts):
+        return "wgmma"
+    return "tiled"
 
 
 def matmul_pwl(x: torch.Tensor, w: torch.Tensor, table: PWLTable,
@@ -66,24 +87,32 @@ def matmul_pwl(x: torch.Tensor, w: torch.Tensor, table: PWLTable,
                        f"matmul_pwl: {name} must be contiguous fp32 or bf16 "
                        f"({k}, {n}) like w, got {t.dtype} {tuple(t.shape)}")
     common.check_cuda(dev, **weights)
-    splits = split_k(m, k, n)
-    partial = torch.empty((splits * len(weights), m, n), dtype=torch.float32,
-                          device=dev) if splits > 1 else None
-    vec4 = n % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
-                              for t in weights.values())
+    body = path(x, w, v)
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
-    err = common.launcher(*_LAUNCH)(
-        common.stream_code(x), common.stream_code(w), common.ptr(x),
-        common.ptr(w), common.ptr(v) if v is not None else None,
-        common.ptr(out), common.ptr(partial) if partial is not None else None,
-        m, k, n, splits, int(vec4), *table_args(table, dev),
-        common.stream(dev))
-    common.check_launch(err, "matmul_pwl", "matmul_pwl kernel")
+    vp = common.ptr(v) if v is not None else None
+    if body == "wgmma":
+        err = common.launcher(*_WGMMA)(
+            common.ptr(x), common.ptr(w), vp, common.ptr(out), m, k, n,
+            *table_args(table, dev), common.stream(dev))
+    else:
+        splits = split_k(m, k, n)
+        partial = torch.empty((splits * len(weights), m, n),
+                              dtype=torch.float32, device=dev) \
+            if splits > 1 else None
+        vec4 = n % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
+                                  for t in weights.values())
+        err = common.launcher(*_LAUNCH)(
+            common.stream_code(x), common.stream_code(w), common.ptr(x),
+            common.ptr(w), vp, common.ptr(out),
+            common.ptr(partial) if partial is not None else None,
+            m, k, n, splits, int(vec4), *table_args(table, dev),
+            common.stream(dev))
+    common.check_launch(err, "matmul_pwl", f"matmul_pwl {body} kernel")
     matmul_pwl.launches += 1
-    matmul_pwl.path_launches["gemv" if m <= GEMV_M else "tiled"] += 1
+    matmul_pwl.path_launches[body] += 1
     return out
 
 
 matmul_pwl.launches = 0
-# The same calls by the path they took (GEMV or tiled kernel).
-matmul_pwl.path_launches = {"gemv": 0, "tiled": 0}
+# The same calls by the body they took (GEMV, bf16 tensor-core, SIMT tiled).
+matmul_pwl.path_launches = {"gemv": 0, "wgmma": 0, "tiled": 0}

@@ -664,3 +664,110 @@ def test_reduce_rows_kernel_matches_plain(dev, dtype, shape):
     _close(got, reduba.reduce_rows_plain(x), TOL[dtype, "stream"], "sum")
     assert torch.equal(red.reduce_sum(x, axis=0, mode="pallas"), got)
     assert reduba.reduce_rows.launches == before + 3
+
+
+# The bf16 tensor-core bodies of kernels 11 (tiled) and 9: ragged and
+# TMA-aligned shapes; each case checks the body the shape rule names, the
+# path counter, and the same bits on a second call.
+@pytest.mark.parametrize("gated", [False, True], ids=["pwl", "gated"])
+@pytest.mark.parametrize("k,n", [(256, 384), (200, 136), (2560, 256),
+                                 (72, 130)])
+@pytest.mark.parametrize("m", [9, 64, 70, 512])
+def test_matmul_pwl_wgmma_body_matches_plain(dev, gated, k, n, m):
+    """bf16 x (m, k), w / v (k, n): the ``wgmma`` body where k and n are
+    multiples of 8 (ragged against its 128 x 128 tiles and 64-deep k
+    steps), the SIMT ``tiled`` body at n = 130."""
+    from repro_torch.kernels import matmul_pwl as mp
+    gen = torch.Generator().manual_seed(m * 7 + k + n)
+    x = torch.randn(m, k, generator=gen).to(dev).bfloat16()
+    w, v = ((torch.randn(k, n, generator=gen) * k ** -0.5).to(dev).bfloat16()
+            for _ in range(2))
+    table = pwl.get_table("gelu", segments=32)
+    args = (x, w, table, v if gated else None)
+    body = mp.path(x, w, args[3])
+    assert body == ("wgmma" if n % 8 == 0 else "tiled")
+    before = dict(mp.matmul_pwl.path_launches)
+    got = mp.matmul_pwl(*args)
+    again = mp.matmul_pwl(*args)
+    torch.cuda.synchronize(dev)
+    assert mp.matmul_pwl.path_launches[body] == before[body] + 2
+    assert torch.equal(got, again)
+    _close(got, mp.matmul_pwl_plain(*args), TOL[torch.bfloat16, "stream"],
+           "matmul_pwl")
+
+
+def test_matmul_pwl_fp32_and_misaligned_take_the_simt_body(dev):
+    """fp32 operands and a base TMA cannot read go to the SIMT body."""
+    from repro_torch.kernels import matmul_pwl as mp
+    gen = torch.Generator().manual_seed(3)
+    table = pwl.get_table("gelu", segments=32)
+    x = torch.randn(64, 256, generator=gen).to(dev)
+    w = (torch.randn(256, 128, generator=gen) * 0.06).to(dev)
+    flat = torch.empty(64 * 256 + 1, device=dev, dtype=torch.bfloat16)
+    xb = flat[1:].view(64, 256).copy_(x)
+    for xx, ww in ((x, w), (xb, w.bfloat16())):
+        assert mp.path(xx, ww) == "tiled"
+        before = mp.matmul_pwl.path_launches["tiled"]
+        got = mp.matmul_pwl(xx, ww, table)
+        torch.cuda.synchronize(dev)
+        assert mp.matmul_pwl.path_launches["tiled"] == before + 1
+        _close(got, mp.matmul_pwl_plain(xx, ww, table),
+               TOL[xx.dtype, "stream"], "matmul_pwl")
+
+
+def _flash_case(dev, b, hq, hkv, lq, lk, d, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=gen).to(dev).to(dtype) for s in
+               ((b, lq, hq, d), (b, lk, hkv, d), (b, lk, hkv, d)))
+    return tuple(t.transpose(1, 2) for t in (q, k, v))
+
+
+def _flash_twice(dev, q, k, v, kw, body, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.path(q, k, v) == body
+    before = dict(fa.flash_attention.path_launches)
+    got = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize(dev)
+    assert fa.flash_attention.path_launches[body] == before[body] + 2
+    assert got.stride() == q.stride()
+    assert torch.equal(got, again)
+    _close(got, fa.flash_attention_plain(q, k, v, **kw),
+           TOL[dtype, "stream"], "out")
+
+
+@pytest.mark.parametrize("L", [1, 100, 300, 4096])
+@pytest.mark.parametrize("qpg", [1, 4, 8])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_attention_wgmma_body_matches_plain(dev, d, qpg, L):
+    """Kernel 9's bf16 body, causal, groups of qpg query heads per key /
+    value head (b = 2 with 2 key / value heads; b = 1 with one at L =
+    4096)."""
+    b, hkv = (1, 1) if L == 4096 else (2, 2)
+    q, k, v = _flash_case(dev, b, hkv * qpg, hkv, L, L, d, torch.bfloat16,
+                          seed=d + qpg + L)
+    _flash_twice(dev, q, k, v, dict(causal=True), "wgmma", torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("mode", ["window", "noncausal", "lq<lk"])
+def test_flash_attention_wgmma_body_masks(dev, d, mode):
+    """The window (64 keys at L = 300), not causal (L = 100, ragged against
+    the 64-key tiles) and Lq < Lk (128 queries, 384 keys) in bf16."""
+    lq, lk, kw = {"window": (300, 300, dict(causal=True, window=64)),
+                  "noncausal": (100, 100, dict(causal=False)),
+                  "lq<lk": (128, 384, dict(causal=True))}[mode]
+    q, k, v = _flash_case(dev, 2, 8, 2, lq, lk, d, torch.bfloat16,
+                          seed=d + lq)
+    _flash_twice(dev, q, k, v, kw, "wgmma", torch.bfloat16)
+
+
+def test_flash_attention_fp32_and_unaligned_views_take_the_simt_body(dev):
+    """fp32 goes to the SIMT body, and so does a bf16 view whose base TMA
+    cannot read (q starting one element into its buffer)."""
+    q, k, v = _flash_case(dev, 2, 4, 2, 130, 130, 64, torch.float32, seed=9)
+    _flash_twice(dev, q, k, v, dict(causal=True), "simt", torch.float32)
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    flat = torch.empty(qb.numel() + 1, device=dev, dtype=torch.bfloat16)
+    qs = flat[1:].view(2, 130, 4, 64).copy_(qb.transpose(1, 2)).transpose(1, 2)
+    _flash_twice(dev, qs, kb, vb, dict(causal=True), "simt", torch.bfloat16)
