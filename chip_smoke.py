@@ -30,10 +30,10 @@ qwen1.5-4b:
    (L = 300), under a 64-token window, not causal (L = 100), at
    qwen1.5-4b's MHA (20 heads of 128, L = 512) and at b = 1, L = 4096;
    ``reduce_rows`` at (2048, 2048) and (1000, 300); each twice.  Kernels
-   9 and 11 print the body each case took by their path counts (bf16:
+   9, 10 and 11 print the body each case took by their path counts (bf16:
    the tensor-core ``wgmma`` body above the GEMV's m <= 8; fp32: the
-   SIMT body) and fail a case that took another than the shape rule
-   names;
+   SIMT body) and fail a case that took another than the wrapper's
+   ``path()`` names;
 4. serve   — the wave engine through ``repro_torch.launch.serve``: 8
    requests, batch 4, prompts of 4-128 tokens, 16 new tokens, greedy,
    bf16 weights from ``--seed``; every token in the vocabulary, every
@@ -44,8 +44,9 @@ qwen1.5-4b:
    the continuous engine through the CLI with ``--prefill-chunk 64``,
    with ``--quant w8`` and without: 12 requests, batch 4, 16 new tokens;
    24 ``mamba2_step`` launches per decode step, 24 ``mamba2_prefill`` per
-   chunk call, and 48 ``qmatmul`` per decode step and per chunk call
-   under W8 (none without).  4c: mamba-130m through the same CLI, the
+   chunk call, and 48 ``qmatmul`` per decode step (the GEMV) and per
+   chunk call (the ``wgmma`` body, none on the SIMT body) under W8 (none
+   without).  4c: mamba-130m through the same CLI, the
    continuous engine (chunk 64, 12 requests, with and without W8) and
    the wave engine: 24 ``mamba1_step`` launches per decode step, 48
    ``qmatmul`` per decode step and per chunk call under W8, no mamba2
@@ -104,10 +105,14 @@ qwen1.5-4b:
    gives it (CUDA events, median), launches, the bound, and a PyTorch
    call computing the same function where there is one; the decode step
    and prefill of each model, bf16 beside W8, and the engines' serve
-   metrics side by side; the SIMT bodies of kernels 9 and 11 (PR 16's)
-   on the same bf16 inputs beside their ``wgmma`` bodies, and ptxas's
-   report of the ``wgmma`` bodies.  Each phase's seconds are printed
-   after it.
+   metrics side by side; the SIMT bodies of kernels 9, 10 and 11 on the
+   same bf16 inputs beside their ``wgmma`` bodies, and ptxas's report of
+   the ``wgmma`` bodies and the cluster GEMV; beside kernel 10's rows
+   (GEMV and ``wgmma``, in_proj and out_proj) and kernel 11's GEMV row,
+   the wrapper's host microseconds per call and ``torch.matmul``'s
+   (1000 calls, no synchronisation), and kernel 10's GEMV also with its
+   weights cold (a rotation of copies larger than the 50 MB L2).  Each
+   phase's seconds are printed after it.
 
 Any failure raises (exit code 1).  Without a GPU it exits 1 before doing
 anything.  The second line from the end is the ``kernels`` JSON record,
@@ -493,6 +498,7 @@ def kernel_cases(dev, kernels, tables):
     ``tables``: the ActiBA tables (``silu``, ``softplus``, ``sigmoid``,
     ``gelu``) of ``XambaConfig.pallas()``."""
     import torch
+    from repro_torch.kernels.qmatmul import path as qmatmul_path
     kw = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM)
     worst = {k: 0.0 for k in ("mamba2_step", "mamba2_prefill", "cumsum_last",
                               "ssd_chunk", "pwl_activate", "qmatmul",
@@ -523,7 +529,7 @@ def kernel_cases(dev, kernels, tables):
     def routed(kernel, case, rule, call, plain, dn, outs):
         """``twice``, with the body both calls took by the wrapper's path
         counts: it must be ``rule``, the body the shape rule names (the
-        tensor-core ``wgmma`` body for bf16 operands TMA can read)."""
+        tensor-core ``wgmma`` body for bf16 operands it can read)."""
         counts = kernels[kernel].path_launches
         before = dict(counts)
         twice(kernel, case, call, plain, dn, outs)
@@ -656,16 +662,11 @@ def kernel_cases(dev, kernels, tables):
                   lambda: (kernels["reduce_rows_plain"](x),), dn,
                   (("sum", "stream"),))
         for case, args, qkw in qmatmul_cases(dev, dtype, tables):
-            got = kernels["qmatmul"](*args, **qkw)
-            again = kernels["qmatmul"](*args, **qkw)
-            want = kernels["qmatmul_plain"](*args, **qkw)
-            torch.cuda.synchronize(dev)
-            check("qmatmul", f"{dn} {case}", (got,), (want,), dn,
-                  (("out", "stream"),))
-            if not torch.equal(got, again):
-                print(f"  qmatmul {dn} {case}: a second call gave other "
-                      f"bits FAIL")
-                fails.append(f"qmatmul {dn} {case} repeat")
+            routed("qmatmul", f"{dn} {case}",
+                   qmatmul_path(*args[:2], qkw.get("qv")),
+                   lambda: (kernels["qmatmul"](*args, **qkw),),
+                   lambda: (kernels["qmatmul_plain"](*args, **qkw),), dn,
+                   (("out", "stream"),))
     if fails:
         raise AssertionError(f"kernels vs plain: {fails}")
     return worst
@@ -858,7 +859,7 @@ def continuous_phase(serve_main, counters, argv):
     want = dict({k: 0 for k in launches}, **path_launches(
         cfg, steps=steps, prefills=calls, w8=w8))
     want_paths = dict(gemv=2 * n * steps if w8 else 0,
-                      tiled=2 * n * calls if w8 else 0)
+                      wgmma=2 * n * calls if w8 else 0, tiled=0)
     print(f"  continuous {cfg.name} {label} (chunk 64): launches "
           f"{launches}, qmatmul "
           f"by path {paths}; expected {want}, {want_paths} ({steps} decode "
@@ -1349,7 +1350,14 @@ def rgemma_times(dev, kernels, launches, worst, tables):
         ms = time_call(lambda: kernels["matmul_pwl"](*args))
         plain_ms = time_call(lambda: kernels["matmul_pwl_plain"](*args))
         dev_ms = _ours(device_profile(lambda: kernels["matmul_pwl"](*args)))
-        lib_ms = time_call(lambda: (torch.matmul(x, w), torch.matmul(x, v)))
+        lib = lambda: (torch.matmul(x, w), torch.matmul(x, v))  # noqa: E731
+        lib_ms = time_call(lib)
+        host = ""
+        if path == "gemv":
+            host = (f"; host {host_us(lambda: kernels['matmul_pwl'](*args)):.1f}"
+                    f" us a call, the library's two products "
+                    f"{host_us(lib):.1f} us, their device time "
+                    f"{sum(device_profile(lib).values()):.4f} ms")
         bound_ms, bound_by = _bound(_bytes(x, w, v, out),
                                     2 * 2 * m * RG_W * RG_D_FF,
                                     BF16_TC_FLOP_PER_S)
@@ -1364,8 +1372,8 @@ def rgemma_times(dev, kernels, launches, worst, tables):
               f"w, v ({RG_W}, {RG_D_FF}): kernel {ms:.4f} ms (device "
               f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), library {lib_ms:.4f} ms (its "
-              f"two torch.matmul products alone); {paths[body]} launches of "
-              f"this body in the pallas() Engine run", flush=True)
+              f"two torch.matmul products alone){host}; {paths[body]} "
+              f"launches of this body in the pallas() Engine run", flush=True)
     # The SIMT tiled body (PR 16's) on the same bf16 operands, same card.
     simt_ms = time_call(lambda: simt_matmul_pwl(*args))
     simt_dev = _ours(device_profile(lambda: simt_matmul_pwl(*args)))
@@ -1377,8 +1385,9 @@ def rgemma_times(dev, kernels, launches, worst, tables):
         print(f"  matmul_pwl wgmma body ({'gated' if gated else 'pwl'}): "
               f"{wgmma_smem('matmul_pwl', 'matmul_pwl_wgmma_smem', gated)} "
               f"bytes of dynamic shared memory", flush=True)
-    for line in ptxas_lines("matmul_pwl", "matmul_pwl_wgmma_kernel"):
-        print(f"    ptxas {line}")
+    for needle in ("matmul_pwl_wgmma_kernel", "gemv_cluster_kernel"):
+        for line in ptxas_lines("matmul_pwl", needle):
+            print(f"    ptxas {line}")
     return rows
 
 
@@ -2069,8 +2078,8 @@ def time_call(fn, n=30, warmup=3):
 
 OUR_KERNELS = ("mamba2_step_kernel", "gated_norm_kernel", "conv_act_kernel",
                "ssd_scan_kernel", "cumsum_last_kernel", "ssd_chunk_kernel",
-               "pwl_activate_kernel", "gemm::gemv_kernel",
-               "gemm::drain_kernel", "gemm::tiled_kernel",
+               "pwl_activate_kernel", "gemm::gemv_cluster_kernel",
+               "gemm::tiled_kernel", "qmatmul_wgmma_kernel",
                "matmul_pwl_wgmma_kernel", "flash_attention_wgmma_kernel",
                "mamba1_conv_xproj_kernel", "mamba1_scan_kernel",
                "sscan_step_kernel", "ssd_step_kernel", "rglru_gates_kernel",
@@ -2157,12 +2166,42 @@ def simt_matmul_pwl(x, w, table, v):
     (m, k), n = x.shape, w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     vp = v.data_ptr() if v is not None else None
-    err = common.launcher(*matmul_pwl._LAUNCH)(
-        1, 1, x.data_ptr(), w.data_ptr(), vp, out.data_ptr(), None, m, k, n,
-        1, int(n % 4 == 0), *table_args(table, x.device),
-        common.stream(x.device))
+    err = matmul_pwl._LAUNCH(matmul_pwl._ARGS.pack(
+        1, 1, x.data_ptr(), w.data_ptr(), vp or 0, out.data_ptr(), m, k, n,
+        32, 1, 0, *table_args(table, x.device), common.stream(x.device)))
     common.check_launch(err, "matmul_pwl", "matmul_pwl SIMT body")
     return out
+
+
+def simt_qmatmul(x, q, scale):
+    """Kernel 10's SIMT tiled body on bf16 x (m > 8), through its C
+    launcher (the shape rule sends it to the ``wgmma`` body): the body
+    these shapes took before the ``wgmma`` one, timed beside it on the
+    same card; not counted."""
+    import torch
+    from repro_torch.kernels import common, qmatmul
+    (m, k), n = x.shape, q.shape[1]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    err = qmatmul._LAUNCH(qmatmul._ARGS.pack(
+        1, x.data_ptr(), q.data_ptr(), scale.data_ptr(), 0, 0,
+        out.data_ptr(), m, k, n, 32, 1, 0, 0, 0, common.stream(x.device)))
+    common.check_launch(err, "qmatmul", "qmatmul SIMT body")
+    return out
+
+
+def host_us(fn, n=1000):
+    """Host microseconds per call of ``fn()``: ``time.perf_counter`` over
+    ``n`` calls with no synchronisation between them, then one
+    synchronisation (outside the clock)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def simt_flash(q, k, v):
@@ -2280,42 +2319,79 @@ def _bound(nbytes, ops, flop_per_s=FP32_FLOP_PER_S):
 
 def qmatmul_times(dev, kernels, paths, worst):
     """Phase 7's qmatmul rows: the serve path's shapes in bf16, decode (m =
-    4 slots, the GEMV kernel) and chunked prefill (m = 4 x 64, the tiled
-    kernel), in_proj and out_proj; the row of each path is its in_proj.
-    Bound: bytes (x, q, scale, out once) at HBM rate or 2 m k n operations
-    at bf16 tensor-core rate (the int8 weights widen exactly to bf16).
-    Library: one ``torch.matmul`` of x with the int8 payload cast once to
-    bf16 (the same contraction, before the per-channel scale)."""
+    4 slots, the GEMV) and chunked prefill (m = 4 x 64, the ``wgmma``
+    body), in_proj and out_proj, a row each.  Beside each: the wrapper's
+    host microseconds per call and ``torch.matmul``'s; the GEMV also with
+    its weights cold (a rotation of copies whose bytes exceed the 50 MB
+    L2, as the 24 layers' ~91 MB of int8 projections find them in a
+    decode step); at m = 256 the SIMT tiled body on the same inputs, not
+    counted.  Bound: bytes (x, q, scale, out once) at HBM
+    rate or 2 m k n operations at bf16 tensor-core rate (the int8 weights
+    widen exactly to bf16).  Library: one ``torch.matmul`` of x with the
+    int8 payload cast once to bf16 (the same contraction, before the
+    per-channel scale)."""
     import torch
     rows = []
-    for path, m in (("gemv", 4), ("tiled", 256)):
+    for body, m in (("gemv", 4), ("wgmma", 256)):
         for proj, k, n in (("in_proj", D_MODEL, D_IN_PROJ),
                            ("out_proj", D_INNER, D_MODEL)):
             args, _ = qmatmul_inputs(m, k, n, dev, torch.bfloat16,
                                      seed=40 + m + n)
             x, q, scale = args
-            out = kernels["qmatmul"](*args)
-            ms = time_call(lambda: kernels["qmatmul"](*args))
+            call = lambda: kernels["qmatmul"](*args)   # noqa: E731
+            out = call()
+            ms = time_call(call)
             plain_ms = time_call(lambda: kernels["qmatmul_plain"](*args))
-            dev_ms = _ours(device_profile(lambda: kernels["qmatmul"](*args)))
+            dev_ms = _ours(device_profile(call))
             qc = q.to(x.dtype)
-            lib_ms = time_call(lambda: torch.matmul(x, qc))
+            lib = lambda: torch.matmul(x, qc)          # noqa: E731
+            lib_ms = time_call(lib)
+            lib_dev = sum(device_profile(lib).values())
+            us, lib_us = host_us(call), host_us(lib)
             bound_ms, bound_by = _bound(_bytes(x, q, scale, out),
                                         2 * m * k * n, BF16_TC_FLOP_PER_S)
-            print(f"  qmatmul {path} {proj} bf16 x ({m}, {k}) q ({k}, {n}): "
-                  f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}),"
-                  f" library {lib_ms:.4f} ms (torch.matmul on the bf16 "
-                  f"cast); {paths[path]} launches of this path in the W8 "
-                  f"continuous serve run", flush=True)
-            if proj == "in_proj":
-                rows.append(dict(
-                    name=f"qmatmul_{path}", route="cuda",
-                    source="src/repro_torch/csrc/qmatmul.cu",
-                    replaces="src/repro/kernels/qmatmul.py:85",
-                    launches=paths[path], max_abs_err=worst["qmatmul"],
-                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=lib_ms))
+            print(f"  qmatmul {body} {proj} bf16 x ({m}, {k}) q ({k}, {n}): "
+                  f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms; host "
+                  f"{us:.1f} us a call), plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), library {lib_ms:.4f} ms "
+                  f"(torch.matmul on the bf16 cast; device {lib_dev:.4f} "
+                  f"ms, host {lib_us:.1f} us a call); {paths[body]} "
+                  f"launches of this body in the W8 continuous serve run",
+                  flush=True)
+            if body == "gemv":
+                copies = [q.clone() for _ in range(
+                    math.ceil(64e6 / q.numel()))]
+                turn = itertools.cycle(copies)
+                cold = lambda: kernels["qmatmul"](x, next(turn), scale)  # noqa
+                cold_ms = time_call(cold, n=len(copies))
+                cold_dev = _ours(device_profile(cold, n=len(copies)))
+                print(f"    weights cold ({len(copies)} copies, "
+                      f"{len(copies) * q.numel() / 1e6:.1f} MB in turn): "
+                      f"kernel {cold_ms:.4f} ms (device {cold_dev:.4f} ms)",
+                      flush=True)
+                del copies, turn
+            else:
+                simt_ms = time_call(lambda: simt_qmatmul(*args))
+                simt_dev = _ours(device_profile(lambda: simt_qmatmul(*args)))
+                print(f"    the SIMT tiled body on the same inputs (not "
+                      f"counted): kernel {simt_ms:.4f} ms (device "
+                      f"{simt_dev:.4f} ms): the wgmma body is "
+                      f"{simt_dev / max(dev_ms, 1e-9):.1f}x faster in device "
+                      f"time", flush=True)
+            rows.append(dict(
+                name=f"qmatmul_{body}_{proj}", route="cuda",
+                source="src/repro_torch/csrc/qmatmul.cu",
+                replaces="src/repro/kernels/qmatmul.py:85",
+                launches=paths[body], max_abs_err=worst["qmatmul"],
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms))
+    for gated in (0, 1):
+        print(f"  qmatmul wgmma body ({'gated' if gated else 'plain'}): "
+              f"{wgmma_smem('qmatmul', 'qmatmul_wgmma_smem', gated)} bytes "
+              f"of dynamic shared memory", flush=True)
+    for needle in ("qmatmul_wgmma_kernel", "gemv_cluster_kernel"):
+        for line in ptxas_lines("qmatmul", needle):
+            print(f"    ptxas {line}")
     return rows
 
 

@@ -17,21 +17,25 @@
 // Two regimes:
 //
 // * m <= GEMV_M (decode, m = slots): a GEMV that reads the weights once,
-//   bound by their bytes.  A block takes 128 columns (four per thread, one
-//   vector load per row where n and alignment allow) and a slice of k; its
-//   8 warps split the slice by rows and sum their partials in shared
-//   memory in warp order.  k is split over blocks too, so that the column
-//   tiles of a narrow n fill the 132 SMs (the wrapper picks the split
-//   count from the shapes alone).  The splits write fp32 partials and a
-//   second kernel sums them in split order: no float atomics, so the same
-//   inputs give the same bits on every run.  One split writes the output
-//   directly.  The x slice comes through an x loader, so a caller can
-//   compute x on the fly (kernel 6 computes its conv there).
-// * m > GEMV_M (prefill): a tiled product, 64 x 64 outputs per block over
-//   k in steps of 32, the x tile and the widened weight tile in shared
+//   bound by their bytes (gemv_cluster_kernel, kernels 10 and 11; design
+//   at the kernel).  One launch: a lane reads 16 bytes of a weight row at
+//   a time (16 int8, 8 bf16 or 4 fp32 columns; one 16-byte load where n
+//   and the base allow, else two of 8 bytes, else element by element), U
+//   rows in flight; k is split over the blocks of a thread-block cluster
+//   so that the column tiles of a narrow n fill the SMs, and the splits'
+//   partial sums meet in distributed shared memory, added in rank order.
+//   The wrapper picks the column group and the split count from the
+//   shapes alone (kernels/qmatmul.py: gemv_plan), so a shape always takes
+//   the same sums in the same order: the same inputs give the same bits.
+//   Kernel 6 keeps the older body, gemv_sums: 128 columns a block, k split
+//   over blocks whose fp32 partials its own second launch sums in split
+//   order; its x loader computes the conv step on the fly.
+// * m > GEMV_M (prefill): tiled_kernel, 64 x 64 outputs per block over k
+//   in steps of 32, the x tile and the widened weight tile in shared
 //   memory, 4 x 4 outputs per thread on the CUDA cores.  Bound by
-//   operations (2 m k n).  The widening is exact, so a later version can
-//   feed bf16 tensor cores (wgmma) and compute the same function.
+//   operations (2 m k n).  It serves fp32 x (whose 1e-4 limit TF32 does
+//   not meet) and shapes the tensor-core bodies cannot read; bf16 x that
+//   TMA can read takes qmatmul.cu's or matmul_pwl.cu's wgmma body.
 //
 // Ragged edges are masked in the kernels; nothing is padded on the host.
 #pragma once
@@ -39,6 +43,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace gemm {
 constexpr int GEMV_M = 8;      // rows the GEMV path takes
@@ -51,31 +56,65 @@ constexpr int GV_OWN = GEMV_M * GV_COLS / GV_THREADS;  // outputs per thread
 
 constexpr int TM = 64, TN = 64, TK = 32, T_THREADS = 256;
 
-// ---- weight loaders: element `off` and four consecutive columns of a row,
-// widened to fp32 (zero past n).  vec4: n % 4 == 0 and the base aligned to
-// four elements, so one vector load.
+// ---- weight loaders.  at(off): element `off` widened to fp32 (the tiled
+// body).  load4: four consecutive columns of a row, widened (kernel 6's
+// gemv_sums; zero past n; vec4: n % 4 == 0 and the base aligned to four
+// elements, so one vector load).  raw / widen (the cluster GEMV): LC
+// columns of a row as 16 raw bytes, zero past n, read by one 16-byte load
+// (vec 16: rows a multiple of 16 bytes, base 16-byte aligned), two 8-byte
+// loads (vec 8) or element by element (vec 0); widen(r, j) is column j of
+// them in fp32, exactly.
+__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+
+// LC = 16 / sizeof(B) elements of bits B from q (column c of n).
+template <typename B>
+__device__ __forceinline__ uint4 raw16(const B* q, int c, int n, int vec) {
+  constexpr int LC = 16 / sizeof(B);
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if (c >= n) return r;
+  if (vec == 16) return __ldg(reinterpret_cast<const uint4*>(q));
+  if (vec == 8) {
+    const uint2 a = __ldg(reinterpret_cast<const uint2*>(q));
+    r.x = a.x;
+    r.y = a.y;
+    if (c + LC / 2 < n) {
+      const uint2 b = __ldg(reinterpret_cast<const uint2*>(q) + 1);
+      r.z = b.x;
+      r.w = b.y;
+    }
+    return r;
+  }
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < LC; ++j)
+    if (c + j < n)
+      w[j * sizeof(B) / 4] |= static_cast<uint32_t>(q[j])
+                              << (8 * ((j * sizeof(B)) % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 struct I8W {
+  static constexpr int LC = 16;
   const int8_t* p;
   __device__ __forceinline__ float at(size_t off) const {
     return static_cast<float>(p[off]);
   }
-  __device__ __forceinline__ void load4(size_t row, int c, int n, bool vec4,
-                                        float (&w)[4]) const {
-    const int8_t* q = p + row * n + c;
-    if (vec4 && c + 3 < n) {
-      const char4 v = *reinterpret_cast<const char4*>(q);
-      w[0] = v.x;
-      w[1] = v.y;
-      w[2] = v.z;
-      w[3] = v.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = c + j < n ? static_cast<float>(q[j]) : 0.f;
-    }
+  __device__ __forceinline__ uint4 raw(size_t row, int c, int n, int vec) const {
+    return raw16(reinterpret_cast<const uint8_t*>(p) + row * n + c, c, n, vec);
+  }
+  // Byte j as 2^23 + (q + 128) in a float's bits, less 2^23 + 128: exact.
+  static __device__ __forceinline__ float widen(const uint4& r, int j) {
+    const uint32_t u = word(r, j / 4) ^ 0x80808080u;
+    return __int_as_float(static_cast<int>(
+               __byte_perm(u, 0x4B000000u, 0x7540u + j % 4))) -
+           8388736.f;
   }
 };
 
 struct F32W {
+  static constexpr int LC = 4;
   const float* p;
   __device__ __forceinline__ float at(size_t off) const { return p[off]; }
   __device__ __forceinline__ void load4(size_t row, int c, int n, bool vec4,
@@ -92,9 +131,16 @@ struct F32W {
       for (int j = 0; j < 4; ++j) w[j] = c + j < n ? q[j] : 0.f;
     }
   }
+  __device__ __forceinline__ uint4 raw(size_t row, int c, int n, int vec) const {
+    return raw16(reinterpret_cast<const uint32_t*>(p) + row * n + c, c, n, vec);
+  }
+  static __device__ __forceinline__ float widen(const uint4& r, int j) {
+    return __uint_as_float(word(r, j));
+  }
 };
 
 struct BF16W {
+  static constexpr int LC = 8;
   const __nv_bfloat16* p;
   __device__ __forceinline__ float at(size_t off) const {
     return __bfloat162float(p[off]);
@@ -114,6 +160,14 @@ struct BF16W {
 #pragma unroll
       for (int j = 0; j < 4; ++j) w[j] = c + j < n ? __bfloat162float(q[j]) : 0.f;
     }
+  }
+  __device__ __forceinline__ uint4 raw(size_t row, int c, int n, int vec) const {
+    return raw16(reinterpret_cast<const uint16_t*>(p) + row * n + c, c, n, vec);
+  }
+  // bf16 is the high half of an fp32.
+  static __device__ __forceinline__ float widen(const uint4& r, int j) {
+    const uint32_t w = word(r, j / 2);
+    return __uint_as_float(j % 2 ? w & 0xFFFF0000u : w << 16);
   }
 };
 
@@ -205,63 +259,176 @@ __device__ __forceinline__ void gemv_sums(XL xl, WL w, WL v, int m, int n,
   }
 }
 
-// Grid (ceil(n / 128), splits); dynamic shared memory GV_SMEM floats.
-// partial == nullptr: one split, write out.  Else write the fp32 sums of
-// split s to partial[(s * G + g) * m * n + r * n + c], g = 0 for w and 1
-// for v (G = 2 when gated, else 1).
-template <typename T, typename WL, bool GATED>
-__global__ void __launch_bounds__(GV_THREADS) gemv_kernel(
-    const T* __restrict__ x, WL w, const float* __restrict__ scale, WL v,
-    const float* __restrict__ vscale, T* __restrict__ out,
-    float* __restrict__ partial, int m, int k, int n, int ks, bool vec4,
-    const float* __restrict__ tab, int nk) {
-  extern __shared__ float sm[];
-  const int split = blockIdx.y;
-  const int k0 = split * ks;
-  const int kn = min(ks, k - k0);
-  float tot[GV_OWN], gtot[GV_OWN];
-  gemv_sums<RowX<T>, WL, GATED>(RowX<T>{x, k}, w, v, m, n, k0, kn, vec4, sm,
-                                tot, gtot);
-  const int cb = blockIdx.x * GV_COLS;
-#pragma unroll
-  for (int i = 0; i < GV_OWN; ++i) {
-    const int o = threadIdx.x + i * GV_THREADS;
-    const int r = o / GV_COLS, c = cb + o % GV_COLS;
-    if (r >= m || c >= n) continue;
-    const size_t idx = static_cast<size_t>(r) * n + c;
-    if (partial == nullptr) {
-      float y = epi(tot[i], scale, c, tab, nk);
-      if (GATED) y = gate(y, gtot[i], vscale, c);
-      out[idx] = from_f<T>(y);
-    } else {
-      const size_t mn = static_cast<size_t>(m) * n;
-      partial[(static_cast<size_t>(split) * (GATED ? 2 : 1)) * mn + idx] = tot[i];
-      if (GATED) partial[(static_cast<size_t>(split) * 2 + 1) * mn + idx] = gtot[i];
-    }
-  }
+// ---- the GEMV of kernels 10 and 11 (m <= GEMV_M) ------------------------
+//
+// A block of GW_THREADS threads takes `lanes` x LC columns (LC = 16 bytes
+// of weights a lane) and a k slice of ks rows; a warp's 32 lanes are 32 /
+// lanes k lanes of `lanes` lanes each, and a k lane takes every klanes-th
+// row of the slice (klanes = 8 warps x 32 / lanes), the loads of U rows
+// issued before their products.  x comes GW_RB rows a pass (rows past m
+// are zero), its slice staged in shared memory up to GW_XCH rows at a
+// time, every load of a chunk in flight before the first store.  The
+// sums: a k lane's rows in order; the k lanes of a warp by a butterfly of
+// shuffles (every lane of a column ends with the same bits); the warps in
+// warp order through shared memory; the splits, which are the blocks of a
+// cluster along y, in rank order through distributed shared memory: rank
+// s adds up every rank's partial of the outputs o = s (mod splits), all
+// the ranks' loads in flight before the sums, and writes them.  No float
+// atomics and no scratch in device memory: the same inputs give the same
+// bits.
+constexpr int GW_THREADS = 256, GW_WARPS = GW_THREADS / 32;
+constexpr int GW_RB = 4;           // rows of x a pass takes
+constexpr int GW_XCH = 1024;       // k rows of x in shared memory at a time
+constexpr int GW_MAX_SPLITS = 8;   // blocks of a cluster (the portable limit)
+
+// Floats of dynamic shared memory: the x slice, or the warps' partials,
+// then the block's partials (G = 2 when gated), read by the cluster.
+__host__ __device__ constexpr int gemv_floats(int cols, int xch, int G) {
+  return (GW_RB * xch > GW_WARPS * GW_RB * cols ? GW_RB * xch
+                                                : GW_WARPS * GW_RB * cols) +
+         G * GW_RB * cols;
 }
 
-// The split-k drain: sum the splits' partials in split order, then the
-// epilogue.  One thread per output element.
-template <typename T, bool GATED>
-__global__ void drain_kernel(const float* __restrict__ partial, int splits,
-                             const float* __restrict__ scale,
-                             const float* __restrict__ vscale,
-                             T* __restrict__ out, int m, int n,
-                             const float* __restrict__ tab, int nk) {
-  const size_t mn = static_cast<size_t>(m) * n;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= mn) return;
-  const int c = static_cast<int>(idx % n);
-  constexpr int G = GATED ? 2 : 1;
-  float a = 0.f, g = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    a += partial[(static_cast<size_t>(s) * G) * mn + idx];
-    if (GATED) g += partial[(static_cast<size_t>(s) * G + 1) * mn + idx];
+// Grid (ceil(n / (lanes LC)), splits), clusters (1, splits); dynamic
+// shared memory gemv_floats(lanes LC, min(ks, GW_XCH), G) floats.
+template <typename T, typename WL, bool GATED>
+__global__ void __launch_bounds__(GW_THREADS, 1) gemv_cluster_kernel(
+    const T* __restrict__ x, WL w, const float* __restrict__ scale, WL v,
+    const float* __restrict__ vscale, T* __restrict__ out, int m, int k,
+    int n, int lanes, int ks, int vec, const float* __restrict__ tab, int nk) {
+  constexpr int LC = WL::LC, G = GATED ? 2 : 1;
+  constexpr int U = GATED && LC == 16 ? 4 : 8;   // rows in flight a k lane
+  extern __shared__ float sm[];
+  const int split = wg::cluster_rank(), splits = wg::cluster_blocks();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_warp = 32 / lanes, klanes = GW_WARPS * per_warp;
+  const int kl = warp * per_warp + lane / lanes;
+  const int cols = lanes * LC, rn = GW_RB * cols;
+  const int cb = blockIdx.x * cols, c = cb + lane % lanes * LC;
+  const int k0 = split * ks, kn = min(ks, k - k0);
+  const int xch = min(ks, GW_XCH);
+  float* xs = sm;    // GW_RB x xch, then the warps' partials
+  float* psum = sm + (GW_RB * xch > GW_WARPS * rn ? GW_RB * xch : GW_WARPS * rn);
+
+  for (int r0 = 0; r0 < m; r0 += GW_RB) {
+    float acc[GW_RB][LC], gacc[GATED ? GW_RB : 1][LC];
+#pragma unroll
+    for (int r = 0; r < GW_RB; ++r)
+#pragma unroll
+      for (int j = 0; j < LC; ++j) {
+        acc[r][j] = 0.f;
+        if constexpr (GATED) gacc[r][j] = 0.f;
+      }
+    for (int x0 = 0; x0 < kn; x0 += xch) {
+      const int xn = min(xch, kn - x0);
+      // Loaded as T and widened only at the store, so that no load waits
+      // for another's value.
+      T xv[GW_RB][GW_XCH / GW_THREADS];
+#pragma unroll
+      for (int r = 0; r < GW_RB; ++r)
+#pragma unroll
+        for (int i = 0; i < GW_XCH / GW_THREADS; ++i) {
+          const int kk = threadIdx.x + i * GW_THREADS;
+          if (kk < xn && r0 + r < m)
+            xv[r][i] = x[static_cast<size_t>(r0 + r) * k + k0 + x0 + kk];
+        }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < GW_RB; ++r)
+#pragma unroll
+        for (int i = 0; i < GW_XCH / GW_THREADS; ++i) {
+          const int kk = threadIdx.x + i * GW_THREADS;
+          if (kk < xn) xs[r * xch + kk] = r0 + r < m ? to_f(xv[r][i]) : 0.f;
+        }
+      __syncthreads();
+      if (c < n)
+        for (int kb = kl; kb < xn; kb += U * klanes) {
+          uint4 rw[U], rv[GATED ? U : 1];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int kk = kb + u * klanes;
+            const size_t row = static_cast<size_t>(k0 + x0 + kk);
+            rw[u] = kk < xn ? w.raw(row, c, n, vec) : make_uint4(0u, 0u, 0u, 0u);
+            if constexpr (GATED)
+              rv[u] = kk < xn ? v.raw(row, c, n, vec) : make_uint4(0u, 0u, 0u, 0u);
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int kk = kb + u * klanes;
+            if (kk >= xn) break;
+            float wf[LC], vf[GATED ? LC : 1];
+#pragma unroll
+            for (int j = 0; j < LC; ++j) {
+              wf[j] = WL::widen(rw[u], j);
+              if constexpr (GATED) vf[j] = WL::widen(rv[u], j);
+            }
+#pragma unroll
+            for (int r = 0; r < GW_RB; ++r) {
+              const float xr = xs[r * xch + kk];
+#pragma unroll
+              for (int j = 0; j < LC; ++j) {
+                acc[r][j] = fmaf(xr, wf[j], acc[r][j]);
+                if constexpr (GATED) gacc[r][j] = fmaf(xr, vf[j], gacc[r][j]);
+              }
+            }
+          }
+        }
+    }
+
+    // The k lanes of a warp, then the warps in order: psum[g][o], o = (r
+    // LC + j) lanes + l for column cb + l LC + j of row r0 + r.
+    for (int off = lanes; off < 32; off <<= 1)
+#pragma unroll
+      for (int r = 0; r < GW_RB; ++r)
+#pragma unroll
+        for (int j = 0; j < LC; ++j) {
+          acc[r][j] += __shfl_xor_sync(0xFFFFFFFFu, acc[r][j], off);
+          if constexpr (GATED)
+            gacc[r][j] += __shfl_xor_sync(0xFFFFFFFFu, gacc[r][j], off);
+        }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      __syncthreads();
+      if (lane < lanes)
+#pragma unroll
+        for (int r = 0; r < GW_RB; ++r)
+#pragma unroll
+          for (int j = 0; j < LC; ++j)
+            xs[warp * rn + (r * LC + j) * lanes + lane] = g ? gacc[r][j] : acc[r][j];
+      __syncthreads();
+      for (int o = threadIdx.x; o < rn; o += GW_THREADS) {
+        float s = xs[o];
+        for (int wi = 1; wi < GW_WARPS; ++wi) s += xs[wi * rn + o];
+        psum[g * rn + o] = s;
+      }
+    }
+
+    wg::cluster_sync();
+    for (int o = split + splits * static_cast<int>(threadIdx.x); o < rn;
+         o += splits * GW_THREADS) {
+      float p[GW_MAX_SPLITS], pg[GATED ? GW_MAX_SPLITS : 1];
+#pragma unroll
+      for (int s = 0; s < GW_MAX_SPLITS; ++s)
+        if (s < splits) {
+          p[s] = wg::ld_rank(psum, o, s);
+          if constexpr (GATED) pg[s] = wg::ld_rank(psum, rn + o, s);
+        }
+      float a = p[0], ga = GATED ? pg[0] : 0.f;
+#pragma unroll
+      for (int s = 1; s < GW_MAX_SPLITS; ++s)
+        if (s < splits) {
+          a += p[s];
+          if constexpr (GATED) ga += pg[s];
+        }
+      const int r = o / (LC * lanes), j = o / lanes % LC, l = o % lanes;
+      const int row = r0 + r, col = cb + l * LC + j;
+      if (row >= m || col >= n) continue;
+      float y = epi(a, scale, col, tab, nk);
+      if constexpr (GATED) y = gate(y, ga, vscale, col);
+      out[static_cast<size_t>(row) * n + col] = from_f<T>(y);
+    }
+    wg::cluster_sync();   // no rank reads psum any more
   }
-  float y = epi(a, scale, c, tab, nk);
-  if (GATED) y = gate(y, g, vscale, c);
-  out[idx] = from_f<T>(y);
 }
 
 // Grid (ceil(n / TN), ceil(m / TM)), T_THREADS threads.  Thread (ty, tx)
@@ -334,36 +501,55 @@ __global__ void __launch_bounds__(T_THREADS) tiled_kernel(
   }
 }
 
-// Launch the product on stream s: the GEMV (with its drain when splits >
-// 1) for m <= GEMV_M, else the tiled kernel.  partial: splits * (gated ? 2
-// : 1) * m * n fp32 scratch when m <= 8 and splits > 1.  Returns the
-// cudaError_t.
+// The product on stream s: for m <= GEMV_M the cluster GEMV with `lanes`
+// lanes a column group (4 to 32, a power of two), `splits` blocks over k
+// (1 to GW_MAX_SPLITS, none empty) and loads of `vec` bytes (16, 8 or 0:
+// element by element; the rows and bases must allow them); above it the
+// tiled kernel (lanes, splits and vec unused).  Returns the cudaError_t.
 template <typename T, typename WL, bool GATED>
 int launch(const void* x, WL w, const float* scale, WL v, const float* vscale,
-           void* out, void* partial, int m, int k, int n, int splits, int vec4,
+           void* out, int m, int k, int n, int lanes, int splits, int vec,
            const float* tab, int nk, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
-  if (m <= GEMV_M) {
-    const int ks = (k + splits - 1) / splits;
-    if (ks > GV_MAX_KS || (splits > 1 && partial == nullptr))
-      return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((n + GV_COLS - 1) / GV_COLS, splits);
-    float* pt = splits > 1 ? static_cast<float*>(partial) : nullptr;
-    gemv_kernel<T, WL, GATED><<<grid, GV_THREADS, GV_SMEM * sizeof(float), s>>>(
-        xt, w, scale, v, vscale, ot, pt, m, k, n, ks, vec4 != 0, tab, nk);
-    if (splits > 1) {
-      const int err = static_cast<int>(cudaGetLastError());
-      if (err) return err;
-      const size_t mn = static_cast<size_t>(m) * n;
-      drain_kernel<T, GATED><<<static_cast<unsigned>((mn + 255) / 256), 256, 0,
-                               s>>>(pt, splits, scale, vscale, ot, m, n, tab, nk);
-    }
-  } else {
+  if (m > GEMV_M) {
     const dim3 grid((n + TN - 1) / TN, (m + TM - 1) / TM);
     tiled_kernel<T, WL, GATED><<<grid, T_THREADS, 0, s>>>(xt, w, scale, v, vscale,
                                                           ot, m, k, n, tab, nk);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  const size_t row_bytes = static_cast<size_t>(n) * (16 / WL::LC);
+  const auto aligned = [vec](const void* p) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % vec == 0;
+  };
+  if ((lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) || splits < 1 ||
+      splits > GW_MAX_SPLITS || (vec != 0 && vec != 8 && vec != 16) ||
+      (vec && (row_bytes % vec != 0 || !aligned(w.p) || !aligned(v.p))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ks = (k + splits - 1) / splits;
+  if ((splits - 1) * ks >= k) return static_cast<int>(cudaErrorInvalidValue);
+  const int cols = lanes * WL::LC;
+  const size_t smem =
+      gemv_floats(cols, ks < GW_XCH ? ks : GW_XCH, GATED ? 2 : 1) * sizeof(float);
+  const auto kern = gemv_cluster_kernel<T, WL, GATED>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + cols - 1) / cols, splits);
+  cfg.blockDim = dim3(GW_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = 1;
+  at[0].val.clusterDim.y = splits;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kern, xt, w, scale, v, vscale,
+                                             ot, m, k, n, lanes, ks, vec, tab, nk));
 }
 }  // namespace gemm

@@ -11,14 +11,17 @@
 // recurrentgemma-2b's GeGLU MLP (k = 2560, n = 7680) it runs on every
 // prefill, chunk and decode call under XambaConfig.pallas().
 //
-// The bodies are qmatmul.cu's (gemm.cuh), on a bf16 / fp32 weight loader
-// and with no scale: at decode (m = slots <= 8) the split-k GEMV, bound by
-// the weights' bytes (78.6 MB of bf16 wg + wi per call at m = 4); at
-// prefill (m = slots x chunk) the 64 x 64 tiled product on the CUDA cores,
-// bound by operations (2 m k n per weight).  The TPU kernel's (256, 256,
-// 512) blocks carried sums across the sequential k axis of its grid; here
-// each GEMV block sums its k slice and a fixed-order drain adds the
-// slices, and each tiled block walks all of k itself.
+// The GEMV and SIMT bodies are qmatmul.cu's (gemm.cuh), on a bf16 / fp32
+// weight loader and with no scale: at decode (m = slots <= 8) the cluster
+// GEMV, one launch, bound by the weights' bytes (78.6 MB of bf16 wg + wi
+// per call at m = 4: 8 bf16 columns a lane by 16-byte loads, 30 column
+// tiles of 256 x 4 k splits = 120 blocks, one wave on the 132 SMs); at
+// prefill (m = slots x chunk) fp32 operands take the 64 x 64 tiled
+// product on the CUDA cores, bound by operations (2 m k n per weight).
+// The TPU kernel's (256, 256, 512) blocks carried sums across the
+// sequential k axis of its grid; here a GEMV cluster's blocks sum k slices
+// that meet in distributed shared memory in rank order, and each tiled
+// block walks all of k itself.
 //
 // The bf16 tiled body, matmul_pwl_wgmma_kernel (x, w and v all bf16, m >
 // GEMV_M, k and n multiples of 8, 16-byte aligned bases: every model
@@ -46,40 +49,54 @@
 #include "gemm.cuh"
 #include "wgmma.cuh"
 
-// x (m, k) contiguous in `dtype` (0 float, 1 bf16); w, v (k, n) contiguous
-// in `wdtype` (0 float, 1 bf16; v null: the plain form); out (m, n) in x's
-// dtype; partial: splits * (v ? 2 : 1) * m * n fp32 scratch when m <= 8
-// and splits > 1 (else unused); vec4: n % 4 == 0 and w, v aligned to four
-// elements; tab: the PWL table (2 nk + 2 fp32), not null.  Returns the
+// A call's arguments in one block of 64-bit fields (kernels/matmul_pwl.py:
+// _ARGS; as qmatmul.cu's QmmArgs): x (m, k) contiguous in `dtype` (0
+// float, 1 bf16); w, v (k, n) contiguous in `wdtype` (0 float, 1 bf16; v
+// null: the plain form); out (m, n) in x's dtype; lanes, splits, vec: the
+// GEMV's column group, k splits and load bytes (gemm::launch; used when m
+// <= 8); tab: the PWL table (2 nk + 2 fp32), not null.
+struct MpwlArgs {
+  int64_t dtype, wdtype;
+  const void *x, *w, *v;
+  void* out;
+  int64_t m, k, n, lanes, splits, vec;
+  const void* tab;
+  int64_t nk;
+  void* stream;
+};
+
+// m <= 8 runs the GEMV, else the SIMT tiled body.  Returns the
 // cudaError_t.
-extern "C" int matmul_pwl_launch(int dtype, int wdtype, const void* x,
-                                 const void* w, const void* v, void* out,
-                                 void* partial, int m, int k, int n, int splits,
-                                 int vec4, const void* tab, int nk,
-                                 void* stream) {
+extern "C" int matmul_pwl_launch(const MpwlArgs* a) {
+  const int m = static_cast<int>(a->m), k = static_cast<int>(a->k),
+            n = static_cast<int>(a->n);
   if (m == 0 || n == 0) return 0;
-  if (k < 1 || splits < 1 || tab == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* tb = static_cast<const float*>(tab);
+  if (k < 1 || a->tab == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(a->stream);
+  const float* tb = static_cast<const float*>(a->tab);
+  const int nk = static_cast<int>(a->nk), lanes = static_cast<int>(a->lanes),
+            splits = static_cast<int>(a->splits), vec = static_cast<int>(a->vec);
+  const void* x = a->x;
+  void* out = a->out;
   int err = 0;
-  if (wdtype == 0) {
-    const gemm::F32W wl{static_cast<const float*>(w)}, vl{static_cast<const float*>(v)};
-    DISPATCH_T(dtype, err = v ? gemm::launch<T, gemm::F32W, true>(
-                                    x, wl, nullptr, vl, nullptr, out, partial, m,
-                                    k, n, splits, vec4, tb, nk, s)
-                              : gemm::launch<T, gemm::F32W, false>(
-                                    x, wl, nullptr, vl, nullptr, out, partial, m,
-                                    k, n, splits, vec4, tb, nk, s));
+  if (a->wdtype == 0) {
+    const gemm::F32W wl{static_cast<const float*>(a->w)},
+        vl{static_cast<const float*>(a->v)};
+    DISPATCH_T(a->dtype, err = a->v ? gemm::launch<T, gemm::F32W, true>(
+                                          x, wl, nullptr, vl, nullptr, out, m, k,
+                                          n, lanes, splits, vec, tb, nk, s)
+                                    : gemm::launch<T, gemm::F32W, false>(
+                                          x, wl, nullptr, vl, nullptr, out, m, k,
+                                          n, lanes, splits, vec, tb, nk, s));
   } else {
-    const gemm::BF16W wl{static_cast<const __nv_bfloat16*>(w)},
-        vl{static_cast<const __nv_bfloat16*>(v)};
-    DISPATCH_T(dtype, err = v ? gemm::launch<T, gemm::BF16W, true>(
-                                    x, wl, nullptr, vl, nullptr, out, partial, m,
-                                    k, n, splits, vec4, tb, nk, s)
-                              : gemm::launch<T, gemm::BF16W, false>(
-                                    x, wl, nullptr, vl, nullptr, out, partial, m,
-                                    k, n, splits, vec4, tb, nk, s));
+    const gemm::BF16W wl{static_cast<const __nv_bfloat16*>(a->w)},
+        vl{static_cast<const __nv_bfloat16*>(a->v)};
+    DISPATCH_T(a->dtype, err = a->v ? gemm::launch<T, gemm::BF16W, true>(
+                                          x, wl, nullptr, vl, nullptr, out, m, k,
+                                          n, lanes, splits, vec, tb, nk, s)
+                                    : gemm::launch<T, gemm::BF16W, false>(
+                                          x, wl, nullptr, vl, nullptr, out, m, k,
+                                          n, lanes, splits, vec, tb, nk, s));
   }
   return err;
 }

@@ -1,8 +1,10 @@
-// Hopper tensor-core building blocks shared by the bf16 bodies of
-// matmul_pwl.cu (kernel 11, tiled) and flash_attention.cu (kernel 9):
-// TMA tensor maps made on the host, mbarriers, TMA loads and the bf16
-// wgmma (fp32 accumulator) in its shared x shared and register x shared
-// forms.  sm_90a only (wgmma).
+// Hopper building blocks shared by the bf16 tensor-core bodies of
+// matmul_pwl.cu (kernel 11, tiled), qmatmul.cu (kernel 10) and
+// flash_attention.cu (kernel 9), and by gemm.cuh's cluster GEMV: TMA
+// tensor maps made on the host, mbarriers, TMA loads, thread-block
+// clusters (rank, barrier, loads from another block's shared memory) and
+// the bf16 wgmma (fp32 accumulator) in its shared x shared and register x
+// shared forms.  sm_90a only (wgmma).
 //
 // Shared-memory layouts.  Every tile is loaded by TMA with a swizzle of SW
 // bytes (128, or 64 for rows of 32 bf16), one box per SW-byte column chunk:
@@ -163,6 +165,42 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---- device: thread-block clusters -------------------------------------
+
+// This block's rank in its cluster, and the cluster's block count.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ int cluster_blocks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Every thread of every block of the cluster arrives, and waits for all:
+// shared-memory writes before it are visible to the cluster's reads after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Element i of the float array `p` (in this block's shared memory) as it
+// lies in the shared memory of the cluster's block `rank`.  A load stalls
+// the thread only where its value is used, and a remote one takes
+// hundreds of cycles: issue a batch of them before their sums.
+__device__ __forceinline__ float ld_rank(const float* p, int i, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p + i)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a) : "memory");
+  return v;
 }
 
 // ---- device: wgmma -----------------------------------------------------

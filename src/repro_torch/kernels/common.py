@@ -28,6 +28,23 @@ def launcher(lib_name: str, fn_name: str, argtypes: Sequence) -> object:
     return fn
 
 
+class Launcher:
+    """:func:`launcher`, looked up at the first call and kept: the decode
+    path's wrappers call their launchers once a layer per step, and the
+    lookup (library, symbol, argtypes) is host time on that path."""
+
+    __slots__ = ("args", "fn")
+
+    def __init__(self, lib_name: str, fn_name: str, argtypes: Sequence):
+        self.args = (lib_name, fn_name, argtypes)
+        self.fn = None
+
+    def __call__(self, *args) -> int:
+        if self.fn is None:
+            self.fn = launcher(*self.args)
+        return self.fn(*args)
+
+
 def check_launch(err: int, lib_name: str, what: str) -> None:
     """Raise when a launcher returned a ``cudaError_t`` other than 0."""
     if err != 0:
@@ -105,4 +122,5 @@ def ptr(t: torch.Tensor) -> int:
 
 
 def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw ``cudaStream_t`` of ``device``'s current stream."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -54,6 +54,7 @@ conv has no SiLU; gelu is the tanh form.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -63,7 +64,7 @@ from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import common
 from repro_torch.kernels.actiba import table_args
 from repro_torch.kernels.gated_norm import gated_norm_cuda, gated_norm_plain
-from repro_torch.kernels.qmatmul import GEMV_M, split_k
+from repro_torch.kernels.qmatmul import GEMV_M, SMS
 from repro_torch.nn import layers
 
 _LAUNCH = ("decode_step", "mamba2_step_launch",
@@ -397,6 +398,23 @@ def rglru_step_plain(u, gate, conv_state, h_state, conv_w, conv_b, rg_w,
     return out.to(u.dtype), new_conv.to(conv_state.dtype), h_new
 
 
+GATE_COLS = 128             # csrc/gemm.cuh: GV_COLS, columns a block
+GATE_MAX_KS = 1024          # GV_MAX_KS, k rows a split
+
+
+def gate_splits(m: int, k: int, n: int) -> int:
+    """Blocks over k of kernel 6's gate GEMV (``gemm::gemv_sums``, its
+    partials summed by its own second launch): about two blocks per SM, as
+    long as the fp32 partials (splits x m x n x 8 bytes written and read)
+    stay within a quarter of a weight's k x n bytes, and at most
+    ``GATE_MAX_KS`` rows of k per block.  A function of the shapes alone,
+    so a shape always takes the same sums in the same order."""
+    want = math.ceil(2 * SMS / math.ceil(n / GATE_COLS))
+    cap = max(1, k // (32 * m))
+    splits = max(min(want, cap), math.ceil(k / GATE_MAX_KS))
+    return math.ceil(k / math.ceil(k / splits))      # no empty split
+
+
 def rglru_step(u, gate, conv_state, h_state, conv_w, conv_b, rg_w, rg_b,
                ig_w, ig_b, lam, *, out=None,
                sigmoid_table: Optional[PWLTable] = None,
@@ -440,7 +458,7 @@ def rglru_step(u, gate, conv_state, h_state, conv_w, conv_b, rg_w, rg_b,
                        f"rglru_step: {name} must be contiguous fp32 or bf16 "
                        f"({w}, {w}) like rg_w, got {t.dtype} "
                        f"{tuple(t.shape)}")
-    splits = split_k(min(b, GEMV_M), w, w)
+    splits = gate_splits(min(b, GEMV_M), w, w)
     partial = torch.empty((splits * 2 * min(b, GEMV_M) * w,),
                           dtype=torch.float32, device=dev)
     vec4 = w % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0

@@ -11,7 +11,8 @@ in x's dtype.  ``pwl`` is an ActiBA table; ``v`` gives the gated form of
 the GeGLU / SwiGLU MLPs.
 
 * :func:`matmul_pwl` — the wrapper around ``csrc/matmul_pwl.cu``: the
-  split-k GEMV for m <= 8 (decode, ``gemm.cuh``), and above it (prefill)
+  cluster GEMV for m <= 8 (decode, ``gemm.cuh``; one launch, its column
+  group and k split from ``qmatmul.gemv_plan``), and above it (prefill)
   the bf16 tensor-core body (``wgmma`` fed by TMA) when x, w and v are
   all bf16 and TMA can read them, else the SIMT tiled product of
   ``gemm.cuh`` (fp32 operands, and shapes TMA cannot read).
@@ -24,6 +25,8 @@ the GeGLU / SwiGLU MLPs.
 """
 from __future__ import annotations
 
+import ctypes
+import struct
 from typing import Optional
 
 import torch
@@ -31,13 +34,17 @@ import torch
 from repro_torch.core.pwl import PWLTable, eval_pwl
 from repro_torch.kernels import common
 from repro_torch.kernels.actiba import table_args
-from repro_torch.kernels.qmatmul import GEMV_M, split_k
+from repro_torch.kernels.qmatmul import GEMV_M, gemv_plan, load_bytes
 
-_LAUNCH = ("matmul_pwl", "matmul_pwl_launch",
-           [common.I, common.I] + [common.P] * 5 + [common.I] * 5
-           + [common.P, common.I, common.P])
-_WGMMA = ("matmul_pwl", "matmul_pwl_wgmma_launch",
-          [common.P] * 4 + [common.I] * 3 + [common.P, common.I, common.P])
+# The GEMV / SIMT launcher takes one pointer to its arguments packed as
+# 64-bit fields (csrc/matmul_pwl.cu: MpwlArgs): dtype, wdtype, x, w, v,
+# out, m, k, n, lanes, splits, vec, table, nk, stream; null pointers are 0.
+_ARGS = struct.Struct("<2q4Q6qQqQ")
+_LAUNCH = common.Launcher("matmul_pwl", "matmul_pwl_launch",
+                          [ctypes.c_char_p])
+_WGMMA = common.Launcher(
+    "matmul_pwl", "matmul_pwl_wgmma_launch",
+    [common.P] * 4 + [common.I] * 3 + [common.P, common.I, common.P])
 
 
 def matmul_pwl_plain(x: torch.Tensor, w: torch.Tensor, table: PWLTable,
@@ -91,23 +98,18 @@ def matmul_pwl(x: torch.Tensor, w: torch.Tensor, table: PWLTable,
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     vp = common.ptr(v) if v is not None else None
     if body == "wgmma":
-        err = common.launcher(*_WGMMA)(
-            common.ptr(x), common.ptr(w), vp, common.ptr(out), m, k, n,
-            *table_args(table, dev), common.stream(dev))
+        err = _WGMMA(common.ptr(x), common.ptr(w), vp, common.ptr(out), m, k,
+                     n, *table_args(table, dev), common.stream(dev))
     else:
-        splits = split_k(m, k, n)
-        partial = torch.empty((splits * len(weights), m, n),
-                              dtype=torch.float32, device=dev) \
-            if splits > 1 else None
-        vec4 = n % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
-                                  for t in weights.values())
-        err = common.launcher(*_LAUNCH)(
+        es = w.element_size()
+        lanes, splits = gemv_plan(k, n, 16 // es)
+        err = _LAUNCH(_ARGS.pack(
             common.stream_code(x), common.stream_code(w), common.ptr(x),
-            common.ptr(w), vp, common.ptr(out),
-            common.ptr(partial) if partial is not None else None,
-            m, k, n, splits, int(vec4), *table_args(table, dev),
-            common.stream(dev))
-    common.check_launch(err, "matmul_pwl", f"matmul_pwl {body} kernel")
+            common.ptr(w), vp or 0, common.ptr(out), m, k, n, lanes, splits,
+            load_bytes(n, es, *weights.values()), *table_args(table, dev),
+            common.stream(dev)))
+    if err:
+        common.check_launch(err, "matmul_pwl", f"matmul_pwl {body} kernel")
     matmul_pwl.launches += 1
     matmul_pwl.path_launches[body] += 1
     return out

@@ -197,9 +197,13 @@ def qdot(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
         raise ValueError(f"qdot needs one layer's 2-D weight, got "
                          f"{qt.shape}")
     if x.is_cuda:
-        # kernels/ops.py reaches this module through nn/layers.py.
+        # kernels/ops.py reaches this module through nn/layers.py.  The
+        # (1, n) scale goes in as it is (n contiguous values), and a 2-D x
+        # (the decode step's) without views: each view is host time on the
+        # decode path, twice a layer a step.
         from repro_torch.kernels import ops
-        y = ops.qmatmul(x.reshape(-1, x.shape[-1]), qt.q,
-                        qt.scale.reshape(-1))
+        if x.ndim == 2:
+            return ops.qmatmul(x, qt.q, qt.scale)
+        y = ops.qmatmul(x.reshape(-1, x.shape[-1]), qt.q, qt.scale)
         return y.reshape(x.shape[:-1] + (qt.q.shape[-1],))
     return torch.matmul(x.float(), qt.q.float()) * qt.scale.reshape(-1)

@@ -269,12 +269,78 @@ def test_qmatmul_kernel_matches_plain(dev, dtype, variant, m, k, n):
     and the tiled path (ragged m and n), in every form, against the plain
     version; a second call gives the same bits."""
     x, q, scale, kw = _qmm_inputs(dev, dtype, m, k, n, variant, m + k + n)
+    body = qm.path(x, q, kw.get("qv"))
+    assert body == ("gemv" if m <= 8 else "tiled")
     before = qm.qmatmul.launches
+    paths = dict(qm.qmatmul.path_launches)
     got = qm.qmatmul(x, q, scale, **kw)
     assert qm.qmatmul.launches == before + 1
     assert torch.equal(qm.qmatmul(x, q, scale, **kw), got)
+    assert qm.qmatmul.path_launches[body] == paths[body] + 2
     _close(got, qm.qmatmul_plain(x, q, scale, **kw), TOL[dtype, "stream"],
            f"qmatmul {variant}")
+
+
+def _twice_on(dev, fn, counts, body, args, kw):
+    """``fn(*args, **kw)`` twice on ``body`` (by the wrapper's
+    ``path_launches``); both calls give the same bits."""
+    before = counts[body]
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    torch.cuda.synchronize(dev)
+    assert counts[body] == before + 2
+    assert torch.equal(got, again)
+    return got
+
+
+# Kernel 10's bf16 tensor-core body at mamba2-130m's projections (k split
+# over a cluster at out_proj), in every form.
+@pytest.mark.parametrize("variant", ["plain", "pwl", "gated"])
+@pytest.mark.parametrize("k,n", [(768, 3352), (1536, 768)],
+                         ids=["in_proj", "out_proj"])
+@pytest.mark.parametrize("m", [9, 256, 512])
+def test_qmatmul_wgmma_body_matches_plain(dev, variant, k, n, m):
+    x, q, scale, kw = _qmm_inputs(dev, torch.bfloat16, m, k, n, variant,
+                                  m * 7 + k + n)
+    assert qm.path(x, q, kw.get("qv")) == "wgmma"
+    got = _twice_on(dev, qm.qmatmul, qm.qmatmul.path_launches, "wgmma",
+                    (x, q, scale), kw)
+    _close(got, qm.qmatmul_plain(x, q, scale, **kw),
+           TOL[torch.bfloat16, "stream"], f"qmatmul {variant}")
+
+
+# The cluster GEMV of kernels 10 and 11 at m = 1, 4, 8: 8-byte int8 rows
+# (n = 3352), unaligned rows (n = 333), 16-byte rows split over a cluster
+# (n = 768) and kernel 11's recurrentgemma-2b GeGLU weights.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["plain", "gated"])
+@pytest.mark.parametrize("k,n", [(768, 3352), (200, 333), (1536, 768)])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_qmatmul_gemv_matches_plain(dev, dtype, variant, k, n, m):
+    x, q, scale, kw = _qmm_inputs(dev, dtype, m, k, n, variant, m + k + n)
+    assert qm.path(x, q, kw.get("qv")) == "gemv"
+    got = _twice_on(dev, qm.qmatmul, qm.qmatmul.path_launches, "gemv",
+                    (x, q, scale), kw)
+    _close(got, qm.qmatmul_plain(x, q, scale, **kw), TOL[dtype, "stream"],
+           f"qmatmul {variant}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gated", [False, True], ids=["pwl", "gated"])
+@pytest.mark.parametrize("k,n", [(768, 3352), (200, 333), (2560, 7680)])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_matmul_pwl_gemv_matches_plain(dev, dtype, gated, k, n, m):
+    from repro_torch.kernels import matmul_pwl as mp
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen).to(dev).to(dtype)
+    w, v = ((torch.randn(k, n, generator=gen) * k ** -0.5).to(dev).to(dtype)
+            for _ in range(2))
+    args = (x, w, pwl.get_table("gelu", segments=32), v if gated else None)
+    assert mp.path(x, w, args[3]) == "gemv"
+    got = _twice_on(dev, mp.matmul_pwl, mp.matmul_pwl.path_launches, "gemv",
+                    args, {})
+    _close(got, mp.matmul_pwl_plain(*args), TOL[dtype, "stream"],
+           "matmul_pwl")
 
 
 def test_qmatmul_refuses_bad_inputs(dev):
