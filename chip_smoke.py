@@ -12,7 +12,8 @@ qwen1.5-4b:
    prefill at b = 4 with l = 128 (one chunk) and l = 512 at chunk 256
    (state carried between chunks), both also with the ActiBA tables;
    ``cumsum_last`` on the SSD chain's (4, 24, 2, 256) prefix sums,
-   ``ssd_chunk`` at b = 4, two chunks of 256, and ``pwl_activate`` with
+   ``ssd_chunk`` at b = 4, two chunks of 256 (twice, the same bits, on
+   the body its ``path()`` names), and ``pwl_activate`` with
    the SiLU and softplus tables on the chain's xBC and dt streams;
    ``rglru_step`` at recurrentgemma-2b's width (b = 1 and 4, exact and
    with the sigmoid / softplus / gelu tables), ``rg_lru_scan`` at (4,
@@ -32,7 +33,8 @@ qwen1.5-4b:
    ``reduce_rows`` at (2048, 2048) and (1000, 300); each twice.  Kernels
    9, 10 and 11 print the body each case took by their path counts (bf16:
    the tensor-core ``wgmma`` body above the GEMV's m <= 8; fp32: the
-   SIMT body) and fail a case that took another than the wrapper's
+   SIMT body), kernel 7 likewise (its tensor-core ``wgmma`` body at the
+   chain's shape), and fail a case that took another than the wrapper's
    ``path()`` names;
 4. serve   — the wave engine through ``repro_torch.launch.serve``: 8
    requests, batch 4, prompts of 4-128 tokens, 16 new tokens, greedy,
@@ -98,19 +100,22 @@ qwen1.5-4b:
    held against an fp64 witness of its function written apart from the
    port, and the exact remaps against each other (``LOGIT_TOL``,
    ``PREFIX_SUM_TOL``); under ``pallas()`` each layer launches one
-   ``cumsum_last``, one ``ssd_chunk`` and three ``pwl_activate``, and the
-   first two are held to the phase-3 limits on the operands that forward
-   gave them;
+   ``cumsum_last``, one ``ssd_chunk`` (on its ``wgmma`` body) and three
+   ``pwl_activate``, and the first two are held to the phase-3 limits on
+   the operands that forward gave them;
 7. times   — each kernel and its plain version at the shapes its path
    gives it (CUDA events, median), launches, the bound, and a PyTorch
    call computing the same function where there is one; the decode step
    and prefill of each model, bf16 beside W8, and the engines' serve
    metrics side by side; the SIMT bodies of kernels 9, 10 and 11 on the
-   same bf16 inputs beside their ``wgmma`` bodies, and ptxas's report of
+   same bf16 inputs beside their ``wgmma`` bodies, and kernel 7's on the
+   same fp32 inputs beside its ``wgmma`` body (with its head-set size, its
+   launches by body and its bound at both rates), and ptxas's report of
    the ``wgmma`` bodies and the cluster GEMV; beside kernel 10's rows
-   (GEMV and ``wgmma``, in_proj and out_proj) and kernel 11's GEMV row,
-   the wrapper's host microseconds per call and ``torch.matmul``'s
-   (1000 calls, no synchronisation), and kernel 10's GEMV also with its
+   (GEMV and ``wgmma``, in_proj and out_proj), kernel 11's GEMV row and
+   kernel 13's row, the wrapper's host microseconds per call and
+   ``torch.matmul``'s (``torch.cumsum``'s for kernel 13; 1000 calls, no
+   synchronisation), and kernel 10's GEMV also with its
    weights cold (a rotation of copies larger than the 50 MB L2).  Each
    phase's seconds are printed after it.
 
@@ -140,6 +145,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
+# fp32-accurate products on the bf16 tensor cores: six bf16 products of
+# three-term splits each (csrc/ssd_tc.cuh), kernel 7's ``wgmma`` body.
+SPLIT_TC_FLOP_PER_S = BF16_TC_FLOP_PER_S / 6
 
 # Kernel vs plain version on the same inputs, element by element:
 #     |kernel - plain| <= rtol * (|plain| + ATOL_RMS * rms(plain))
@@ -499,6 +507,7 @@ def kernel_cases(dev, kernels, tables):
     ``gelu``) of ``XambaConfig.pallas()``."""
     import torch
     from repro_torch.kernels.qmatmul import path as qmatmul_path
+    from repro_torch.kernels.ssd_chunk import path as ssd_chunk_path
     kw = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM)
     worst = {k: 0.0 for k in ("mamba2_step", "mamba2_prefill", "cumsum_last",
                               "ssd_chunk", "pwl_activate", "qmatmul",
@@ -573,11 +582,10 @@ def kernel_cases(dev, kernels, tables):
         check("cumsum_last", f"{dn} {tuple(ch['a_c'].shape)}", (got,),
               (want,), dn, (("A_cum", "stream"),))
         args = (ch["x_c"], ch["A_cum"], ch["B_c"], ch["C_c"])
-        got = kernels["ssd_chunk"](*args)
-        want = kernels["ssd_chunk_plain"](*args)
-        torch.cuda.synchronize(dev)
-        check("ssd_chunk", f"{dn} inputs b={CHAIN_B} c={CHAIN_C} L={CHUNK}",
-              got, want, dn, (("y_diag", "state"), ("states", "state")))
+        routed("ssd_chunk", f"{dn} inputs b={CHAIN_B} c={CHAIN_C} L={CHUNK}",
+               ssd_chunk_path(*args), lambda: kernels["ssd_chunk"](*args),
+               lambda: kernels["ssd_chunk_plain"](*args), dn,
+               (("y_diag", "state"), ("states", "state")))
         for name, x in (("silu", ch["xbc"]), ("softplus", ch["dt"])):
             got = kernels["pwl_activate"](x, tables[name])
             want = kernels["pwl_activate_plain"](x, tables[name])
@@ -1805,7 +1813,7 @@ def ablation_phase(dev, seed, cfg, counters, kernels, worst):
     witness of its function; then ``cumsum_last`` and ``ssd_chunk``
     against their plain versions on the operands the ``pallas()`` forward
     gave them.  Returns the chain kernels' launches in the ``pallas()``
-    run."""
+    run, with kernel 7's by body under ``ssd_chunk_paths``."""
     import torch
     from repro_torch.core.pwl import table_for
     from repro_torch.core.xamba import XambaConfig
@@ -1813,7 +1821,7 @@ def ablation_phase(dev, seed, cfg, counters, kernels, worst):
     from repro_torch.launch import ablation
     from repro_torch.models import build_model
 
-    launches, by_kernel, shared = {}, {}, {}
+    launches, paths, by_kernel, shared = {}, {}, {}, {}
     calls = {"cumba_cumsum": [], "ssd_chunk": []}
 
     def first_forward(name, model, params, tokens):
@@ -1822,6 +1830,7 @@ def ablation_phase(dev, seed, cfg, counters, kernels, worst):
         out = model.forward(params, tokens)
         torch.cuda.synchronize()
         launches[name] = read_counts(counters)
+        paths[name] = dict(counters["ssd_chunk"].path_launches)
         by_kernel[name] = device_profile(
             lambda: model.forward(params, tokens), n=2)
         if name == "pallas":
@@ -1956,7 +1965,12 @@ def ablation_phase(dev, seed, cfg, counters, kernels, worst):
             f"{launches[name]} expected {w}"
     for name, _ in ablation.VARIANTS[:4]:
         assert not any(launches[name].values()), f"ablation {name}: kernel"
-    return launches["pallas"]
+    # Every layer's kernel 7 on the tensor-core body, none on the SIMT one.
+    print(f"  ssd_chunk launches by body in the pallas() forward: "
+          f"{paths['pallas']}", flush=True)
+    assert paths["pallas"] == {"wgmma": n, "simt": 0}, \
+        f"ablation pallas: ssd_chunk bodies {paths['pallas']}"
+    return dict(launches["pallas"], ssd_chunk_paths=paths["pallas"])
 
 
 @contextlib.contextmanager
@@ -2078,6 +2092,7 @@ def time_call(fn, n=30, warmup=3):
 
 OUR_KERNELS = ("mamba2_step_kernel", "gated_norm_kernel", "conv_act_kernel",
                "ssd_scan_kernel", "cumsum_last_kernel", "ssd_chunk_kernel",
+               "ssd_chunk_wgmma_kernel",
                "pwl_activate_kernel", "gemm::gemv_cluster_kernel",
                "gemm::tiled_kernel", "qmatmul_wgmma_kernel",
                "matmul_pwl_wgmma_kernel", "flash_attention_wgmma_kernel",
@@ -2187,6 +2202,25 @@ def simt_qmatmul(x, q, scale):
         out.data_ptr(), m, k, n, 32, 1, 0, 0, 0, common.stream(x.device)))
     common.check_launch(err, "qmatmul", "qmatmul SIMT body")
     return out
+
+
+def simt_ssd_chunk(x_c, A_cum, B_c, C_c):
+    """Kernel 7's SIMT body on fp32 operands that the shape rule sends to
+    the ``wgmma`` body, through its C launcher: the body these shapes took
+    before the ``wgmma`` one, timed beside it on the same card; not
+    counted."""
+    import torch
+    from repro_torch.kernels import common, ssd_chunk
+    b, c, L, h, p = x_c.shape
+    g, n = B_c.shape[3], B_c.shape[4]
+    y = torch.empty_like(x_c)
+    states = torch.empty((b, c, h, p, n), device=x_c.device)
+    err = ssd_chunk._LAUNCH(
+        x_c.data_ptr(), A_cum.data_ptr(), B_c.data_ptr(), C_c.data_ptr(),
+        y.data_ptr(), states.data_ptr(), b, c, L, h, p, g, n,
+        common.stream(x_c.device))
+    common.check_launch(err, "ssd_chunk", "ssd_chunk SIMT body")
+    return y, states
 
 
 def host_us(fn, n=1000):
@@ -2395,6 +2429,49 @@ def qmatmul_times(dev, kernels, paths, worst):
     return rows
 
 
+def ssd_times(dev, kernels, args, outs, launches, dev_ms, rate):
+    """Phase 7's extra lines for kernel 7 at the chain's shape: the body
+    and head-set size its rule picks, its launches by body in the
+    ``pallas()`` forward, the SIMT body on the same inputs (not counted),
+    the bound at the CUDA cores' fp32 rate beside the tensor cores' split
+    rate, and ptxas's report and the shared memory of the ``wgmma``
+    body."""
+    from repro_torch.kernels import ssd_chunk
+    x_c, B_c = args[0], args[2]
+    b, c, L, h, _ = x_c.shape
+    g = B_c.shape[3]
+    print(f"    body {ssd_chunk.path(*args)}, {ssd_chunk.heads_per_set(b, c, L, h, g)}"
+          f" heads a y block ({b * c * (L // 64)} query tiles x "
+          f"{h // ssd_chunk.heads_per_set(b, c, L, h, g)} head sets and "
+          f"{b * c * h} state blocks); launches by body in the pallas() "
+          f"forward {launches['ssd_chunk_paths']}", flush=True)
+    simt = lambda: simt_ssd_chunk(*args)                   # noqa: E731
+    simt_ms = time_call(simt)
+    simt_dev = _ours(device_profile(simt))
+    _, fails = compare("ssd_chunk SIMT body vs plain", simt(),
+                       kernels["ssd_chunk_plain"](*args), "float32",
+                       (("y_diag", "state"), ("states", "state")))
+    assert not fails, f"times: {fails}"
+    print(f"    the SIMT body on the same inputs (not counted): kernel "
+          f"{simt_ms:.4f} ms (device {simt_dev:.4f} ms): the wgmma body is "
+          f"{simt_dev / max(dev_ms, 1e-9):.1f}x faster in device time",
+          flush=True)
+    ops = ssd_chunk_ops(CHAIN_B, CHAIN_C, CHUNK, N_HEADS, N_GROUPS, HEAD_DIM,
+                        D_STATE)
+    nbytes = _bytes(*args, *outs)
+    for label, r in (("fp32-accurate tensor-core products (six bf16 "
+                      "products each)", rate),
+                     ("the fp32 CUDA cores", FP32_FLOP_PER_S)):
+        t, by = _bound(nbytes, ops, r)
+        print(f"    bound at {r / 1e12:.1f} TFLOP/s ({label}): {t:.4f} ms "
+              f"({by}); {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB",
+              flush=True)
+    print(f"    wgmma body: {wgmma_smem('ssd_chunk', 'ssd_chunk_wgmma_smem', L)}"
+          f" bytes of dynamic shared memory at L = {L}", flush=True)
+    for line in ptxas_lines("ssd_chunk", "ssd_chunk_wgmma_kernel"):
+        print(f"    ptxas {line}")
+
+
 def times_phase(dev, kernels, launches, steps, waves, worst, tables):
     """Phase 7: kernel and plain times at the shapes each path gives the
     kernel (serve: bf16, b=4, prefill l=128, one chunk; the ablation's
@@ -2461,20 +2538,24 @@ def times_phase(dev, kernels, launches, steps, waves, worst, tables):
           f"{ms_a:.4f} ms (device {dev_a:.4f} ms)", flush=True)
 
     # The chain's kernels at the ablation's shapes (fp32, b=4, l=300).
+    # Kernel 7's bound takes the rate of fp32-accurate tensor-core products
+    # (its wgmma body's split); the others' the fp32 CUDA cores'.
     ch = chain_inputs(dev, torch.float32, seed=33)
     chain = (
         ("cumsum_last", "cumba.cu", "src/repro/kernels/cumba.py:51",
          (ch["a_c"],), lambda o: 0.0 + ch["a_c"].numel(),
-         lambda: torch.cumsum(ch["a_c"], dim=-1)),
+         lambda: torch.cumsum(ch["a_c"], dim=-1), FP32_FLOP_PER_S),
         ("ssd_chunk", "ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:62",
          (ch["x_c"], ch["A_cum"], ch["B_c"], ch["C_c"]),
          lambda o: ssd_chunk_ops(CHAIN_B, CHAIN_C, CHUNK, N_HEADS, N_GROUPS,
-                                 HEAD_DIM, D_STATE), None),
+                                 HEAD_DIM, D_STATE), None,
+         SPLIT_TC_FLOP_PER_S),
         ("pwl_activate", "actiba.cu", "src/repro/kernels/actiba.py:52",
          (ch["xbc"], tables["silu"]),
-         lambda o: pwl_ops(ch["xbc"].numel(), tables["silu"]), None),
+         lambda o: pwl_ops(ch["xbc"].numel(), tables["silu"]), None,
+         FP32_FLOP_PER_S),
     )
-    for name, src, where, args, ops, library in chain:
+    for name, src, where, args, ops, library, rate in chain:
         outs = kernels[name](*args)
         outs = outs if isinstance(outs, tuple) else (outs,)
         ms = time_call(lambda: kernels[name](*args))
@@ -2482,7 +2563,7 @@ def times_phase(dev, kernels, launches, steps, waves, worst, tables):
         dev_ms = _ours(device_profile(lambda: kernels[name](*args)))
         lib_ms = time_call(library) if library else None
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
-        bound_ms, bound_by = _bound(_bytes(*tensors, *outs), ops(outs))
+        bound_ms, bound_by = _bound(_bytes(*tensors, *outs), ops(outs), rate)
         rows.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
             replaces=where, launches=launches[name],
@@ -2496,6 +2577,14 @@ def times_phase(dev, kernels, launches, steps, waves, worst, tables):
                  else "none: no single PyTorch call")
               + f"; {launches[name]} launches in the pallas() forward",
               flush=True)
+        if name == "cumsum_last":
+            print(f"    host: the wrapper {host_us(lambda: kernels[name](*args)):.1f}"
+                  f" us a call, torch.cumsum {host_us(library):.1f} us; "
+                  f"library device time "
+                  f"{sum(device_profile(library).values()):.4f} ms",
+                  flush=True)
+        elif name == "ssd_chunk":
+            ssd_times(dev, kernels, args, outs, launches, dev_ms, rate)
     return rows + qmatmul_times(dev, kernels, launches["qmatmul_paths"],
                                 worst)
 
@@ -2732,7 +2821,8 @@ def main() -> int:
     phase("6. ablation (fp32 forward, b=4, l=300)")
     launches.update({k: v for k, v in ablation_phase(
         dev, 2, get_config("mamba2-130m"), counters, kernels, worst).items()
-        if k in ("cumsum_last", "ssd_chunk", "pwl_activate")})
+        if k in ("cumsum_last", "ssd_chunk", "pwl_activate",
+                 "ssd_chunk_paths")})
 
     phase("7. times")
     with torch.inference_mode():

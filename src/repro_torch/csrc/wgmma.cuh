@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the bf16 tensor-core bodies of
-// matmul_pwl.cu (kernel 11, tiled), qmatmul.cu (kernel 10) and
-// flash_attention.cu (kernel 9), and by gemm.cuh's cluster GEMV: TMA
+// matmul_pwl.cu (kernel 11, tiled), qmatmul.cu (kernel 10),
+// flash_attention.cu (kernel 9) and ssd_chunk.cu (kernel 7, through
+// ssd_tc.cuh), and by gemm.cuh's cluster GEMV: TMA
 // tensor maps made on the host, mbarriers, TMA loads, thread-block
 // clusters (rank, barrier, loads from another block's shared memory) and
 // the bf16 wgmma (fp32 accumulator) in its shared x shared and register x
@@ -67,18 +68,20 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first): extents dims[],
-// byte strides of dims 1.. in strides[] (multiples of 16), box extents
-// box[] (box[0] * 2 bytes == swizzle bytes `sw`, 128 or 64).  Elements
-// outside the extents read as zero.  Returns false when the driver
+// A tensor map of `rank` dims (innermost first) over elements of type
+// `type` (bf16 unless named): extents dims[], byte strides of dims 1.. in
+// strides[] (multiples of 16), box extents box[] (box[0] times the
+// element's bytes == swizzle bytes `sw`, 128 or 64).  Elements outside the
+// extents read as zero.  Returns false when cuTensorMapEncodeTiled
 // refuses it.
-inline bool make_map(CUtensorMap* map, const void* base, int rank,
-                     const cuuint64_t* dims, const cuuint64_t* strides,
-                     const cuuint32_t* box, int sw) {
+inline bool make_map(
+    CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box, int sw,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  return fn(map, type, rank,
             const_cast<void*>(base), dims, strides, box, ones,
             CU_TENSOR_MAP_INTERLEAVE_NONE,
             sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
@@ -241,11 +244,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // D (64 x N, fp32 registers) += A (64 x 16) B (16 x N), bf16.  ss: A and
 // B from shared memory (descriptors); rs: A from registers.  TB: B's
-// transpose bit (1: MN-major).
+// transpose bit (1: MN-major); TA: A's, in the ss form only (1: MN-major,
+// the rows of A's tile run along the contracted axis).
 template <int N> struct Mma;
 
 template <> struct Mma<32> {
-  template <int TB>
+  template <int TB, int TA = 0>
   static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
                                             uint64_t b) {
     asm volatile(
@@ -253,12 +257,12 @@ template <> struct Mma<32> {
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
         "%14, %15}"
-        ", %16, %17, p, 1, 1, 0, %19;\n}\n"
+        ", %16, %17, p, 1, 1, %20, %19;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15])
-        : "l"(a), "l"(b), "r"(1), "n"(TB));
+        : "l"(a), "l"(b), "r"(1), "n"(TB), "n"(TA));
   }
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[16],
@@ -280,7 +284,7 @@ template <> struct Mma<32> {
 };
 
 template <> struct Mma<64> {
-  template <int TB>
+  template <int TB, int TA = 0>
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
                                             uint64_t b) {
     asm volatile(
@@ -289,7 +293,7 @@ template <> struct Mma<64> {
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
         "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
         "%26, %27, %28, %29, %30, %31}"
-        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        ", %32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -297,7 +301,7 @@ template <> struct Mma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1), "n"(TB));
+        : "l"(a), "l"(b), "r"(1), "n"(TB), "n"(TA));
   }
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[32],
@@ -323,7 +327,7 @@ template <> struct Mma<64> {
 };
 
 template <> struct Mma<128> {
-  template <int TB>
+  template <int TB, int TA = 0>
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
                                             uint64_t b) {
     asm volatile(
@@ -335,7 +339,7 @@ template <> struct Mma<128> {
         "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
         "%62, %63}"
-        ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+        ", %64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -349,7 +353,7 @@ template <> struct Mma<128> {
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1), "n"(TB));
+        : "l"(a), "l"(b), "r"(1), "n"(TB), "n"(TA));
   }
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[64],
@@ -384,7 +388,7 @@ template <> struct Mma<128> {
 };
 
 template <> struct Mma<256> {
-  template <int TB>
+  template <int TB, int TA = 0>
   static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a,
                                             uint64_t b) {
     asm volatile(
@@ -401,7 +405,7 @@ template <> struct Mma<256> {
         "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
         "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
         "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
-        ", %128, %129, p, 1, 1, 0, %131;\n}\n"
+        ", %128, %129, p, 1, 1, %132, %131;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -429,7 +433,7 @@ template <> struct Mma<256> {
           "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
           "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(1), "n"(TB));
+        : "l"(a), "l"(b), "r"(1), "n"(TB), "n"(TA));
   }
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[128],

@@ -183,22 +183,92 @@ def test_cumsum_kernel_matches_plain(dev, dtype, shape):
     _close(got, cumba.cumsum_last_plain(x), TOL[dtype, "stream"], "cumsum")
 
 
-@pytest.mark.parametrize("g,L", [(1, 64), (2, 96), (1, 256)])
-def test_ssd_chunk_kernel_matches_plain(dev, g, L):
-    """Chunks of one, one and a half and four 64-row tiles."""
-    b, c, h, p, n = 2, 3, 4, 32, 64
-    gen = torch.Generator().manual_seed(L + g)
+# Kernel 13's strips: one element a lane (t <= 32), strips that run past
+# the row (31, 33, 255, 300), whole 16-byte strips (256, 1024) and rows
+# longer than one pass (4097: nine passes of 512, the last ragged).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 31, 33, 255, 256, 300, 1024, 4097])
+@pytest.mark.parametrize("rows", [1, 7, 10000])
+def test_cumsum_strips_match_plain(dev, dtype, t, rows):
+    gen = torch.Generator().manual_seed(t + rows)
+    x = (torch.randn(rows, t, generator=gen) * 0.2).to(dev).to(dtype)
+    before = cumba.cumsum_last.launches
+    got = cumba.cumsum_last(x)
+    assert cumba.cumsum_last.launches == before + 1
+    assert torch.equal(cumba.cumsum_last(x), got)
+    _close(got, cumba.cumsum_last_plain(x), TOL[dtype, "stream"],
+           f"cumsum t={t}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [256, 1024, 300])
+def test_cumsum_unaligned_row_starts(dev, dtype, t):
+    """A contiguous x whose base is one element past a 16-byte boundary:
+    the strips go element by element."""
+    gen = torch.Generator().manual_seed(t)
+    buf = (torch.randn(33 * t + 1, generator=gen) * 0.2).to(dev).to(dtype)
+    x = buf[1:].view(33, t)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _close(cumba.cumsum_last(x), cumba.cumsum_last_plain(x),
+           TOL[dtype, "stream"], f"cumsum unaligned t={t}")
+
+
+def _ssd_inputs(dev, b, c, L, h, g, p, n, seed):
+    gen = torch.Generator().manual_seed(seed)
     x_c = (torch.randn(b, c, L, h, p, generator=gen) * 0.3).to(dev)
     a_c = (-torch.rand(b, h, c, L, generator=gen) * 0.2).to(dev)
-    A_cum = torch.cumsum(a_c, dim=-1)
     B_c = (torch.randn(b, c, L, g, n, generator=gen) * 0.5).to(dev)
     C_c = (torch.randn(b, c, L, g, n, generator=gen) * 0.5).to(dev)
-    before = sc.ssd_chunk.launches
-    got = ops.ssd_chunk(x_c, A_cum, B_c, C_c)
-    assert sc.ssd_chunk.launches == before + 1
-    want = sc.ssd_chunk_plain(x_c, A_cum, B_c, C_c)
+    return x_c, torch.cumsum(a_c, dim=-1), B_c, C_c
+
+
+def _ssd_on(dev, args, body):
+    """Kernel 7 twice on ``body`` (counted in ``path_launches``), the same
+    bits both times, held to the plain version."""
+    assert sc.path(*args) == body
+    before = sc.ssd_chunk.path_launches[body]
+    got = ops.ssd_chunk(*args)
+    again = ops.ssd_chunk(*args)
+    torch.cuda.synchronize(dev)
+    assert sc.ssd_chunk.path_launches[body] == before + 2
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+    want = sc.ssd_chunk_plain(*args)
     for name, a, r in zip(("y", "states"), got, want):
         _close(a, r, TOL[torch.float32, "state"], name)
+
+
+@pytest.mark.parametrize("g,L", [(1, 64), (2, 96), (1, 256)])
+def test_ssd_chunk_kernel_matches_plain(dev, g, L):
+    """Chunks of one, one and a half and four 64-row tiles (head_dim 32:
+    the SIMT body)."""
+    args = _ssd_inputs(dev, 2, 3, L, 4, g, 32, 64, seed=L + g)
+    before = sc.ssd_chunk.launches
+    _ssd_on(dev, args, "simt")
+    assert sc.ssd_chunk.launches == before + 2
+
+
+# Kernel 7's tensor-core body: the ablation's shape (b 4, two chunks of
+# 256, 24 heads of 64, one group of d_state 128), two groups of 1, 4 and
+# 24 heads at chunks of one to eight 64-row tiles (four-tile score groups
+# twice at 512), and d_state 64.
+@pytest.mark.parametrize("b,c,L,h,g,n", [(4, 2, 256, 24, 1, 128)] + [
+    (1, 2, L, 2 * hpg, 2, 128) for hpg in (1, 4, 24)
+    for L in (64, 128, 256, 512)] + [(2, 1, 128, 8, 2, 64),
+                                      (1, 2, 512, 4, 1, 64)])
+def test_ssd_chunk_wgmma_body_matches_plain(dev, b, c, L, h, g, n):
+    args = _ssd_inputs(dev, b, c, L, h, g, 64, n, seed=L + h + n)
+    _ssd_on(dev, args, "wgmma")
+
+
+def test_ssd_chunk_misaligned_or_narrow_takes_the_simt_body(dev):
+    """A B view one element past a 16-byte boundary, and head_dim 32,
+    take the SIMT body, each held to the plain version."""
+    x_c, A_cum, B_c, C_c = _ssd_inputs(dev, 1, 2, 128, 4, 1, 64, 128, 7)
+    buf = torch.empty(B_c.numel() + 1, device=dev)
+    B_off = buf[1:].view_as(B_c)
+    B_off.copy_(B_c)
+    _ssd_on(dev, (x_c, A_cum, B_off, C_c), "simt")
+    _ssd_on(dev, _ssd_inputs(dev, 1, 2, 128, 4, 1, 32, 128, 8), "simt")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
