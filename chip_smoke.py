@@ -8,9 +8,13 @@ qwen1.5-4b:
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — ``nvcc`` builds every kernel from ``src/repro_torch/csrc``;
 3. kernels — each hand-written kernel against its plain PyTorch version
-   on the card, in fp32 and bf16: the decode step at b = 1 and 4, the
-   prefill at b = 4 with l = 128 (one chunk) and l = 512 at chunk 256
-   (state carried between chunks), both also with the ActiBA tables;
+   on the card, in fp32 and bf16: the decode step (one launch, the norm
+   fused) at b = 1 and 4 and with the ActiBA tables, each run twice for
+   the same bits; the prefill (``PREFILL_CASES``) on its tensor-core body
+   at l = 128 (one chunk of 128), l = 64 (one of 64), l = 512 at chunk 256
+   and l = 256 at chunk 64 (the state carried between chunks; a nonzero
+   incoming state everywhere) and with the ActiBA tables, on its SIMT
+   body at chunk 32, each twice on the body its ``path()`` names;
    ``cumsum_last`` on the SSD chain's (4, 24, 2, 256) prefix sums,
    ``ssd_chunk`` at b = 4, two chunks of 256 (twice, the same bits, on
    the body its ``path()`` names), and ``pwl_activate`` with
@@ -40,7 +44,8 @@ qwen1.5-4b:
    requests, batch 4, prompts of 4-128 tokens, 16 new tokens, greedy,
    bf16 weights from ``--seed``; every token in the vocabulary, every
    logit finite, and each kernel launched 24 times per decode step and
-   per wave.  Then a short CLI run with ``--prefill-mode naive
+   per wave, every ``mamba2_prefill`` launch of every serve phase on its
+   tensor-core body.  Then a short CLI run with ``--prefill-mode naive
    --decode-mode naive`` (no fused kernel launched) and an ``Engine`` run
    under ``XambaConfig.pallas()`` (ActiBA in the fused kernels).  Then
    the continuous engine through the CLI with ``--prefill-chunk 64``,
@@ -105,7 +110,12 @@ qwen1.5-4b:
    the operands that forward gave them;
 7. times   — each kernel and its plain version at the shapes its path
    gives it (CUDA events, median), launches, the bound, and a PyTorch
-   call computing the same function where there is one; the decode step
+   call computing the same function where there is one; kernels 1 and 2
+   with their host microseconds a call (kernel 1 also into the caller's
+   state buffers, as the engine calls it), kernel 2 at l = 128 and 64 with
+   its SIMT body on the same inputs (``simt_prefill``, not counted), its
+   device time by kernel and its bound restated for the tensor-core
+   design (``prefill_tc_bound``); the decode step
    and prefill of each model, bf16 beside W8, and the engines' serve
    metrics side by side; the SIMT bodies of kernels 9, 10 and 11 on the
    same bf16 inputs beside their ``wgmma`` bodies, and kernel 7's on the
@@ -500,12 +510,24 @@ def chain_inputs(dev, dtype, seed):
         dt=_rand(g, (b, CHAIN_L, N_HEADS), 2.0, dev, dtype))
 
 
+# Kernel 2's phase-3 cases (b, l, chunk, ActiBA): the wave serve's call
+# (one chunk of 128), the continuous engine's (one chunk of 64), two chunks
+# of 256 and four of 64 (the carried state between chunks; all with a
+# nonzero incoming state) on the tensor-core body; a chunk of 32 on the
+# SIMT body; the ActiBA tables at one and two chunks.
+PREFILL_CASES = ((4, 128, 128, False), (4, 64, 64, False),
+                 (4, 512, 256, False), (2, 256, 64, False),
+                 (4, 128, 32, False), (4, 128, 128, True),
+                 (4, 512, 256, True))
+
+
 def kernel_cases(dev, kernels, tables):
     """Phase 3: every kernel against its plain version on the card.  Every
     case is printed; the phase fails at its end if any output failed.
     ``tables``: the ActiBA tables (``silu``, ``softplus``, ``sigmoid``,
     ``gelu``) of ``XambaConfig.pallas()``."""
     import torch
+    from repro_torch.kernels.prefill_chunk import path as prefill_path
     from repro_torch.kernels.qmatmul import path as qmatmul_path
     from repro_torch.kernels.ssd_chunk import path as ssd_chunk_path
     kw = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM)
@@ -553,27 +575,23 @@ def kernel_cases(dev, kernels, tables):
         dn = str(dtype).split(".")[-1]
         for b in (1, 4):
             ins = decode_inputs(b, dev, dtype, seed=10 + b)
-            got = kernels["mamba2_step"](**ins, **kw)
-            want = kernels["mamba2_step_plain"](**ins, **kw)
-            torch.cuda.synchronize(dev)
-            check("mamba2_step", f"{dn} b={b}", got, want, dn)
-        got = kernels["mamba2_step"](**ins, **kw, **ktab)
-        want = kernels["mamba2_step_plain"](**ins, **kw, **pact)
-        torch.cuda.synchronize(dev)
-        check("mamba2_step", f"{dn} b=4 actiba", got, want, dn)
-        for b, l, chunk in ((4, 128, 128), (4, 512, 256)):
+            twice("mamba2_step", f"{dn} b={b}",
+                  lambda: kernels["mamba2_step"](**ins, **kw),
+                  lambda: kernels["mamba2_step_plain"](**ins, **kw), dn)
+        twice("mamba2_step", f"{dn} b=4 actiba",
+              lambda: kernels["mamba2_step"](**ins, **kw, **ktab),
+              lambda: kernels["mamba2_step_plain"](**ins, **kw, **pact), dn)
+        for b, l, chunk, actiba in PREFILL_CASES:
             ins = prefill_inputs(b, l, dev, dtype, seed=20 + l)
-            got = kernels["mamba2_prefill"](**ins, chunk=chunk, **kw)
-            want = kernels["mamba2_prefill_plain"](**ins, chunk=chunk, **kw)
-            torch.cuda.synchronize(dev)
-            check("mamba2_prefill", f"{dn} b={b} l={l} chunk={chunk}", got,
-                  want, dn)
-        got = kernels["mamba2_prefill"](**ins, chunk=chunk, **kw, **ktab)
-        want = kernels["mamba2_prefill_plain"](**ins, chunk=chunk, **kw,
-                                               **pact)
-        torch.cuda.synchronize(dev)
-        check("mamba2_prefill", f"{dn} b={b} l={l} chunk={chunk} actiba",
-              got, want, dn)
+            tk, tp = (ktab, pact) if actiba else ({}, {})
+            routed("mamba2_prefill", f"{dn} b={b} l={l} chunk={chunk}"
+                   + (" actiba" if actiba else ""),
+                   prefill_path(ins["xbc"], ins["ssm_state"], chunk=chunk,
+                                head_dim=HEAD_DIM),
+                   lambda: kernels["mamba2_prefill"](**ins, chunk=chunk,
+                                                     **kw, **tk),
+                   lambda: kernels["mamba2_prefill_plain"](
+                       **ins, chunk=chunk, **kw, **tp), dn, FUSED_OUTS)
 
         ch = chain_inputs(dev, dtype, seed=30)
         got = kernels["cumsum_last"](ch["a_c"])
@@ -742,6 +760,17 @@ def path_launches(cfg, steps, prefills, w8=False) -> dict:
     return want
 
 
+def prefill_bodies(counters, label):
+    """Every ``mamba2_prefill`` launch of the run just made took the
+    tensor-core body (the serve shapes: one chunk of 128 or of 64)."""
+    fn = counters["mamba2_prefill"]
+    bodies = dict(fn.path_launches)
+    print(f"  mamba2_prefill by body: {bodies} (all {fn.launches} on the "
+          f"wgmma body expected)", flush=True)
+    assert bodies == {"wgmma": fn.launches, "simt": 0}, \
+        f"{label}: mamba2_prefill off the tensor-core body"
+
+
 def serve_phase(serve_main, counters, argv):
     """Phase 4: the CLI's wave engine; returns (engine, launches, steps,
     waves)."""
@@ -767,6 +796,7 @@ def serve_phase(serve_main, counters, argv):
     print(f"  launches {launches} expected {want} "
           f"({waves} waves, {steps} decode steps, {cfg.n_layers} layers)")
     assert launches == want, "serve: kernel launch counts"
+    prefill_bodies(counters, "serve")
     assert steps > 0 and waves > 0, "serve: a kernel idle"
     st = engine.stats(done)
     print(f"  generated {st['generated_tokens']} tokens in "
@@ -832,6 +862,7 @@ def serve_modes_phase(serve_main, counters, cfg, dev):
     assert launches["mamba2_step"] == pcfg.n_layers * m["decode_steps"]
     for k in ("mamba2_prefill", "pwl_activate", "cumsum_last"):
         assert launches[k] > 0, f"pallas serve: {k} idle"
+    prefill_bodies(counters, "pallas serve")
 
 
 CONT_ARGV = ["--arch", "mamba2-130m", "--engine", "continuous",
@@ -874,6 +905,7 @@ def continuous_phase(serve_main, counters, argv):
           f"steps, {calls} chunk calls, {n} layers)")
     assert launches == want and paths == want_paths, \
         f"continuous {label}: kernel launch counts"
+    prefill_bodies(counters, f"continuous {label}")
     assert steps > 0 and calls > 0, f"continuous {label}: a path idle"
     print(f"  generated {m['generated_tokens']} tokens: "
           f"{m['tokens_per_s']:.1f} tok/s; ttft_mean_s "
@@ -2091,7 +2123,8 @@ def time_call(fn, n=30, warmup=3):
 
 
 OUR_KERNELS = ("mamba2_step_kernel", "gated_norm_kernel", "conv_act_kernel",
-               "ssd_scan_kernel", "cumsum_last_kernel", "ssd_chunk_kernel",
+               "ssd_scan_kernel", "ssd_prefill_wgmma_kernel",
+               "state_pass_kernel", "cumsum_last_kernel", "ssd_chunk_kernel",
                "ssd_chunk_wgmma_kernel",
                "pwl_activate_kernel", "gemm::gemv_cluster_kernel",
                "gemm::tiled_kernel", "qmatmul_wgmma_kernel",
@@ -2269,13 +2302,61 @@ def ptxas_lines(source, needle):
     return out or [f"{source}: not built in this run"]
 
 
-def wgmma_smem(source, fn_name, arg):
+def wgmma_smem(source, fn_name, *args):
     """The dynamic shared memory a ``wgmma`` body's launch asks for."""
     import ctypes
     from repro_torch.kernels import build
     fn = getattr(build.library(source), fn_name)
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    return fn(arg)
+    fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_int
+    return fn(*args)
+
+
+def simt_prefill(ins, chunk):
+    """Kernel 2's SIMT body on bf16 operands that the shape rule sends to
+    the tensor-core body, through its C launcher, then the gated norm: the
+    body these shapes took before, timed beside the new one on the same
+    card; not counted."""
+    import torch
+    from repro_torch.kernels import common, prefill_chunk as pc
+    from repro_torch.kernels.gated_norm import gated_norm_cuda
+    z, xbc, dt = ins["z"], ins["xbc"], ins["dt"]
+    b, l, di = z.shape
+    st = ins["ssm_state"]
+    h, n = st.shape[1], st.shape[-1]
+    act = torch.empty_like(xbc)
+    y = torch.empty_like(z)
+    new_conv = torch.empty_like(ins["conv_state"])
+    new_ssm = torch.empty_like(st)
+    err = pc._LAUNCH(pc._PREFILL_ARGS.pack(
+        common.stream_code(z), 0, xbc.data_ptr(), xbc.shape[-1],
+        dt.data_ptr(), h, ins["conv_state"].data_ptr(), st.data_ptr(),
+        *(ins[k].data_ptr() for k in ("conv_w", "conv_b", "dt_bias", "A",
+                                      "D")),
+        act.data_ptr(), y.data_ptr(), new_conv.data_ptr(),
+        new_ssm.data_ptr(), 0, 0, 0, b, l, chunk, h, HEAD_DIM, N_GROUPS, n,
+        ins["conv_w"].shape[0], 0, 0, 0, 0, 0, common.stream(z.device)))
+    common.check_launch(err, "prefill_chunk", "mamba2_prefill SIMT body")
+    out = gated_norm_cuda(y, z, ins["norm_scale"])
+    return out, new_conv, new_ssm
+
+
+def prefill_tc_bound(ins, outs, chunk):
+    """Kernel 2's bound for the tensor-core design, from the run's tensors:
+    the bytes (inputs read once, outputs written once) at 3.35 TB/s beside
+    the bf16 tensor-core products it needs at 989 TFLOP/s: per chunk the
+    lower triangle of C B^T once per group (one bf16 product: bf16-exact
+    streams), and per head the folded scores times x, the carried-state
+    term and the chunk state, three bf16 products each (the fp32 operand's
+    three terms).  Returns (ms, by, bytes ms, operations ms, GFLOP)."""
+    b, l, _ = ins["z"].shape
+    L, c = chunk, l // chunk
+    tri = L * (L + 1) // 2
+    ops = b * c * (N_GROUPS * 2 * D_STATE * tri + N_HEADS * 3 * (
+        2 * HEAD_DIM * tri + 4 * L * D_STATE * HEAD_DIM))
+    t_bytes = _bytes(*ins.values(), *outs) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_TC_FLOP_PER_S * 1e3
+    ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return ms, by, t_bytes, t_ops, ops / 1e9
 
 
 def _bytes(*ts):
@@ -2289,32 +2370,6 @@ def decode_bound(ins, outs):
     b, h, p, n = ins["ssm_state"].shape
     ops = 5 * b * h * p * n + 10 * b * D_XBC + 10 * b * D_INNER
     return _bound(_bytes(*ins.values(), *outs), ops)
-
-
-def prefill_bound(ins, outs):
-    """As :func:`decode_bound`, for the least work the function needs: the
-    recurrence's ~5 fp32 operations per state element per token, plus the
-    conv and the norm per token."""
-    b, l, _ = ins["z"].shape
-    ops = recurrence_ops(b, l) + l * (10 * b * D_XBC + 10 * b * D_INNER)
-    return _bound(_bytes(*ins.values(), *outs), ops)
-
-
-def recurrence_ops(b, l):
-    """h = a.h + (dt.x) B and y = h.C: ~5 operations per state element and
-    token."""
-    return 5 * b * l * N_HEADS * HEAD_DIM * D_STATE
-
-
-def chunked_ops(b, l, chunk):
-    """Operations of the chunked form the prefill kernel runs, per chunk
-    of L and head: C.B over L(L+1)/2 pairs x n, its product with x*dt over
-    p, the carried-state term and the state update, L x n x p each (2 per
-    multiply-add)."""
-    tri = chunk * (chunk + 1) // 2
-    per = 2 * tri * D_STATE + 2 * tri * HEAD_DIM + \
-        4 * chunk * D_STATE * HEAD_DIM
-    return b * N_HEADS * (l // chunk) * per
 
 
 def ssd_chunk_ops(b, c, L, h, g, p, n):
@@ -2478,14 +2533,21 @@ def times_phase(dev, kernels, launches, steps, waves, worst, tables):
     chain: fp32, b=4, l=300 in two chunks of 256) and the kernels
     record."""
     import torch
+    from repro_torch.kernels.prefill_chunk import heads_per_set
+    from repro_torch.kernels.prefill_chunk import path as prefill_chunk_path
     kw = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM)
     dtype = torch.bfloat16
     rows = []
     ins = decode_inputs(4, dev, dtype, seed=31)
-    outs = kernels["mamba2_step"](**ins, **kw)
-    ms = time_call(lambda: kernels["mamba2_step"](**ins, **kw))
+    step = lambda: kernels["mamba2_step"](**ins, **kw)          # noqa: E731
+    outs = step()
+    ms = time_call(step)
     plain_ms = time_call(lambda: kernels["mamba2_step_plain"](**ins, **kw))
-    dev_ms = _ours(device_profile(lambda: kernels["mamba2_step"](**ins, **kw)))
+    dev_ms = _ours(device_profile(step))
+    us = host_us(step)
+    bufs = (torch.empty_like(ins["conv_state"]),
+            torch.empty_like(ins["ssm_state"]))
+    us_out = host_us(lambda: kernels["mamba2_step"](**ins, **kw, out=bufs))
     bound_ms, bound_by = decode_bound(ins, outs)
     rows.append(dict(
         name="mamba2_step", route="cuda",
@@ -2494,11 +2556,15 @@ def times_phase(dev, kernels, launches, steps, waves, worst, tables):
         launches=launches["mamba2_step"],
         max_abs_err=worst["mamba2_step"], ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
-    print(f"  mamba2_step b=4 bf16: kernel {ms:.4f} ms (device time of its "
-          f"two kernels {dev_ms:.4f} ms), plain {plain_ms:.4f}"
-          f" ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"{launches['mamba2_step'] / steps:.0f} launches per decode step",
-          flush=True)
+    print(f"  mamba2_step b=4 bf16: kernel {ms:.4f} ms (device {dev_ms:.4f} "
+          f"ms, one launch, the norm fused; targets 0.03 and 0.005), host "
+          f"{us:.1f} us a call with fresh states, {us_out:.1f} us into the "
+          f"caller's buffers as the engine calls it (target 20), plain "
+          f"{plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); "
+          f"{launches['mamba2_step'] / steps:.0f} launches per decode step; "
+          f"PR 11's two launches are gone (PERF.md's table: device 0.0136 "
+          f"ms, call 0.1877 ms)", flush=True)
     ktab = dict(silu_table=tables["silu"], softplus_table=tables["softplus"])
     ms_a = time_call(lambda: kernels["mamba2_step"](**ins, **kw, **ktab))
     dev_a = _ours(device_profile(
@@ -2506,36 +2572,65 @@ def times_phase(dev, kernels, launches, steps, waves, worst, tables):
     print(f"  mamba2_step b=4 bf16 with the ActiBA tables: kernel {ms_a:.4f} "
           f"ms (device {dev_a:.4f} ms)", flush=True)
 
-    ins = prefill_inputs(4, 128, dev, dtype, seed=32)
-    outs = kernels["mamba2_prefill"](**ins, chunk=128, **kw)
-    ms = time_call(lambda: kernels["mamba2_prefill"](**ins, chunk=128, **kw))
-    plain_ms = time_call(
-        lambda: kernels["mamba2_prefill_plain"](**ins, chunk=128, **kw))
-    dev_ms = _ours(device_profile(
-        lambda: kernels["mamba2_prefill"](**ins, chunk=128, **kw)))
-    bound_ms, bound_by = prefill_bound(ins, outs)
-    print("  the chunked form the kernel runs does " + ", ".join(
-        f"{chunked_ops(4, l, c) / recurrence_ops(4, l):.3f}x (l={l}, chunk "
-        f"{c})" for l, c in ((128, 128), (512, 256)))
-        + " the recurrence's operations, which the bound counts", flush=True)
-    rows.append(dict(
-        name="mamba2_prefill", route="cuda",
-        source="src/repro_torch/csrc/prefill_chunk.cu",
-        replaces="src/repro/kernels/prefill_chunk.py:294",
-        launches=launches["mamba2_prefill"],
-        max_abs_err=worst["mamba2_prefill"], ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
-    print(f"  mamba2_prefill b=4 l=128 bf16: kernel {ms:.4f} ms (device "
-          f"time of its three kernels {dev_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"{launches['mamba2_prefill'] / waves:.0f} launches per prefill; "
-          f"library: no single PyTorch call", flush=True)
-    ms_a = time_call(lambda: kernels["mamba2_prefill"](**ins, chunk=128, **kw,
-                                                       **ktab))
-    dev_a = _ours(device_profile(lambda: kernels["mamba2_prefill"](
-        **ins, chunk=128, **kw, **ktab)))
-    print(f"  mamba2_prefill b=4 l=128 bf16 with the ActiBA tables: kernel "
-          f"{ms_a:.4f} ms (device {dev_a:.4f} ms)", flush=True)
+    for l in (128, 64):             # the wave's call, the continuous chunks
+        ins = prefill_inputs(4, l, dev, dtype, seed=32)
+        call = lambda: kernels["mamba2_prefill"](         # noqa: E731
+            **ins, chunk=l, **kw)
+        outs = call()
+        ms = time_call(call)
+        by = device_profile(call)
+        dev_ms = _ours(by)
+        us = host_us(call)
+        simt = lambda: simt_prefill(ins, l)                # noqa: E731
+        simt_ms = time_call(simt)
+        simt_dev = _ours(device_profile(simt))
+        _, fails = compare(f"mamba2_prefill SIMT body l={l} vs plain",
+                           simt(), kernels["mamba2_prefill_plain"](
+                               **ins, chunk=l, **kw), "bfloat16")
+        assert not fails, f"times: {fails}"
+        bound_ms, bound_by, t_bytes, t_ops, gflop = prefill_tc_bound(
+            ins, outs, l)
+        body = prefill_chunk_path(ins["xbc"], ins["ssm_state"], chunk=l,
+                                  head_dim=HEAD_DIM)
+        print(f"  mamba2_prefill b=4 l={l} bf16 ({body} body, "
+              f"{heads_per_set(4, 1, l, N_HEADS, N_GROUPS)} heads a y "
+              f"block): kernel {ms:.4f} ms (device of its kernels "
+              f"{dev_ms:.4f} ms; target 0.05 at l = 128), host {us:.1f} us "
+              f"a call; the SIMT body on the same inputs (not counted): "
+              f"kernel {simt_ms:.4f} ms (device {simt_dev:.4f} ms), "
+              f"{simt_dev / max(dev_ms, 1e-9):.1f}x the tensor-core body's "
+              f"device time; bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{t_bytes:.4f} ms of bytes, {t_ops:.4f} ms for {gflop:.3f} "
+              f"GFLOP of bf16 products)", flush=True)
+        for k, v in sorted(by.items(), key=lambda kv: -kv[1]):
+            if any(o in k for o in OUR_KERNELS):
+                print(f"    {v:.4f} ms  {k[:90]}")
+        if l == 128:
+            plain_ms = time_call(lambda: kernels["mamba2_prefill_plain"](
+                **ins, chunk=128, **kw))
+            rows.append(dict(
+                name="mamba2_prefill", route="cuda",
+                source="src/repro_torch/csrc/prefill_chunk.cu",
+                replaces="src/repro/kernels/prefill_chunk.py:294",
+                launches=launches["mamba2_prefill"],
+                max_abs_err=worst["mamba2_prefill"], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None))
+            print(f"    plain {plain_ms:.4f} ms; "
+                  f"{launches['mamba2_prefill'] / waves:.0f} launches per "
+                  f"prefill; library: no single PyTorch call", flush=True)
+            ms_a = time_call(lambda: kernels["mamba2_prefill"](
+                **ins, chunk=128, **kw, **ktab))
+            dev_a = _ours(device_profile(lambda: kernels["mamba2_prefill"](
+                **ins, chunk=128, **kw, **ktab)))
+            print(f"  mamba2_prefill b=4 l=128 bf16 with the ActiBA tables: "
+                  f"kernel {ms_a:.4f} ms (device {dev_a:.4f} ms)", flush=True)
+    print(f"    wgmma body: {wgmma_smem('prefill_chunk', 'mamba2_prefill_wgmma_smem', 1, 128)}"
+          f" bytes of dynamic shared memory at bf16, chunk 128", flush=True)
+    for line in ptxas_lines("prefill_chunk", "ssd_prefill_wgmma_kernel"):
+        print(f"    ptxas {line}")
+    for line in ptxas_lines("decode_step", "mamba2_step_kernel"):
+        print(f"    ptxas {line}")
 
     # The chain's kernels at the ablation's shapes (fp32, b=4, l=300).
     # Kernel 7's bound takes the rate of fp32-accurate tensor-core products

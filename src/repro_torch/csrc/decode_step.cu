@@ -1,37 +1,57 @@
-// Fused Mamba-2 single-token step, up to (not including) the gated norm.
+// Fused Mamba-2 single-token step, the gated RMSNorm included: one launch.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_step.py:155
 // mamba2_step: conv-tail shift + bias, SiLU, softplus(dt + dt_bias), the
-// SSD update  st' = st * exp(dt*A) + (dt*x) (x) B,  y = st' . C,  and the
-// D skip.  The gated RMSNorm that ends the TPU kernel runs afterwards in
-// gated_norm.cu over whole rows.
+// SSD update  st' = st * exp(dt*A) + (dt*x) (x) B,  y = st' . C,  the D
+// skip and the gated RMSNorm over the whole row (:196-200), fp32 inside
+// with one rounding to T at the end (the decode step's round_stream = 0).
 //
 // Bound: bytes.  Per layer and batch row the fp32 state (24 x 64 x 128 at
 // full width, 786 KB) is read once and written once; everything else is
 // a few KB, and the arithmetic is ~5 operations per state element.
 //
-// Design.  The TPU kernel holds a row's whole state in VMEM, which does
-// not fit a Hopper block, so the grid is (batch, head): one block owns a
-// head's 64 x 128 state and streams it straight from device memory to
-// device memory, one warp per state row, lanes along d_state so every
-// load and store is coalesced; y's row sum is a warp shuffle reduction.
-// Each block recomputes the conv + SiLU of its group's B/C channels (256
-// values, cheaper than a second pass).  The x channels of the new conv
-// tail are written by their head's block and the B/C channels by head 0,
-// so every element is written exactly once.
+// Design.  The kernel's whole job is to stream the state through, so it
+// keeps as many bytes in flight as the card takes:
+// * Grid (p / R, h, b): R state rows of one head a block
+//   (kernels/decode_step.py: step_rows; 16 at p = 64, so 384 blocks of 8
+//   warps at b = 4, one wave), a warp taking rows w and w + 8, lanes
+//   along d_state with 16-byte loads and stores (n = 128: one float4 a
+//   lane a row).  Every state load of the block is issued first, before
+//   the conv and the activations, which they do not depend on: the whole
+//   3.1 MB of state at b = 4 is in flight at once.  State loads and
+//   stores stream past L1 (read once, written once).
+// * Each block recomputes the conv + SiLU it needs: its R x channels and
+//   its group's B and C channels (2n values, cheaper than a second pass).
+//   The new conv tail is written exactly once: the x channels by their
+//   rows' block, the B and C channels by the blocks of head 0, split
+//   among them.
+// * The norm spans a whole batch row (h p values, h p / R blocks).  It is
+//   taken through a per-row arrival counter, not a thread-block cluster:
+//   a row is 96 blocks at full width and a cluster holds at most 16.
+//   Each block writes its rows' pre-norm y (fp32, with the D skip) and
+//   their sum of squares to a scratch row, fences (its new state is stored
+//   only after, so the fence waits on a few values, not on the state), and
+//   adds one to the row's counter; the block that brings it to h p / R
+//   sums the partial
+//   sums in a fixed order, normalises the row in one pass and sets the
+//   counter back to 0 for the next call.  A call gives the same bits
+//   every time, whichever block is last.  The scratch and counters belong
+//   to the calls of one stream (the wrapper keeps them per device).
 //
-// Under ActiBA the conv's SiLU and dt's softplus are PWL tables (silu_tab,
-// sp_tab; null for the exact functions), as the TPU kernel's silu and
-// softplus callables are (decode_step.py:159-160).
+// Under ActiBA the conv's SiLU, dt's softplus and the gate's SiLU are PWL
+// tables (silu_tab, sp_tab; null for the exact functions), as the TPU
+// kernel's silu and softplus callables are (decode_step.py:159-160).
 //
 // ssd_step replaces the TPU kernel decode_step.py:76 ssd_step, the bare
 // SSD update without the conv, the activations or the norm (dt comes in
-// raw): the same (batch, head) grid and the same head update.
+// raw): grid (batch, head), one warp per state row (ssd_head_update).
+#include <cstdint>
+
 #include "common.cuh"
 
 // One head's p x n state: s'[pi][k] = s[pi][k] decay + (dt x[pi]) B[k],
 // written to ns, one warp per state row, lanes along n.  done(pi, y) gets
-// y = s'[pi] . C on lane 0 of the row's warp.
+// y = s'[pi] . C on lane 0 of the row's warp.  (Kernel 3's update.)
 template <typename F>
 __device__ __forceinline__ void ssd_head_update(
     const float* __restrict__ s, float* __restrict__ ns, const float* xs,
@@ -54,28 +74,162 @@ __device__ __forceinline__ void ssd_head_update(
   }
 }
 
-template <typename T>
-__global__ void mamba2_step_kernel(
-    const T* __restrict__ xbc, int xbc_rs, const T* __restrict__ dt,
-    int dt_rs, const T* __restrict__ conv_state,
-    const float* __restrict__ ssm_state, const float* __restrict__ conv_w,
-    const float* __restrict__ conv_b, const float* __restrict__ dt_bias,
-    const float* __restrict__ A, const float* __restrict__ D,
-    float* __restrict__ ypre, T* __restrict__ new_conv,
-    float* __restrict__ new_ssm, int h, int p, int g, int n, int width,
-    const float* silu_tab, int silu_nk, const float* sp_tab, int sp_nk) {
+// The launcher's one argument: 64-bit fields in this order
+// (kernels/decode_step.py: STEP_FIELDS packs them).  Streams xbc, dt and z
+// are rows of dxbc, h and h p values at their row strides (elements, T);
+// conv_state (b, w-1, dxbc) T; ssm_state (b, h, p, n) fp32; conv_w (w,
+// dxbc), conv_b (dxbc,), dt_bias / A / D (h,), norm_scale (h p,) fp32.
+// Writes out (b, h p) T, new_conv, new_ssm; ypre (b, h p + h p / rows)
+// fp32 (each row's pre-norm y, then its blocks' sums of squares) and
+// counts (b,) int32 are the norm's scratch (counts 0 on entry, 0 on exit).
+// rows: state rows a block (1 .. MAX_ROWS, a divisor of p); vec: n % 4
+// == 0 and 16-byte aligned states (float4 loads and stores).
+struct StepArgs {
+  int64_t dtype;
+  const void* xbc;
+  int64_t xbc_rs;
+  const void* dt;
+  int64_t dt_rs;
+  const void* z;
+  int64_t z_rs;
+  const void* conv_state;
+  const void* ssm_state;
+  const void* conv_w;
+  const void* conv_b;
+  const void* dt_bias;
+  const void* A;
+  const void* D;
+  const void* norm_scale;
+  void* out;
+  void* new_conv;
+  void* new_ssm;
+  void* ypre;
+  void* counts;
+  int64_t b, h, p, g, n, width, rows, vec;
+  double eps;
+  const void* silu_tab;
+  int64_t silu_nk;
+  const void* sp_tab;
+  int64_t sp_nk;
+  void* stream;
+};
+
+namespace {
+constexpr int MAX_ROWS = 16;  // state rows a block
+constexpr int WARPS = 8;      // warps a block: rows w, w + 8 of warp w
+constexpr int ROWS_W = MAX_ROWS / WARPS;   // rows a warp at most
+constexpr int PREFETCH = 2;   // float4 a lane holds in flight a row: n <= 256
+constexpr int CONV_W = 4;     // conv taps a thread holds in registers
+constexpr int NORM_C = 8;     // row values a thread of the last block holds
+
+// s' = s decay + dx b, written back through v; part += s' c.
+__device__ __forceinline__ float step_elem(float s, float decay, float dx,
+                                           float b, float c, float& part) {
+  const float v = s * decay + dx * b;
+  part += v * c;
+  return v;
+}
+
+// Elements [k, k + 4) of a state row (those below n) as a float4; VEC: one
+// 16-byte streaming load.
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* row, int k, int n) {
+  if (VEC) return __ldcs(reinterpret_cast<const float4*>(row + k));
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (k < n) v.x = __ldcs(row + k);
+  if (k + 1 < n) v.y = __ldcs(row + k + 1);
+  if (k + 2 < n) v.z = __ldcs(row + k + 2);
+  if (k + 3 < n) v.w = __ldcs(row + k + 3);
+  return v;
+}
+
+// Elements [k, k + 4) of a state row updated in place, and their part of
+// y; VEC: B and C as float4.
+template <bool VEC>
+__device__ __forceinline__ void update4(float4& s, int k, int n, float decay,
+                                        float dx, const float* Bv,
+                                        const float* Cv, float& part) {
+  float4 b4, c4;
+  if (VEC) {
+    b4 = *reinterpret_cast<const float4*>(Bv + k);
+    c4 = *reinterpret_cast<const float4*>(Cv + k);
+  } else {
+    b4 = make_float4(Bv[k], k + 1 < n ? Bv[k + 1] : 0.f,
+                     k + 2 < n ? Bv[k + 2] : 0.f, k + 3 < n ? Bv[k + 3] : 0.f);
+    c4 = make_float4(Cv[k], k + 1 < n ? Cv[k + 1] : 0.f,
+                     k + 2 < n ? Cv[k + 2] : 0.f, k + 3 < n ? Cv[k + 3] : 0.f);
+  }
+  s.x = step_elem(s.x, decay, dx, b4.x, c4.x, part);
+  s.y = step_elem(s.y, decay, dx, b4.y, c4.y, part);
+  s.z = step_elem(s.z, decay, dx, b4.z, c4.z, part);
+  s.w = step_elem(s.w, decay, dx, b4.w, c4.w, part);
+}
+
+// Elements [k, k + 4) of a state row (those below n) stored; VEC: one
+// 16-byte streaming store.
+template <bool VEC>
+__device__ __forceinline__ void store4(float* row, int k, int n, float4 v) {
+  if (VEC) {
+    __stcs(reinterpret_cast<float4*>(row + k), v);
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (k + i < n) __stcs(row + k + i, e[i]);
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(32 * WARPS)
+    mamba2_step_kernel(const StepArgs a) {
   extern __shared__ float smem[];
-  float* xs = smem;      // (p,)  activated x channels of this head
-  float* Bv = xs + p;    // (n,)  activated B of this head's group
-  float* Cv = Bv + n;    // (n,)  activated C
+  float* xs = smem;            // (MAX_ROWS,) activated x of this block's rows
+  float* Bv = xs + MAX_ROWS;   // (n,) activated B of this head's group
+  float* Cv = Bv + a.n;        // (n,) activated C
+  __shared__ float yv[MAX_ROWS];
+  __shared__ float red[WARPS];
+  __shared__ int last;
 
-  const int bi = blockIdx.x, hi = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int R = static_cast<int>(a.rows);
+  const int rs = blockIdx.x, hi = blockIdx.y, bi = blockIdx.z;
+  const int h = static_cast<int>(a.h), p = static_cast<int>(a.p);
+  const int g = static_cast<int>(a.g), n = static_cast<int>(a.n);
+  const int width = static_cast<int>(a.width), wm1 = width - 1;
   const int di = h * p, dxbc = di + 2 * g * n, gi = hi / (h / g);
-  const int wm1 = width - 1;
-  const T* xrow = xbc + static_cast<size_t>(bi) * xbc_rs;
-  const T* crow = conv_state + static_cast<size_t>(bi) * wm1 * dxbc;
-  T* ncrow = new_conv + static_cast<size_t>(bi) * wm1 * dxbc;
 
+  // 1. This warp's state rows (w, w + WARPS of the block) in flight before
+  //    anything else, then the head's scalars.
+  const size_t hbase = (static_cast<size_t>(bi) * h + hi) * p + rs * R;
+  const float* s = static_cast<const float*>(a.ssm_state) + hbase * n;
+  float* ns = static_cast<float*>(a.new_ssm) + hbase * n;
+  float4 s4[ROWS_W][PREFETCH];
+#pragma unroll
+  for (int r = 0; r < ROWS_W; ++r)
+#pragma unroll
+    for (int j = 0; j < PREFETCH; ++j) {
+      const int row = warp + WARPS * r, k = 4 * (lane + 32 * j);
+      s4[r][j] = row < R && k < n
+                     ? load4<VEC>(s + static_cast<size_t>(row) * n, k, n)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  const float dtraw =
+      to_f(static_cast<const T*>(a.dt)[static_cast<size_t>(bi) * a.dt_rs + hi]);
+  const float dtb = static_cast<const float*>(a.dt_bias)[hi];
+  const float Ah = static_cast<const float*>(a.A)[hi];
+  const float Dh = static_cast<const float*>(a.D)[hi];
+
+  // 2. The conv + SiLU of this block's x channels and its group's B, C.
+  const T* xrow = static_cast<const T*>(a.xbc) + static_cast<size_t>(bi) *
+                                                     a.xbc_rs;
+  const T* crow = static_cast<const T*>(a.conv_state) +
+                  static_cast<size_t>(bi) * wm1 * dxbc;
+  T* ncrow = static_cast<T*>(a.new_conv) + static_cast<size_t>(bi) * wm1 *
+                                               dxbc;
+  const float* conv_w = static_cast<const float*>(a.conv_w);
+  const float* conv_b = static_cast<const float*>(a.conv_b);
+  const float* silu_tab = static_cast<const float*>(a.silu_tab);
+  const int silu_nk = static_cast<int>(a.silu_nk);
   // Window row j of channel ch: the old tail for j < w-1, then the token.
   auto win = [&](int j, int ch) -> float {
     return j < wm1 ? to_f(crow[j * dxbc + ch]) : to_f(xrow[ch]);
@@ -87,33 +241,176 @@ __global__ void mamba2_step_kernel(
     return silu_act(__fadd_rn(acc, conv_b[ch]), silu_tab, silu_nk);
   };
   auto shift = [&](int ch) {
-    for (int j = 0; j < wm1; ++j) ncrow[j * dxbc + ch] = from_f<T>(win(j + 1, ch));
+    for (int j = 0; j < wm1; ++j)
+      ncrow[j * dxbc + ch] = from_f<T>(win(j + 1, ch));
   };
-
-  for (int c = threadIdx.x; c < p; c += blockDim.x) {
-    xs[c] = conv_act(hi * p + c);
-    shift(hi * p + c);
+  // Items: the group's B channels, its C channels, this block's x
+  // channels; a thread takes items tid and tid + 256, all their window and
+  // weight loads issued before any arithmetic (one round trip).
+  const int items = 2 * n + R;
+  auto item_ch = [&](int i) -> int {
+    return i < n ? di + gi * n + i
+                 : i < 2 * n ? di + g * n + gi * n + (i - n)
+                             : hi * p + rs * R + (i - 2 * n);
+  };
+  auto item_put = [&](int i, float v) {
+    if (i < n)
+      Bv[i] = v;
+    else if (i < 2 * n)
+      Cv[i - n] = v;
+    else
+      xs[i - 2 * n] = v;
+  };
+  if (width <= CONV_W) {
+    float wv[2][CONV_W], cw[2][CONV_W], cb[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = tid + u * WARPS * 32;
+      const int ch = i < items ? item_ch(i) : 0;
+#pragma unroll
+      for (int j = 0; j < CONV_W; ++j) {
+        wv[u][j] = i < items && j < width ? win(j, ch) : 0.f;
+        cw[u][j] = i < items && j < width ? conv_w[j * dxbc + ch] : 0.f;
+      }
+      cb[u] = i < items ? conv_b[ch] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = tid + u * WARPS * 32;
+      if (i >= items) continue;
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < CONV_W; ++j)
+        if (j < width) acc = __fadd_rn(acc, __fmul_rn(wv[u][j], cw[u][j]));
+      item_put(i, silu_act(__fadd_rn(acc, cb[u]), silu_tab, silu_nk));
+    }
+    for (int i = tid + 2 * WARPS * 32; i < items; i += WARPS * 32)
+      item_put(i, conv_act(item_ch(i)));               // n > 248
+  } else {
+    for (int i = tid; i < items; i += WARPS * 32)
+      item_put(i, conv_act(item_ch(i)));
   }
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    Bv[k] = conv_act(di + gi * n + k);
-    Cv[k] = conv_act(di + g * n + gi * n + k);
-  }
+  if (tid < R) shift(hi * p + rs * R + tid);
   if (hi == 0) {
-    for (int c = threadIdx.x; c < 2 * g * n; c += blockDim.x) shift(di + c);
+    const int step = gridDim.x * blockDim.x;
+    for (int c = rs * blockDim.x + tid; c < 2 * g * n; c += step)
+      shift(di + c);
+  }
+  const float dtf = softplus_act(dtraw + dtb,
+                                 static_cast<const float*>(a.sp_tab),
+                                 static_cast<int>(a.sp_nk));
+  const float decay = expf(dtf * Ah);
+  __syncthreads();
+
+  // 3. The update of this warp's rows in registers, y = s' . C + D x.
+#pragma unroll
+  for (int r = 0; r < ROWS_W; ++r) {
+    const int row = warp + WARPS * r;
+    if (row >= R) break;
+    const float xv = xs[row];
+    const float dx = dtf * xv;
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < PREFETCH; ++j) {
+      const int k = 4 * (lane + 32 * j);
+      if (k < n) update4<VEC>(s4[r][j], k, n, decay, dx, Bv, Cv, part);
+    }
+    for (int k = 4 * (lane + 32 * PREFETCH); k < n; k += 128) {   // n > 256
+      float4 v = load4<VEC>(s + static_cast<size_t>(row) * n, k, n);
+      update4<VEC>(v, k, n, decay, dx, Bv, Cv, part);
+      store4<VEC>(ns + static_cast<size_t>(row) * n, k, n, v);
+    }
+    part = warp_sum(part);
+    if (lane == 0) yv[row] = part + Dh * xv;
   }
   __syncthreads();
 
-  const float dtf = softplus_act(
-      to_f(dt[static_cast<size_t>(bi) * dt_rs + hi]) + dt_bias[hi], sp_tab,
-      sp_nk);
-  const float decay = expf(dtf * A[hi]);
-  const float dh = D[hi];
-  const size_t sbase = (static_cast<size_t>(bi) * h + hi) * p * n;
-  float* yrow = ypre + static_cast<size_t>(bi) * di + hi * p;
-  ssd_head_update(ssm_state + sbase, new_ssm + sbase, xs, Bv, Cv, dtf, decay,
-                  p, n, [&](int pi, float part) {
-                    yrow[pi] = part + dh * xs[pi];
-                  });
+  // 4. The rows' y and their sum of squares to scratch (only their writers
+  //    fence); arrival: the row's last block takes the gated norm of the
+  //    row.  The new state is stored after the arrival, off its path.
+  const int per_row = gridDim.x * gridDim.y;
+  float* yrow = static_cast<float*>(a.ypre) +
+                static_cast<size_t>(bi) * (di + per_row);
+  float* parts = yrow + di;
+  if (tid < R) yrow[hi * p + rs * R + tid] = yv[tid];
+  if (tid == 0) {
+    float sq = 0.f;
+    for (int r = 0; r < R; ++r) sq += yv[r] * yv[r];
+    parts[hi * gridDim.x + rs] = sq;
+  }
+  if (tid < R) __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last = atomicAdd(static_cast<int*>(a.counts) + bi, 1) == per_row - 1;
+#pragma unroll
+  for (int r = 0; r < ROWS_W; ++r) {
+    const int row = warp + WARPS * r;
+#pragma unroll
+    for (int j = 0; j < PREFETCH; ++j) {
+      const int k = 4 * (lane + 32 * j);
+      if (row < R && k < n)
+        store4<VEC>(ns + static_cast<size_t>(row) * n, k, n, s4[r][j]);
+    }
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // The row's y, gates and scales in flight with the partial sums.
+  const float* scale = static_cast<const float*>(a.norm_scale);
+  const T* zr = static_cast<const T*>(a.z) + static_cast<size_t>(bi) * a.z_rs;
+  T* orow = static_cast<T*>(a.out) + static_cast<size_t>(bi) * di;
+  float yc[NORM_C], zc[NORM_C], sc[NORM_C];
+#pragma unroll
+  for (int u = 0; u < NORM_C; ++u) {
+    const int c = tid + u * WARPS * 32;
+    yc[u] = c < di ? __ldcg(yrow + c) : 0.f;
+    zc[u] = c < di ? to_f(zr[c]) : 0.f;
+    sc[u] = c < di ? scale[c] : 0.f;
+  }
+  float ss = 0.f;
+  for (int i = tid; i < per_row; i += blockDim.x) ss += __ldcg(parts + i);
+  ss = warp_sum(ss);
+  if (lane == 0) red[warp] = ss;
+  __syncthreads();
+  float tot = 0.f;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) tot += red[w];
+  const float inv = rsqrtf(tot / static_cast<float>(di) +
+                           static_cast<float>(a.eps));
+#pragma unroll
+  for (int u = 0; u < NORM_C; ++u) {
+    const int c = tid + u * WARPS * 32;
+    if (c < di)
+      orow[c] = from_f<T>(yc[u] * inv * sc[u] *
+                          silu_act(zc[u], silu_tab, silu_nk));
+  }
+  for (int c = tid + NORM_C * WARPS * 32; c < di; c += blockDim.x) {
+    const float yn = __ldcg(yrow + c) * inv * scale[c];     // di > 2048
+    orow[c] = from_f<T>(yn * silu_act(to_f(zr[c]), silu_tab, silu_nk));
+  }
+  if (tid == 0) static_cast<int*>(a.counts)[bi] = 0;
+}
+}  // namespace
+
+// Returns the cudaError_t (cudaErrorInvalidValue for a rows value the
+// kernel does not take).
+extern "C" int mamba2_step_launch(const StepArgs* a) {
+  if (a->b == 0) return 0;
+  const int R = static_cast<int>(a->rows);
+  if (R < 1 || R > MAX_ROWS || a->p % R != 0 || a->g <= 0 ||
+      a->h % a->g != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(a->p / R),
+                  static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
+  const size_t smem = static_cast<size_t>(MAX_ROWS + 2 * a->n) * sizeof(float);
+  const cudaStream_t s = static_cast<cudaStream_t>(a->stream);
+  DISPATCH_T(a->dtype, {
+    if (a->vec)
+      mamba2_step_kernel<T, true><<<grid, 32 * WARPS, smem, s>>>(*a);
+    else
+      mamba2_step_kernel<T, false><<<grid, 32 * WARPS, smem, s>>>(*a);
+  });
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -145,35 +442,6 @@ __global__ void ssd_step_kernel(const float* __restrict__ state,
   ssd_head_update(state + sbase, new_state + sbase, xs, Bv, Cv, dtf,
                   expf(dtf * A[hi]), p, n,
                   [&](int pi, float part) { yrow[pi] = from_f<T>(part); });
-}
-
-// xbc rows of dxbc values at row stride xbc_rs, dt rows of h values at
-// row stride dt_rs (both in T); conv_state (b, w-1, dxbc) T; ssm_state
-// (b, h, p, n) fp32; conv_w (w, dxbc), conv_b (dxbc,), dt_bias/A/D (h,)
-// fp32.  Writes ypre (b, h*p) fp32 (pre-norm y with the D skip),
-// new_conv (b, w-1, dxbc) T and new_ssm (b, h, p, n) fp32.  silu_tab /
-// sp_tab: the ActiBA tables (common.cuh: pwl_eval), or null for exact.
-extern "C" int mamba2_step_launch(
-    int dtype, const void* xbc, int xbc_rs, const void* dt, int dt_rs,
-    const void* conv_state, const void* ssm_state, const void* conv_w,
-    const void* conv_b, const void* dt_bias, const void* A, const void* D,
-    void* ypre, void* new_conv, void* new_ssm, int b, int h, int p, int g,
-    int n, int width, const void* silu_tab, int silu_nk, const void* sp_tab,
-    int sp_nk, void* stream) {
-  if (b == 0) return 0;
-  const dim3 grid(b, h);
-  const size_t smem = static_cast<size_t>(p + 2 * n) * sizeof(float);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH_T(dtype, mamba2_step_kernel<T><<<grid, 128, smem, s>>>(
-      static_cast<const T*>(xbc), xbc_rs, static_cast<const T*>(dt), dt_rs,
-      static_cast<const T*>(conv_state), static_cast<const float*>(ssm_state),
-      static_cast<const float*>(conv_w), static_cast<const float*>(conv_b),
-      static_cast<const float*>(dt_bias), static_cast<const float*>(A),
-      static_cast<const float*>(D), static_cast<float*>(ypre),
-      static_cast<T*>(new_conv), static_cast<float*>(new_ssm), h, p, g, n,
-      width, static_cast<const float*>(silu_tab), silu_nk,
-      static_cast<const float*>(sp_tab), sp_nk));
-  return static_cast<int>(cudaGetLastError());
 }
 
 // state (b, h, p, n) fp32; x (b, h, p) T; dt (b, h), A (h,) and B / C

@@ -194,22 +194,6 @@ template <int NS> struct Carve {
   }
 };
 
-// The ring of fp32 units: unit i in stage i % STAGES, read by the
-// producers, who wait on every unit in order.  Once they are all past a
-// barrier after their reads of unit i (each fencing them against the
-// async proxy first), one of them issues unit i + STAGES into the stage.
-struct Ring {
-  uint8_t* base;
-  uint64_t* full;
-  __device__ __forceinline__ uint8_t* stage(int j) const {
-    return base + (j % STAGES) * UNIT_BYTES;
-  }
-  __device__ __forceinline__ const uint8_t* arrived(int j) const {
-    wg::bar_wait(&full[j % STAGES], (j / STAGES) & 1);
-    return stage(j);
-  }
-};
-
 // The handoff between the producers (warpgroups 1 and 2) and the
 // consumer (warpgroup 0): step u's buffer u % 2 is filled by the
 // producers, who arrive on full[u % 2] (256 arrivals), and drained by the
@@ -229,7 +213,7 @@ struct Handoff {
 template <int NS>
 __device__ __forceinline__ void y_block(
     const CUtensorMap* xm, const CUtensorMap* bm, const float* __restrict__ C,
-    const float* __restrict__ acum, float* __restrict__ y, const Ring& ring,
+    const float* __restrict__ acum, float* __restrict__ y, const Ring<>& ring,
     const Handoff& ho, uint8_t* work, float* scache, float* cs, int yb,
     int cells, int c, int L, int h, int g, int hs) {
   using K = Carve<NS>;
@@ -297,7 +281,7 @@ __device__ __forceinline__ void y_block(
         wg::fence();
 #pragma unroll
         for (int st = 0; st < NS / 16; ++st)
-          for_products([&](int a, int b) {
+          for_terms<TERMS, TERMS>([&](int a, int b) {
             wg::Mma<64>::rs<0>(s, cf[a][st], kmajor(ba + b * K::TERM_N, st));
           });
         wg::commit();
@@ -358,7 +342,7 @@ __device__ __forceinline__ void y_block(
           wg::fence();
 #pragma unroll
           for (int st = 0; st < ROWS / 16; ++st)
-            for_products([&](int a, int b) {
+            for_terms<TERMS, TERMS>([&](int a, int b) {
               wg::Mma<64>::rs<1>(o, pa[a][st],
                                  mnmajor(xa + b * CHUNK_BYTES, st));
             });
@@ -460,7 +444,7 @@ template <int NS>
 __device__ __forceinline__ void state_block(
     const CUtensorMap* xm, const CUtensorMap* bm,
     const float* __restrict__ acum, float* __restrict__ states,
-    const Ring& ring, const Handoff& ho, uint8_t* work, float* cs, int sb,
+    const Ring<>& ring, const Handoff& ho, uint8_t* work, float* cs, int sb,
     int c, int L, int h, int g) {
   using K = Carve<NS>;
   constexpr int NC = K::NC;
@@ -517,7 +501,7 @@ __device__ __forceinline__ void state_block(
       wg::fence();
 #pragma unroll
       for (int kk = 0; kk < ROWS / 16; ++kk)
-        for_products([&](int a, int b) {
+        for_terms<TERMS, TERMS>([&](int a, int b) {
           wg::Mma<NS>::template ss<1, 1>(acc, mnmajor(xa + a * CHUNK_BYTES, kk),
                                          mnmajor(ba + b * K::TERM_N, kk));
         });
@@ -554,7 +538,7 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_chunk_wgmma_kernel(
   float* scache = reinterpret_cast<float*>(work + 2 * K::YBUF);
   float* cs = reinterpret_cast<float*>(work + K::WORK);
   uint64_t* bars = reinterpret_cast<uint64_t*>(cs + L);
-  const Ring ring{base, bars};
+  const Ring<> ring{base, bars};
   const Handoff ho{bars + STAGES, bars + STAGES + 2};
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) wg::bar_init(&bars[s], 1);

@@ -1,7 +1,8 @@
 // Split-precision tensor-core tiles of the SSD chunk pass: fp32 tiles that
 // TMA brings in, split by the block's threads into bf16 terms that wgmma
-// reads, and the descriptors of those terms.  Used by ssd_chunk.cu's
-// wgmma body (kernel 7).
+// reads, the ring of TMA stages they arrive in, and the descriptors of
+// those terms.  Used by ssd_chunk.cu's wgmma body (kernel 7) and
+// prefill_chunk.cu's (kernel 2).
 //
 // Precision (bf16x6).  An fp32 product on one bf16 term of each operand
 // loses ~2^-8 of each factor and misses the kernels' 1e-4 limit by a wide
@@ -15,7 +16,9 @@
 // Truncation takes a mask, a subtraction and a byte permute a pair, all
 // full-rate instructions, where rounding would take the conversion unit.
 // Six bf16 products run at 989 / 6 ~ 165 TFLOP/s of fp32-accurate
-// products.
+// products.  An operand that is an exact bf16 already (kernel 2's bf16
+// streams) is its own one term: its product with a split operand keeps
+// three term products, and two such operands one (for_terms).
 //
 // Layouts.  A "unit" is a 64-row x 64-column fp32 tile, loaded by TMA as
 // two boxes of 32 columns with the 128-byte swizzle (box j at j * 8 KB,
@@ -41,13 +44,16 @@ constexpr int BOX_BYTES = ROWS * 128;           // 32 fp32 columns of it
 constexpr int CHUNK_BYTES = ROWS * 128;         // a 64 x 64 bf16 chunk
 constexpr int STAGES = 3;                       // units in flight
 
-// f(i, j) for each term product a_i b_j that the split keeps.
-template <typename F>
-__device__ __forceinline__ void for_products(F f) {
+// f(i, j) for each term product a_i b_j that the split keeps, a taken as
+// TA terms and b as TB (1 for an exact bf16 operand, TERMS for a split
+// fp32 one): those with i + j < TERMS, in order of i, then j.
+template <int TA, int TB, typename F>
+__device__ __forceinline__ void for_terms(F f) {
 #pragma unroll
-  for (int i = 0; i < TERMS; ++i)
+  for (int i = 0; i < TA; ++i)
 #pragma unroll
-    for (int j = 0; j < TERMS - i; ++j) f(i, j);
+    for (int j = 0; j < TB; ++j)
+      if (i + j < TERMS) f(i, j);
 }
 
 // Two floats as TERMS bf16 pairs (low half first): term t of (a, b),
@@ -109,8 +115,65 @@ __device__ __forceinline__ void split_unit(const uint8_t* src, uint8_t* dst,
   }
 }
 
+// NTH threads: the 64 x 64 bf16 chunk at src (128-byte-swizzled rows, as
+// TMA writes a 64-column bf16 box), each row r multiplied by scale(r) in
+// fp32, into TERMS bf16 chunks at dst, term_stride bytes apart, in the
+// same layout (a 16-byte piece keeps its place).  Thread tid takes row
+// tid % 64 and the pieces tid / 64 + (NTH / 64) i; fencing as split_unit.
+template <int NTH, typename SC>
+__device__ __forceinline__ void split_chunk(const uint8_t* src, uint8_t* dst,
+                                            int term_stride, int tid,
+                                            SC scale) {
+  const int r = tid % ROWS, sw = r % 8;
+  const float s = scale(r);
+#pragma unroll
+  for (int it = 0; it < 8 * ROWS / NTH; ++it) {
+    const int pc = tid / ROWS + (NTH / ROWS) * it;
+    const int off = r * 128 + ((pc ^ sw) << 4);
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + off);
+    const uint32_t u[4] = {raw.x, raw.y, raw.z, raw.w};
+    uint32_t w[4][TERMS];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)   // a pair's low half is its first value
+      split2(__uint_as_float(u[e] << 16) * s,
+             __uint_as_float(u[e] & 0xffff0000u) * s, w[e]);
+#pragma unroll
+    for (int t = 0; t < TERMS; ++t)
+      *reinterpret_cast<uint4*>(dst + t * term_stride + off) =
+          make_uint4(w[0][t], w[1][t], w[2][t], w[3][t]);
+  }
+}
+
+// NTH threads: the 8 KB chunk at src copied to dst (an exact bf16 tile
+// kept past its ring stage); fencing as split_unit.
+template <int NTH>
+__device__ __forceinline__ void copy_chunk(const uint8_t* src, uint8_t* dst,
+                                           int tid) {
+  for (int i = tid; i < CHUNK_BYTES / 16; i += NTH)
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+}
+
 struct One {
   __device__ __forceinline__ float operator()(int) const { return 1.f; }
+};
+
+// A ring of S stages of UNIT_BYTES that TMA fills: unit j in stage j % S,
+// completing on full[j % S].  Every thread that waits on a unit waits on
+// every unit before it, in order, and unit j + S is issued only once all
+// of them are past their reads of unit j (each fencing them against the
+// async proxy first): an mbarrier parity wait cannot tell unit j from
+// unit j - S.
+template <int S = STAGES>
+struct Ring {
+  uint8_t* base;
+  uint64_t* full;
+  __device__ __forceinline__ uint8_t* stage(int j) const {
+    return base + (j % S) * UNIT_BYTES;
+  }
+  __device__ __forceinline__ const uint8_t* arrived(int j) const {
+    wg::bar_wait(&full[j % S], (j / S) & 1);
+    return stage(j);
+  }
 };
 
 // The thread's generic-proxy accesses of shared memory ordered before the

@@ -42,16 +42,28 @@ def table_tensor(table: PWLTable, device: torch.device) -> torch.Tensor:
     return t
 
 
+# (pointer, nk) of each (table, device) a kernel was given, looked up once:
+# keyed by the table's id, the entry holds the table so the id stays its.
+_ARGS: Dict[Tuple[int, torch.device], Tuple[PWLTable, int, int]] = {}
+
+
 def table_args(table: Optional[PWLTable], device: torch.device
                ) -> Tuple[int, int]:
     """(pointer, nk) of a table for a kernel's PWL epilogue; (0, 0) — a
-    null pointer, the exact activation — for ``None``."""
+    null pointer, the exact activation — for ``None``.  Found once per
+    (table, device) and kept: the decode step passes its tables once a
+    layer, and hashing a table's breakpoints is host time on that path."""
     if table is None:
         return 0, 0
-    common.require(table.num_segments <= MAX_SEGMENTS,
-                   f"PWL table {table.name}: {table.num_segments} segments "
-                   f"> {MAX_SEGMENTS}")
-    return common.ptr(table_tensor(table, device)), table.num_segments - 1
+    got = _ARGS.get((id(table), device))
+    if got is None:
+        common.require(table.num_segments <= MAX_SEGMENTS,
+                       f"PWL table {table.name}: {table.num_segments} "
+                       f"segments > {MAX_SEGMENTS}")
+        got = _ARGS[(id(table), device)] = (
+            table, common.ptr(table_tensor(table, device)),
+            table.num_segments - 1)
+    return got[1], got[2]
 
 
 def pwl_activate_plain(x: torch.Tensor, table: PWLTable) -> torch.Tensor:

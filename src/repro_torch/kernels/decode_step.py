@@ -19,10 +19,11 @@ to on the card.
 
 The Mamba-2 step (``mamba2_step`` / ``mamba2_step_ref``):
 
-* :func:`mamba2_step` — the wrapper around ``csrc/decode_step.cu``
-  (conv shift + SiLU + softplus(dt) + SSD update + D skip, grid (batch,
-  head)) followed by ``csrc/gated_norm.cu`` (gated RMSNorm over whole
-  rows).  It takes CUDA tensors only and counts its calls in
+* :func:`mamba2_step` — the wrapper around ``csrc/decode_step.cu``: one
+  launch (conv shift + SiLU + softplus(dt) + SSD update + D skip + the
+  gated RMSNorm over whole rows), grid (p / :func:`step_rows`, head,
+  batch), its arguments packed into one buffer (``STEP_FIELDS``) through
+  a cached launcher.  It takes CUDA tensors only and counts its calls in
   ``mamba2_step.launches``.
 * :func:`mamba2_step_plain` — the same function in plain PyTorch, fp32
   throughout; the CPU path, and what the kernel is held to on the card.
@@ -54,8 +55,11 @@ conv has no SiLU; gelu is the tanh form.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Callable, Optional
+import struct
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,14 +67,60 @@ import torch.nn.functional as F
 from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import common
 from repro_torch.kernels.actiba import table_args
-from repro_torch.kernels.gated_norm import gated_norm_cuda, gated_norm_plain
+from repro_torch.kernels.gated_norm import gated_norm_plain
 from repro_torch.kernels.qmatmul import GEMV_M, SMS
 from repro_torch.nn import layers
 
-_LAUNCH = ("decode_step", "mamba2_step_launch",
-           [common.I, common.P, common.I, common.P, common.I]
-           + [common.P] * 10 + [common.I] * 6
-           + [common.P, common.I, common.P, common.I, common.P])
+# The launcher takes one pointer to its arguments packed as 64-bit fields
+# in this order (csrc/decode_step.cu: StepArgs; eps a double, the rest
+# integers and pointers).
+STEP_FIELDS = ("dtype", "xbc", "xbc_rs", "dt", "dt_rs", "z", "z_rs",
+               "conv_state", "ssm_state", "conv_w", "conv_b", "dt_bias",
+               "A", "D", "norm_scale", "out", "new_conv", "new_ssm", "ypre",
+               "counts", "b", "h", "p", "g", "n", "width", "rows", "vec",
+               "eps", "silu_tab", "silu_nk", "sp_tab", "sp_nk", "stream")
+_STEP_ARGS = struct.Struct("<" + "".join("d" if f == "eps" else "q"
+                                         for f in STEP_FIELDS))
+_STEP = common.Launcher("decode_step", "mamba2_step_launch",
+                        [ctypes.c_char_p])
+MAX_ROWS = 16           # csrc/decode_step.cu: state rows a block (8 warps)
+_F32 = torch.float32
+
+
+@functools.lru_cache(maxsize=None)
+def step_rows(p: int) -> int:
+    """State rows a block of the step kernel takes (8 warps, a warp rows w
+    and w + 8): the largest divisor of ``p`` up to ``MAX_ROWS``.  At p = 64
+    that is 16, so b = 4 runs 384 blocks of 256 threads in one wave, the
+    whole state in flight."""
+    return max(r for r in range(1, min(p, MAX_ROWS) + 1) if p % r == 0)
+
+
+# The fused norm's scratch per device: (row counters, int32, zero between
+# calls; per batch row its pre-norm y and its blocks' sums of squares,
+# fp32), grown to the largest call so far.  Calls on one stream share it
+# in turn.
+_SCRATCH: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _step_scratch(dev: int, b: int, row: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    got = _SCRATCH.get(dev)
+    if got is None or got[0].numel() < b or got[1].numel() < b * row:
+        nb = max(b, got[0].numel() if got else 0)
+        ny = max(b * row, got[1].numel() if got else 0)
+        got = _SCRATCH[dev] = (
+            torch.zeros(nb, dtype=torch.int32, device=dev),
+            torch.empty(ny, dtype=_F32, device=dev))
+    return got
+
+
+# The parameter tensors of each weight set a call has seen (conv_w, conv_b,
+# dt_bias, A, D, norm_scale: the model's decode_view hands the same ones
+# every step), checked once and kept with their pointers; a call re-reads
+# only the pointers, so a tensor given new storage is checked again.
+_PARAMS: Dict[Tuple[int, ...], Tuple[tuple, Tuple[int, ...]]] = {}
+_MAX_PARAMS = 1024
 
 
 def mamba2_step_plain(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
@@ -98,64 +148,139 @@ def mamba2_step_plain(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
     return out, new_conv.to(conv_state.dtype), new
 
 
-def mamba2_step(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b, dt_bias,
-                A, D, norm_scale, *, ngroups: int, head_dim: int,
-                eps: float = 1e-6, out=None,
-                silu_table: Optional[PWLTable] = None,
-                softplus_table: Optional[PWLTable] = None):
-    """The CUDA kernel (contract as :func:`mamba2_step_plain`, with the
-    activations' ActiBA tables in place of callables, ``None`` = exact).
-    The small parameters (conv_w, conv_b, dt_bias, A, D, norm_scale) must
-    be contiguous fp32.  ``out`` = (new_conv, new_ssm) buffers to write
-    the new state into instead of fresh ones."""
+def _step_refusal(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
+                  dt_bias, A, D, norm_scale, g, p) -> None:
+    """Raise with the reason :func:`mamba2_step` refuses its inputs (run
+    only once its one combined check failed)."""
     dev = z.device
-    common.require(dev.type == "cuda", "mamba2_step takes CUDA tensors; "
-                   "the CPU path is mamba2_step_plain")
     b, di = z.shape
-    g, p = ngroups, head_dim
-    h = dt.shape[-1]
-    n = ssm_state.shape[-1]
-    width = conv_w.shape[0]
+    h, n, width = dt.shape[-1], ssm_state.shape[-1], conv_w.shape[0]
     dxbc = di + 2 * g * n
+    common.stream_code(z)
     common.check_f32("mamba2_step", conv_w=conv_w, conv_b=conv_b,
-                     dt_bias=dt_bias, A=A, D=D)
+                     dt_bias=dt_bias, A=A, D=D, norm_scale=norm_scale)
     common.check_cuda(dev, xbc=xbc, dt=dt, conv_state=conv_state,
                       ssm_state=ssm_state, conv_w=conv_w, conv_b=conv_b,
                       dt_bias=dt_bias, A=A, D=D, norm_scale=norm_scale)
     for name, t in (("xbc", xbc), ("dt", dt), ("conv_state", conv_state)):
         common.require(t.dtype == z.dtype,
                        f"mamba2_step: {name} is {t.dtype}, z is {z.dtype}")
-    common.require(di == h * p and h % g == 0,
+    common.require(g > 0 and di == h * p and h % g == 0,
                    f"mamba2_step: di {di} != h {h} x p {p} or h % g")
     common.require(xbc.shape == (b, dxbc) and dt.shape == (b, h),
                    "mamba2_step: xbc must be (b, di+2gn), dt (b, h)")
+    for name, t in (("z", z), ("xbc", xbc), ("dt", dt)):
+        common.require(t.stride(-1) == 1, f"mamba2_step: {name}'s rows "
+                       f"must be contiguous, strides {t.stride()}")
     common.require(tuple(conv_state.shape) == (b, width - 1, dxbc)
                    and conv_state.is_contiguous(),
                    "mamba2_step: conv_state must be contiguous (b, w-1, dxbc)")
     common.require(tuple(ssm_state.shape) == (b, h, p, n)
-                   and ssm_state.dtype == torch.float32
-                   and ssm_state.is_contiguous(),
+                   and ssm_state.dtype == _F32 and ssm_state.is_contiguous(),
                    "mamba2_step: ssm_state must be contiguous fp32 (b,h,p,n)")
     common.require(conv_w.shape == (width, dxbc) and conv_b.shape == (dxbc,)
-                   and dt_bias.shape == A.shape == D.shape == (h,),
+                   and dt_bias.shape == A.shape == D.shape == (h,)
+                   and norm_scale.shape == (di,),
                    "mamba2_step: parameter shapes")
-    ypre = torch.empty((b, di), dtype=torch.float32, device=dev)
-    new_conv, new_ssm = common.outputs(out, conv_state, ssm_state,
-                                       "mamba2_step")
-    fn = common.launcher(*_LAUNCH)
-    err = fn(common.stream_code(z), common.ptr(xbc),
-             common.row_stride(xbc, "xbc"), common.ptr(dt),
-             common.row_stride(dt, "dt"), common.ptr(conv_state),
-             common.ptr(ssm_state), common.ptr(conv_w), common.ptr(conv_b),
-             common.ptr(dt_bias), common.ptr(A), common.ptr(D),
-             common.ptr(ypre), common.ptr(new_conv), common.ptr(new_ssm),
-             b, h, p, g, n, width, *table_args(silu_table, dev),
-             *table_args(softplus_table, dev), common.stream(dev))
-    common.check_launch(err, "decode_step", "mamba2_step kernel")
-    out = gated_norm_cuda(ypre, z, norm_scale, round_stream=False, eps=eps,
-                          silu_table=silu_table)
+    raise ValueError("mamba2_step: inputs refused")
+
+
+def _params(conv_w, conv_b, dt_bias, A, D, norm_scale, idx, h, di, dxbc,
+            width) -> Optional[Tuple[int, ...]]:
+    """The six parameters' pointers when they are contiguous fp32 of the
+    call's shapes on device ``idx`` (checked once per weight set), else
+    ``None``."""
+    ts = (conv_w, conv_b, dt_bias, A, D, norm_scale)
+    key = tuple(map(id, ts))
+    got = _PARAMS.get(key)
+    ptrs = tuple(t.data_ptr() for t in ts)
+    if got is not None and got[1] == ptrs and got[2] == (idx, h, di, dxbc,
+                                                         width):
+        return ptrs
+    if (conv_w.shape != (width, dxbc) or conv_b.shape != (dxbc,)
+            or dt_bias.shape != (h,) or A.shape != (h,) or D.shape != (h,)
+            or norm_scale.shape != (di,)
+            or any(t.dtype != _F32 or not t.is_contiguous()
+                   or t.get_device() != idx for t in ts)):
+        return None
+    if len(_PARAMS) >= _MAX_PARAMS:
+        _PARAMS.clear()
+    _PARAMS[key] = (ts, ptrs, (idx, h, di, dxbc, width))
+    return ptrs
+
+
+def mamba2_step(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b, dt_bias,
+                A, D, norm_scale, *, ngroups: int, head_dim: int,
+                eps: float = 1e-6, out=None,
+                silu_table: Optional[PWLTable] = None,
+                softplus_table: Optional[PWLTable] = None):
+    """The CUDA kernel (contract as :func:`mamba2_step_plain`, with the
+    activations' ActiBA tables in place of callables, ``None`` = exact):
+    one launch, the gated norm fused.  The small parameters (conv_w,
+    conv_b, dt_bias, A, D, norm_scale) must be contiguous fp32; z, xbc and
+    dt may be row views of one projection.  ``out`` = (new_conv, new_ssm)
+    buffers to write the new state into instead of fresh ones.  The
+    inputs are checked at once (the parameters once per weight set) and a
+    message is formatted only when a check fails: the decode step calls
+    this once a layer."""
+    if not z.is_cuda:
+        raise ValueError("mamba2_step takes CUDA tensors; the CPU path is "
+                         "mamba2_step_plain")
+    b, di = z.shape
+    g, p = ngroups, head_dim
+    h, n, width = dt.shape[-1], ssm_state.shape[-1], conv_w.shape[0]
+    dxbc = di + 2 * g * n
+    sd = z.dtype
+    code = common.STREAM_DTYPES.get(sd)
+    idx = z.get_device()
+    params = None
+    if (code is not None and xbc.dtype == sd and dt.dtype == sd
+            and conv_state.dtype == sd and ssm_state.dtype == _F32
+            and g > 0 and di == h * p and h % g == 0
+            and xbc.shape == (b, dxbc) and dt.shape == (b, h)
+            and conv_state.shape == (b, width - 1, dxbc)
+            and ssm_state.shape == (b, h, p, n)
+            and z.stride(-1) == 1 and xbc.stride(-1) == 1
+            and dt.stride(-1) == 1 and conv_state.is_contiguous()
+            and ssm_state.is_contiguous() and xbc.get_device() == idx
+            and dt.get_device() == idx and conv_state.get_device() == idx
+            and ssm_state.get_device() == idx):
+        params = _params(conv_w, conv_b, dt_bias, A, D, norm_scale, idx, h,
+                         di, dxbc, width)
+    if params is None:
+        _step_refusal(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
+                      dt_bias, A, D, norm_scale, g, p)
+    if out is None:
+        new_conv = torch.empty_like(conv_state)
+        new_ssm = torch.empty_like(ssm_state)
+    else:
+        new_conv, new_ssm = out
+        if not (new_conv.shape == conv_state.shape
+                and new_ssm.shape == ssm_state.shape
+                and new_conv.dtype == sd and new_ssm.dtype == _F32
+                and new_conv.is_contiguous() and new_ssm.is_contiguous()
+                and new_conv.get_device() == idx
+                and new_ssm.get_device() == idx
+                and new_conv.data_ptr() != conv_state.data_ptr()
+                and new_ssm.data_ptr() != ssm_state.data_ptr()):
+            common.outputs(out, conv_state, ssm_state, "mamba2_step")
+    y = torch.empty((b, di), dtype=sd, device=idx)
+    rows = step_rows(p)
+    counts, ypre = _step_scratch(idx, b, di + di // rows)
+    sp, snp = ssm_state.data_ptr(), new_ssm.data_ptr()
+    silu_p, silu_nk = table_args(silu_table, z.device)
+    sp_p, sp_nk = table_args(softplus_table, z.device)
+    err = _STEP(_STEP_ARGS.pack(
+        code, xbc.data_ptr(), xbc.stride(0), dt.data_ptr(), dt.stride(0),
+        z.data_ptr(), z.stride(0), conv_state.data_ptr(), sp, *params,
+        y.data_ptr(), new_conv.data_ptr(), snp, ypre.data_ptr(),
+        counts.data_ptr(), b, h, p, g, n, width, rows,
+        n % 4 == 0 and (sp | snp) % 16 == 0, eps, silu_p, silu_nk, sp_p,
+        sp_nk, torch._C._cuda_getCurrentRawStream(idx)))
+    if err:
+        common.check_launch(err, "decode_step", "mamba2_step kernel")
     mamba2_step.launches += 1
-    return out, new_conv, new_ssm
+    return y, new_conv, new_ssm
 
 
 mamba2_step.launches = 0

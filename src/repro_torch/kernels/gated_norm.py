@@ -1,13 +1,15 @@
-"""Gated RMSNorm epilogue shared by the decode-step and prefill kernels.
+"""Gated RMSNorm epilogue of the decode-step and prefill kernels.
 
 ``out = rmsnorm(y) * scale * SiLU(z)`` over whole rows of ``d_inner``
 values.  The mean spans every head of a row (``repro`` kernels
-``decode_step.py:196-199`` and ``prefill_chunk.py:278-283``), so on the
-GPU it runs as its own pass (``csrc/gated_norm.cu``) after the per-head
-blocks.  It is part of the ``mamba2_step`` and ``mamba2_prefill``
-wrappers and counts under their launches.
+``decode_step.py:196-199`` and ``prefill_chunk.py:278-283``).  The decode
+step fuses it (``csrc/decode_step.cu``); the prefill runs it as its own
+pass (:func:`gated_norm_cuda`, ``csrc/gated_norm.cu``) after the per-head
+blocks, as part of the ``mamba2_prefill`` wrapper, counted under its
+launches.
 
-Two rounding disciplines, as in the JAX package:
+Two rounding disciplines, as in the JAX package (the plain version takes
+both; the kernel is the prefill's):
 
 * decode (``round_stream=False``): fp32 throughout, one cast at the end;
 * prefill (``round_stream=True``): the normalised row and SiLU(z) are
@@ -27,10 +29,10 @@ from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import common
 from repro_torch.kernels.actiba import table_args
 
-_LAUNCH = ("gated_norm", "gated_norm_launch",
-           [common.I, common.I, common.P, common.P, common.I, common.P,
-            common.P, common.I, common.I, common.F, common.P, common.I,
-            common.P])
+_LAUNCH = common.Launcher(
+    "gated_norm", "gated_norm_launch",
+    [common.I, common.P, common.P, common.I, common.P, common.P, common.I,
+     common.I, common.F, common.P, common.I, common.P])
 
 
 def gated_norm_plain(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
@@ -46,25 +48,33 @@ def gated_norm_plain(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
 
 
 def gated_norm_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                    *, round_stream: bool, eps: float = 1e-6,
+                    *, eps: float = 1e-6,
                     silu_table: Optional[PWLTable] = None) -> torch.Tensor:
-    """The kernel: y (..., d) contiguous fp32, z rows of d values, scale
-    (d,) contiguous fp32; ``silu_table`` the gate's ActiBA table or
-    ``None`` for the exact SiLU."""
+    """The kernel, with the prefill's rounding (``round_stream=True``): y
+    (..., d) contiguous in z's dtype (the prefill's output, a value of
+    that dtype already); z rows of d values; scale (d,) contiguous fp32;
+    ``silu_table`` the gate's ActiBA table or ``None`` for the exact SiLU.
+    The checks format a message only when they fail."""
     d = y.shape[-1]
-    common.require(y.dtype == torch.float32 and y.is_contiguous(),
-                   "gated_norm: y must be contiguous fp32")
-    common.require(z.shape == y.shape, f"gated_norm: z {tuple(z.shape)} vs "
-                   f"y {tuple(y.shape)}")
-    common.check_f32("gated_norm", scale=scale)
-    common.require(scale.shape == (d,), "gated_norm: scale must be (d,)")
-    common.check_cuda(y.device, z=z, scale=scale)
+    if not (y.dtype == z.dtype and y.is_contiguous() and z.shape == y.shape
+            and scale.dtype == torch.float32 and scale.is_contiguous()
+            and scale.shape == (d,) and y.is_cuda
+            and z.device == y.device and scale.device == y.device):
+        common.require(y.dtype == z.dtype and y.is_contiguous(),
+                       f"gated_norm: y must be contiguous {z.dtype} like z, "
+                       f"got {y.dtype}")
+        common.require(z.shape == y.shape, f"gated_norm: z {tuple(z.shape)} "
+                       f"vs y {tuple(y.shape)}")
+        common.check_f32("gated_norm", scale=scale)
+        common.require(scale.shape == (d,), "gated_norm: scale must be (d,)")
+        common.check_cuda(y.device, z=z, scale=scale)
+        raise ValueError("gated_norm: inputs refused")
     out = torch.empty(y.shape, dtype=z.dtype, device=y.device)
     rows = y.numel() // d if d else 0
-    fn = common.launcher(*_LAUNCH)
-    err = fn(common.stream_code(z), int(round_stream), common.ptr(y),
-             common.ptr(z), common.row_stride(z, "z"), common.ptr(scale),
-             common.ptr(out), rows, d, eps,
-             *table_args(silu_table, y.device), common.stream(y.device))
-    common.check_launch(err, "gated_norm", "gated_norm kernel")
+    err = _LAUNCH(common.stream_code(z), y.data_ptr(), z.data_ptr(),
+                  common.row_stride(z, "z"), scale.data_ptr(),
+                  out.data_ptr(), rows, d, eps,
+                  *table_args(silu_table, y.device), common.stream(y.device))
+    if err:
+        common.check_launch(err, "gated_norm", "gated_norm kernel")
     return out

@@ -154,6 +154,116 @@ def test_kernels_write_into_out_buffers(dev):
         assert torch.equal(a, r)
 
 
+# Kernel 1's one launch (the gated norm fused through the row counters):
+# mamba2-130m's widths at b = 4 and 1, odd widths (6 rows a block), d_state
+# not a multiple of 4 (scalar loads) and past 256 (the loop past the
+# prefetch).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,p,g,n", [(4, 24, 64, 1, 128), (1, 24, 64, 1, 128),
+                                       (3, 6, 36, 2, 96), (2, 4, 8, 2, 18),
+                                       (1, 2, 8, 1, 320)])
+def test_step_with_fused_norm_matches_plain_and_repeats(dev, dtype, b, h, p,
+                                                        g, n):
+    ins = _inputs(dev, dtype, b, None, h, p, g, n, 4, seed=b + h + n)
+    kw = dict(ngroups=g, head_dim=p)
+    before = ds.mamba2_step.launches
+    got = ds.mamba2_step(**ins, **kw)
+    again = ds.mamba2_step(**ins, **kw)
+    torch.cuda.synchronize(dev)
+    assert ds.mamba2_step.launches == before + 2
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+    _check(got, ds.mamba2_step_plain(**ins, **kw), dtype)
+
+
+def _wgmma_prefill(dev, ins, body, **kw):
+    """Kernel 2 twice on ``body`` (counted in ``path_launches``), the same
+    bits both times, held to the plain version."""
+    assert pc.path(ins["xbc"], ins["ssm_state"], chunk=kw["chunk"],
+                   head_dim=kw["head_dim"]) == body
+    before = pc.mamba2_prefill.path_launches[body]
+    got = pc.mamba2_prefill(**ins, **kw)
+    again = pc.mamba2_prefill(**ins, **kw)
+    torch.cuda.synchronize(dev)
+    assert pc.mamba2_prefill.path_launches[body] == before + 2
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+    return got
+
+
+# Kernel 2's tensor-core body: the wave serve's call (b 4, one chunk of
+# 128, mamba2-130m's widths), the continuous engine's chunks of 64, two to
+# four chunks with a carried state, two and four groups, d_state 64.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,chunk,h,g,n", [
+    (4, 128, 128, 24, 1, 128), (4, 64, 64, 24, 1, 128),
+    (2, 256, 64, 8, 2, 64), (1, 512, 256, 4, 1, 128),
+    (2, 192, 64, 6, 2, 128), (3, 128, 128, 4, 4, 64)])
+def test_prefill_wgmma_body_matches_plain(dev, dtype, b, l, chunk, h, g, n):
+    ins = _inputs(dev, dtype, b, l, h, 64, g, n, 4, seed=l + h + n)
+    kw = dict(ngroups=g, head_dim=64, chunk=chunk)
+    got = _wgmma_prefill(dev, ins, "wgmma", **kw)
+    _check(got, pc.mamba2_prefill_plain(**ins, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_wgmma_body_with_actiba_tables(dev, dtype):
+    xamba = XambaConfig.pallas()
+    ins = _inputs(dev, dtype, 2, 128, 8, 64, 1, 128, 4, seed=43)
+    kw = dict(ngroups=1, head_dim=64, chunk=64)
+    tables = {f"{k}_table": pwl.table_for(k, xamba)
+              for k in ("silu", "softplus")}
+    got = _wgmma_prefill(dev, ins, "wgmma", **kw, **tables)
+    plain = {k: (lambda v, t=pwl.table_for(k, xamba): pwl.eval_pwl(t, v))
+             for k in ("silu", "softplus")}
+    _check(got, pc.mamba2_prefill_plain(**ins, **kw, **plain), dtype)
+
+
+def test_prefill_refused_shapes_take_the_simt_body(dev):
+    """Shapes the tensor-core body refuses run the SIMT body, held to the
+    plain version: a chunk of 32, head_dim 32 and an incoming state one
+    element past a 16-byte boundary."""
+    dtype = torch.bfloat16
+    kw = dict(ngroups=1, head_dim=64)
+    ins = _inputs(dev, dtype, 2, 128, 4, 64, 1, 128, 4, seed=50)
+    got = _wgmma_prefill(dev, ins, "simt", **kw, chunk=32)
+    _check(got, pc.mamba2_prefill_plain(**ins, **kw, chunk=32), dtype)
+    buf = torch.empty(ins["ssm_state"].numel() + 1, device=dev)
+    off = buf[1:].view_as(ins["ssm_state"])
+    off.copy_(ins["ssm_state"])
+    mis = dict(ins, ssm_state=off)
+    got = _wgmma_prefill(dev, mis, "simt", **kw, chunk=64)
+    _check(got, pc.mamba2_prefill_plain(**ins, **kw, chunk=64), dtype)
+    ins = _inputs(dev, dtype, 2, 128, 4, 32, 1, 128, 4, seed=51)
+    kw = dict(ngroups=1, head_dim=32, chunk=64)
+    got = _wgmma_prefill(dev, ins, "simt", **kw)
+    _check(got, pc.mamba2_prefill_plain(**ins, **kw), dtype)
+
+
+def test_mixed_launches_repeat_bit_for_bit(dev):
+    """A few hundred launches of both new bodies and the SIMT body, mixed
+    (one and several chunks, bf16 and fp32, b 1 to 4: the step's row
+    counters and the prefill's two block kinds), each giving the bits of
+    its first call."""
+    calls = []
+    for dtype, b in ((torch.bfloat16, 4), (torch.float32, 1),
+                     (torch.bfloat16, 3)):
+        ins = _inputs(dev, dtype, b, None, 24, 64, 1, 128, 4, seed=60 + b)
+        calls.append(lambda ins=ins: ds.mamba2_step(**ins, ngroups=1,
+                                                    head_dim=64))
+    for dtype, b, l, chunk in ((torch.bfloat16, 4, 128, 128),
+                               (torch.bfloat16, 4, 64, 64),
+                               (torch.float32, 2, 256, 64),
+                               (torch.bfloat16, 2, 128, 32)):
+        ins = _inputs(dev, dtype, b, l, 24, 64, 1, 128, 4, seed=l + chunk)
+        calls.append(lambda ins=ins, chunk=chunk: pc.mamba2_prefill(
+            **ins, ngroups=1, head_dim=64, chunk=chunk))
+    first = [call() for call in calls]
+    order = torch.randint(len(calls), (300,),
+                          generator=torch.Generator().manual_seed(0))
+    for i in order.tolist():
+        got = calls[i]()
+        assert all(torch.equal(a, r) for a, r in zip(got, first[i])), i
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name,segments", [("silu", 32), ("softplus", 32),
                                            ("gelu", 8), ("sigmoid", 16)])
