@@ -17,7 +17,9 @@ qwen1.5-4b:
    body at chunk 32, each twice on the body its ``path()`` names;
    ``cumsum_last`` on the SSD chain's (4, 24, 2, 256) prefix sums,
    ``ssd_chunk`` at b = 4, two chunks of 256 (twice, the same bits, on
-   the body its ``path()`` names), and ``pwl_activate`` with
+   the body its ``path()`` names), kernel 2's seed-280 card-test case
+   (bf16) from both bodies and the plain version held to an fp64 witness
+   of the function (``witness_prefill``; a reading), and ``pwl_activate`` with
    the SiLU and softplus tables on the chain's xBC and dt streams;
    ``rglru_step`` at recurrentgemma-2b's width (b = 1 and 4, exact and
    with the sigmoid / softplus / gelu tables), ``rg_lru_scan`` at (4,
@@ -126,8 +128,10 @@ qwen1.5-4b:
    kernel 13's row, the wrapper's host microseconds per call and
    ``torch.matmul``'s (``torch.cumsum``'s for kernel 13; 1000 calls, no
    synchronisation), and kernel 10's GEMV also with its
-   weights cold (a rotation of copies larger than the 50 MB L2).  Each
-   phase's seconds are printed after it.
+   weights cold (a rotation of copies larger than the 50 MB L2); kernels
+   5 and 6 with their host microseconds a call (one launch each now),
+   kernel 6 also cold (three weight sets in turn, 78.6 MB), and ptxas's
+   report of both.  Each phase's seconds are printed after it.
 
 Any failure raises (exit code 1).  Without a GPU it exits 1 before doing
 anything.  The second line from the end is the ``kernels`` JSON record,
@@ -409,6 +413,22 @@ def rglru_inputs(b, dev, dtype, seed):
         lam=_rand(g, (w,), 0.5, dev, f32))
 
 
+def rglru_cold(step, ins, sets=3):
+    """Kernel 6 with its gate weights cold: a call of ``step`` on ``ins``
+    that takes the next of ``sets`` copies of rg_w and ig_w in turn (three
+    at recurrentgemma-2b's bf16 width: 78.6 MB, past the 50 MB L2, as the
+    model's 18 layers find their gates), and the copies' MB."""
+    copies = [(ins["rg_w"], ins["ig_w"])] + [
+        (ins["rg_w"].clone(), ins["ig_w"].clone()) for _ in range(sets - 1)]
+    turn = itertools.cycle(copies)
+
+    def cold():
+        w, v = next(turn)
+        return step(**dict(ins, rg_w=w, ig_w=v))
+    mb = sum(2 * w.numel() * w.element_size() for w, _ in copies) / 1e6
+    return cold, mb
+
+
 def rg_scan_inputs(b, l, dev, dtype, seed):
     """Kernel 8's operands: decays a in (0, 1) and inputs b, (b, l, 2560)
     in ``dtype``."""
@@ -521,6 +541,104 @@ PREFILL_CASES = ((4, 128, 128, False), (4, 64, 64, False),
                  (4, 512, 256, True))
 
 
+def card_case_inputs(dev, dtype, b, l, h, p, g, n, w, seed):
+    """``tests/test_torch_cuda.py: _inputs``'s operands, drawn in its
+    order (its seed-280 case is the wave serve's kernel-2 call: b 4, l
+    128, chunk 128, 24 heads of 64, d_state 128)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    f32 = torch.float32
+    di = h * p
+    dxbc = di + 2 * g * n
+    r = lambda *s, scale=1.0, dtype=dtype: (        # noqa: E731
+        torch.randn(s, generator=gen) * scale).to(dev).to(dtype)
+    return dict(
+        z=r(b, l, di), xbc=r(b, l, dxbc), dt=r(b, l, h),
+        conv_state=r(b, w - 1, dxbc),
+        ssm_state=(torch.randn(b, h, p, n, generator=gen) * 0.1).to(dev),
+        conv_w=r(w, dxbc, scale=0.3, dtype=f32),
+        conv_b=r(dxbc, scale=0.1, dtype=f32),
+        dt_bias=r(h, scale=0.1, dtype=f32),
+        A=-torch.exp(torch.randn(h, generator=gen) * 0.3).to(dev),
+        D=r(h, scale=0.2, dtype=f32), norm_scale=r(di, dtype=f32).abs() + 0.5)
+
+
+def witness_prefill(ins, *, ngroups, head_dim, eps=1e-6):
+    """Kernel 2's function in fp64, written apart from the port: the
+    causal conv over the carried tail, the SSD recurrence token by token
+    (no chunks, no prefix sums), the D skip and the gated norm, with the
+    stream dtype's rounding points where ``mamba2_prefill_plain`` and the
+    TPU kernel take them (the activated streams, y, the D skip's product
+    and sum, the normalised row, SiLU(z) and the gate's product).
+    Returns (out in the stream dtype, the new state fp64)."""
+    import torch
+    F = torch.nn.functional
+    z, xbc, dt = ins["z"], ins["xbc"], ins["dt"]
+    sd = z.dtype
+
+    def d(t):
+        return t.double()
+
+    def rnd(t):
+        return t.to(sd).double()
+    b, l, di = z.shape
+    h, g, p = dt.shape[-1], ngroups, head_dim
+    n = (xbc.shape[-1] - di) // (2 * g)
+    w = ins["conv_w"].shape[0]
+    full = torch.cat([d(ins["conv_state"]), d(xbc)], dim=1)
+    conv = sum(full[:, j:j + l] * d(ins["conv_w"][j]) for j in range(w)) \
+        + d(ins["conv_b"])
+    act = rnd(F.silu(rnd(conv)))
+    xs = act[..., :di].reshape(b, l, h, p)
+    B = act[..., di:di + g * n].reshape(b, l, g, n).repeat_interleave(
+        h // g, dim=2)
+    C = act[..., di + g * n:].reshape(b, l, g, n).repeat_interleave(
+        h // g, dim=2)
+    dtf = F.softplus(d(dt) + d(ins["dt_bias"]))
+    A = d(ins["A"])
+    state = d(ins["ssm_state"])
+    ys = []
+    for t in range(l):
+        state = state * torch.exp(dtf[:, t] * A)[..., None, None] + \
+            (dtf[:, t, :, None] * xs[:, t])[..., None] * B[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, C[:, t]))
+    y = torch.stack(ys, dim=1)
+    y = rnd(rnd(y) + rnd(xs * rnd(d(ins["D"]))[None, None, :, None]))
+    y = y.reshape(b, l, di)
+    yn = rnd(y * torch.rsqrt((y * y).mean(-1, keepdim=True) + eps)
+             * d(ins["norm_scale"]))
+    return rnd(yn * rnd(F.silu(d(z)))).to(sd), state
+
+
+def prefill_witness_check(dev, kernels):
+    """Phase 3's reading on kernel 2's reference: the card test's seed-280
+    inputs (bf16), the output of both kernel bodies and of
+    ``mamba2_prefill_plain``, each held to the fp64 witness
+    (``witness_prefill``) by the phase's element-wise rule.  A reading:
+    no limit, no failure."""
+    import torch
+    kw = dict(ngroups=1, head_dim=64, chunk=128)
+    ins = card_case_inputs(dev, torch.bfloat16, 4, 128, 24, 64, 1, 128, 4,
+                           seed=280)
+    want = witness_prefill(ins, ngroups=1, head_dim=64)[0].float()
+    got = {"wgmma body": kernels["mamba2_prefill"](**ins, **kw),
+           "SIMT body": simt_prefill(ins, 128),
+           "plain": kernels["mamba2_prefill_plain"](**ins, **kw)}
+    torch.cuda.synchronize(dev)
+    rms = float(want.square().mean().sqrt())
+    print("  kernel 2's seed-280 case (bf16, b=4 l=128 chunk 128) against "
+          "the fp64 witness, the phase-3 rule as a reading (no limit):",
+          flush=True)
+    for label, outs in got.items():
+        diff = (outs[0].float() - want).abs()
+        used = float((diff / (TOL["bfloat16", "stream"] * (
+            want.abs() + ATOL_RMS * rms))).max())
+        print(f"    {label}: worst element at {used:.4f} of the limit; "
+              f"{int((diff > 0).sum())} of {diff.numel()} elements differ, "
+              f"{int((_bf16_steps(diff, want) > 1).sum())} by more than one "
+              f"bf16 step", flush=True)
+
+
 def kernel_cases(dev, kernels, tables):
     """Phase 3: every kernel against its plain version on the card.  Every
     case is printed; the phase fails at its end if any output failed.
@@ -592,6 +710,9 @@ def kernel_cases(dev, kernels, tables):
                                                      **kw, **tk),
                    lambda: kernels["mamba2_prefill_plain"](
                        **ins, chunk=chunk, **kw, **tp), dn, FUSED_OUTS)
+
+        if dtype == torch.bfloat16:
+            prefill_witness_check(dev, kernels)
 
         ch = chain_inputs(dev, dtype, seed=30)
         got = kernels["cumsum_last"](ch["a_c"])
@@ -1335,12 +1456,18 @@ def rgemma_times(dev, kernels, launches, worst, tables):
     m = 512 (the pallas() Engine run's launches by path).  Library for
     kernel 11: its two ``torch.matmul`` products alone."""
     import torch
+    from repro_torch.kernels import decode_step
     rows = []
     ins = rglru_inputs(4, dev, torch.bfloat16, seed=100)
     outs = kernels["rglru_step"](**ins)
     ms = time_call(lambda: kernels["rglru_step"](**ins))
     plain_ms = time_call(lambda: kernels["rglru_step_plain"](**ins))
     dev_ms = _ours(device_profile(lambda: kernels["rglru_step"](**ins)))
+    us = host_us(lambda: kernels["rglru_step"](**ins))
+    cold, cold_mb = rglru_cold(kernels["rglru_step"], ins)
+    cold_ms = time_call(cold)
+    cold_dev = _ours(device_profile(cold, n=30))
+    del cold
     ops = 2 * 2 * 4 * RG_W * RG_W + 40 * 4 * RG_W
     bound_ms, bound_by = _bound(_bytes(*ins.values(), *outs), ops)
     rows.append(dict(
@@ -1350,11 +1477,17 @@ def rgemma_times(dev, kernels, launches, worst, tables):
         launches=launches["rglru_step"], max_abs_err=worst["rglru_step"],
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None))
-    print(f"  rglru_step b=4 bf16 w={RG_W}: kernel {ms:.4f} ms (device time "
-          f"of its two kernels {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}); library: no single "
-          f"PyTorch call; {launches['rglru_step']} launches in the "
-          f"continuous serve run", flush=True)
+    print(f"  rglru_step b=4 bf16 w={RG_W}: kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms warm, one launch of the cluster GEMV, plan "
+          f"{decode_step.rglru_plan(RG_W, 2)}; targets 0.05 and 0.015), "
+          f"weights cold "
+          f"({cold_mb:.1f} MB in turn): kernel {cold_ms:.4f} ms, device "
+          f"{cold_dev:.4f} ms (target 0.018), host {us:.1f} us a call "
+          f"(target 30), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); library: no single PyTorch call; "
+          f"{launches['rglru_step']} launches in the continuous serve run; "
+          f"the two-launch body it replaced read device 0.0345 ms warm, "
+          f"call 0.1362 ms (PERF.md's table)", flush=True)
     rtab = {f"{k}_table": tables[k] for k in ("sigmoid", "softplus", "gelu")}
     ms_a = time_call(lambda: kernels["rglru_step"](**ins, **rtab))
     dev_a = _ours(device_profile(lambda: kernels["rglru_step"](**ins,
@@ -1428,7 +1561,10 @@ def rgemma_times(dev, kernels, launches, worst, tables):
     for needle in ("matmul_pwl_wgmma_kernel", "gemv_cluster_kernel"):
         for line in ptxas_lines("matmul_pwl", needle):
             print(f"    ptxas {line}")
+    for line in ptxas_lines("rglru_step", "rglru_step_kernel"):
+        print(f"    ptxas {line}")
     return rows
+
 
 
 def _count_params(params):
@@ -2129,9 +2265,8 @@ OUR_KERNELS = ("mamba2_step_kernel", "gated_norm_kernel", "conv_act_kernel",
                "pwl_activate_kernel", "gemm::gemv_cluster_kernel",
                "gemm::tiled_kernel", "qmatmul_wgmma_kernel",
                "matmul_pwl_wgmma_kernel", "flash_attention_wgmma_kernel",
-               "mamba1_conv_xproj_kernel", "mamba1_scan_kernel",
-               "sscan_step_kernel", "ssd_step_kernel", "rglru_gates_kernel",
-               "rglru_update_kernel", "rg_lru_scan_kernel",
+               "mamba1_step_kernel", "sscan_step_kernel", "ssd_step_kernel",
+               "rglru_step_kernel", "rg_lru_scan_kernel",
                "flash_attention_kernel", "reduce_rows_kernel",
                "reduce_partials_kernel")
 
@@ -2697,6 +2832,10 @@ def mamba1_times(dev, kernels, launches, steps, worst, tables):
     plain_ms = time_call(lambda: kernels["mamba1_step_plain"](**ins, **kw))
     dev_ms = _ours(device_profile(lambda: kernels["mamba1_step"](**ins,
                                                                  **kw)))
+    us = host_us(lambda: kernels["mamba1_step"](**ins, **kw))
+    bufs = (torch.empty_like(ins["conv_state"]),
+            torch.empty_like(ins["ssm_state"]))
+    us_out = host_us(lambda: kernels["mamba1_step"](**ins, **kw, out=bufs))
     bound_ms, bound_by = mamba1_bound(ins, outs)
     rows.append(dict(
         name="mamba1_step", route="cuda",
@@ -2705,17 +2844,22 @@ def mamba1_times(dev, kernels, launches, steps, worst, tables):
         launches=launches["mamba1_step"], max_abs_err=worst["mamba1_step"],
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None))
-    print(f"  mamba1_step b=4 bf16: kernel {ms:.4f} ms (device time of its "
-          f"two kernels {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}); "
+    print(f"  mamba1_step b=4 bf16: kernel {ms:.4f} ms (device {dev_ms:.4f} "
+          f"ms, one launch, a cluster of 16 blocks a row; target 0.005), host {us:.1f} us a call with fresh states, "
+          f"{us_out:.1f} us into the caller's buffers (target 30), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
           f"{launches['mamba1_step'] / steps:.0f} launches per decode step; "
-          f"library: no single PyTorch call", flush=True)
+          f"library: no single PyTorch call; the two-launch body it replaced "
+          f"read device 0.0116 ms, call 0.1130 ms (PERF.md's table)",
+          flush=True)
     ktab = dict(silu_table=tables["silu"], softplus_table=tables["softplus"])
     ms_a = time_call(lambda: kernels["mamba1_step"](**ins, **kw, **ktab))
     dev_a = _ours(device_profile(
         lambda: kernels["mamba1_step"](**ins, **kw, **ktab)))
     print(f"  mamba1_step b=4 bf16 with the ActiBA tables: kernel {ms_a:.4f} "
           f"ms (device {dev_a:.4f} ms)", flush=True)
+    for line in ptxas_lines("mamba1_step", "mamba1_step_kernel"):
+        print(f"    ptxas {line}")
     for name, src, where, args, ops in (
             ("sscan_step", "mamba1_step.cu",
              "src/repro/kernels/decode_step.py:113",

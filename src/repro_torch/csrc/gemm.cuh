@@ -17,19 +17,21 @@
 // Two regimes:
 //
 // * m <= GEMV_M (decode, m = slots): a GEMV that reads the weights once,
-//   bound by their bytes (gemv_cluster_kernel, kernels 10 and 11; design
-//   at the kernel).  One launch: a lane reads 16 bytes of a weight row at
-//   a time (16 int8, 8 bf16 or 4 fp32 columns; one 16-byte load where n
-//   and the base allow, else two of 8 bytes, else element by element), U
-//   rows in flight; k is split over the blocks of a thread-block cluster
-//   so that the column tiles of a narrow n fill the SMs, and the splits'
-//   partial sums meet in distributed shared memory, added in rank order.
-//   The wrapper picks the column group and the split count from the
-//   shapes alone (kernels/qmatmul.py: gemv_plan), so a shape always takes
-//   the same sums in the same order: the same inputs give the same bits.
-//   Kernel 6 keeps the older body, gemv_sums: 128 columns a block, k split
-//   over blocks whose fp32 partials its own second launch sums in split
-//   order; its x loader computes the conv step on the fly.
+//   bound by their bytes (gemv_cluster_body; design at the body).  One
+//   launch: a lane reads 16 bytes of a weight row at a time (16 int8, 8
+//   bf16 or 4 fp32 columns; one 16-byte load where n and the base allow,
+//   else two of 8 bytes, else element by element), U rows in flight; k is
+//   split over the blocks of a thread-block cluster so that the column
+//   tiles of a narrow n fill the SMs, and the splits' partial sums meet in
+//   distributed shared memory, added in rank order.  The wrapper picks the
+//   column group and the split count from the shapes alone
+//   (kernels/qmatmul.py: gemv_plan; kernels/decode_step.py: rglru_plan),
+//   so a shape always takes the same sums in the same order: the same
+//   inputs give the same bits.  The body is templated on its x loader and
+//   its epilogue: kernels 10 and 11 (gemv_cluster_kernel) read x rows in T
+//   and write epi(...) [* gate]; kernel 6 (rglru_step.cu) computes its x,
+//   the conv step, in fp32 as it stages it, and runs the whole RG-LRU
+//   update on each output.
 // * m > GEMV_M (prefill): tiled_kernel, 64 x 64 outputs per block over k
 //   in steps of 32, the x tile and the widened weight tile in shared
 //   memory, 4 x 4 outputs per thread on the CUDA cores.  Bound by
@@ -47,23 +49,14 @@
 
 namespace gemm {
 constexpr int GEMV_M = 8;      // rows the GEMV path takes
-constexpr int GV_THREADS = 256;
-constexpr int GV_WARPS = GV_THREADS / 32;
-constexpr int GV_COLS = 128;   // columns per GEMV block (4 per lane)
-constexpr int GV_MAX_KS = 1024;  // k rows per split (x slice in smem)
-constexpr int GV_SMEM = GEMV_M * GV_COLS * GV_WARPS;  // floats
-constexpr int GV_OWN = GEMV_M * GV_COLS / GV_THREADS;  // outputs per thread
 
 constexpr int TM = 64, TN = 64, TK = 32, T_THREADS = 256;
 
 // ---- weight loaders.  at(off): element `off` widened to fp32 (the tiled
-// body).  load4: four consecutive columns of a row, widened (kernel 6's
-// gemv_sums; zero past n; vec4: n % 4 == 0 and the base aligned to four
-// elements, so one vector load).  raw / widen (the cluster GEMV): LC
-// columns of a row as 16 raw bytes, zero past n, read by one 16-byte load
-// (vec 16: rows a multiple of 16 bytes, base 16-byte aligned), two 8-byte
-// loads (vec 8) or element by element (vec 0); widen(r, j) is column j of
-// them in fp32, exactly.
+// body).  raw / widen (the cluster GEMV): LC columns of a row as 16 raw
+// bytes, zero past n, read by one 16-byte load (vec 16: rows a multiple of
+// 16 bytes, base 16-byte aligned), two 8-byte loads (vec 8) or element by
+// element (vec 0); widen(r, j) is column j of them in fp32, exactly.
 __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
   return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
 }
@@ -117,20 +110,6 @@ struct F32W {
   static constexpr int LC = 4;
   const float* p;
   __device__ __forceinline__ float at(size_t off) const { return p[off]; }
-  __device__ __forceinline__ void load4(size_t row, int c, int n, bool vec4,
-                                        float (&w)[4]) const {
-    const float* q = p + row * n + c;
-    if (vec4 && c + 3 < n) {
-      const float4 v = *reinterpret_cast<const float4*>(q);
-      w[0] = v.x;
-      w[1] = v.y;
-      w[2] = v.z;
-      w[3] = v.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = c + j < n ? q[j] : 0.f;
-    }
-  }
   __device__ __forceinline__ uint4 raw(size_t row, int c, int n, int vec) const {
     return raw16(reinterpret_cast<const uint32_t*>(p) + row * n + c, c, n, vec);
   }
@@ -145,22 +124,6 @@ struct BF16W {
   __device__ __forceinline__ float at(size_t off) const {
     return __bfloat162float(p[off]);
   }
-  __device__ __forceinline__ void load4(size_t row, int c, int n, bool vec4,
-                                        float (&w)[4]) const {
-    const __nv_bfloat16* q = p + row * n + c;
-    if (vec4 && c + 3 < n) {
-      const uint2 v = *reinterpret_cast<const uint2*>(q);
-      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-      w[0] = lo.x;
-      w[1] = lo.y;
-      w[2] = hi.x;
-      w[3] = hi.y;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = c + j < n ? __bfloat162float(q[j]) : 0.f;
-    }
-  }
   __device__ __forceinline__ uint4 raw(size_t row, int c, int n, int vec) const {
     return raw16(reinterpret_cast<const uint16_t*>(p) + row * n + c, c, n, vec);
   }
@@ -171,13 +134,18 @@ struct BF16W {
   }
 };
 
-// x loader of a plain (m, k) row-major input in T.
+// x loaders of the cluster GEMV.  at(r, kk): row r, column kk of x as V,
+// the type the body stages in registers; widen(v): that value in fp32.
+// A plain (m, k) row-major input in T: loaded as T, widened at the store,
+// so that no load waits for another's value.
 template <typename T> struct RowX {
+  using V = T;
   const T* x;
   int k;
-  __device__ __forceinline__ float operator()(int r, int kk) const {
-    return to_f(x[static_cast<size_t>(r) * k + kk]);
+  __device__ __forceinline__ V at(int r, int kk) const {
+    return x[static_cast<size_t>(r) * k + kk];
   }
+  static __device__ __forceinline__ float widen(V v) { return to_f(v); }
 };
 
 // The epilogue: scale, activation, gate (each multiply rounded alone).
@@ -192,74 +160,24 @@ __device__ __forceinline__ float gate(float y, float g, const float* vscale,
   return __fmul_rn(y, vscale ? __fmul_rn(g, vscale[c]) : g);
 }
 
-// One GEMV block's sums: columns [blockIdx.x * 128, +128) of rows [0, m)
-// over k rows [k0, k0 + kn).  sm holds GV_SMEM floats.  On return thread t
-// owns outputs o = t + i * GV_THREADS (row o / 128, column o % 128 of the
-// tile): tot[i] = sum x w, gtot[i] = sum x v (GATED).
-template <typename XL, typename WL, bool GATED>
-__device__ __forceinline__ void gemv_sums(XL xl, WL w, WL v, int m, int n,
-                                          int k0, int kn, bool vec4, float* sm,
-                                          float (&tot)[GV_OWN],
-                                          float (&gtot)[GV_OWN]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c0 = blockIdx.x * GV_COLS + lane * 4;
-
-  for (int e = threadIdx.x; e < m * kn; e += GV_THREADS) {
-    const int r = e / kn, kk = e % kn;
-    sm[r * kn + kk] = xl(r, k0 + kk);
+// The GEMV's epilogue for kernels 10 and 11: (row, col, sum x w, sum x v)
+// -> out[row, col] = epi(...) [* gate(...)], in T.
+template <typename T, bool GATED> struct OutEpi {
+  const float* scale;
+  const float* vscale;
+  const float* tab;
+  int nk;
+  T* out;
+  int n;
+  __device__ __forceinline__ void operator()(int row, int col, float a,
+                                             float ga) const {
+    float y = epi(a, scale, col, tab, nk);
+    if constexpr (GATED) y = gate(y, ga, vscale, col);
+    out[static_cast<size_t>(row) * n + col] = from_f<T>(y);
   }
-  __syncthreads();
+};
 
-  float acc[GEMV_M][4], gacc[GEMV_M][4];
-#pragma unroll
-  for (int r = 0; r < GEMV_M; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = gacc[r][j] = 0.f;
-
-#pragma unroll 4
-  for (int kk = warp; kk < kn; kk += GV_WARPS) {
-    float wv[4], vv[4];
-    w.load4(static_cast<size_t>(k0 + kk), c0, n, vec4, wv);
-    if (GATED) v.load4(static_cast<size_t>(k0 + kk), c0, n, vec4, vv);
-#pragma unroll
-    for (int r = 0; r < GEMV_M; ++r) {
-      if (r < m) {
-        const float xv = sm[r * kn + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[r][j] += xv * wv[j];
-          if (GATED) gacc[r][j] += xv * vv[j];
-        }
-      }
-    }
-  }
-
-  // Sum the warps' partials in warp order.
-#pragma unroll
-  for (int pass = 0; pass < (GATED ? 2 : 1); ++pass) {
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < GEMV_M; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sm[(warp * GEMV_M + r) * GV_COLS + lane * 4 + j] =
-            pass ? gacc[r][j] : acc[r][j];
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < GV_OWN; ++i) {
-      const int o = threadIdx.x + i * GV_THREADS;
-      const int r = o / GV_COLS, cl = o % GV_COLS;
-      float s = 0.f;
-      for (int wi = 0; wi < GV_WARPS; ++wi) s += sm[(wi * GEMV_M + r) * GV_COLS + cl];
-      if (pass)
-        gtot[i] = s;
-      else
-        tot[i] = s;
-    }
-  }
-}
-
-// ---- the GEMV of kernels 10 and 11 (m <= GEMV_M) ------------------------
+// ---- the GEMV of kernels 10, 11 and 6 (m <= GEMV_M) ---------------------
 //
 // A block of GW_THREADS threads takes `lanes` x LC columns (LC = 16 bytes
 // of weights a lane) and a k slice of ks rows; a warp's 32 lanes are 32 /
@@ -275,7 +193,8 @@ __device__ __forceinline__ void gemv_sums(XL xl, WL w, WL v, int m, int n,
 // s adds up every rank's partial of the outputs o = s (mod splits), all
 // the ranks' loads in flight before the sums, and writes them.  No float
 // atomics and no scratch in device memory: the same inputs give the same
-// bits.
+// bits.  The owning rank's thread hands each output's sums to the
+// epilogue, ep(row, col, sum x w, sum x v), as it adds them up.
 constexpr int GW_THREADS = 256, GW_WARPS = GW_THREADS / 32;
 constexpr int GW_RB = 4;           // rows of x a pass takes
 constexpr int GW_XCH = 1024;       // k rows of x in shared memory at a time
@@ -289,13 +208,15 @@ __host__ __device__ constexpr int gemv_floats(int cols, int xch, int G) {
          G * GW_RB * cols;
 }
 
-// Grid (ceil(n / (lanes LC)), splits), clusters (1, splits); dynamic
-// shared memory gemv_floats(lanes LC, min(ks, GW_XCH), G) floats.
-template <typename T, typename WL, bool GATED>
-__global__ void __launch_bounds__(GW_THREADS, 1) gemv_cluster_kernel(
-    const T* __restrict__ x, WL w, const float* __restrict__ scale, WL v,
-    const float* __restrict__ vscale, T* __restrict__ out, int m, int k,
-    int n, int lanes, int ks, int vec, const float* __restrict__ tab, int nk) {
+// The body of a block of a kernel launched as launch_gemv sets it up:
+// grid (ceil(n / (lanes LC)), splits), clusters (1, splits), GW_THREADS
+// threads, dynamic shared memory gemv_floats(lanes LC, min(ks, GW_XCH), G)
+// floats.  xl: the x loader (rows [0, m)); ep: the epilogue.
+template <typename XL, typename WL, bool GATED, typename EP>
+__device__ __forceinline__ void gemv_cluster_body(XL xl, WL w, WL v, EP ep,
+                                                  int m, int k, int n,
+                                                  int lanes, int ks, int vec) {
+  using XV = typename XL::V;
   constexpr int LC = WL::LC, G = GATED ? 2 : 1;
   constexpr int U = GATED && LC == 16 ? 4 : 8;   // rows in flight a k lane
   extern __shared__ float sm[];
@@ -321,16 +242,15 @@ __global__ void __launch_bounds__(GW_THREADS, 1) gemv_cluster_kernel(
       }
     for (int x0 = 0; x0 < kn; x0 += xch) {
       const int xn = min(xch, kn - x0);
-      // Loaded as T and widened only at the store, so that no load waits
-      // for another's value.
-      T xv[GW_RB][GW_XCH / GW_THREADS];
+      // Every value of the chunk is loaded (as the loader's V) before the
+      // first store.
+      XV xv[GW_RB][GW_XCH / GW_THREADS];
 #pragma unroll
       for (int r = 0; r < GW_RB; ++r)
 #pragma unroll
         for (int i = 0; i < GW_XCH / GW_THREADS; ++i) {
           const int kk = threadIdx.x + i * GW_THREADS;
-          if (kk < xn && r0 + r < m)
-            xv[r][i] = x[static_cast<size_t>(r0 + r) * k + k0 + x0 + kk];
+          if (kk < xn && r0 + r < m) xv[r][i] = xl.at(r0 + r, k0 + x0 + kk);
         }
       __syncthreads();
 #pragma unroll
@@ -338,7 +258,7 @@ __global__ void __launch_bounds__(GW_THREADS, 1) gemv_cluster_kernel(
 #pragma unroll
         for (int i = 0; i < GW_XCH / GW_THREADS; ++i) {
           const int kk = threadIdx.x + i * GW_THREADS;
-          if (kk < xn) xs[r * xch + kk] = r0 + r < m ? to_f(xv[r][i]) : 0.f;
+          if (kk < xn) xs[r * xch + kk] = r0 + r < m ? XL::widen(xv[r][i]) : 0.f;
         }
       __syncthreads();
       if (c < n)
@@ -422,13 +342,51 @@ __global__ void __launch_bounds__(GW_THREADS, 1) gemv_cluster_kernel(
         }
       const int r = o / (LC * lanes), j = o / lanes % LC, l = o % lanes;
       const int row = r0 + r, col = cb + l * LC + j;
-      if (row >= m || col >= n) continue;
-      float y = epi(a, scale, col, tab, nk);
-      if constexpr (GATED) y = gate(y, ga, vscale, col);
-      out[static_cast<size_t>(row) * n + col] = from_f<T>(y);
+      if (row < m && col < n) ep(row, col, a, ga);
     }
     wg::cluster_sync();   // no rank reads psum any more
   }
+}
+
+// Kernels 10 and 11's GEMV: x rows in T, out = epi(...) [* gate(...)].
+template <typename T, typename WL, bool GATED>
+__global__ void __launch_bounds__(GW_THREADS, 1) gemv_cluster_kernel(
+    const T* __restrict__ x, WL w, const float* __restrict__ scale, WL v,
+    const float* __restrict__ vscale, T* __restrict__ out, int m, int k,
+    int n, int lanes, int ks, int vec, const float* __restrict__ tab, int nk) {
+  gemv_cluster_body<RowX<T>, WL, GATED>(
+      RowX<T>{x, k}, w, v, OutEpi<T, GATED>{scale, vscale, tab, nk, out, n}, m,
+      k, n, lanes, ks, vec);
+}
+
+// The k rows a split takes: ceil(k / splits).
+inline int gemv_ks(int k, int splits) { return (k + splits - 1) / splits; }
+
+// Launches `kern` (gemv_cluster_kernel, or a kernel around
+// gemv_cluster_body) with `args` as the body wants it: `lanes` lanes a
+// column group (4 to 32, a power of two), `splits` blocks over k (1 to
+// GW_MAX_SPLITS, none empty; args carry ks = gemv_ks(k, splits)) and loads
+// of `vec` bytes (16, 8 or 0: element by element; the rows and the bases
+// of w and v must allow them).  Returns the cudaError_t.
+template <typename WL, bool GATED, typename... P, typename... A>
+int launch_gemv(void (*kern)(P...), WL w, WL v, int k, int n, int lanes,
+                int splits, int vec, cudaStream_t s, A... args) {
+  const size_t row_bytes = static_cast<size_t>(n) * (16 / WL::LC);
+  const auto aligned = [vec](const void* p) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % vec == 0;
+  };
+  if ((lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) || splits < 1 ||
+      splits > GW_MAX_SPLITS || (vec != 0 && vec != 8 && vec != 16) ||
+      (vec && (row_bytes % vec != 0 || !aligned(w.p) || !aligned(v.p))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ks = gemv_ks(k, splits);
+  if ((splits - 1) * ks >= k) return static_cast<int>(cudaErrorInvalidValue);
+  const int cols = lanes * WL::LC;
+  const size_t smem =
+      gemv_floats(cols, ks < GW_XCH ? ks : GW_XCH, GATED ? 2 : 1) * sizeof(float);
+  return static_cast<int>(wg::launch_cluster(
+      kern, dim3((n + cols - 1) / cols, splits), dim3(GW_THREADS),
+      dim3(1, splits, 1), smem, s, args...));
 }
 
 // Grid (ceil(n / TN), ceil(m / TM)), T_THREADS threads.  Thread (ty, tx)
@@ -518,38 +476,9 @@ int launch(const void* x, WL w, const float* scale, WL v, const float* vscale,
                                                           ot, m, k, n, tab, nk);
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t row_bytes = static_cast<size_t>(n) * (16 / WL::LC);
-  const auto aligned = [vec](const void* p) {
-    return p == nullptr || reinterpret_cast<uintptr_t>(p) % vec == 0;
-  };
-  if ((lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) || splits < 1 ||
-      splits > GW_MAX_SPLITS || (vec != 0 && vec != 8 && vec != 16) ||
-      (vec && (row_bytes % vec != 0 || !aligned(w.p) || !aligned(v.p))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int ks = (k + splits - 1) / splits;
-  if ((splits - 1) * ks >= k) return static_cast<int>(cudaErrorInvalidValue);
-  const int cols = lanes * WL::LC;
-  const size_t smem =
-      gemv_floats(cols, ks < GW_XCH ? ks : GW_XCH, GATED ? 2 : 1) * sizeof(float);
   const auto kern = gemv_cluster_kernel<T, WL, GATED>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n + cols - 1) / cols, splits);
-  cfg.blockDim = dim3(GW_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = 1;
-  at[0].val.clusterDim.y = splits;
-  at[0].val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kern, xt, w, scale, v, vscale,
-                                             ot, m, k, n, lanes, ks, vec, tab, nk));
+  return launch_gemv<WL, GATED>(kern, w, v, k, n, lanes, splits, vec, s, xt, w,
+                                scale, v, vscale, ot, m, k, n, lanes,
+                                gemv_ks(k, splits), vec, tab, nk);
 }
 }  // namespace gemm

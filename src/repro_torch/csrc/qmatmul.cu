@@ -336,26 +336,11 @@ static int launch_wgmma(const CUtensorMap& xm, const int8_t* q,
                         const float* vscale, void* out, int m, int k, int n,
                         int splits, int steps, const float* tab, int nk,
                         cudaStream_t s) {
-  const int smem = q_smem<GATED>();
-  const auto kern = qmatmul_wgmma_kernel<GATED>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((m + QM - 1) / QM, (n + QN - 1) / QN, splits);
-  cfg.blockDim = dim3(Q_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = 1;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = splits;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, kern, xm, q, scale, qv, vscale, static_cast<__nv_bfloat16*>(out), m,
-      k, n, steps, tab, nk));
+  return static_cast<int>(wg::launch_cluster(
+      qmatmul_wgmma_kernel<GATED>,
+      dim3((m + QM - 1) / QM, (n + QN - 1) / QN, splits), dim3(Q_THREADS),
+      dim3(1, 1, splits), q_smem<GATED>(), s, xm, q, scale, qv, vscale,
+      static_cast<__nv_bfloat16*>(out), m, k, n, steps, tab, nk));
 }
 
 // The bf16 tensor-core body (QmmArgs; lanes and vec unused): x (m, k)

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the bf16 tensor-core bodies of
 // matmul_pwl.cu (kernel 11, tiled), qmatmul.cu (kernel 10),
 // flash_attention.cu (kernel 9) and ssd_chunk.cu (kernel 7, through
-// ssd_tc.cuh), and by gemm.cuh's cluster GEMV: TMA
+// ssd_tc.cuh), by gemm.cuh's cluster GEMV and by mamba1_step.cu: TMA
 // tensor maps made on the host, mbarriers, TMA loads, thread-block
-// clusters (rank, barrier, loads from another block's shared memory) and
+// clusters (rank, barrier, loads from another block's shared memory, the
+// launch) and
 // the bf16 wgmma (fp32 accumulator) in its shared x shared and register x
 // shared forms.  sm_90a only (wgmma).
 //
@@ -192,6 +193,17 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// A cluster barrier in two halves: an arrival that orders nothing, and
+// the wait for every thread of the cluster to have arrived.  Between
+// them a block runs work that needs no other block; after the wait every
+// block of the cluster is running (its shared memory may be written).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // Element i of the float array `p` (in this block's shared memory) as it
 // lies in the shared memory of the cluster's block `rank`.  A load stalls
 // the thread only where its value is used, and a remote one takes
@@ -204,6 +216,49 @@ __device__ __forceinline__ float ld_rank(const float* p, int i, int rank) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a) : "memory");
   return v;
+}
+
+// Stores v at element i of the float array `p` as it lies in the shared
+// memory of the cluster's block `rank`: a posted store, which the thread
+// does not wait for; a cluster barrier's release orders it before the
+// barrier's other side.
+__device__ __forceinline__ void st_rank(float* p, int i, int rank, float v) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p + i)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(v) : "memory");
+}
+
+// ---- host: cluster launches ---------------------------------------------
+
+// Launches kern on `grid` in clusters of `cluster` blocks, `block` threads
+// and `smem` bytes of dynamic shared memory each, on stream s (above 48 KB
+// the kernel's limit is raised first).  Clusters of more than 8 blocks
+// need the kernel's cudaFuncAttributeNonPortableClusterSizeAllowed set by
+// the caller.  Returns the launch's error.
+template <typename... P, typename... A>
+inline cudaError_t launch_cluster(void (*kern)(P...), dim3 grid, dim3 block,
+                                  dim3 cluster, size_t smem, cudaStream_t s,
+                                  A... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cluster.x;
+  at[0].val.clusterDim.y = cluster.y;
+  at[0].val.clusterDim.z = cluster.z;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, args...);
 }
 
 // ---- device: wgmma -----------------------------------------------------

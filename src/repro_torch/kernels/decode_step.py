@@ -57,7 +57,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 import struct
 from typing import Callable, Dict, Optional, Tuple
 
@@ -68,7 +67,7 @@ from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import common
 from repro_torch.kernels.actiba import table_args
 from repro_torch.kernels.gated_norm import gated_norm_plain
-from repro_torch.kernels.qmatmul import GEMV_M, SMS
+from repro_torch.kernels.qmatmul import SMS
 from repro_torch.nn import layers
 
 # The launcher takes one pointer to its arguments packed as 64-bit fields
@@ -85,6 +84,7 @@ _STEP = common.Launcher("decode_step", "mamba2_step_launch",
                         [ctypes.c_char_p])
 MAX_ROWS = 16           # csrc/decode_step.cu: state rows a block (8 warps)
 _F32 = torch.float32
+_F32_6 = (_F32,) * 6
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,12 +115,52 @@ def _step_scratch(dev: int, b: int, row: int
     return got
 
 
-# The parameter tensors of each weight set a call has seen (conv_w, conv_b,
-# dt_bias, A, D, norm_scale: the model's decode_view hands the same ones
-# every step), checked once and kept with their pointers; a call re-reads
-# only the pointers, so a tensor given new storage is checked again.
-_PARAMS: Dict[Tuple[int, ...], Tuple[tuple, Tuple[int, ...]]] = {}
+# The parameter tensors of each weight set a call has seen (the model's
+# decode_view hands the same ones every step), checked once and kept with
+# their pointers by the three fused steps (kernels 1, 5 and 6); a call
+# re-reads only the pointers, so a tensor given new storage is checked
+# again.
+_PARAMS: Dict[Tuple[int, ...], Tuple[tuple, Tuple[int, ...], tuple]] = {}
 _MAX_PARAMS = 1024
+
+
+def _params(ts: tuple, shapes: tuple, dtypes: tuple, idx: int
+            ) -> Optional[Tuple[int, ...]]:
+    """The pointers of the parameter tensors ``ts`` when each is
+    contiguous, of its shape in ``shapes`` and its dtype in ``dtypes``, on
+    device ``idx`` (checked once per weight set), else ``None``."""
+    key = tuple(map(id, ts))
+    ptrs = tuple(t.data_ptr() for t in ts)
+    meta = (idx, shapes, dtypes)
+    got = _PARAMS.get(key)
+    if got is not None and got[1] == ptrs and got[2] == meta:
+        return ptrs
+    if any(t.shape != shape or t.dtype != dtype or not t.is_contiguous()
+           or t.get_device() != idx
+           for t, shape, dtype in zip(ts, shapes, dtypes)):
+        return None
+    if len(_PARAMS) >= _MAX_PARAMS:
+        _PARAMS.clear()
+    _PARAMS[key] = (ts, ptrs, meta)
+    return ptrs
+
+
+def _outputs(out, conv_state, state, idx: int, what: str):
+    """``common.outputs`` with its checks in one expression (the message
+    formatted only when they fail)."""
+    if out is None:
+        return torch.empty_like(conv_state), torch.empty_like(state)
+    new_conv, new_state = out
+    if (new_conv.shape == conv_state.shape and new_state.shape == state.shape
+            and new_conv.dtype == conv_state.dtype
+            and new_state.dtype == state.dtype
+            and new_conv.is_contiguous() and new_state.is_contiguous()
+            and new_conv.get_device() == idx
+            and new_state.get_device() == idx
+            and new_conv.data_ptr() != conv_state.data_ptr()
+            and new_state.data_ptr() != state.data_ptr()):
+        return new_conv, new_state
+    return common.outputs(out, conv_state, state, what)
 
 
 def mamba2_step_plain(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
@@ -185,30 +225,6 @@ def _step_refusal(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
     raise ValueError("mamba2_step: inputs refused")
 
 
-def _params(conv_w, conv_b, dt_bias, A, D, norm_scale, idx, h, di, dxbc,
-            width) -> Optional[Tuple[int, ...]]:
-    """The six parameters' pointers when they are contiguous fp32 of the
-    call's shapes on device ``idx`` (checked once per weight set), else
-    ``None``."""
-    ts = (conv_w, conv_b, dt_bias, A, D, norm_scale)
-    key = tuple(map(id, ts))
-    got = _PARAMS.get(key)
-    ptrs = tuple(t.data_ptr() for t in ts)
-    if got is not None and got[1] == ptrs and got[2] == (idx, h, di, dxbc,
-                                                         width):
-        return ptrs
-    if (conv_w.shape != (width, dxbc) or conv_b.shape != (dxbc,)
-            or dt_bias.shape != (h,) or A.shape != (h,) or D.shape != (h,)
-            or norm_scale.shape != (di,)
-            or any(t.dtype != _F32 or not t.is_contiguous()
-                   or t.get_device() != idx for t in ts)):
-        return None
-    if len(_PARAMS) >= _MAX_PARAMS:
-        _PARAMS.clear()
-    _PARAMS[key] = (ts, ptrs, (idx, h, di, dxbc, width))
-    return ptrs
-
-
 def mamba2_step(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b, dt_bias,
                 A, D, norm_scale, *, ngroups: int, head_dim: int,
                 eps: float = 1e-6, out=None,
@@ -245,25 +261,14 @@ def mamba2_step(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b, dt_bias,
             and ssm_state.is_contiguous() and xbc.get_device() == idx
             and dt.get_device() == idx and conv_state.get_device() == idx
             and ssm_state.get_device() == idx):
-        params = _params(conv_w, conv_b, dt_bias, A, D, norm_scale, idx, h,
-                         di, dxbc, width)
+        params = _params((conv_w, conv_b, dt_bias, A, D, norm_scale),
+                         ((width, dxbc), (dxbc,), (h,), (h,), (h,), (di,)),
+                         _F32_6, idx)
     if params is None:
         _step_refusal(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
                       dt_bias, A, D, norm_scale, g, p)
-    if out is None:
-        new_conv = torch.empty_like(conv_state)
-        new_ssm = torch.empty_like(ssm_state)
-    else:
-        new_conv, new_ssm = out
-        if not (new_conv.shape == conv_state.shape
-                and new_ssm.shape == ssm_state.shape
-                and new_conv.dtype == sd and new_ssm.dtype == _F32
-                and new_conv.is_contiguous() and new_ssm.is_contiguous()
-                and new_conv.get_device() == idx
-                and new_ssm.get_device() == idx
-                and new_conv.data_ptr() != conv_state.data_ptr()
-                and new_ssm.data_ptr() != ssm_state.data_ptr()):
-            common.outputs(out, conv_state, ssm_state, "mamba2_step")
+    new_conv, new_ssm = _outputs(out, conv_state, ssm_state, idx,
+                                 "mamba2_step")
     y = torch.empty((b, di), dtype=sd, device=idx)
     rows = step_rows(p)
     counts, ypre = _step_scratch(idx, b, di + di // rows)
@@ -398,11 +403,17 @@ sscan_step.launches = 0
 # ---------------------------------------------------------------------------
 # The fused Mamba-1 step: kernel 5
 # ---------------------------------------------------------------------------
-_M1_LAUNCH = ("mamba1_step", "mamba1_step_launch",
-              [common.I, common.P, common.I, common.P, common.I]
-              + [common.P] * 13 + [common.I] * 5
-              + [common.P, common.I, common.P, common.I, common.P])
-M1_CONV_CH = 64          # csrc/mamba1_step.cu CONV_CH: channels per block
+# The launcher takes one pointer to its arguments packed as 64-bit fields
+# in this order (csrc/mamba1_step.cu: M1Args).
+M1_FIELDS = ("dtype", "xs_raw", "x_rs", "z", "z_rs", "conv_state",
+             "ssm_state", "conv_w", "conv_b", "xproj_w", "dtproj_w",
+             "dtproj_b", "A", "D", "y", "new_conv", "new_ssm", "b", "di", "n",
+             "r", "width", "vec", "silu_tab", "silu_nk", "sp_tab", "sp_nk",
+             "stream")
+_M1_ARGS = struct.Struct("<" + "q" * len(M1_FIELDS))
+_M1 = common.Launcher("mamba1_step", "mamba1_step_launch", [ctypes.c_char_p])
+MAX_CONV = 4              # kernels 5 and 6: the widest conv (loads unrolled)
+_F32_7 = (_F32,) * 7
 
 
 def mamba1_step_plain(xs_raw, z, conv_state, ssm_state, conv_w, conv_b,
@@ -424,25 +435,15 @@ def mamba1_step_plain(xs_raw, z, conv_state, ssm_state, conv_w, conv_b,
     return out.to(z.dtype), new_conv.to(conv_state.dtype), new
 
 
-def mamba1_step(xs_raw, z, conv_state, ssm_state, conv_w, conv_b, xproj_w,
-                dtproj_w, dtproj_b, A, D, *, dt_rank: int, out=None,
-                silu_table: Optional[PWLTable] = None,
-                softplus_table: Optional[PWLTable] = None):
-    """The CUDA kernel (contract as :func:`mamba1_step_plain`, with the
-    activations' ActiBA tables in place of callables, ``None`` = exact):
-    two launches, conv + SiLU + x_proj partial sums over 64-channel
-    blocks, then their fixed-order sum, dt_proj, softplus, the update and
-    the gate over 128-channel blocks.  The parameters (conv_w, conv_b,
-    xproj_w, dtproj_w, dtproj_b, A, D) must be contiguous fp32; xs_raw and
-    z may be views of one ``in_proj`` output.  ``out`` = (new_conv,
-    new_ssm) buffers to write the new state into instead of fresh ones."""
+def _m1_refusal(xs_raw, z, conv_state, ssm_state, conv_w, conv_b, xproj_w,
+                dtproj_w, dtproj_b, A, D, r) -> None:
+    """Raise with the reason :func:`mamba1_step` refuses its inputs (run
+    only once its one combined check failed)."""
     dev = z.device
-    common.require(dev.type == "cuda", "mamba1_step takes CUDA tensors; "
-                   "the CPU path is mamba1_step_plain")
     b, di = z.shape
     n = ssm_state.shape[-1]
-    r = dt_rank
     width = conv_w.shape[0]
+    common.stream_code(z)
     common.check_f32("mamba1_step", conv_w=conv_w, conv_b=conv_b,
                      xproj_w=xproj_w, dtproj_w=dtproj_w, dtproj_b=dtproj_b,
                      A=A, D=D)
@@ -455,35 +456,81 @@ def mamba1_step(xs_raw, z, conv_state, ssm_state, conv_w, conv_b, xproj_w,
                        f"mamba1_step: {name} is {t.dtype}, z is {z.dtype}")
     common.require(tuple(xs_raw.shape) == (b, di),
                    "mamba1_step: xs_raw must be (b, di) like z")
+    common.row_stride(xs_raw, "xs_raw")
+    common.row_stride(z, "z")
     common.require(tuple(conv_state.shape) == (b, width - 1, di)
                    and conv_state.is_contiguous(),
                    "mamba1_step: conv_state must be contiguous (b, w-1, di)")
     common.require(tuple(ssm_state.shape) == (b, di, n)
-                   and ssm_state.dtype == torch.float32
-                   and ssm_state.is_contiguous(),
+                   and ssm_state.dtype == _F32 and ssm_state.is_contiguous(),
                    "mamba1_step: ssm_state must be contiguous fp32 (b, di, n)")
     common.require(conv_w.shape == (width, di) and conv_b.shape == (di,)
                    and xproj_w.shape == (di, r + 2 * n)
                    and dtproj_w.shape == (r, di)
                    and dtproj_b.shape == D.shape == (di,)
                    and A.shape == (di, n), "mamba1_step: parameter shapes")
-    nblk = -(-di // M1_CONV_CH)
-    scratch = torch.empty(b * (di + nblk * (r + 2 * n)), dtype=torch.float32,
-                          device=dev)
-    y = torch.empty((b, di), dtype=z.dtype, device=dev)
-    new_conv, new_ssm = common.outputs(out, conv_state, ssm_state,
-                                       "mamba1_step")
-    err = common.launcher(*_M1_LAUNCH)(
-        common.stream_code(z), common.ptr(xs_raw),
-        common.row_stride(xs_raw, "xs_raw"), common.ptr(z),
-        common.row_stride(z, "z"), common.ptr(conv_state),
-        common.ptr(ssm_state), common.ptr(conv_w), common.ptr(conv_b),
-        common.ptr(xproj_w), common.ptr(dtproj_w), common.ptr(dtproj_b),
-        common.ptr(A), common.ptr(D), common.ptr(scratch), common.ptr(y),
-        common.ptr(new_conv), common.ptr(new_ssm), b, di, n, r, width,
-        *table_args(silu_table, dev), *table_args(softplus_table, dev),
-        common.stream(dev))
-    common.check_launch(err, "mamba1_step", "mamba1_step kernels")
+    common.require(1 <= width <= MAX_CONV, f"mamba1_step: conv width "
+                   f"{width} not in 1..{MAX_CONV}")
+    raise ValueError("mamba1_step: inputs refused")
+
+
+def mamba1_step(xs_raw, z, conv_state, ssm_state, conv_w, conv_b, xproj_w,
+                dtproj_w, dtproj_b, A, D, *, dt_rank: int, out=None,
+                silu_table: Optional[PWLTable] = None,
+                softplus_table: Optional[PWLTable] = None):
+    """The CUDA kernel (contract as :func:`mamba1_step_plain`, with the
+    activations' ActiBA tables in place of callables, ``None`` = exact):
+    one launch, each batch row a thread-block cluster of 16 blocks over
+    d_inner (``csrc/mamba1_step.cu``: ``M1_CLUSTER``) whose x_proj partial
+    sums meet in distributed shared memory.  The parameters (conv_w,
+    conv_b, xproj_w, dtproj_w, dtproj_b, A, D) must be contiguous fp32;
+    xs_raw and z may be row views of one ``in_proj`` output.  ``out`` = (new_conv,
+    new_ssm) buffers to write the new state into instead of fresh ones.
+    The inputs are checked at once (the parameters once per weight set)
+    and a message is formatted only when a check fails; only the outputs
+    are allocated."""
+    if not z.is_cuda:
+        raise ValueError("mamba1_step takes CUDA tensors; the CPU path is "
+                         "mamba1_step_plain")
+    b, di = z.shape
+    n = ssm_state.shape[-1]
+    r = dt_rank
+    width = conv_w.shape[0]
+    sd = z.dtype
+    code = common.STREAM_DTYPES.get(sd)
+    idx = z.get_device()
+    xst, zst = xs_raw.stride(), z.stride()
+    params = None
+    if (code is not None and xs_raw.dtype == sd and conv_state.dtype == sd
+            and ssm_state.dtype == _F32 and 1 <= width <= MAX_CONV
+            and xs_raw.shape == (b, di)
+            and conv_state.shape == (b, width - 1, di)
+            and ssm_state.shape == (b, di, n) and xst[1] == 1 and zst[1] == 1
+            and conv_state.is_contiguous() and ssm_state.is_contiguous()
+            and xs_raw.get_device() == idx and conv_state.get_device() == idx
+            and ssm_state.get_device() == idx):
+        params = _params(
+            (conv_w, conv_b, xproj_w, dtproj_w, dtproj_b, A, D),
+            ((width, di), (di,), (di, r + 2 * n), (r, di), (di,), (di, n),
+             (di,)), _F32_7, idx)
+    if params is None:
+        _m1_refusal(xs_raw, z, conv_state, ssm_state, conv_w, conv_b,
+                    xproj_w, dtproj_w, dtproj_b, A, D, r)
+    new_conv, new_ssm = _outputs(out, conv_state, ssm_state, idx,
+                                 "mamba1_step")
+    y = torch.empty_like(z, memory_format=torch.contiguous_format)
+    sp, snp = ssm_state.data_ptr(), new_ssm.data_ptr()
+    dev = z.device
+    silu_p, silu_nk = table_args(silu_table, dev)
+    sp_p, sp_nk = table_args(softplus_table, dev)
+    err = _M1(_M1_ARGS.pack(
+        code, xs_raw.data_ptr(), xst[0], z.data_ptr(), zst[0],
+        conv_state.data_ptr(), sp, *params, y.data_ptr(),
+        new_conv.data_ptr(), snp, b, di, n, r, width,
+        n % 4 == 0 and (sp | snp | params[5]) % 16 == 0, silu_p, silu_nk,
+        sp_p, sp_nk, torch._C._cuda_getCurrentRawStream(idx)))
+    if err:
+        common.check_launch(err, "mamba1_step", "mamba1_step kernel")
     mamba1_step.launches += 1
     return y, new_conv, new_ssm
 
@@ -494,9 +541,14 @@ mamba1_step.launches = 0
 # ---------------------------------------------------------------------------
 # The fused RG-LRU step: kernel 6
 # ---------------------------------------------------------------------------
-_RG_LAUNCH = ("rglru_step", "rglru_step_launch",
-              [common.I, common.I] + [common.P] * 15 + [common.I] * 5
-              + [common.P, common.I] * 3 + [common.P])
+# The launcher takes one pointer to its arguments packed as 64-bit fields
+# in this order (csrc/rglru_step.cu: RgArgs).
+RG_FIELDS = ("dtype", "wdtype", "u", "gate", "conv_state", "h", "conv_w",
+             "conv_b", "rg_w", "rg_b", "ig_w", "ig_b", "lam", "y", "new_conv",
+             "new_h", "b", "w", "wc", "lanes", "splits", "vec", "sig_tab",
+             "sig_nk", "sp_tab", "sp_nk", "gelu_tab", "gelu_nk", "stream")
+_RG_ARGS = struct.Struct("<" + "q" * len(RG_FIELDS))
+_RG = common.Launcher("rglru_step", "rglru_step_launch", [ctypes.c_char_p])
 RG_LRU_C = 8.0             # Griffin's fixed gate exponent
 
 
@@ -523,41 +575,38 @@ def rglru_step_plain(u, gate, conv_state, h_state, conv_w, conv_b, rg_w,
     return out.to(u.dtype), new_conv.to(conv_state.dtype), h_new
 
 
-GATE_COLS = 128             # csrc/gemm.cuh: GV_COLS, columns a block
-GATE_MAX_KS = 1024          # GV_MAX_KS, k rows a split
+RG_COLS = 128             # kernel 6: weight columns a GEMV block takes
+RG_SPLITS = (5, 4, 2, 1)  # its clusters over k, largest first
 
 
-def gate_splits(m: int, k: int, n: int) -> int:
-    """Blocks over k of kernel 6's gate GEMV (``gemm::gemv_sums``, its
-    partials summed by its own second launch): about two blocks per SM, as
-    long as the fp32 partials (splits x m x n x 8 bytes written and read)
-    stay within a quarter of a weight's k x n bytes, and at most
-    ``GATE_MAX_KS`` rows of k per block.  A function of the shapes alone,
-    so a shape always takes the same sums in the same order."""
-    want = math.ceil(2 * SMS / math.ceil(n / GATE_COLS))
-    cap = max(1, k // (32 * m))
-    splits = max(min(want, cap), math.ceil(k / GATE_MAX_KS))
-    return math.ceil(k / math.ceil(k / splits))      # no empty split
+@functools.lru_cache(maxsize=None)
+def rglru_plan(w: int, esize: int) -> Tuple[int, int]:
+    """(lanes, splits) of kernel 6's gate GEMV over (w, w) weights of
+    ``esize`` bytes: ``RG_COLS`` columns a block (16 lanes of 8 bf16, 32 of
+    4 fp32) and the most k splits of ``RG_SPLITS`` whose blocks fit one
+    wave of the 132 SMs, each k lane keeping a row and no split empty: (16,
+    5), 100 blocks, at recurrentgemma-2b's bf16 2560 (clusters of 5
+    measured faster there than 4, 3, 2 or 6, and than 32 or 8 lanes).  A
+    function of the shapes alone, so a shape always takes the same sums in
+    the same order."""
+    lanes = min(32, RG_COLS // (16 // esize))
+    tiles = -(-w // RG_COLS)
+    klanes = 8 * 32 // lanes
+    for splits in RG_SPLITS:
+        if splits == 1 or (tiles * splits <= SMS and w >= splits * klanes
+                           and (splits - 1) * -(-w // splits) < w):
+            return lanes, splits
+    return lanes, 1
 
 
-def rglru_step(u, gate, conv_state, h_state, conv_w, conv_b, rg_w, rg_b,
-               ig_w, ig_b, lam, *, out=None,
-               sigmoid_table: Optional[PWLTable] = None,
-               softplus_table: Optional[PWLTable] = None,
-               gelu_table: Optional[PWLTable] = None):
-    """The CUDA kernel (contract as :func:`rglru_step_plain`, with the
-    activations' ActiBA tables in place of callables, ``None`` = exact):
-    two launches, the split-k GEMV of both gate weights (the conv step
-    computed as its input), then the update, one thread per (row,
-    channel).  conv_w, conv_b, rg_b, ig_b and lam must be contiguous fp32
-    (the model's ``decode_view``); rg_w and ig_w contiguous fp32 or bf16,
-    read as they are stored.  ``out`` = (new_conv, new_h) buffers to write
-    the new state into instead of fresh ones."""
+def _rg_refusal(u, gate, conv_state, h_state, conv_w, conv_b, rg_w, rg_b,
+                ig_w, ig_b, lam) -> None:
+    """Raise with the reason :func:`rglru_step` refuses its inputs (run
+    only once its one combined check failed)."""
     dev = u.device
-    common.require(dev.type == "cuda", "rglru_step takes CUDA tensors; the "
-                   "CPU path is rglru_step_plain")
     b, w = u.shape
     width = conv_w.shape[0]
+    common.stream_code(u)
     common.check_f32("rglru_step", conv_w=conv_w, conv_b=conv_b, rg_b=rg_b,
                      ig_b=ig_b, lam=lam, h_state=h_state)
     common.check_cuda(dev, gate=gate, conv_state=conv_state, h_state=h_state,
@@ -574,33 +623,74 @@ def rglru_step(u, gate, conv_state, h_state, conv_w, conv_b, rg_w, rg_b,
                    "rglru_step: conv_state must be contiguous (b, wc-1, w)")
     common.require(tuple(h_state.shape) == (b, w), "rglru_step: h_state "
                    "must be (b, w)")
-    common.require(conv_w.shape == (width, w) and width >= 2
+    common.require(conv_w.shape == (width, w) and 2 <= width <= MAX_CONV
                    and conv_b.shape == rg_b.shape == ig_b.shape == lam.shape
-                   == (w,), "rglru_step: parameter shapes")
+                   == (w,), "rglru_step: parameter shapes (conv width 2 to "
+                   f"{MAX_CONV})")
     for name, t in (("rg_w", rg_w), ("ig_w", ig_w)):
         common.require(t.dtype in common.STREAM_DTYPES and t.dtype == rg_w.dtype
                        and t.is_contiguous() and tuple(t.shape) == (w, w),
                        f"rglru_step: {name} must be contiguous fp32 or bf16 "
                        f"({w}, {w}) like rg_w, got {t.dtype} "
                        f"{tuple(t.shape)}")
-    splits = gate_splits(min(b, GEMV_M), w, w)
-    partial = torch.empty((splits * 2 * min(b, GEMV_M) * w,),
-                          dtype=torch.float32, device=dev)
-    vec4 = w % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
-                              for t in (rg_w, ig_w))
+    raise ValueError("rglru_step: inputs refused")
+
+
+def rglru_step(u, gate, conv_state, h_state, conv_w, conv_b, rg_w, rg_b,
+               ig_w, ig_b, lam, *, out=None,
+               sigmoid_table: Optional[PWLTable] = None,
+               softplus_table: Optional[PWLTable] = None,
+               gelu_table: Optional[PWLTable] = None):
+    """The CUDA kernel (contract as :func:`rglru_step_plain`, with the
+    activations' ActiBA tables in place of callables, ``None`` = exact):
+    one launch a group of 8 rows (every serve batch is one group) of the
+    cluster GEMV over both gate weights, its x the conv step and its
+    epilogue the whole update (plan: :func:`rglru_plan`).  conv_w, conv_b,
+    rg_b, ig_b and lam must be contiguous fp32 (the model's
+    ``decode_view``); rg_w and ig_w contiguous fp32 or bf16, read as they
+    are stored.  ``out`` = (new_conv, new_h) buffers to write the new state
+    into instead of fresh ones.  The inputs are checked at once (the
+    parameters once per weight set) and a message is formatted only when a
+    check fails; only the outputs are allocated."""
+    if not u.is_cuda:
+        raise ValueError("rglru_step takes CUDA tensors; the CPU path is "
+                         "rglru_step_plain")
+    b, w = u.shape
+    width = conv_w.shape[0]
+    sd, wd = u.dtype, rg_w.dtype
+    code, wcode = common.STREAM_DTYPES.get(sd), common.STREAM_DTYPES.get(wd)
+    idx = u.get_device()
+    params = None
+    if (code is not None and wcode is not None and gate.dtype == sd
+            and conv_state.dtype == sd and h_state.dtype == _F32
+            and gate.shape == (b, w) and conv_state.shape == (b, width - 1, w)
+            and h_state.shape == (b, w) and 2 <= width <= MAX_CONV
+            and u.is_contiguous() and gate.is_contiguous()
+            and conv_state.is_contiguous() and h_state.is_contiguous()
+            and gate.get_device() == idx and conv_state.get_device() == idx
+            and h_state.get_device() == idx):
+        params = _params((conv_w, conv_b, rg_w, rg_b, ig_w, ig_b, lam),
+                         ((width, w), (w,), (w, w), (w,), (w, w), (w,), (w,)),
+                         (_F32, _F32, wd, _F32, wd, _F32, _F32), idx)
+    if params is None:
+        _rg_refusal(u, gate, conv_state, h_state, conv_w, conv_b, rg_w, rg_b,
+                    ig_w, ig_b, lam)
+    new_conv, new_h = _outputs(out, conv_state, h_state, idx, "rglru_step")
     y = torch.empty_like(u)
-    new_conv, new_h = common.outputs(out, conv_state, h_state, "rglru_step")
-    err = common.launcher(*_RG_LAUNCH)(
-        common.stream_code(u), common.stream_code(rg_w), common.ptr(u),
-        common.ptr(gate), common.ptr(conv_state), common.ptr(h_state),
-        common.ptr(conv_w), common.ptr(conv_b), common.ptr(rg_w),
-        common.ptr(rg_b), common.ptr(ig_w), common.ptr(ig_b),
-        common.ptr(lam), common.ptr(partial), common.ptr(y),
-        common.ptr(new_conv), common.ptr(new_h), b, w, width, splits,
-        int(vec4), *table_args(sigmoid_table, dev),
-        *table_args(softplus_table, dev), *table_args(gelu_table, dev),
-        common.stream(dev))
-    common.check_launch(err, "rglru_step", "rglru_step kernels")
+    esize = rg_w.element_size()
+    lanes, splits = rglru_plan(w, esize)
+    base, row = params[2] | params[4], w * esize
+    vec = 16 if row % 16 == 0 and base % 16 == 0 else \
+        8 if row % 8 == 0 and base % 8 == 0 else 0
+    dev = u.device
+    err = _RG(_RG_ARGS.pack(
+        code, wcode, u.data_ptr(), gate.data_ptr(), conv_state.data_ptr(),
+        h_state.data_ptr(), *params, y.data_ptr(), new_conv.data_ptr(),
+        new_h.data_ptr(), b, w, width, lanes, splits, vec,
+        *table_args(sigmoid_table, dev), *table_args(softplus_table, dev),
+        *table_args(gelu_table, dev), torch._C._cuda_getCurrentRawStream(idx)))
+    if err:
+        common.check_launch(err, "rglru_step", "rglru_step kernel")
     rglru_step.launches += 1
     return y, new_conv, new_h
 

@@ -597,9 +597,11 @@ def _m1_inputs(dev, dtype, b, di, n, r, w, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,di,n,r", [(1, 96, 8, 6), (3, 200, 16, 13),
-                                      (4, 1536, 16, 48)])
+                                      (4, 1536, 16, 48), (2, 7, 4, 3)])
 def test_mamba1_kernel_matches_plain(dev, dtype, b, di, n, r):
-    """Ragged channel blocks (di not a multiple of 64 or 128), one row and
+    """One launch a call: ragged blocks (96 and 200 channels over the
+    cluster's 16 blocks, the last one short; 7 channels, so some blocks
+    hold none), n not a multiple of 4 (no 16-byte loads), one row and
     several; a second call gives the same bits."""
     ins = _m1_inputs(dev, dtype, b, di, n, r, 4, seed=di + n)
     before = ds.mamba1_step.launches
@@ -623,13 +625,31 @@ def test_mamba1_kernel_with_actiba_tables_matches_plain(dev, dtype):
     assert not torch.equal(got[0], exact[0])
 
 
+def _allocated_by(dev, call):
+    """Bytes a call leaves allocated on the card (its results held)."""
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    got = call()
+    torch.cuda.synchronize(dev)
+    return got, torch.cuda.memory_allocated(dev) - before
+
+
+def _blocks(t):
+    """A tensor's bytes in the caching allocator's 512-byte blocks."""
+    return -(-t.numel() * t.element_size() // 512) * 512
+
+
 def test_mamba1_kernel_writes_into_out_and_refuses_bad_inputs(dev):
+    """``out`` buffers take the new state, and the call allocates nothing
+    but y (no scratch); bad inputs raise with their reason."""
     ins = _m1_inputs(dev, torch.bfloat16, 2, 128, 16, 8, 4, seed=8)
     fresh = ds.mamba1_step(**ins, dt_rank=8)
     out = (torch.empty_like(ins["conv_state"]),
            torch.empty_like(ins["ssm_state"]))
-    got = ds.mamba1_step(**ins, dt_rank=8, out=out)
+    got, grew = _allocated_by(dev, lambda: ds.mamba1_step(**ins, dt_rank=8,
+                                                          out=out))
     assert got[1] is out[0] and got[2] is out[1]
+    assert grew == _blocks(got[0])
     assert all(torch.equal(a, r) for a, r in zip(got, fresh))
     with pytest.raises(ValueError, match="xproj_w must be contiguous fp32"):
         ds.mamba1_step(**dict(ins, xproj_w=ins["xproj_w"].bfloat16()),
@@ -745,13 +765,17 @@ def _rg_check(got, want, dtype):
         _close(a, r, TOL[dtype, "state" if name == "h" else "stream"], name)
 
 
+@pytest.mark.parametrize("weights", ["stream", "fp32"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,w", [(1, 96), (3, 200), (11, 256)])
-def test_rglru_kernel_matches_plain(dev, dtype, b, w):
-    """Kernel 6 at uneven widths (w not a multiple of 128, rows past one
-    group of 8), bf16 weights under a bf16 stream; a second call gives
-    the same bits."""
-    ins = _rg_inputs(dev, dtype, dtype, b, w, seed=b + w)
+@pytest.mark.parametrize("b,w", [(1, 96), (3, 200), (4, 136), (8, 256),
+                                 (11, 256), (4, 2560), (11, 200)])
+def test_rglru_kernel_matches_plain(dev, dtype, weights, b, w):
+    """Kernel 6 at uneven widths (w not a multiple of the column group:
+    8-byte and element-wise weight loads), b = 1 to 8 (one row group, one
+    launch) and 11 (two), weights in the stream dtype or fp32; counted
+    once a call; a second call gives the same bits."""
+    wdtype = dtype if weights == "stream" else torch.float32
+    ins = _rg_inputs(dev, dtype, wdtype, b, w, seed=b + w)
     before = ds.rglru_step.launches
     got = ds.rglru_step(**ins)
     assert ds.rglru_step.launches == before + 1
@@ -759,17 +783,24 @@ def test_rglru_kernel_matches_plain(dev, dtype, b, w):
     _rg_check(got, ds.rglru_step_plain(**ins), dtype)
 
 
+@pytest.mark.parametrize("weights", ["bf16", "fp32"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rglru_kernel_with_actiba_tables_matches_plain(dev, dtype):
+def test_rglru_kernel_with_actiba_tables_matches_plain(dev, dtype, weights):
     """Kernel 6 under ``XambaConfig.pallas()`` through ``ops``: the
-    sigmoid, softplus and gelu tables, fp32 weights under either stream;
-    ``out`` buffers receive the new state."""
+    sigmoid, softplus and gelu tables, bf16 or fp32 weights under either
+    stream; ``out`` buffers receive the new state and the call allocates
+    nothing but y."""
     xamba = XambaConfig.pallas()
-    ins = _rg_inputs(dev, dtype, torch.float32, 4, 160, seed=7)
+    wdtype = torch.bfloat16 if weights == "bf16" else torch.float32
+    ins = _rg_inputs(dev, dtype, wdtype, 4, 160, seed=7)
     out = (torch.empty_like(ins["conv_state"]),
            torch.empty_like(ins["h_state"]))
-    got = ops.rglru_decode_step(*ins.values(), xamba=xamba, out=out)
+    fresh = ops.rglru_decode_step(*ins.values(), xamba=xamba)
+    got, grew = _allocated_by(dev, lambda: ops.rglru_decode_step(
+        *ins.values(), xamba=xamba, out=out))
     assert got[1] is out[0] and got[2] is out[1]
+    assert grew == _blocks(got[0])
+    assert all(torch.equal(a, r) for a, r in zip(fresh, got))
     want = ds.rglru_step_plain(*ins.values(), **{
         k: (lambda v, t=pwl.table_for(k, xamba): actiba.pwl_activate_plain(
             v, t)) for k in ("sigmoid", "softplus", "gelu")})
@@ -778,6 +809,30 @@ def test_rglru_kernel_with_actiba_tables_matches_plain(dev, dtype):
         ds.rglru_step(**dict(ins, lam=ins["lam"].bfloat16()))
     with pytest.raises(ValueError, match="conv_state"):
         ds.rglru_step(**dict(ins, conv_state=ins["conv_state"][:, :2]))
+
+
+def test_step_kernels_5_6_mixed_launches_repeat_bit_for_bit(dev):
+    """Several hundred interleaved launches of kernels 5 and 6 (both
+    stream dtypes, fp32 and bf16 weights, one and two row groups, ragged
+    widths, full width), each giving the bits of its first call: no state
+    is carried from one call to the next."""
+    calls = []
+    for dtype, b, di, n, r in ((torch.bfloat16, 4, 1536, 16, 48),
+                               (torch.float32, 1, 200, 16, 13),
+                               (torch.bfloat16, 3, 96, 8, 6)):
+        ins = _m1_inputs(dev, dtype, b, di, n, r, 4, seed=di + b)
+        calls.append(lambda ins=ins, r=r: ds.mamba1_step(**ins, dt_rank=r))
+    for dtype, wdtype, b, w in ((torch.bfloat16, torch.bfloat16, 4, 2560),
+                                (torch.float32, torch.float32, 11, 256),
+                                (torch.bfloat16, torch.float32, 8, 200)):
+        ins = _rg_inputs(dev, dtype, wdtype, b, w, seed=w + b)
+        calls.append(lambda ins=ins: ds.rglru_step(**ins))
+    first = [call() for call in calls]
+    order = torch.randint(len(calls), (400,),
+                          generator=torch.Generator().manual_seed(1))
+    for i in order.tolist():
+        got = calls[i]()
+        assert all(torch.equal(a, r) for a, r in zip(got, first[i])), i
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

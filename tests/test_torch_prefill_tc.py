@@ -19,8 +19,11 @@ Here:
   under ``chip_smoke.py``'s limits, with 1-4 chunks, a nonzero incoming
   state, one and two groups, chunks of 64 and 128 and the ActiBA tables;
 * the wrappers' rules: kernel 2's body rule (``prefill_chunk.path``) and
-  head-set rule, kernel 1's rows-per-block rule (``step_rows``), and both
-  packed argument layouts against the C structs they fill.
+  head-set rule, kernel 1's rows-per-block rule (``step_rows``), and the
+  packed argument layouts of kernels 1, 2, 5 and 6 against the C structs
+  they fill;
+* the plain prefill against ``chip_smoke.py``'s fp64 witness of the
+  function on the card test's seed-280 inputs.
 """
 import pathlib
 import re
@@ -32,7 +35,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from chip_smoke import D_STATE, HEAD_DIM, N_GROUPS, N_HEADS, compare
+from chip_smoke import ATOL_RMS, D_STATE, HEAD_DIM, N_GROUPS, N_HEADS, \
+    TOL, card_case_inputs, compare, witness_prefill
 from repro.core import pwl as jpwl
 from repro.core.xamba import XambaConfig as JXamba
 from repro.kernels import prefill_chunk as jpc
@@ -391,7 +395,10 @@ def _c_struct(source, name):
 @pytest.mark.parametrize("source,name,fields,packer", [
     ("decode_step.cu", "StepArgs", ds.STEP_FIELDS, ds._STEP_ARGS),
     ("prefill_chunk.cu", "PrefillArgs", pc.PREFILL_FIELDS,
-     pc._PREFILL_ARGS)], ids=["kernel 1", "kernel 2"])
+     pc._PREFILL_ARGS),
+    ("mamba1_step.cu", "M1Args", ds.M1_FIELDS, ds._M1_ARGS),
+    ("rglru_step.cu", "RgArgs", ds.RG_FIELDS, ds._RG_ARGS)],
+    ids=["kernel 1", "kernel 2", "kernel 5", "kernel 6"])
 def test_packed_arguments_match_the_c_struct(source, name, fields, packer):
     """Each launcher's one packed buffer: the fields in the C struct's
     order, 8 bytes each (int64_t, a pointer or the double eps)."""
@@ -403,3 +410,38 @@ def test_packed_arguments_match_the_c_struct(source, name, fields, packer):
     for f, t, code in zip(names, types, fmt.lstrip("<")):
         assert t in ("int64_t", "double", "void *", "const void *"), (f, t)
         assert code == ("d" if t == "double" else "q"), (f, t, code)
+
+
+def _triangular_cumsum(a, dim):
+    """An inclusive prefix sum over dim 1 as CumBA's triangular product
+    (the JAX package's form, summed in the matmul's order)."""
+    assert dim == 1
+    L = a.shape[1]
+    return torch.einsum("ls,bsh->blh", torch.ones(L, L).tril(), a)
+
+
+@pytest.mark.parametrize("form", ["serial", "triangular"])
+def test_plain_prefill_against_the_fp64_witness_on_the_card_case(
+        monkeypatch, form):
+    """Kernel 2's reference on the card test's seed-280 inputs (bf16; the
+    wave serve's call: b 4, one chunk of 128, 24 heads): the plain version
+    with either form of its prefix sums, the serial ``torch.cumsum`` (the
+    kernels' order) or the triangular product, stays within 1.25 of
+    ``chip_smoke.py``'s element-wise limit from an fp64 witness of the
+    function (``witness_prefill``), and fewer than 0.1% of its elements
+    differ from it at all.  Which side of the limit the worst element
+    falls on depends on the order of the prefix sums (PERF.md,
+    Findings), so the bound is set with margin over both forms."""
+    if form == "triangular":
+        monkeypatch.setattr(torch, "cumsum", _triangular_cumsum)
+    ins = card_case_inputs("cpu", torch.bfloat16, 4, 128, 24, 64, 1, 128, 4,
+                           seed=280)
+    want, _ = witness_prefill(ins, ngroups=1, head_dim=64)
+    got = pc.mamba2_prefill_plain(**ins, ngroups=1, head_dim=64,
+                                  chunk=128)[0]
+    r = want.float()
+    diff = (got.float() - r).abs()
+    used = diff / (TOL["bfloat16", "stream"] * (
+        r.abs() + ATOL_RMS * r.square().mean().sqrt()))
+    assert float(used.max()) < 1.25
+    assert int((diff > 0).sum()) < 0.001 * diff.numel()

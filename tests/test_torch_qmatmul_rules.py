@@ -2,8 +2,8 @@
 
 Which body each call takes (``qmatmul.path``) on every kernel-10 shape of
 the model paths, the cluster GEMV's and the ``wgmma`` body's split rules
-as pure functions of the shapes, kernel 6's split values (its own rule,
-unchanged), and the exact int8 -> bf16 widening the tensor-core body
+as pure functions of the shapes, kernel 6's plan on the same GEMV, and
+the exact int8 -> bf16 widening the tensor-core body
 relies on.  The bodies themselves run only on the card
 (``tests/test_torch_cuda.py``).
 """
@@ -130,11 +130,18 @@ def test_matmul_pwl_gemv_shares_the_plan():
     assert qm.load_bytes(7680, 4, w.float()) == 16
 
 
-def test_kernel_6_split_values_unchanged():
-    """Kernel 6 keeps its split rule (gemm::gemv_sums and its second
-    launch): recurrentgemma-2b's width 2560 at b = 1..8."""
-    assert [ds.gate_splits(min(b, qm.GEMV_M), 2560, 2560)
-            for b in range(1, 9)] == [14, 14, 14, 14, 14, 13, 11, 10]
+def test_kernel_6_plan_values():
+    """Kernel 6 on the cluster GEMV: recurrentgemma-2b's width 2560 takes
+    one plan, a function of the width and the weights' element size alone
+    (b = 1..8 is one launch of one row group): 128 columns a block and
+    clusters of 5 over k, (16, 5) with bf16 weights (100 blocks of 512 k
+    rows), (32, 5) with fp32."""
+    assert ds.rglru_plan(2560, 2) == (16, 5)
+    assert ds.rglru_plan(2560, 4) == (32, 5)
+    assert math.ceil(8 / qm.GEMV_M) == 1
+    lanes, splits = ds.rglru_plan(2560, 2)
+    assert math.ceil(2560 / (lanes * 8)) * splits == 100
+    assert math.ceil(2560 / splits) == 512
 
 
 def test_every_int8_value_widens_to_bf16_exactly():
