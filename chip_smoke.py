@@ -19,8 +19,13 @@ qwen1.5-4b:
    ``ssd_chunk`` at b = 4, two chunks of 256 (twice, the same bits, on
    the body its ``path()`` names), kernel 2's seed-280 card-test case
    (bf16) from both bodies and the plain version held to an fp64 witness
-   of the function (``witness_prefill``; a reading), and ``pwl_activate`` with
-   the SiLU and softplus tables on the chain's xBC and dt streams;
+   of the function (``witness_prefill``: every element within
+   ``PREFILL_WITNESS_X`` of the limit, fewer than ``PREFILL_WITNESS_OFF``
+   of them off), and ``pwl_activate`` with the SiLU and softplus tables
+   on the chain's xBC, dt and gate streams, with 12- and 100-segment
+   tables (padded terms) and on an operand one element off alignment
+   (the scalar body), each twice on the body its ``path()`` names, fp32
+   bit for bit;
    ``rglru_step`` at recurrentgemma-2b's width (b = 1 and 4, exact and
    with the sigmoid / softplus / gelu tables), ``rg_lru_scan`` at (4,
    256, 2560) and (4, 300, 2560), ``matmul_pwl`` (gelu table, plain and
@@ -108,8 +113,9 @@ qwen1.5-4b:
    port, and the exact remaps against each other (``LOGIT_TOL``,
    ``PREFIX_SUM_TOL``); under ``pallas()`` each layer launches one
    ``cumsum_last``, one ``ssd_chunk`` (on its ``wgmma`` body) and three
-   ``pwl_activate``, and the first two are held to the phase-3 limits on
-   the operands that forward gave them;
+   ``pwl_activate`` (every one on its vector body, under ``+ActiBA``
+   too), and the first two are held to the phase-3 limits on the
+   operands that forward gave them;
 7. times   — each kernel and its plain version at the shapes its path
    gives it (CUDA events, median), launches, the bound, and a PyTorch
    call computing the same function where there is one; kernels 1 and 2
@@ -131,7 +137,11 @@ qwen1.5-4b:
    weights cold (a rotation of copies larger than the 50 MB L2); kernels
    5 and 6 with their host microseconds a call (one launch each now),
    kernel 6 also cold (three weight sets in turn, 78.6 MB), and ptxas's
-   report of both.  Each phase's seconds are printed after it.
+   report of both; kernel 12 at the ``pallas()`` forward's three fp32
+   operands and phase 4's 32-bucket bf16 xBC (call, device, host, its
+   byte bound and its instruction floor, ptxas) and kernel 3 with its
+   host microseconds and ptxas.  Each phase's seconds are printed after
+   it.
 
 Any failure raises (exit code 1).  Without a GPU it exits 1 before doing
 anything.  The second line from the end is the ``kernels`` JSON record,
@@ -158,6 +168,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # allows (bf16 in the serve path: the int8 weights widen exactly to bf16).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# fp32 instructions that are not fused multiply-adds (a subtraction, a max,
+# a product, a sum), one a lane a cycle: 132 SMs x 4 schedulers x 32 lanes
+# at the 1.98 GHz boost clock.  Kernel 12's instruction floor.
+FP32_ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
 BF16_TC_FLOP_PER_S = 989e12
 # fp32-accurate products on the bf16 tensor cores: six bf16 products of
 # three-term splits each (csrc/ssd_tc.cuh), kernel 7's ``wgmma`` body.
@@ -207,6 +221,18 @@ LOGIT_TOL = 2e-3
 # agreement on ABLATION_TOP1 of the positions.
 PREFIX_SUM_TOL = 8e-3
 ABLATION_TOP1 = 0.99
+# Kernel 2 against an fp64 witness of its function (``witness_prefill``)
+# on the card test's seed-280 bf16 case: every element within
+# PREFILL_WITNESS_X of the element-wise limit above, and fewer than
+# PREFILL_WITNESS_OFF of the elements off the witness at all.  Both
+# bodies and the plain version read 1.0065 of the limit on one element
+# (where y and the D skip cancel, a bf16 step from a rounding point; the
+# order of the fp32 prefix sums decides its side) and 0.043-0.053% of
+# the elements off on the H100 (PERF.md);
+# tests/test_torch_prefill_tc.py holds the plain version by the same rule
+# on the CPU.
+PREFILL_WITNESS_X = 1.25
+PREFILL_WITNESS_OFF = 0.001
 
 N_HEADS, HEAD_DIM, D_STATE, N_GROUPS, WIDTH = 24, 64, 128, 1, 4
 D_MODEL = 768
@@ -514,8 +540,9 @@ CHAIN_C = -(-CHAIN_L // CHUNK)
 def chain_inputs(dev, dtype, seed):
     """Operands of kernels 13, 7 and 12 at the chain's full width: the
     per-chunk log decays a_c (b, h, c, L) and their prefix sums, the
-    dt-scaled x, B and C of ``ssd``, and the xBC and dt streams the SiLU
-    and softplus tables act on."""
+    dt-scaled x, B and C of ``ssd``, and the xBC, dt and gate streams the
+    SiLU and softplus tables act on (the ``pallas()`` forward's three
+    ``pwl_activate`` calls a layer)."""
     import torch
     g = torch.Generator().manual_seed(seed)
     b, c, L = CHAIN_B, CHAIN_C, CHUNK
@@ -527,7 +554,8 @@ def chain_inputs(dev, dtype, seed):
         B_c=_rand(g, (b, c, L, N_GROUPS, D_STATE), 0.5, dev, dtype),
         C_c=_rand(g, (b, c, L, N_GROUPS, D_STATE), 0.5, dev, dtype),
         xbc=_rand(g, (b, CHAIN_L, D_XBC), 2.0, dev, dtype),
-        dt=_rand(g, (b, CHAIN_L, N_HEADS), 2.0, dev, dtype))
+        dt=_rand(g, (b, CHAIN_L, N_HEADS), 2.0, dev, dtype),
+        z=_rand(g, (b, CHAIN_L, D_INNER), 2.0, dev, dtype))
 
 
 # Kernel 2's phase-3 cases (b, l, chunk, ActiBA): the wave serve's call
@@ -611,11 +639,13 @@ def witness_prefill(ins, *, ngroups, head_dim, eps=1e-6):
 
 
 def prefill_witness_check(dev, kernels):
-    """Phase 3's reading on kernel 2's reference: the card test's seed-280
-    inputs (bf16), the output of both kernel bodies and of
+    """Phase 3's check of kernel 2 against its function: the card test's
+    seed-280 inputs (bf16), the output of both kernel bodies and of
     ``mamba2_prefill_plain``, each held to the fp64 witness
-    (``witness_prefill``) by the phase's element-wise rule.  A reading:
-    no limit, no failure."""
+    (``witness_prefill``): every element within ``PREFILL_WITNESS_X`` of
+    the phase's element-wise limit, and fewer than
+    ``PREFILL_WITNESS_OFF`` of the elements off it at all.  Returns the
+    names of the outputs that failed."""
     import torch
     kw = dict(ngroups=1, head_dim=64, chunk=128)
     ins = card_case_inputs(dev, torch.bfloat16, 4, 128, 24, 64, 1, 128, 4,
@@ -627,16 +657,34 @@ def prefill_witness_check(dev, kernels):
     torch.cuda.synchronize(dev)
     rms = float(want.square().mean().sqrt())
     print("  kernel 2's seed-280 case (bf16, b=4 l=128 chunk 128) against "
-          "the fp64 witness, the phase-3 rule as a reading (no limit):",
-          flush=True)
+          f"the fp64 witness: every element within {PREFILL_WITNESS_X} of "
+          f"the phase-3 limit, fewer than {PREFILL_WITNESS_OFF:.1%} of "
+          "them off it", flush=True)
+    fails = []
     for label, outs in got.items():
         diff = (outs[0].float() - want).abs()
         used = float((diff / (TOL["bfloat16", "stream"] * (
             want.abs() + ATOL_RMS * rms))).max())
+        n_off = int((diff > 0).sum())
+        ok = used < PREFILL_WITNESS_X and \
+            n_off < PREFILL_WITNESS_OFF * diff.numel()
         print(f"    {label}: worst element at {used:.4f} of the limit; "
-              f"{int((diff > 0).sum())} of {diff.numel()} elements differ, "
+              f"{n_off} of {diff.numel()} elements differ, "
               f"{int((_bf16_steps(diff, want) > 1).sum())} by more than one "
-              f"bf16 step", flush=True)
+              f"bf16 step" + (" ok" if ok else " FAIL"), flush=True)
+        if not ok:
+            fails.append(f"mamba2_prefill {label} vs witness")
+    return fails
+
+
+def offset_view(x):
+    """A copy of ``x`` whose base lies one element past a fresh (aligned)
+    allocation: contiguous, not 16-byte aligned."""
+    import torch
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = base[1:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 def kernel_cases(dev, kernels, tables):
@@ -645,6 +693,8 @@ def kernel_cases(dev, kernels, tables):
     ``tables``: the ActiBA tables (``silu``, ``softplus``, ``sigmoid``,
     ``gelu``) of ``XambaConfig.pallas()``."""
     import torch
+    from repro_torch.core.pwl import get_table
+    from repro_torch.kernels.actiba import path as actiba_path
     from repro_torch.kernels.prefill_chunk import path as prefill_path
     from repro_torch.kernels.qmatmul import path as qmatmul_path
     from repro_torch.kernels.ssd_chunk import path as ssd_chunk_path
@@ -712,7 +762,7 @@ def kernel_cases(dev, kernels, tables):
                        **ins, chunk=chunk, **kw, **tp), dn, FUSED_OUTS)
 
         if dtype == torch.bfloat16:
-            prefill_witness_check(dev, kernels)
+            fails.extend(prefill_witness_check(dev, kernels))
 
         ch = chain_inputs(dev, dtype, seed=30)
         got = kernels["cumsum_last"](ch["a_c"])
@@ -725,15 +775,30 @@ def kernel_cases(dev, kernels, tables):
                ssd_chunk_path(*args), lambda: kernels["ssd_chunk"](*args),
                lambda: kernels["ssd_chunk_plain"](*args), dn,
                (("y_diag", "state"), ("states", "state")))
-        for name, x in (("silu", ch["xbc"]), ("softplus", ch["dt"])):
-            got = kernels["pwl_activate"](x, tables[name])
-            want = kernels["pwl_activate_plain"](x, tables[name])
-            torch.cuda.synchronize(dev)
-            check("pwl_activate", f"{dn} {name} {tuple(x.shape)}", (got,),
-                  (want,), dn, ((name, "stream"),))
+        pwl_cases = [(name, f"{name} table", tables[name], x)
+                     for name, x in (("silu", ch["xbc"]),
+                                     ("softplus", ch["dt"]),
+                                     ("silu", ch["z"]))]
+        # Tables padded to 15 and 127 terms, and an operand 4 bytes off
+        # 16-byte alignment (the scalar body).
+        pwl_cases += [("silu", f"silu {k} segments", get_table("silu",
+                                                               segments=k),
+                       ch["xbc"]) for k in (12, 100)]
+        pwl_cases.append(("silu", "silu table, offset view", tables["silu"],
+                          offset_view(ch["xbc"])))
+        for name, label, table, x in pwl_cases:
+            routed("pwl_activate", f"{dn} {label} {tuple(x.shape)}",
+                   actiba_path(x),
+                   lambda: (kernels["pwl_activate"](x, table),),
+                   lambda: (kernels["pwl_activate_plain"](x, table),), dn,
+                   ((name, "stream"),))
             if dtype == torch.float32:
-                print(f"    bit-identical to the plain version: "
-                      f"{bool(torch.equal(got, want))}")
+                same = torch.equal(kernels["pwl_activate"](x, table),
+                                   kernels["pwl_activate_plain"](x, table))
+                print(f"    bit-identical to the plain version: {same}"
+                      + ("" if same else " FAIL"), flush=True)
+                if not same:
+                    fails.append(f"pwl_activate {dn} {label} bits")
         m1kw = dict(dt_rank=M1_DT_RANK)
         for b in (1, 4):
             ins = mamba1_inputs(b, dev, dtype, seed=50 + b)
@@ -984,6 +1049,8 @@ def serve_modes_phase(serve_main, counters, cfg, dev):
     for k in ("mamba2_prefill", "pwl_activate", "cumsum_last"):
         assert launches[k] > 0, f"pallas serve: {k} idle"
     prefill_bodies(counters, "pallas serve")
+    print(f"  pallas serve: pwl_activate launches by body "
+          f"{dict(counters['pwl_activate'].path_launches)}", flush=True)
 
 
 CONT_ARGV = ["--arch", "mamba2-130m", "--engine", "continuous",
@@ -1989,7 +2056,7 @@ def ablation_phase(dev, seed, cfg, counters, kernels, worst):
     from repro_torch.launch import ablation
     from repro_torch.models import build_model
 
-    launches, paths, by_kernel, shared = {}, {}, {}, {}
+    launches, paths, pwl_paths, by_kernel, shared = {}, {}, {}, {}, {}
     calls = {"cumba_cumsum": [], "ssd_chunk": []}
 
     def first_forward(name, model, params, tokens):
@@ -1999,6 +2066,7 @@ def ablation_phase(dev, seed, cfg, counters, kernels, worst):
         torch.cuda.synchronize()
         launches[name] = read_counts(counters)
         paths[name] = dict(counters["ssd_chunk"].path_launches)
+        pwl_paths[name] = dict(counters["pwl_activate"].path_launches)
         by_kernel[name] = device_profile(
             lambda: model.forward(params, tokens), n=2)
         if name == "pallas":
@@ -2138,7 +2206,14 @@ def ablation_phase(dev, seed, cfg, counters, kernels, worst):
           f"{paths['pallas']}", flush=True)
     assert paths["pallas"] == {"wgmma": n, "simt": 0}, \
         f"ablation pallas: ssd_chunk bodies {paths['pallas']}"
-    return dict(launches["pallas"], ssd_chunk_paths=paths["pallas"])
+    # Every kernel-12 launch of both ActiBA forwards on the vector body.
+    for name in ("pallas", "+ActiBA (k=32)"):
+        print(f"  pwl_activate launches by body in the {name} forward: "
+              f"{pwl_paths[name]}", flush=True)
+        assert pwl_paths[name] == {"vector": 3 * n, "scalar": 0}, \
+            f"ablation {name}: pwl_activate bodies {pwl_paths[name]}"
+    return dict(launches["pallas"], ssd_chunk_paths=paths["pallas"],
+                pwl_activate_paths=pwl_paths["pallas"])
 
 
 @contextlib.contextmanager
@@ -2662,6 +2737,47 @@ def ssd_times(dev, kernels, args, outs, launches, dev_ms, rate):
         print(f"    ptxas {line}")
 
 
+def pwl_floor_ms(numel, table):
+    """Kernel 12's instruction floor in its kept order: ``pwl_ops``
+    instructions an element (none fused), each a lane's issue slot."""
+    return pwl_ops(numel, table) / FP32_ISSUE_PER_S * 1e3
+
+
+def pwl_times(dev, kernels, launches, tables):
+    """Phase 7's extra lines for kernel 12: the ``pallas()`` forward's
+    three operands in fp32 (xBC's and the gate's SiLU, dt's softplus) and
+    phase 4's 32-bucket xBC in bf16 beside the forward's, each with its
+    call, device and host time, its byte bound and its instruction floor;
+    the launches by body in the forward; ptxas's report."""
+    import torch
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        ch = chain_inputs(dev, dtype, seed=34)
+        if dtype == torch.float32:
+            cases += [("silu", ch["xbc"]), ("silu", ch["z"]),
+                      ("softplus", ch["dt"])]
+        else:
+            cases += [("silu", ch["xbc"][:, :32].contiguous()),
+                      ("silu", ch["xbc"])]
+    for name, x in cases:
+        call = lambda: kernels["pwl_activate"](x, tables[name])  # noqa
+        out = call()
+        ms = time_call(call)
+        dev_ms = _ours(device_profile(call))
+        us = host_us(call)
+        bytes_ms, _ = _bound(_bytes(x, out), 0)
+        print(f"  pwl_activate {str(x.dtype).split('.')[-1]} {name} "
+              f"{tuple(x.shape)}: kernel {ms:.4f} ms (device {dev_ms:.4f} "
+              f"ms), host {us:.1f} us a call; bytes {bytes_ms:.4f} ms, "
+              f"instruction floor {pwl_floor_ms(x.numel(), tables[name]):.4f}"
+              f" ms ({2 + 4 * (tables[name].num_segments - 1)} an element)",
+              flush=True)
+    print(f"    launches by body in the pallas() forward "
+          f"{launches['pwl_activate_paths']}", flush=True)
+    for line in ptxas_lines("actiba", "pwl_activate_kernel"):
+        print(f"    ptxas {line}")
+
+
 def times_phase(dev, kernels, launches, steps, waves, worst, tables):
     """Phase 7: kernel and plain times at the shapes each path gives the
     kernel (serve: bf16, b=4, prefill l=128, one chunk; the ablation's
@@ -2815,6 +2931,8 @@ def times_phase(dev, kernels, launches, steps, waves, worst, tables):
                   flush=True)
         elif name == "ssd_chunk":
             ssd_times(dev, kernels, args, outs, launches, dev_ms, rate)
+        elif name == "pwl_activate":
+            pwl_times(dev, kernels, launches, tables)
     return rows + qmatmul_times(dev, kernels, launches["qmatmul_paths"],
                                 worst)
 
@@ -2881,9 +2999,13 @@ def mamba1_times(dev, kernels, launches, steps, worst, tables):
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None))
         print(f"  {name} fp32 state {tuple(args[0].shape)}: kernel {ms:.4f} "
-              f"ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}); library: no single PyTorch "
-              f"call; {launches[name]} launch in phase 5c", flush=True)
+              f"ms (device {dev_ms:.4f} ms), host "
+              f"{host_us(lambda: kernels[name](*args)):.1f} us a call, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+              f"library: no single PyTorch call; {launches[name]} launch in "
+              f"phase 5c", flush=True)
+    for line in ptxas_lines("decode_step", "ssd_step_kernel"):
+        print(f"    ptxas {line}")
     return rows
 
 
@@ -3061,7 +3183,7 @@ def main() -> int:
     launches.update({k: v for k, v in ablation_phase(
         dev, 2, get_config("mamba2-130m"), counters, kernels, worst).items()
         if k in ("cumsum_last", "ssd_chunk", "pwl_activate",
-                 "ssd_chunk_paths")})
+                 "ssd_chunk_paths", "pwl_activate_paths")})
 
     phase("7. times")
     with torch.inference_mode():

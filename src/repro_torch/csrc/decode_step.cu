@@ -42,37 +42,18 @@
 // tables (silu_tab, sp_tab; null for the exact functions), as the TPU
 // kernel's silu and softplus callables are (decode_step.py:159-160).
 //
-// ssd_step replaces the TPU kernel decode_step.py:76 ssd_step, the bare
-// SSD update without the conv, the activations or the norm (dt comes in
-// raw): grid (batch, head), one warp per state row (ssd_head_update).
+// ssd_step (kernel 3) replaces the TPU kernel decode_step.py:76 ssd_step,
+// the bare SSD update without the conv, the activations or the norm (dt
+// comes in raw: decay = exp(dt A)).  Bound: bytes, the fp32 state read once
+// and written once (6.3 MB at b = 4, full width: 0.0019 ms).  It is kernel
+// 1's state stream with nothing around it: the same grid, rows a block and
+// warps (rows_load / rows_update / rows_store below, shared by both), every
+// state load issued first, then the block's x rows and its group's B and C
+// into shared memory; y written per row in x's dtype.  No arrival counter
+// or scratch: nothing spans blocks.
 #include <cstdint>
 
 #include "common.cuh"
-
-// One head's p x n state: s'[pi][k] = s[pi][k] decay + (dt x[pi]) B[k],
-// written to ns, one warp per state row, lanes along n.  done(pi, y) gets
-// y = s'[pi] . C on lane 0 of the row's warp.  (Kernel 3's update.)
-template <typename F>
-__device__ __forceinline__ void ssd_head_update(
-    const float* __restrict__ s, float* __restrict__ ns, const float* xs,
-    const float* Bv, const float* Cv, float dtf, float decay, int p, int n,
-    F done) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int pi = warp; pi < p; pi += nwarps) {
-    const float dx = dtf * xs[pi];
-    const float* srow = s + static_cast<size_t>(pi) * n;
-    float* nrow = ns + static_cast<size_t>(pi) * n;
-    float part = 0.f;
-    for (int k = lane; k < n; k += 32) {
-      const float v = srow[k] * decay + dx * Bv[k];
-      nrow[k] = v;
-      part += v * Cv[k];
-    }
-    part = warp_sum(part);
-    if (lane == 0) done(pi, part);
-  }
-}
 
 // The launcher's one argument: 64-bit fields in this order
 // (kernels/decode_step.py: STEP_FIELDS packs them).  Streams xbc, dt and z
@@ -179,6 +160,72 @@ __device__ __forceinline__ void store4(float* row, int k, int n, float4 v) {
     if (k + i < n) __stcs(row + k + i, e[i]);
 }
 
+// A warp's state rows of one block (kernels 1 and 3): rows w and
+// w + WARPS of the block's R, lanes along n, a float4 a lane a row held in
+// registers for the first 4 * 32 * PREFETCH elements of a row.
+using RowRegs = float4[ROWS_W][PREFETCH];
+
+// Every state load of the warp's rows issued (s: the block's first row).
+template <bool VEC>
+__device__ __forceinline__ void rows_load(RowRegs& s4, const float* s, int R,
+                                          int n, int warp, int lane) {
+#pragma unroll
+  for (int r = 0; r < ROWS_W; ++r)
+#pragma unroll
+    for (int j = 0; j < PREFETCH; ++j) {
+      const int row = warp + WARPS * r, k = 4 * (lane + 32 * j);
+      s4[r][j] = row < R && k < n
+                     ? load4<VEC>(s + static_cast<size_t>(row) * n, k, n)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+}
+
+// The update of the warp's rows in registers, s' = s decay + (dt x) B,
+// and y = s' . C: done(row, y, x) on lane 0.  Past the registers (n > 256)
+// a row's elements are loaded, updated and stored here.
+template <bool VEC, typename F>
+__device__ __forceinline__ void rows_update(
+    RowRegs& s4, const float* s, float* ns, int R, int n, int warp, int lane,
+    float dtf, float decay, const float* xs, const float* Bv,
+    const float* Cv, F done) {
+#pragma unroll
+  for (int r = 0; r < ROWS_W; ++r) {
+    const int row = warp + WARPS * r;
+    if (row >= R) break;
+    const float xv = xs[row];
+    const float dx = dtf * xv;
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < PREFETCH; ++j) {
+      const int k = 4 * (lane + 32 * j);
+      if (k < n) update4<VEC>(s4[r][j], k, n, decay, dx, Bv, Cv, part);
+    }
+    for (int k = 4 * (lane + 32 * PREFETCH); k < n; k += 128) {   // n > 256
+      float4 v = load4<VEC>(s + static_cast<size_t>(row) * n, k, n);
+      update4<VEC>(v, k, n, decay, dx, Bv, Cv, part);
+      store4<VEC>(ns + static_cast<size_t>(row) * n, k, n, v);
+    }
+    part = warp_sum(part);
+    if (lane == 0) done(row, part, xv);
+  }
+}
+
+// The warp's updated rows stored (ns: the block's first row).
+template <bool VEC>
+__device__ __forceinline__ void rows_store(const RowRegs& s4, float* ns,
+                                           int R, int n, int warp, int lane) {
+#pragma unroll
+  for (int r = 0; r < ROWS_W; ++r) {
+    const int row = warp + WARPS * r;
+#pragma unroll
+    for (int j = 0; j < PREFETCH; ++j) {
+      const int k = 4 * (lane + 32 * j);
+      if (row < R && k < n)
+        store4<VEC>(ns + static_cast<size_t>(row) * n, k, n, s4[r][j]);
+    }
+  }
+}
+
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(32 * WARPS)
     mamba2_step_kernel(const StepArgs a) {
@@ -203,16 +250,8 @@ __global__ void __launch_bounds__(32 * WARPS)
   const size_t hbase = (static_cast<size_t>(bi) * h + hi) * p + rs * R;
   const float* s = static_cast<const float*>(a.ssm_state) + hbase * n;
   float* ns = static_cast<float*>(a.new_ssm) + hbase * n;
-  float4 s4[ROWS_W][PREFETCH];
-#pragma unroll
-  for (int r = 0; r < ROWS_W; ++r)
-#pragma unroll
-    for (int j = 0; j < PREFETCH; ++j) {
-      const int row = warp + WARPS * r, k = 4 * (lane + 32 * j);
-      s4[r][j] = row < R && k < n
-                     ? load4<VEC>(s + static_cast<size_t>(row) * n, k, n)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+  RowRegs s4;
+  rows_load<VEC>(s4, s, R, n, warp, lane);
   const float dtraw =
       to_f(static_cast<const T*>(a.dt)[static_cast<size_t>(bi) * a.dt_rs + hi]);
   const float dtb = static_cast<const float*>(a.dt_bias)[hi];
@@ -303,26 +342,11 @@ __global__ void __launch_bounds__(32 * WARPS)
   __syncthreads();
 
   // 3. The update of this warp's rows in registers, y = s' . C + D x.
-#pragma unroll
-  for (int r = 0; r < ROWS_W; ++r) {
-    const int row = warp + WARPS * r;
-    if (row >= R) break;
-    const float xv = xs[row];
-    const float dx = dtf * xv;
-    float part = 0.f;
-#pragma unroll
-    for (int j = 0; j < PREFETCH; ++j) {
-      const int k = 4 * (lane + 32 * j);
-      if (k < n) update4<VEC>(s4[r][j], k, n, decay, dx, Bv, Cv, part);
-    }
-    for (int k = 4 * (lane + 32 * PREFETCH); k < n; k += 128) {   // n > 256
-      float4 v = load4<VEC>(s + static_cast<size_t>(row) * n, k, n);
-      update4<VEC>(v, k, n, decay, dx, Bv, Cv, part);
-      store4<VEC>(ns + static_cast<size_t>(row) * n, k, n, v);
-    }
-    part = warp_sum(part);
-    if (lane == 0) yv[row] = part + Dh * xv;
-  }
+  float* yrows = yv;
+  rows_update<VEC>(s4, s, ns, R, n, warp, lane, dtf, decay, xs, Bv, Cv,
+                   [&](int row, float part, float xv) {
+                     yrows[row] = part + Dh * xv;
+                   });
   __syncthreads();
 
   // 4. The rows' y and their sum of squares to scratch (only their writers
@@ -342,16 +366,7 @@ __global__ void __launch_bounds__(32 * WARPS)
   __syncthreads();
   if (tid == 0)
     last = atomicAdd(static_cast<int*>(a.counts) + bi, 1) == per_row - 1;
-#pragma unroll
-  for (int r = 0; r < ROWS_W; ++r) {
-    const int row = warp + WARPS * r;
-#pragma unroll
-    for (int j = 0; j < PREFETCH; ++j) {
-      const int k = 4 * (lane + 32 * j);
-      if (row < R && k < n)
-        store4<VEC>(ns + static_cast<size_t>(row) * n, k, n, s4[r][j]);
-    }
-  }
+  rows_store<VEC>(s4, ns, R, n, warp, lane);
   __syncthreads();
   if (!last) return;
   __threadfence();
@@ -413,52 +428,93 @@ extern "C" int mamba2_step_launch(const StepArgs* a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-__global__ void ssd_step_kernel(const float* __restrict__ state,
-                                const T* __restrict__ x,
-                                const float* __restrict__ dt,
-                                const float* __restrict__ A,
-                                const float* __restrict__ B,
-                                const float* __restrict__ C,
-                                float* __restrict__ new_state,
-                                T* __restrict__ y, int h, int p, int g,
-                                int n) {
-  extern __shared__ float smem[];
-  float* xs = smem;      // (p,)  this head's x
-  float* Bv = xs + p;    // (n,)  B of this head's group
-  float* Cv = Bv + n;    // (n,)  C
-  const int bi = blockIdx.x, hi = blockIdx.y, gi = hi / (h / g);
-  const size_t hrow = static_cast<size_t>(bi) * h + hi;
-  const size_t grow = (static_cast<size_t>(bi) * g + gi) * n;
-  for (int c = threadIdx.x; c < p; c += blockDim.x) xs[c] = to_f(x[hrow * p + c]);
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    Bv[k] = B[grow + k];
-    Cv[k] = C[grow + k];
-  }
-  __syncthreads();
-  const float dtf = dt[hrow];
-  const size_t sbase = hrow * p * n;
-  T* yrow = y + hrow * p;
-  ssd_head_update(state + sbase, new_state + sbase, xs, Bv, Cv, dtf,
-                  expf(dtf * A[hi]), p, n,
-                  [&](int pi, float part) { yrow[pi] = from_f<T>(part); });
-}
+// Kernel 3's one argument: 64-bit fields in this order
+// (kernels/decode_step.py: SSD_FIELDS packs them).  state (b, h, p, n)
+// fp32; x (b, h, p) T; dt (b, h), A (h,) and B / C (b, g, n) fp32.  Writes
+// new_state (b, h, p, n) fp32 and y (b, h, p) T.  rows: state rows a block
+// (1 .. MAX_ROWS, a divisor of p); vec: n % 4 == 0 and 16-byte aligned
+// states.
+struct SsdArgs {
+  int64_t dtype;
+  const void* state;
+  const void* x;
+  const void* dt;
+  const void* A;
+  const void* B;
+  const void* C;
+  void* new_state;
+  void* y;
+  int64_t b, h, p, g, n, rows, vec;
+  void* stream;
+};
 
-// state (b, h, p, n) fp32; x (b, h, p) T; dt (b, h), A (h,) and B / C
-// (b, g, n) fp32.  Writes new_state (b, h, p, n) fp32 and y (b, h, p) T.
-extern "C" int ssd_step_launch(int dtype, const void* state, const void* x,
-                               const void* dt, const void* A, const void* B,
-                               const void* C, void* new_state, void* y,
-                               int b, int h, int p, int g, int n,
-                               void* stream) {
-  if (b == 0) return 0;
-  const dim3 grid(b, h);
-  const size_t smem = static_cast<size_t>(p + 2 * n) * sizeof(float);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH_T(dtype, ssd_step_kernel<T><<<grid, 128, smem, s>>>(
-      static_cast<const float*>(state), static_cast<const T*>(x),
-      static_cast<const float*>(dt), static_cast<const float*>(A),
-      static_cast<const float*>(B), static_cast<const float*>(C),
-      static_cast<float*>(new_state), static_cast<T*>(y), h, p, g, n));
+namespace {
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(32 * WARPS)
+    ssd_step_kernel(const SsdArgs a) {
+  extern __shared__ float smem[];
+  float* xs = smem;            // (MAX_ROWS,) x of this block's rows
+  float* Bv = xs + MAX_ROWS;   // (n,) B of this head's group
+  float* Cv = Bv + a.n;        // (n,) C
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int R = static_cast<int>(a.rows);
+  const int rs = blockIdx.x, hi = blockIdx.y, bi = blockIdx.z;
+  const int h = static_cast<int>(a.h), p = static_cast<int>(a.p);
+  const int g = static_cast<int>(a.g), n = static_cast<int>(a.n);
+  const int gi = hi / (h / g);
+
+  // This warp's state rows in flight before anything else.
+  const size_t hrow = static_cast<size_t>(bi) * h + hi;
+  const size_t hbase = hrow * p + rs * R;
+  const float* s = static_cast<const float*>(a.state) + hbase * n;
+  float* ns = static_cast<float*>(a.new_state) + hbase * n;
+  RowRegs s4;
+  rows_load<VEC>(s4, s, R, n, warp, lane);
+
+  const float* B = static_cast<const float*>(a.B) +
+                   (static_cast<size_t>(bi) * g + gi) * n;
+  const float* C = static_cast<const float*>(a.C) +
+                   (static_cast<size_t>(bi) * g + gi) * n;
+  const T* x = static_cast<const T*>(a.x) + hbase;
+  for (int i = tid; i < 2 * n + R; i += 32 * WARPS) {
+    if (i < n)
+      Bv[i] = B[i];
+    else if (i < 2 * n)
+      Cv[i - n] = C[i - n];
+    else
+      xs[i - 2 * n] = to_f(x[i - 2 * n]);
+  }
+  const float dtf = static_cast<const float*>(a.dt)[hrow];
+  const float decay = expf(dtf * static_cast<const float*>(a.A)[hi]);
+  __syncthreads();
+
+  T* y = static_cast<T*>(a.y) + hbase;
+  rows_update<VEC>(s4, s, ns, R, n, warp, lane, dtf, decay, xs, Bv, Cv,
+                   [&](int row, float part, float) {
+                     y[row] = from_f<T>(part);
+                   });
+  rows_store<VEC>(s4, ns, R, n, warp, lane);
+}
+}  // namespace
+
+// Returns the cudaError_t (cudaErrorInvalidValue for a rows value the
+// kernel does not take).
+extern "C" int ssd_step_launch(const SsdArgs* a) {
+  if (a->b == 0) return 0;
+  const int R = static_cast<int>(a->rows);
+  if (R < 1 || R > MAX_ROWS || a->p % R != 0 || a->g <= 0 ||
+      a->h % a->g != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(a->p / R),
+                  static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
+  const size_t smem = static_cast<size_t>(MAX_ROWS + 2 * a->n) * sizeof(float);
+  const cudaStream_t s = static_cast<cudaStream_t>(a->stream);
+  DISPATCH_T(a->dtype, {
+    if (a->vec)
+      ssd_step_kernel<T, true><<<grid, 32 * WARPS, smem, s>>>(*a);
+    else
+      ssd_step_kernel<T, false><<<grid, 32 * WARPS, smem, s>>>(*a);
+  });
   return static_cast<int>(cudaGetLastError());
 }

@@ -294,8 +294,12 @@ mamba2_step.launches = 0
 # ---------------------------------------------------------------------------
 # Bare updates: kernels 3 and 4
 # ---------------------------------------------------------------------------
-_SSD_LAUNCH = ("decode_step", "ssd_step_launch",
-               [common.I] + [common.P] * 8 + [common.I] * 5 + [common.P])
+# Kernel 3's launcher takes one pointer to its arguments packed as 64-bit
+# fields in this order (csrc/decode_step.cu: SsdArgs).
+SSD_FIELDS = ("dtype", "state", "x", "dt", "A", "B", "C", "new_state", "y",
+              "b", "h", "p", "g", "n", "rows", "vec", "stream")
+_SSD_ARGS = struct.Struct("<" + "q" * len(SSD_FIELDS))
+_SSD = common.Launcher("decode_step", "ssd_step_launch", [ctypes.c_char_p])
 _SSCAN_LAUNCH = ("mamba1_step", "sscan_step_launch",
                  [common.I] + [common.P] * 9 + [common.I] * 3 + [common.P])
 
@@ -316,12 +320,15 @@ def ssd_step_plain(state, x_t, dt_t, A, B_t, C_t):
 
 
 def _f32(t):
-    return t.float().contiguous()
+    """``t`` as contiguous fp32, itself when it already is."""
+    return t if t.dtype == _F32 and t.is_contiguous() else \
+        t.float().contiguous()
 
 
 def ssd_step(state, x_t, dt_t, A, B_t, C_t):
-    """The CUDA kernel (contract as :func:`ssd_step_plain`); grid (batch,
-    head), the mamba2 step's head update.  dt, A, B and C are read as
+    """The CUDA kernel (contract as :func:`ssd_step_plain`): kernel 1's
+    state stream, grid (p / :func:`step_rows`, head, batch), its arguments
+    packed into one buffer (``SSD_FIELDS``).  dt, A, B and C are read as
     fp32 (cast here if they are not)."""
     dev = state.device
     common.require(dev.type == "cuda", "ssd_step takes CUDA tensors; the "
@@ -329,21 +336,25 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t):
     b, h, p, n = state.shape
     g = B_t.shape[1]
     common.check_cuda(dev, x_t=x_t, dt_t=dt_t, A=A, B_t=B_t, C_t=C_t)
-    common.require(state.dtype == torch.float32 and state.is_contiguous(),
+    common.require(state.dtype == _F32 and state.is_contiguous(),
                    "ssd_step: state must be contiguous fp32 (b, h, p, n)")
-    common.require(tuple(x_t.shape) == (b, h, p)
-                   and tuple(dt_t.shape) == (b, h) and tuple(A.shape) == (h,)
-                   and tuple(B_t.shape) == tuple(C_t.shape) == (b, g, n)
-                   and h % g == 0, "ssd_step: shapes")
-    x_t = x_t.contiguous()
+    common.require(x_t.shape == (b, h, p) and dt_t.shape == (b, h)
+                   and A.shape == (h,) and B_t.shape == C_t.shape == (b, g, n)
+                   and g > 0 and h % g == 0, "ssd_step: shapes")
+    code = common.stream_code(x_t)
+    if not x_t.is_contiguous():
+        x_t = x_t.contiguous()
     new = torch.empty_like(state)
     y = torch.empty_like(x_t)
-    dt_t, A, B_t, C_t = (_f32(t) for t in (dt_t, A, B_t, C_t))
-    err = common.launcher(*_SSD_LAUNCH)(
-        common.stream_code(x_t), common.ptr(state), common.ptr(x_t),
-        common.ptr(dt_t), common.ptr(A), common.ptr(B_t), common.ptr(C_t),
-        common.ptr(new), common.ptr(y), b, h, p, g, n, common.stream(dev))
-    common.check_launch(err, "decode_step", "ssd_step kernel")
+    dt_t, A, B_t, C_t = _f32(dt_t), _f32(A), _f32(B_t), _f32(C_t)
+    sp, snp = state.data_ptr(), new.data_ptr()
+    err = _SSD(_SSD_ARGS.pack(
+        code, sp, x_t.data_ptr(), dt_t.data_ptr(), A.data_ptr(),
+        B_t.data_ptr(), C_t.data_ptr(), snp, y.data_ptr(), b, h, p, g, n,
+        step_rows(p), n % 4 == 0 and (sp | snp) % 16 == 0,
+        torch._C._cuda_getCurrentRawStream(dev.index)))
+    if err:
+        common.check_launch(err, "decode_step", "ssd_step kernel")
     ssd_step.launches += 1
     return new, y
 

@@ -266,10 +266,11 @@ def test_mixed_launches_repeat_bit_for_bit(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name,segments", [("silu", 32), ("softplus", 32),
-                                           ("gelu", 8), ("sigmoid", 16)])
+                                           ("gelu", 8), ("sigmoid", 16),
+                                           ("silu", 12), ("softplus", 100)])
 def test_pwl_activate_kernel_matches_plain(dev, dtype, name, segments):
     """Same sum in the same order: fp32 bit for bit, bf16 within the
-    stream tolerance."""
+    stream tolerance (12 and 100 segments: padded to 15 and 127 terms)."""
     table = pwl.get_table(name, segments=segments)
     gen = torch.Generator().manual_seed(segments)
     x = (torch.randn(3, 37, 41, generator=gen) * 8).to(dev).to(dtype)
@@ -280,6 +281,59 @@ def test_pwl_activate_kernel_matches_plain(dev, dtype, name, segments):
     if dtype == torch.float32:
         assert torch.equal(got, want)
     _close(got, want, TOL[dtype, "stream"], "pwl")
+
+
+def _pwl_on(dev, x, table, body):
+    """Kernel 12 on ``x``, asserting the one launch took ``body``."""
+    counts = actiba.pwl_activate.path_launches
+    before = dict(counts)
+    assert actiba.path(x) == body
+    got = actiba.pwl_activate(x, table)
+    torch.cuda.synchronize(dev)
+    took = {k: v - before[k] for k, v in counts.items() if v != before[k]}
+    assert took == {body: 1}, took
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("numel", [1, 3, 7, 9, 4101, 8 * 1000 + 5])
+def test_pwl_activate_ragged_numel_and_offset_view(dev, dtype, numel):
+    """A numel that is no multiple of the vector (its tail by scalars),
+    and the same values in a view offset by one element, which is not
+    16-byte aligned and takes the scalar body: both give the plain
+    version's output (fp32 bit for bit)."""
+    table = pwl.get_table("silu", segments=32)
+    gen = torch.Generator().manual_seed(numel)
+    base = (torch.randn(numel + 1, generator=gen) * 8).to(dev).to(dtype)
+    want = actiba.pwl_activate_plain(base[1:], table)
+    for x, body in ((base[1:].clone(), "vector"), (base[1:], "scalar")):
+        got = _pwl_on(dev, x, table, body)
+        if dtype == torch.float32:
+            assert torch.equal(got, want), body
+        _close(got, want, TOL[dtype, "stream"], body)
+
+
+@pytest.mark.parametrize("segments", [12, 32, 100])
+def test_pwl_activate_edge_values_keep_the_plain_bits(dev, segments):
+    """Zeros, infinities, NaN, +-1e30 and every breakpoint with its fp32
+    neighbours, fp32, through both bodies: the plain version's bits (NaN
+    where it is NaN; a zero may differ in sign only where the padding
+    terms add +0)."""
+    table = pwl.get_table("softplus", segments=segments)
+    bps = torch.tensor(table.breakpoints, dtype=torch.float32)
+    inf = torch.tensor(float("inf"))
+    x = torch.cat([torch.tensor([0.0, -0.0, float("inf"), float("-inf"),
+                                 float("nan"), 1e30, -1e30]),
+                   torch.nextafter(bps, -inf), bps,
+                   torch.nextafter(bps, inf)]).to(dev)
+    want = actiba.pwl_activate_plain(x, table)
+    base = torch.empty(x.numel() + 1, device=dev)
+    base[1:] = x
+    for xx, body in ((x, "vector"), (base[1:], "scalar")):
+        got = _pwl_on(dev, xx, table, body)
+        same = (got.view(torch.int32) == want.view(torch.int32)) | \
+            (got.isnan() & want.isnan()) | ((got == 0) & (want == 0))
+        assert bool(same.all()), body
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -678,7 +732,10 @@ def test_sscan_kernel_matches_plain(dev, dtype, with_d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,p,g,n", [(4, 8, 2, 16), (6, 40, 1, 96)])
+@pytest.mark.parametrize("h,p,g,n", [(4, 8, 2, 16), (6, 40, 1, 96),
+                                     (24, 64, 1, 128), (4, 7, 1, 18),
+                                     (6, 64, 2, 128), (2, 16, 1, 300),
+                                     (2, 9, 1, 258)])
 def test_ssd_step_kernel_matches_plain(dev, dtype, h, p, g, n):
     gen = torch.Generator().manual_seed(h + n)
     b = 3
@@ -691,6 +748,24 @@ def test_ssd_step_kernel_matches_plain(dev, dtype, h, p, g, n):
     assert all(torch.equal(a, g) for a, g in zip(ops.ssd_step(*args), got))
     for name, a, r in zip(("ssm", "y"), got, ds.ssd_step_plain(*args)):
         _close(a, r, TOL[dtype, "state" if name == "ssm" else "stream"], name)
+
+
+def test_ssd_step_unaligned_state_matches_plain(dev):
+    """A state 4 bytes off 16-byte alignment (a view offset by one
+    element) takes the scalar loads and stores of the same body."""
+    gen = torch.Generator().manual_seed(7)
+    b, h, p, n = 2, 6, 64, 128
+    rnd = lambda *s: torch.randn(s, generator=gen).to(dev)
+    base = rnd(b * h * p * n + 1)
+    state = base[1:].view(b, h, p, n)
+    assert state.data_ptr() % 16
+    args = (state, rnd(b, h, p), rnd(b, h).abs() * 0.5, -rnd(h).abs() - 0.1,
+            rnd(b, 1, n), rnd(b, 1, n))
+    got = ops.ssd_step(*args)
+    assert all(torch.equal(a, g) for a, g in zip(ops.ssd_step(*args), got))
+    for name, a, r in zip(("ssm", "y"), got, ds.ssd_step_plain(*args)):
+        _close(a, r, TOL[torch.float32, "state" if name == "ssm"
+                         else "stream"], name)
 
 
 def test_mamba1_model_on_the_card_launches_kernel_5(dev):
