@@ -36,17 +36,19 @@ qwen1.5-4b:
    gated forms at (512, 768) x (768, 2048), each run twice and held to
    give the same bits; ``mamba1_step`` at mamba-130m's widths (b = 1 and
    4, and with the ActiBA tables), ``sscan_step`` at (4, 1536, 16) with
-   and without D, ``ssd_step`` at mamba2-130m's step widths (b = 4), each
-   also run twice for the same bits; ``flash_attention`` at gemma-2b's
-   prefill (b = 4, L = 128, 8 query heads and 1 KV head of 256), ragged
-   (L = 300), under a 64-token window, not causal (L = 100), at
-   qwen1.5-4b's MHA (20 heads of 128, L = 512) and at b = 1, L = 4096;
-   ``reduce_rows`` at (2048, 2048) and (1000, 300); each twice.  Kernels
-   9, 10 and 11 print the body each case took by their path counts (bf16:
-   the tensor-core ``wgmma`` body above the GEMV's m <= 8; fp32: the
-   SIMT body), kernel 7 likewise (its tensor-core ``wgmma`` body at the
-   chain's shape), and fail a case that took another than the wrapper's
-   ``path()`` names;
+   and without D and with the state an offset view (the element path),
+   ``ssd_step`` at mamba2-130m's step widths (b = 4), each also run twice
+   for the same bits; ``flash_attention`` at gemma-2b's prefill (b = 4, L
+   = 128, 8 query heads and 1 KV head of 256), ragged (L = 300), under a
+   64-token window, not causal (L = 100), at qwen1.5-4b's MHA (20 heads of
+   128, L = 512), at b = 1, L = 4096 and with q an offset view (the SIMT
+   body); ``reduce_rows`` at (2048, 2048) and (1000, 300); each twice.
+   Kernels 9, 10 and 11 print the body each case took by their path
+   counts (kernel 9: bf16 the ``wgmma`` body, fp32 the ``wgmma_fp32``
+   body, views TMA cannot read the SIMT body; 10 and 11: the tensor-core
+   ``wgmma`` body above the GEMV's m <= 8, fp32 the SIMT body), kernel 7
+   likewise (its tensor-core ``wgmma`` body at the chain's shape), and
+   fail a case that took another than the wrapper's ``path()`` names;
 4. serve   — the wave engine through ``repro_torch.launch.serve``: 8
    requests, batch 4, prompts of 4-128 tokens, 16 new tokens, greedy,
    bf16 weights from ``--seed``; every token in the vocabulary, every
@@ -99,7 +101,8 @@ qwen1.5-4b:
    a one-ulp move of the embeddings, the loss under ``pallas()`` (with
    and without ActiBA) the same way, and continuous against wave.  5e:
    gemma-2b at full width and depth 2 in fp32 with ``use_flash``, the
-   card against the CPU's plain path the same way, and on the card
+   card against the CPU's plain path the same way (every kernel-9 launch
+   on the ``wgmma_fp32`` body, none on the SIMT body), and on the card
    ``use_flash`` on against off.  5f: ``reduce_sum`` and ``mean`` in
    ``pallas`` mode at (2048, 2048), one launch of kernel 14 each,
    against their ``naive`` modes;
@@ -139,9 +142,11 @@ qwen1.5-4b:
    kernel 6 also cold (three weight sets in turn, 78.6 MB), and ptxas's
    report of both; kernel 12 at the ``pallas()`` forward's three fp32
    operands and phase 4's 32-bucket bf16 xBC (call, device, host, its
-   byte bound and its instruction floor, ptxas) and kernel 3 with its
-   host microseconds and ptxas.  Each phase's seconds are printed after
-   it.
+   byte bound and its instruction floor, ptxas); kernels 3 and 4 with
+   their host microseconds and ptxas; kernel 9's fp32 body at phase 5e's
+   shape and at b = 1, L = 4096 with the SIMT body on the same inputs
+   beside it (``simt_flash``, not counted), its shared memory and ptxas.
+   Each phase's seconds are printed after it.
 
 Any failure raises (exit code 1).  Without a GPU it exits 1 before doing
 anything.  The second line from the end is the ``kernels`` JSON record,
@@ -695,6 +700,7 @@ def kernel_cases(dev, kernels, tables):
     import torch
     from repro_torch.core.pwl import get_table
     from repro_torch.kernels.actiba import path as actiba_path
+    from repro_torch.kernels.flash_attention import path as flash_path
     from repro_torch.kernels.prefill_chunk import path as prefill_path
     from repro_torch.kernels.qmatmul import path as qmatmul_path
     from repro_torch.kernels.ssd_chunk import path as ssd_chunk_path
@@ -815,6 +821,12 @@ def kernel_cases(dev, kernels, tables):
                   + ("with D" if with_d else "without D"),
                   lambda: kernels["sscan_step"](*args),
                   lambda: kernels["sscan_step_plain"](*args), dn, bare)
+        args = sscan_inputs(4, dev, dtype, seed=64)
+        args = (offset_view(args[0]),) + args[1:]
+        twice("sscan_step", f"{dn} b=4 d={M1_D_INNER} n={M1_D_STATE} with D, "
+              f"the state an offset view (the element path)",
+              lambda: kernels["sscan_step"](*args),
+              lambda: kernels["sscan_step_plain"](*args), dn, bare)
         args = ssd_step_inputs(4, dev, dtype, seed=61)
         twice("ssd_step", f"{dn} b=4 h={N_HEADS} p={HEAD_DIM} n={D_STATE} "
               f"g={N_GROUPS}", lambda: kernels["ssd_step"](*args),
@@ -861,11 +873,21 @@ def kernel_cases(dev, kernels, tables):
                    f"hkv={hkv} L={l} d={d}"
                    + ("" if causal else " not causal")
                    + (f" window {window}" if window else ""),
-                   "wgmma" if dtype == torch.bfloat16 else "simt",
+                   flash_path(q, k, v),
                    lambda: (kernels["flash_attention"](q, k, v, **fkw),),
                    lambda: (kernels["flash_attention_plain"](q, k, v,
                                                              **fkw),),
                    dn, (("out", "stream"),))
+        # The SIMT body: gemma's prefill shape with q one element into its
+        # buffer (TMA cannot read it).
+        q, k, v = flash_inputs(4, 8, 1, 128, 256, dev, dtype, seed=300)
+        q = offset_view(q)
+        routed("flash_attention", f"{dn} gemma prefill, q an offset view: "
+               f"b=4 hq=8 hkv=1 L=128 d=256", flash_path(q, k, v),
+               lambda: (kernels["flash_attention"](q, k, v, causal=True),),
+               lambda: (kernels["flash_attention_plain"](q, k, v,
+                                                         causal=True),),
+               dn, (("out", "stream"),))
         for m, n in REDUCE_CASES:
             x = _rand(torch.Generator().manual_seed(m + n), (m, n), 1.0, dev,
                       dtype)
@@ -1686,7 +1708,7 @@ def transformer_serve(engine, counters, prompts, want_flash, label):
     assert m["logit_rows"] > 0 and m["nonfinite_logit_rows"] == 0, \
         f"{label}: non-finite logits {m['nonfinite_logit_rows']}"
     want = dict({k: 0 for k in launches}, flash_attention=want_flash(m))
-    body = "wgmma" if cfg.dtype == torch.bfloat16 else "simt"
+    body = "wgmma" if cfg.dtype == torch.bfloat16 else "wgmma_fp32"
     paths = dict(counters["flash_attention"].path_launches)
     print(f"  {label}: {len(done)} requests (prompts "
           f"{sorted(len(p) for p in prompts)}), {len(toks)} tokens, "
@@ -1699,7 +1721,7 @@ def transformer_serve(engine, counters, prompts, want_flash, label):
           f"{m['token_latency_s'] * 1e3:.3f} ms; wall {wall:.3f} s",
           flush=True)
     assert launches == want, f"{label}: kernel launch counts"
-    assert paths == dict({"wgmma": 0, "simt": 0},
+    assert paths == dict({"wgmma": 0, "wgmma_fp32": 0, "simt": 0},
                          **{body: want["flash_attention"]}), \
         f"{label}: kernel 9's bodies"
     return launches
@@ -1752,7 +1774,8 @@ def gemma_phase(dev, counters):
           f"{paths}", flush=True)
     assert launches == dict({k: 0 for k in launches}, flash_attention=n), \
         "gemma loss: launches"
-    assert paths == {"wgmma": n, "simt": 0}, "gemma loss: kernel 9's body"
+    assert paths == {"wgmma": n, "wgmma_fp32": 0, "simt": 0}, \
+        "gemma loss: kernel 9's body"
     assert bool(torch.isfinite(loss)), "gemma loss: not finite"
     return wave, cont, out
 
@@ -1787,8 +1810,9 @@ def gemma_parity_phase(dev, seed, counters):
     every embedding element (at least ``LOGIT_TOL``); then on the card
     ``use_flash`` on against off, each greedy on its own: the same tokens
     up to the first position whose top-2 margin is within that
-    tolerance.  Returns kernel 9's launches on the card (the fp32 SIMT
-    body)."""
+    tolerance.  Every kernel-9 launch must take the fp32 tensor-core body
+    (``wgmma_fp32``), none the SIMT body.  Returns kernel 9's launches on
+    the card."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1830,10 +1854,10 @@ def gemma_parity_phase(dev, seed, counters):
           f"{int(confident.sum())}/{confident.numel()} positions above the "
           f"margin, {int(agree[confident].sum())} agree; launches on the "
           f"card {({k: v for k, v in counts.items() if v})} (expected "
-          f"{cfg.n_layers} flash_attention, fp32: the SIMT body; by body "
+          f"{cfg.n_layers} flash_attention, fp32: the wgmma_fp32 body; by body "
           f"{paths})", flush=True)
     assert counts == want, "gemma parity: launches"
-    assert paths == {"wgmma": 0, "simt": cfg.n_layers}, \
+    assert paths == {"wgmma": 0, "wgmma_fp32": cfg.n_layers, "simt": 0}, \
         "gemma parity: kernel 9's body"
     assert torch.isfinite(lk).all() and torch.isfinite(lp).all()
     assert err <= tol, f"gemma parity: logit error {err}"
@@ -1858,7 +1882,7 @@ def gemma_parity_phase(dev, seed, counters):
     assert before <= tol, "use_flash on vs off: logits"
     assert all(mg <= tol for _, _, mg in firsts), \
         "use_flash on vs off: tokens differ above the margin"
-    return paths["simt"]
+    return paths["wgmma_fp32"]
 
 
 def reduba_phase(dev, counters):
@@ -1899,8 +1923,10 @@ def transformer_times(dev, kernels, launches, worst):
     this run needs (4 d a pair: q.k and p.v) at the bf16 tensor-core rate
     (the fp32 CUDA-core time, the design's own 6 d a pair at the bf16
     rate, and the SIMT body on the same inputs printed beside it); and the
-    fp32 SIMT body at phase 5e's shape (b = 4, L = 64, bound at the fp32
-    CUDA-core rate, the launches of 5e); library:
+    fp32 tensor-core body at phase 5e's shape (b = 4, L = 64, bound at the
+    fp32 CUDA-core rate, the launches of 5e; the row) and at b = 1, L =
+    ``GEMMA_LONG``, with its host microseconds, the design's rate (six
+    bf16 products a product) and the SIMT body on the same inputs; library:
     ``scaled_dot_product_attention`` (``enable_gqa``), timed only.
     Kernel 14 at (2048, 2048) fp32 over four operands in turn (past the
     L2; the launches of phase 5f); library: ``torch.sum(x, 0)``."""
@@ -1949,38 +1975,66 @@ def transformer_times(dev, kernels, launches, worst):
               f"16's, not counted) {simt_ms:.4f} ms (device {simt_dev:.4f} "
               f"ms, {simt_dev / max(dev_ms, 1e-9):.1f}x the wgmma body's)",
               flush=True)
-    # The fp32 (SIMT) body at phase 5e's shape: gemma-2b, b = 4, L = 64.
-    b, l, hq, hkv, d = 4, 64, 8, 1, 256
-    q, k, v = flash_inputs(b, hq, hkv, l, d, dev, torch.float32, seed=264)
-    out = kernels["flash_attention"](q, k, v, causal=True)
-    ms = time_call(lambda: kernels["flash_attention"](q, k, v, causal=True))
-    plain_ms = time_call(lambda: kernels["flash_attention_plain"](
-        q, k, v, causal=True))
-    dev_ms = _ours(device_profile(lambda: kernels["flash_attention"](
-        q, k, v, causal=True)))
-    lib_ms = time_call(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    ops = 4 * d * (l * (l + 1) // 2) * b * hq
-    bound_ms, bound_by = _bound(_bytes(q, k, v, out), ops)
-    rows.append(dict(
-        name="flash_attention_fp32", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:92",
-        launches=launches["flash_attention_fp32"],
-        max_abs_err=worst["flash_attention"], ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
-    print(f"  flash_attention fp32 (SIMT body) b={b} hq={hq} hkv={hkv} L={l} "
-          f"d={d} causal: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, the fp32 "
-          f"CUDA-core rate), library {lib_ms:.4f} ms "
-          f"(scaled_dot_product_attention, fp32); "
-          f"{launches['flash_attention_fp32']} launches in phase 5e",
-          flush=True)
-    print(f"  flash_attention wgmma body at d = 256: "
-          f"{wgmma_smem('flash_attention', 'flash_attention_wgmma_smem', 256)}"
-          f" bytes of dynamic shared memory", flush=True)
-    for line in ptxas_lines("flash_attention", "flash_attention_wgmma_kernel"):
-        print(f"    ptxas {line}")
+    # The fp32 tensor-core body at phase 5e's shape (gemma-2b, b = 4, L =
+    # 64: the row) and at b = 1, L = GEMMA_LONG, each with the SIMT body
+    # (the one these shapes took before; not counted) on the same inputs.
+    hq, hkv, d = 8, 1, 256
+    for b, l in ((4, 64), (1, GEMMA_LONG)):
+        q, k, v = flash_inputs(b, hq, hkv, l, d, dev, torch.float32,
+                               seed=200 + l)
+        out = kernels["flash_attention"](q, k, v, causal=True)
+        ms = time_call(lambda: kernels["flash_attention"](q, k, v,
+                                                          causal=True))
+        plain_ms = time_call(lambda: kernels["flash_attention_plain"](
+            q, k, v, causal=True), n=30 if l == 64 else 10)
+        dev_ms = _ours(device_profile(lambda: kernels["flash_attention"](
+            q, k, v, causal=True)))
+        us = host_us(lambda: kernels["flash_attention"](q, k, v,
+                                                        causal=True),
+                     n=1000 if l == 64 else 20)
+        lib_ms = time_call(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        simt_ms = time_call(lambda: simt_flash(q, k, v),
+                            n=30 if l == 64 else 10)
+        simt_dev = _ours(device_profile(lambda: simt_flash(q, k, v)))
+        ops = 4 * d * (l * (l + 1) // 2) * b * hq
+        nbytes = _bytes(q, k, v, out)
+        bound_ms, bound_by = _bound(nbytes, ops)
+        split_ms = ops / SPLIT_TC_FLOP_PER_S * 1e3
+        if l == 64:
+            rows.append(dict(
+                name="flash_attention_fp32", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:92",
+                launches=launches["flash_attention_fp32"],
+                max_abs_err=worst["flash_attention"], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms))
+        print(f"  flash_attention fp32 (wgmma_fp32 body: {d // 64} units "
+              f"of 64 columns, clusters of {max(1, d // 128)}, "
+              f"{fp32_clusters(d)} clusters at once) b={b} hq={hq} "
+              f"hkv={hkv} L={l} d={d} causal: "
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), host "
+              f"{us:.1f} us a call, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e9:.3f} GFLOP at the fp32 CUDA-core rate; the "
+              f"design's six bf16 products a product {split_ms:.4f} ms), "
+              f"library {lib_ms:.4f} ms (scaled_dot_product_attention, "
+              f"fp32); "
+              + (f"{launches['flash_attention_fp32']} launches in phase 5e"
+                 if l == 64 else "no model path at this length in fp32")
+              + f"; the SIMT body on the same inputs (not counted) "
+              f"{simt_ms:.4f} ms (device {simt_dev:.4f} ms, "
+              f"{simt_dev / max(dev_ms, 1e-9):.1f}x the fp32 body's)",
+              flush=True)
+    for fp32, label in ((0, "wgmma body"), (1, "wgmma_fp32 body")):
+        print(f"  flash_attention {label} at d = 256: "
+              f"{wgmma_smem('flash_attention', 'flash_attention_wgmma_smem', 256, fp32)}"
+              f" bytes of dynamic shared memory", flush=True)
+    for needle in ("flash_attention_wgmma_kernel",
+                   "flash_attention_fp32_wgmma_kernel"):
+        for line in ptxas_lines("flash_attention", needle):
+            print(f"    ptxas {line}")
 
     # Four operands in turn (67 MB, past the 50 MB L2), so that each call
     # reads its input from HBM as the bound assumes: one 16.8 MB operand
@@ -2342,7 +2396,8 @@ OUR_KERNELS = ("mamba2_step_kernel", "gated_norm_kernel", "conv_act_kernel",
                "matmul_pwl_wgmma_kernel", "flash_attention_wgmma_kernel",
                "mamba1_step_kernel", "sscan_step_kernel", "ssd_step_kernel",
                "rglru_step_kernel", "rg_lru_scan_kernel",
-               "flash_attention_kernel", "reduce_rows_kernel",
+               "flash_attention_kernel", "flash_attention_fp32_wgmma_kernel",
+               "reduce_rows_kernel",
                "reduce_partials_kernel")
 
 
@@ -2482,19 +2537,18 @@ def host_us(fn, n=1000):
 
 
 def simt_flash(q, k, v):
-    """Kernel 9's SIMT body on bf16 q, k, v (causal), through its C
-    launcher, as ``simt_matmul_pwl``."""
-    import ctypes
+    """Kernel 9's SIMT body on q, k, v (causal, bf16 or fp32) that the
+    shape rule sends to a tensor-core body, through its C launcher, as
+    ``simt_matmul_pwl``."""
     import torch
-    from repro_torch.kernels import common, flash_attention
+    from repro_torch.kernels import common, flash_attention as fa
     out = torch.empty_like(q)
-    strides = (ctypes.c_longlong * 12)(
-        *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
     (b, hq, lq, d), (hkv, lk) = q.shape, k.shape[1:3]
-    err = common.launcher(*flash_attention._LAUNCH)(
-        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ctypes.addressof(strides), b, hq, hkv, lq, lk, d, 1, 0, d ** -0.5,
-        common.stream(q.device))
+    err = fa._LAUNCHERS["simt"](fa._FLASH_ARGS.pack(
+        common.stream_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), *(t.stride(i) for t in (q, k, v, out)
+                          for i in range(3)),
+        b, hq, hkv, lq, lk, d, 1, 0, d ** -0.5, common.stream(q.device)))
     common.check_launch(err, "flash_attention", "flash_attention SIMT body")
     return out
 
@@ -2510,6 +2564,12 @@ def ptxas_lines(source, needle):
         elif cur and ("registers" in line or "spill" in line):
             out.append(f"{cur}: {line.strip()}")
     return out or [f"{source}: not built in this run"]
+
+
+def fp32_clusters(d):
+    """Clusters of kernel 9's fp32 body at head_dim d the card holds at
+    once (``cudaOccupancyMaxActiveClusters``)."""
+    return wgmma_smem("flash_attention", "flash_attention_fp32_clusters", d)
 
 
 def wgmma_smem(source, fn_name, *args):
@@ -2978,15 +3038,18 @@ def mamba1_times(dev, kernels, launches, steps, worst, tables):
           f"ms (device {dev_a:.4f} ms)", flush=True)
     for line in ptxas_lines("mamba1_step", "mamba1_step_kernel"):
         print(f"    ptxas {line}")
-    for name, src, where, args, ops in (
+    for name, src, where, args, ops, was in (
             ("sscan_step", "mamba1_step.cu",
              "src/repro/kernels/decode_step.py:113",
              sscan_inputs(4, dev, torch.float32, seed=71),
-             (7 * M1_D_STATE + 2) * 4 * M1_D_INNER),
+             (7 * M1_D_STATE + 2) * 4 * M1_D_INNER,
+             "; kernel 5's four-lanes-a-channel stream; the one-thread-a-"
+             "channel body it replaced read device 0.0033 ms, call 0.0767 "
+             "ms (PERF.md's table)"),
             ("ssd_step", "decode_step.cu",
              "src/repro/kernels/decode_step.py:76",
              ssd_step_inputs(4, dev, torch.float32, seed=72),
-             (5 * D_STATE + 2) * 4 * N_HEADS * HEAD_DIM)):
+             (5 * D_STATE + 2) * 4 * N_HEADS * HEAD_DIM, "")):
         outs = kernels[name](*args)
         ms = time_call(lambda: kernels[name](*args))
         plain_ms = time_call(lambda: kernels[name + "_plain"](*args))
@@ -3003,9 +3066,11 @@ def mamba1_times(dev, kernels, launches, steps, worst, tables):
               f"{host_us(lambda: kernels[name](*args)):.1f} us a call, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
               f"library: no single PyTorch call; {launches[name]} launch in "
-              f"phase 5c", flush=True)
-    for line in ptxas_lines("decode_step", "ssd_step_kernel"):
-        print(f"    ptxas {line}")
+              f"phase 5c{was}", flush=True)
+    for source, needle in (("mamba1_step", "sscan_step_kernel"),
+                           ("decode_step", "ssd_step_kernel")):
+        for line in ptxas_lines(source, needle):
+            print(f"    ptxas {line}")
     return rows
 
 

@@ -10,8 +10,11 @@ tables), kernel 5 (``mamba1_step``, mamba-130m's), kernel 6
 kernel 10's GEMV (mamba2-130m's W8 in_proj and out_proj) and kernel 11's
 GEMV (recurrentgemma-2b's gated MLP), kernel 12 (``pwl_activate``) at the
 ``pallas()`` forward's three fp32 operands and at phase 4's 32-bucket
-bf16 xBC, kernel 3 (``ssd_step``, fp32), then mamba-130m's and
-recurrentgemma-2b's decode steps at full width and depth.  Inputs, seeds,
+bf16 xBC, kernel 3 (``ssd_step``, fp32), kernel 4 (``sscan_step``, fp32
+state (4, 1536, 16)), kernel 9 in fp32 (gemma-2b's MQA 8 x 256, causal,
+at phase 5e's b = 4, L = 64 and at b = 1, L = 4096, on whichever body
+the tree's wrapper takes), then mamba-130m's and recurrentgemma-2b's
+decode steps at full width and depth.  Inputs, seeds,
 the cold rotation and the timers are ``chip_smoke.py``'s (phase 7), so
 two trees see the same numbers: unpack the other tree (``git archive``)
 into a git-ignored directory and run the script once per tree in one
@@ -22,14 +25,15 @@ each with the tree's ``src`` and the card's name and power limit:
   every kernel the call launches (``torch.profiler``, 10 calls);
   ``host_us``, the wrapper's host time a call (1000 calls, no
   synchronisation); kernel 6 also ``cold_ms`` and ``cold_device_ms``;
-  kernels 1, 2, 3 and 12 also ``digest``, a hash of the call's output
-  bytes (the same digest in two trees is the same bits), and ``sm_mhz``,
-  the SM clock after the reading; kernels 3 and 12 also ``graph_ms``, a
+  kernels 1, 2, 3, 4, 5, 9 and 12 also ``digest``, a hash of the call's
+  output bytes (the same digest in two trees is the same bits), and
+  ``sm_mhz``, the SM clock after the reading; kernel 9 the ``body`` it
+  took; kernels 3, 4 and 12 also ``graph_ms``, a
   launch's time in a CUDA graph of 50 launches (CUDA events, the gap
   between launches included: a timer apart from the profiler, whose
   readings of one kernel differ by ~1.25x between processes, PERF.md);
-* ``ptxas``: registers and spills of kernels 1, 3 and 12 (their sources
-  rebuilt for the report);
+* ``ptxas``: registers and spills of kernels 1, 3, 4, 5, 9 (fp32 and
+  SIMT bodies) and 12 (their sources rebuilt for the report);
 * the ``pallas()`` forward (mamba2-130m fp32, b = 4, l = 300):
   ``device_ms`` and kernel 12's share and launches;
 * a decode step: ``wall_ms`` (median of five runs of 10 steps, host
@@ -63,7 +67,8 @@ def _kernel_rows(cs, emit, dev):
              host_us=cs.host_us(call), **extra)
 
     m1 = cs.mamba1_inputs(4, dev, bf16, seed=70)
-    row("mamba1_step", lambda: ds.mamba1_step(**m1, dt_rank=cs.M1_DT_RANK))
+    m1_call = lambda: ds.mamba1_step(**m1, dt_rank=cs.M1_DT_RANK)  # noqa
+    row("mamba1_step", m1_call, digest=_digest(m1_call()), sm_mhz=_sm_mhz())
     rg = cs.rglru_inputs(4, dev, bf16, seed=100)
     cold, mb = cs.rglru_cold(ds.rglru_step, rg)
     row("rglru_step", lambda: ds.rglru_step(**rg),
@@ -176,6 +181,41 @@ def _pwl_ssd_rows(cs, emit, dev):
             emit(ptxas=line)
 
 
+def _sscan_flash_rows(cs, emit, dev):
+    """Kernel 4 (fp32 state (4, 1536, 16), with D) and kernel 9 in fp32 at
+    phase 5e's shape (gemma-2b, b = 4, MQA 8 x 256, L = 64, causal) and at
+    b = 1, L = 4096, whichever body the tree's wrapper takes, and ptxas's
+    report of kernels 4, 5 and 9 (fp32 and SIMT bodies)."""
+    import torch
+    from repro_torch.kernels import decode_step as ds, flash_attention as fa
+    f32 = torch.float32
+    args = cs.sscan_inputs(4, dev, f32, seed=71)
+    call = lambda: ds.sscan_step(*args)                 # noqa: E731
+    emit(kernel="sscan_step", b=4, shape=list(args[0].shape),
+         ms=cs.time_call(call), device_ms=sum(cs.device_profile(call).values()),
+         graph_ms=_graph_ms(call), sm_mhz=_sm_mhz(), host_us=cs.host_us(call),
+         digest=_digest(call()))
+    for b, l in ((4, 64), (1, 4096)):
+        q, k, v = cs.flash_inputs(b, 8, 1, l, 256, dev, f32, seed=200 + l)
+        call = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa
+        before = dict(fa.flash_attention.path_launches)
+        call()
+        body = [n for n, c in fa.flash_attention.path_launches.items()
+                if c != before.get(n, 0)]
+        emit(kernel="flash_attention fp32", b=b, l=l, body=body,
+             ms=cs.time_call(call, n=30 if l == 64 else 10),
+             device_ms=sum(cs.device_profile(call).values()),
+             sm_mhz=_sm_mhz(),
+             host_us=cs.host_us(call, n=1000 if l == 64 else 20),
+             digest=_digest(call()))
+    for source, needle in (("mamba1_step", "sscan_step_kernel"),
+                           ("mamba1_step", "mamba1_step_kernel"),
+                           ("flash_attention", "flash_attention_fp32"),
+                           ("flash_attention", "flash_attention_kernel")):
+        for line in cs.ptxas_lines(source, needle):
+            emit(ptxas=line)
+
+
 def _forward_rows(cs, emit, dev):
     """The Fig. 4a ``pallas()`` forward (mamba2-130m fp32, b = 4, l = 300,
     ``chip_smoke.py`` phase 6's shape and seed): its device time, kernel
@@ -267,10 +307,12 @@ def main() -> int:
 
     def emit(**row):
         print(json.dumps(dict(src=str(src), card=card, **row)), flush=True)
-    for name in ("actiba", "decode_step"):      # rebuilt: ptxas's report
+    for name in ("actiba", "decode_step", "mamba1_step",
+                 "flash_attention"):           # rebuilt: ptxas's report
         build._target(name).unlink(missing_ok=True)
     build.build_all()
     with torch.inference_mode():
+        _sscan_flash_rows(cs, emit, dev)
         _pwl_ssd_rows(cs, emit, dev)
         _forward_rows(cs, emit, dev)
         _kernel_rows(cs, emit, dev)

@@ -4,8 +4,16 @@
 // mamba1_step: conv-tail shift + bias, SiLU, xs @ x_proj -> (dt_low, B, C),
 // softplus(dt_low @ dt_proj + b), the selective-scan update
 //   s' = s * exp(dt A) + (dt u) B,   y = s' . C + D u,
-// and the SiLU(z) gate.  sscan_step replaces decode_step.py:113
-// sscan_step, the update alone.
+// and the SiLU(z) gate.  sscan_step (kernel 4) replaces decode_step.py:113
+// sscan_step, the update alone: bound by bytes, the fp32 state read and
+// written once and A read once (0.89 MB at b = 4, mamba-130m's width:
+// 0.0003 ms), so what the card spends is a launch and one round trip to
+// memory.  It is kernel 5's state stream with nothing around it
+// (chan_update / chan_sum below, shared by both): four threads a channel,
+// its first 16-byte state and A loads issued before anything else, y over
+// n met by shuffles in a fixed order; the element by element path of the
+// same kernel for n % 4 != 0 or a base that is not 16-byte aligned; b d /
+// 32 blocks of 128 threads (192 at b = 4, d = 1536: one wave).
 //
 // Bound: bytes.  Per call the fp32 state (b x 1536 x 16 at mamba-130m's
 // width, 98 KB a row) is read and written once and the fp32 x_proj
@@ -39,7 +47,8 @@
 //   5. Four threads a channel, 16-byte loads and stores of the state
 //      (coalesced: a warp covers 8 channels' 512 contiguous bytes): dt_proj
 //      split over the four and met by shuffles, softplus, the update, y
-//      over n by shuffles in a fixed order, the D skip and the gate.
+//      over n by shuffles in a fixed order (the state stream kernel 4
+//      shares), the D skip and the gate.
 // Both products are fp32 on the CUDA cores.  Under ActiBA the SiLUs and
 // the softplus are PWL tables (silu_tab, sp_tab; null for the exact
 // functions), as the TPU kernel's silu and softplus callables are.
@@ -53,23 +62,6 @@ constexpr int M1_CLUSTER = 16;        // blocks a row (a non-portable size)
 constexpr int M1_XPRE = 24;           // x_proj rows a thread loads up front
 constexpr int M1_DTPRE = 12;          // dt_proj rows a thread loads up front
 constexpr int M1_MAX_CONV = 4;        // the widest conv the kernel takes
-
-// One channel's state row: s'[k] = s[k] exp(dt A[k]) + (dt u) B[k], written
-// to ns; returns s' . C.  A, B, C are the channel's A row and the token's
-// B and C, all fp32.  (Kernel 4's update.)
-__device__ __forceinline__ float scan_channel(const float* __restrict__ s,
-                                              float* __restrict__ ns,
-                                              const float* __restrict__ A,
-                                              const float* B, const float* C,
-                                              float dt, float dtu, int n) {
-  float y = 0.f;
-  for (int k = 0; k < n; ++k) {
-    const float v = s[k] * expf(dt * A[k]) + dtu * B[k];
-    ns[k] = v;
-    y += v * C[k];
-  }
-  return y;
-}
 
 // p[k .. k+3] in fp32, zero at and past n: one 16-byte load (vec: n % 4
 // == 0 and p 16-byte aligned), else element by element.  The state
@@ -99,6 +91,52 @@ __device__ __forceinline__ void st_state(float* p, int k, int n, bool vec,
 #pragma unroll
   for (int e = 0; e < 4; ++e)
     if (k + e < n) __stcs(p + k + e, v[e]);
+}
+
+// Kernels 5 and 4's state stream: four lanes a channel (M1_TPC), lane q
+// holding the channel's state and A elements [4 q + 16 i, 4 q + 16 i + 4)
+// in 16-byte loads and stores where vec (a warp covers 8 channels' 512
+// contiguous bytes at n = 16).  Each kernel issues the first four (s_pre,
+// a_pre: ld_state / ld_param at 4 q) before anything that needs them;
+// chan_update runs the update s' = s exp(dt A) + dtu B, stores s' to ns
+// and returns the lane's part of s' . C (its elements in order), taking
+// the first four from s_pre / a_pre where use_head; chan_sum meets the
+// four lanes' parts by shuffles in a fixed order (every lane of the warp
+// reaches it).  B and C: the token's, fp32, in shared (kernel 5) or global
+// (kernel 4) memory.
+__device__ __forceinline__ float chan_update(bool use_head, float4 s_pre,
+                                             float4 a_pre, const float* s,
+                                             float* ns,
+                                             const float* a, int n, int q,
+                                             bool vec, bool on, float dt,
+                                             float dtu, const float* Bv,
+                                             const float* Cv) {
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  float yv = 0.f;
+  for (int k = M1_TPC * q; k < n; k += M1_TPC * 4) {
+    const bool pre = use_head && k == M1_TPC * q;
+    const float4 s4 = pre ? s_pre : (on ? ld_state(s, k, n, vec) : zero4);
+    const float4 a4 = pre ? a_pre : (on ? ld_param(a, k, n, vec) : zero4);
+    const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+    float nv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      nv[e] = 0.f;
+      if (k + e < n) {
+        nv[e] = sv[e] * expf(dt * av[e]) + dtu * Bv[k + e];
+        yv += nv[e] * Cv[k + e];
+      }
+    }
+    if (on) st_state(ns, k, n, vec, nv);
+  }
+  return yv;
+}
+
+__device__ __forceinline__ float chan_sum(float yv) {
+  yv += __shfl_xor_sync(0xFFFFFFFFu, yv, 1);
+  yv += __shfl_xor_sync(0xFFFFFFFFu, yv, 2);
+  return yv;
 }
 
 template <typename T> struct M1Params {
@@ -279,28 +317,10 @@ __global__ void __launch_bounds__(MAXT, 1) mamba1_step_kernel(M1Params<T> p) {
     const float u = on ? xs[cl] : 0.f;
     const float dtu = dt * u;
     const size_t so = (srow + ch) * n;
-    float yv = 0.f;
-    for (int k = M1_TPC * q; k < n; k += M1_TPC * 4) {
-      const bool pre = first && k == M1_TPC * q;
-      const float4 s4 = pre ? s_pre : (on ? ld_state(p.ssm_state + so, k, n, vec) : zero4);
-      const float4 a4 = pre ? a_pre
-                            : (on ? ld_param(p.A + static_cast<size_t>(ch) * n, k, n, vec)
-                                  : zero4);
-      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      float nv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        nv[e] = 0.f;
-        if (k + e < n) {
-          nv[e] = sv[e] * expf(dt * av[e]) + dtu * Bv[k + e];
-          yv += nv[e] * Cv[k + e];
-        }
-      }
-      if (on) st_state(p.new_ssm + so, k, n, vec, nv);
-    }
-    yv += __shfl_xor_sync(0xFFFFFFFFu, yv, 1);
-    yv += __shfl_xor_sync(0xFFFFFFFFu, yv, 2);
+    const float yv = chan_sum(chan_update(first, s_pre, a_pre, p.ssm_state + so,
+                                          p.new_ssm + so,
+                                          p.A + static_cast<size_t>(ch) * n, n,
+                                          q, vec, on, dt, dtu, Bv, Cv));
     if (on && q == 0) {
       const float d = first ? d0 : p.D[ch];
       const float zv = first ? z0 : to_f(p.z[static_cast<size_t>(bi) * p.z_rs + ch]);
@@ -312,28 +332,55 @@ __global__ void __launch_bounds__(MAXT, 1) mamba1_step_kernel(M1Params<T> p) {
 
 }  // namespace
 
+// Kernel 4's one argument: 64-bit fields in this order
+// (kernels/decode_step.py: SSCAN_FIELDS packs them).  state (b, d, n)
+// fp32; u (b, d) T; dt (b, d), A (d, n), B / C (b, n) and D (d,) fp32, D
+// null for no skip.  Writes new_state (b, d, n) fp32 and y (b, d) T.  vec:
+// n % 4 == 0 and 16-byte aligned state, new_state and A.
+struct SscanArgs {
+  int64_t dtype;
+  const void *state, *u, *dt, *A, *B, *C, *D;
+  void *new_state, *y;
+  int64_t b, d, n, vec;
+  void* stream;
+};
+
+namespace {
+constexpr int SS_THREADS = 128;   // kernel 4: 32 channels a block
+
+// Kernel 4: kernel 5's state stream alone.  Thread 4 c + q of the grid
+// is lane q of (row, channel) c = bi d + ch: its first state and A loads
+// go out before anything else, then u, dt, D, and the update reads the
+// row's B and C (fp32, through L1).  Lane 0 writes y = s' . C (+ u D).
 template <typename T>
-__global__ void sscan_step_kernel(const float* __restrict__ state,
-                                  const T* __restrict__ u,
-                                  const float* __restrict__ dt,
-                                  const float* __restrict__ A,
-                                  const float* __restrict__ B,
-                                  const float* __restrict__ C,
-                                  const float* __restrict__ D,
-                                  float* __restrict__ new_state,
-                                  T* __restrict__ y, int b, int d, int n) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= b * d) return;
-  const int bi = idx / d, c = idx % d;
-  const float uf = to_f(u[idx]), dtf = dt[idx];
-  const size_t so = static_cast<size_t>(idx) * n;
-  float yc = scan_channel(state + so, new_state + so,
-                          A + static_cast<size_t>(c) * n,
-                          B + static_cast<size_t>(bi) * n,
-                          C + static_cast<size_t>(bi) * n, dtf, dtf * uf, n);
-  if (D) yc = yc + uf * D[c];
-  y[idx] = from_f<T>(yc);
+__global__ void __launch_bounds__(SS_THREADS) sscan_step_kernel(const SscanArgs a) {
+  const int n = static_cast<int>(a.n), d = static_cast<int>(a.d);
+  const long long idx = static_cast<long long>(blockIdx.x) * SS_THREADS + threadIdx.x;
+  const long long c = idx / M1_TPC;
+  const int q = threadIdx.x % M1_TPC;
+  const bool on = c < a.b * d, vec = a.vec != 0;
+  const long long cc = on ? c : 0;
+  const int bi = static_cast<int>(cc / d), ch = static_cast<int>(cc % d);
+  const float* s = static_cast<const float*>(a.state) + cc * n;
+  float* ns = static_cast<float*>(a.new_state) + cc * n;
+  const float* A = static_cast<const float*>(a.A) + static_cast<size_t>(ch) * n;
+  float4 s_pre = make_float4(0.f, 0.f, 0.f, 0.f), a_pre = s_pre;
+  if (on && M1_TPC * q < n) {
+    s_pre = ld_state(s, M1_TPC * q, n, vec);
+    a_pre = ld_param(A, M1_TPC * q, n, vec);
+  }
+  const float* D = static_cast<const float*>(a.D);
+  const float uf = to_f(static_cast<const T*>(a.u)[cc]);
+  const float dtf = static_cast<const float*>(a.dt)[cc];
+  const float dv = D ? D[ch] : 0.f;
+  const size_t bc = static_cast<size_t>(bi) * n;
+  const float yv = chan_sum(chan_update(
+      true, s_pre, a_pre, s, ns, A, n, q, vec, on, dtf, dtf * uf,
+      static_cast<const float*>(a.B) + bc, static_cast<const float*>(a.C) + bc));
+  if (on && q == 0)
+    static_cast<T*>(a.y)[cc] = from_f<T>(D ? yv + uf * dv : yv);
 }
+}  // namespace
 
 // The launcher's one argument: 64-bit fields in this order
 // (kernels/decode_step.py: M1_FIELDS packs them).  xs_raw / z: rows of di
@@ -420,22 +467,17 @@ extern "C" int mamba1_step_launch(const M1Args* a) {
   return static_cast<int>(err);
 }
 
-// state (b, d, n) fp32; u (b, d) T; dt (b, d), A (d, n), B / C (b, n) and
-// D (d,) fp32, D null for no skip.  Writes new_state (b, d, n) fp32 and
-// y (b, d) T.
-extern "C" int sscan_step_launch(int dtype, const void* state, const void* u,
-                                 const void* dt, const void* A, const void* B,
-                                 const void* C, const void* D,
-                                 void* new_state, void* y, int b, int d,
-                                 int n, void* stream) {
-  if (b == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int total = b * d, nt = 128;
-  DISPATCH_T(dtype, sscan_step_kernel<T><<<(total + nt - 1) / nt, nt, 0, s>>>(
-      static_cast<const float*>(state), static_cast<const T*>(u),
-      static_cast<const float*>(dt), static_cast<const float*>(A),
-      static_cast<const float*>(B), static_cast<const float*>(C),
-      static_cast<const float*>(D), static_cast<float*>(new_state),
-      static_cast<T*>(y), b, d, n));
+// One launch of sscan_step_kernel: b d four-lane groups.  Returns the
+// cudaError_t.
+extern "C" int sscan_step_launch(const SscanArgs* a) {
+  if (a->b == 0 || a->d == 0) return 0;
+  if (a->n < 1 || a->b < 0 || a->d < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long threads = a->b * a->d * M1_TPC;
+  const long long blocks = (threads + SS_THREADS - 1) / SS_THREADS;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(a->stream);
+  DISPATCH_T(a->dtype, sscan_step_kernel<T><<<static_cast<unsigned>(blocks),
+                                              SS_THREADS, 0, s>>>(*a));
   return static_cast<int>(cudaGetLastError());
 }

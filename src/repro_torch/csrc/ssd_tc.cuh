@@ -1,8 +1,9 @@
 // Split-precision tensor-core tiles of the SSD chunk pass: fp32 tiles that
 // TMA brings in, split by the block's threads into bf16 terms that wgmma
 // reads, the ring of TMA stages they arrive in, and the descriptors of
-// those terms.  Used by ssd_chunk.cu's wgmma body (kernel 7) and
-// prefill_chunk.cu's (kernel 2).
+// those terms.  Used by ssd_chunk.cu's wgmma body (kernel 7),
+// prefill_chunk.cu's (kernel 2) and flash_attention.cu's fp32 body
+// (kernel 9).
 //
 // Precision (bf16x6).  An fp32 product on one bf16 term of each operand
 // loses ~2^-8 of each factor and misses the kernels' 1e-4 limit by a wide

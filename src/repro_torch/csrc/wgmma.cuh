@@ -1,12 +1,12 @@
 // Hopper building blocks shared by the bf16 tensor-core bodies of
 // matmul_pwl.cu (kernel 11, tiled), qmatmul.cu (kernel 10),
-// flash_attention.cu (kernel 9) and ssd_chunk.cu (kernel 7, through
-// ssd_tc.cuh), by gemm.cuh's cluster GEMV and by mamba1_step.cu: TMA
-// tensor maps made on the host, mbarriers, TMA loads, thread-block
-// clusters (rank, barrier, loads from another block's shared memory, the
-// launch) and
-// the bf16 wgmma (fp32 accumulator) in its shared x shared and register x
-// shared forms.  sm_90a only (wgmma).
+// flash_attention.cu (kernel 9, both its tensor-core bodies) and
+// ssd_chunk.cu (kernel 7, through ssd_tc.cuh), by gemm.cuh's cluster GEMV
+// and by mamba1_step.cu: TMA tensor maps made on the host, mbarriers, TMA
+// loads, thread-block clusters (rank, barriers, loads from and stores to
+// another block's shared memory, the launch) and the bf16 wgmma (fp32
+// accumulator) in its shared x shared and register x shared forms.
+// sm_90a only (wgmma).
 //
 // Shared-memory layouts.  Every tile is loaded by TMA with a swizzle of SW
 // bytes (128, or 64 for rows of 32 bf16), one box per SW-byte column chunk:
@@ -202,6 +202,12 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// An arrival that orders this thread's earlier accesses (a barrier's
+// init, the reads of a buffer the others write next) before the
+// barrier's other side; cluster_wait completes it.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
 // Element i of the float array `p` (in this block's shared memory) as it

@@ -300,8 +300,12 @@ SSD_FIELDS = ("dtype", "state", "x", "dt", "A", "B", "C", "new_state", "y",
               "b", "h", "p", "g", "n", "rows", "vec", "stream")
 _SSD_ARGS = struct.Struct("<" + "q" * len(SSD_FIELDS))
 _SSD = common.Launcher("decode_step", "ssd_step_launch", [ctypes.c_char_p])
-_SSCAN_LAUNCH = ("mamba1_step", "sscan_step_launch",
-                 [common.I] + [common.P] * 9 + [common.I] * 3 + [common.P])
+# Kernel 4's likewise (csrc/mamba1_step.cu: SscanArgs).
+SSCAN_FIELDS = ("dtype", "state", "u", "dt", "A", "B", "C", "D", "new_state",
+                "y", "b", "d", "n", "vec", "stream")
+_SSCAN_ARGS = struct.Struct("<" + "q" * len(SSCAN_FIELDS))
+_SSCAN = common.Launcher("mamba1_step", "sscan_step_launch",
+                         [ctypes.c_char_p])
 
 
 def ssd_step_plain(state, x_t, dt_t, A, B_t, C_t):
@@ -377,33 +381,39 @@ def sscan_step_plain(state, u_t, delta_t, A, B_t, C_t, D=None):
 
 
 def sscan_step(state, u_t, delta_t, A, B_t, C_t, D=None):
-    """The CUDA kernel (contract as :func:`sscan_step_plain`); one thread
-    per (row, channel).  delta, A, B, C and D are read as fp32 (cast here
-    if they are not); ``D=None`` is passed as a null pointer, no skip."""
+    """The CUDA kernel (contract as :func:`sscan_step_plain`): kernel 5's
+    state stream alone, four threads a (row, channel), its arguments packed
+    into one buffer (``SSCAN_FIELDS``).  delta, A, B, C and D are read as
+    fp32 (cast here if they are not); ``D=None`` is passed as a null
+    pointer, no skip."""
     dev = state.device
     common.require(dev.type == "cuda", "sscan_step takes CUDA tensors; the "
                    "CPU path is sscan_step_plain")
     b, d, n = state.shape
     common.check_cuda(dev, u_t=u_t, delta_t=delta_t, A=A, B_t=B_t, C_t=C_t,
                       **({} if D is None else {"D": D}))
-    common.require(state.dtype == torch.float32 and state.is_contiguous(),
+    common.require(state.dtype == _F32 and state.is_contiguous(),
                    "sscan_step: state must be contiguous fp32 (b, d, n)")
     common.require(tuple(u_t.shape) == tuple(delta_t.shape) == (b, d)
                    and tuple(A.shape) == (d, n)
                    and tuple(B_t.shape) == tuple(C_t.shape) == (b, n)
                    and (D is None or tuple(D.shape) == (d,)),
                    "sscan_step: shapes")
-    u_t = u_t.contiguous()
+    code = common.stream_code(u_t)
+    if not u_t.is_contiguous():
+        u_t = u_t.contiguous()
     new = torch.empty_like(state)
     y = torch.empty_like(u_t)
-    delta_t, A, B_t, C_t = (_f32(t) for t in (delta_t, A, B_t, C_t))
-    d_ptr = 0 if D is None else common.ptr(_f32(D))
-    err = common.launcher(*_SSCAN_LAUNCH)(
-        common.stream_code(u_t), common.ptr(state), common.ptr(u_t),
-        common.ptr(delta_t), common.ptr(A), common.ptr(B_t),
-        common.ptr(C_t), d_ptr, common.ptr(new), common.ptr(y), b, d, n,
-        common.stream(dev))
-    common.check_launch(err, "mamba1_step", "sscan_step kernel")
+    delta_t, A, B_t, C_t = _f32(delta_t), _f32(A), _f32(B_t), _f32(C_t)
+    D = None if D is None else _f32(D)
+    sp, snp, ap = state.data_ptr(), new.data_ptr(), A.data_ptr()
+    err = _SSCAN(_SSCAN_ARGS.pack(
+        code, sp, u_t.data_ptr(), delta_t.data_ptr(), ap, B_t.data_ptr(),
+        C_t.data_ptr(), 0 if D is None else D.data_ptr(), snp,
+        y.data_ptr(), b, d, n, n % 4 == 0 and (sp | snp | ap) % 16 == 0,
+        torch._C._cuda_getCurrentRawStream(dev.index)))
+    if err:
+        common.check_launch(err, "mamba1_step", "sscan_step kernel")
     sscan_step.launches += 1
     return new, y
 

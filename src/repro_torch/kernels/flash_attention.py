@@ -10,16 +10,27 @@ query head h reads key / value head h // (hq / hkv).  Scores in fp32
 Masks are left-aligned: query i and key j are both positions from 0.
 
 * :func:`flash_attention` — the wrapper around ``csrc/flash_attention.cu``
-  (online softmax over 64-key tiles): bf16 q, k and v that TMA can read
-  take the tensor-core body (``wgmma``: S = q k^T in bf16 with fp32 sums,
-  P V with P split into two bf16 terms), everything else (fp32, views TMA
-  cannot read) the SIMT body of fp32 FMAs; :func:`path` names the body
-  from dtypes, strides and alignment alone.  CUDA tensors only; any
-  strides whose last axis is contiguous, so ``nn/attention.py`` hands it
-  the (b, s, h, d) projections moved to (b, h, s, d) without a copy, and
-  the output keeps q's layout.  Calls are counted in
-  ``flash_attention.launches`` and, by body, in
-  ``flash_attention.path_launches``.
+  (online softmax over 64-key tiles), three bodies that :func:`path`
+  names from dtypes, head_dim, strides and alignment alone:
+
+  - ``"wgmma"``: bf16 q, k and v that TMA can read, on the tensor cores
+    (S = q k^T in bf16 with fp32 sums, P V with P split into two bf16
+    terms);
+  - ``"wgmma_fp32"``: fp32 q, k and v that TMA can read at head_dim 64,
+    128 or 256, on the tensor cores with fp32-accurate products (every
+    operand in three bf16 terms, six products each), one warpgroup a
+    64-column unit of the head, two units a block, and at d = 256 each
+    64-query tile a cluster of two blocks whose partial scores meet in
+    distributed shared memory;
+  - ``"simt"``: the rest (fp32 at head_dim 32, views TMA cannot read),
+    fp32 FMAs on the CUDA cores.
+
+  CUDA tensors only; any strides whose last axis is contiguous, so
+  ``nn/attention.py`` hands it the (b, s, h, d) projections moved to (b,
+  h, s, d) without a copy, and the output keeps q's layout.  Its
+  arguments go packed into one buffer (``FLASH_FIELDS``) through cached
+  launchers.  Calls are counted in ``flash_attention.launches`` and, by
+  body, in ``flash_attention.path_launches``.
 * :func:`flash_attention_plain` — ``attention_ref`` in PyTorch: the CPU
   path, and what the kernel is held to on the card.
 
@@ -30,6 +41,7 @@ is not causal: there, with Lk no multiple of 128, it attends to them.
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import Optional
 
 import torch
@@ -39,12 +51,20 @@ from repro_torch.kernels import common
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
 
-_LAUNCH = ("flash_attention", "flash_attention_launch",
-           [common.I, common.P, common.P, common.P, common.P, common.P,
-            common.I, common.I, common.I, common.I, common.I, common.I,
-            common.I, common.I, common.F, common.P])
-_WGMMA = ("flash_attention", "flash_attention_wgmma_launch",
-          [common.P] * 5 + [common.I] * 8 + [common.F, common.P])
+FP32_HEAD_DIMS = (64, 128, 256)   # the fp32 tensor-core body's
+# The launchers take one pointer to their arguments packed as 64-bit
+# fields in this order (csrc/flash_attention.cu: FlashArgs).
+FLASH_FIELDS = ("dtype", "q", "k", "v", "out", "q_b", "q_h", "q_s", "k_b",
+                "k_h", "k_s", "v_b", "v_h", "v_s", "o_b", "o_h", "o_s", "b",
+                "hq", "hkv", "lq", "lk", "d", "causal", "window", "scale",
+                "stream")
+_FLASH_ARGS = struct.Struct("<" + "".join("d" if f == "scale" else "q"
+                                          for f in FLASH_FIELDS))
+_LAUNCHERS = {body: common.Launcher("flash_attention", fn, [ctypes.c_char_p])
+              for body, fn in (("simt", "flash_attention_launch"),
+                               ("wgmma", "flash_attention_wgmma_launch"),
+                               ("wgmma_fp32",
+                                "flash_attention_fp32_wgmma_launch"))}
 
 
 def _mask(lq: int, lk: int, causal: bool, window: Optional[int], dev
@@ -87,14 +107,23 @@ def _tma_strides(t: torch.Tensor) -> tuple:
 
 
 def path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The body a call takes, from dtypes, strides and alignment alone:
-    ``"wgmma"`` when q, k and v are bf16 with 16-byte aligned bases and
-    (b, h, s) strides that are multiples of 8 elements (TMA's rule; every
-    model path), else ``"simt"``."""
+    """The body a call takes, from dtypes, head_dim, strides and alignment
+    alone: where q, k and v have 16-byte aligned bases and (b, h, s)
+    strides that are multiples of 16 bytes (TMA's rule; every model
+    path), ``"wgmma"`` for bf16 and ``"wgmma_fp32"`` for fp32 at a head_dim
+    in ``FP32_HEAD_DIMS``; else ``"simt"``."""
     ts = (q, k, v)
-    if all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
-           and all(st % 8 == 0 for st in _tma_strides(t)) for t in ts):
-        return "wgmma"
+    dtype = q.dtype
+    if not all(t.dtype == dtype for t in ts):
+        return "simt"
+    body = {torch.bfloat16: "wgmma", torch.float32: "wgmma_fp32"}.get(dtype)
+    if body is None or (body == "wgmma_fp32"
+                        and q.shape[-1] not in FP32_HEAD_DIMS):
+        return "simt"
+    per16 = 16 // q.element_size()
+    if all(t.data_ptr() % 16 == 0
+           and all(st % per16 == 0 for st in _tma_strides(t)) for t in ts):
+        return body
     return "simt"
 
 
@@ -131,25 +160,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # (b, h, s, d) comes back the same way.
     out = torch.empty_like(q)
     body = path(q, k, v)
-    ins = [_tma_strides(t) if body == "wgmma" else t.stride()[:3]
+    ins = [t.stride()[:3] if body == "simt" else _tma_strides(t)
            for t in (q, k, v)]
-    strides = (ctypes.c_longlong * 12)(
-        *(st for t in ins for st in t), *out.stride()[:3])
     scale = float(scale if scale is not None else d ** -0.5)
-    args = (common.ptr(q), common.ptr(k), common.ptr(v), common.ptr(out),
-            ctypes.addressof(strides), b, hq, hkv, lq, lk, d, int(causal),
-            0 if window is None else int(window), scale, common.stream(dev))
-    if body == "wgmma":
-        err = common.launcher(*_WGMMA)(*args)
-    else:
-        err = common.launcher(*_LAUNCH)(common.stream_code(q), *args)
-    common.check_launch(err, "flash_attention", f"flash_attention {body} "
-                        f"kernel")
+    err = _LAUNCHERS[body](_FLASH_ARGS.pack(
+        common.stream_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), *ins[0], *ins[1], *ins[2], *out.stride()[:3], b, hq,
+        hkv, lq, lk, d, int(causal), 0 if window is None else int(window),
+        scale, common.stream(dev)))
+    if err:
+        common.check_launch(err, "flash_attention", f"flash_attention {body} "
+                            f"kernel")
     flash_attention.launches += 1
     flash_attention.path_launches[body] += 1
     return out
 
 
 flash_attention.launches = 0
-# The same calls by the body they took (bf16 tensor cores, SIMT).
-flash_attention.path_launches = {"wgmma": 0, "simt": 0}
+# The same calls by the body they took (bf16 tensor cores, fp32 tensor
+# cores, SIMT).
+flash_attention.path_launches = {"wgmma": 0, "wgmma_fp32": 0, "simt": 0}

@@ -1139,11 +1139,74 @@ def test_flash_attention_wgmma_body_masks(dev, d, mode):
 
 
 def test_flash_attention_fp32_and_unaligned_views_take_the_simt_body(dev):
-    """fp32 goes to the SIMT body, and so does a bf16 view whose base TMA
-    cannot read (q starting one element into its buffer)."""
-    q, k, v = _flash_case(dev, 2, 4, 2, 130, 130, 64, torch.float32, seed=9)
+    """fp32 at head_dim 32 goes to the SIMT body, and so do an fp32 and a
+    bf16 view whose base TMA cannot read (q starting one element into its
+    buffer)."""
+    q, k, v = _flash_case(dev, 2, 4, 2, 130, 130, 32, torch.float32, seed=9)
     _flash_twice(dev, q, k, v, dict(causal=True), "simt", torch.float32)
-    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
-    flat = torch.empty(qb.numel() + 1, device=dev, dtype=torch.bfloat16)
-    qs = flat[1:].view(2, 130, 4, 64).copy_(qb.transpose(1, 2)).transpose(1, 2)
-    _flash_twice(dev, qs, kb, vb, dict(causal=True), "simt", torch.bfloat16)
+    q, k, v = _flash_case(dev, 2, 4, 2, 130, 130, 64, torch.float32, seed=9)
+    for dtype in (torch.float32, torch.bfloat16):
+        qb, kb, vb = (t.to(dtype) for t in (q, k, v))
+        flat = torch.empty(qb.numel() + 1, device=dev, dtype=dtype)
+        qs = flat[1:].view(2, 130, 4, 64).copy_(qb.transpose(1, 2)) \
+            .transpose(1, 2)
+        _flash_twice(dev, qs, kb, vb, dict(causal=True), "simt", dtype)
+
+
+# Kernel 9's fp32 tensor-core body: clusters of d / 64 blocks (1, 2, 4).
+@pytest.mark.parametrize("L", [1, 64, 100, 300, 1000])
+@pytest.mark.parametrize("qpg", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_fp32_wgmma_body_matches_plain(dev, d, qpg, L):
+    """fp32, causal, groups of qpg query heads per key / value head (b = 2
+    with 2 key / value heads), ragged against the 64-row tiles; the body,
+    its path counter and the same bits on a second call."""
+    q, k, v = _flash_case(dev, 2, 2 * qpg, 2, L, L, d, torch.float32,
+                          seed=d + qpg + L)
+    _flash_twice(dev, q, k, v, dict(causal=True), "wgmma_fp32",
+                 torch.float32)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("mode", ["window", "noncausal", "lq<lk", "gemma"])
+def test_flash_attention_fp32_wgmma_body_masks(dev, d, mode):
+    """The window (64 keys at L = 300), not causal (L = 100), Lq < Lk (128
+    queries, 384 keys) and gemma-2b's fp32 parity shape (b = 4, MQA 8 x 1,
+    L = 64) in fp32."""
+    b, hq, hkv, lq, lk, kw = {
+        "window": (2, 8, 2, 300, 300, dict(causal=True, window=64)),
+        "noncausal": (2, 8, 2, 100, 100, dict(causal=False)),
+        "lq<lk": (2, 8, 2, 128, 384, dict(causal=True)),
+        "gemma": (4, 8, 1, 64, 64, dict(causal=True))}[mode]
+    q, k, v = _flash_case(dev, b, hq, hkv, lq, lk, d, torch.float32,
+                          seed=d + lq + 3)
+    _flash_twice(dev, q, k, v, kw, "wgmma_fp32", torch.float32)
+
+
+@pytest.mark.parametrize("n,offset", [(16, 0), (8, 0), (18, 0), (36, 0),
+                                      (16, 1)],
+                         ids=["n16", "n8", "n18-scalar", "n36-two-passes",
+                              "unaligned-scalar"])
+def test_sscan_kernel_four_lanes_match_plain(dev, n, offset):
+    """Kernel 4's four lanes a channel at mamba-130m's width (b = 4, 1536
+    channels): 16-byte pieces at n = 16, 8 and 36, the element path at n
+    = 18 and for a state one element off 16-byte alignment; the same bits
+    on a second call."""
+    gen = torch.Generator().manual_seed(n + offset)
+    b, d = 4, 1536
+    rnd = lambda *s: torch.randn(s, generator=gen).to(dev)
+    flat = rnd(b * d * n + offset)
+    state = flat[offset:].view(b, d, n)
+    assert (state.data_ptr() % 16 == 0) == (offset == 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (state, rnd(b, d).to(dtype), rnd(b, d).abs() * 0.5,
+                -rnd(d, n).abs() - 0.1, rnd(b, n), rnd(b, n), rnd(d))
+        before = ds.sscan_step.launches
+        got = ds.sscan_step(*args)
+        again = ds.sscan_step(*args)
+        torch.cuda.synchronize(dev)
+        assert ds.sscan_step.launches == before + 2
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+        for name, a, r in zip(("ssm", "y"), got, ds.sscan_step_plain(*args)):
+            _close(a, r, TOL[dtype, "state" if name == "ssm" else "stream"],
+                   name)

@@ -20,8 +20,8 @@ Here:
   state, one and two groups, chunks of 64 and 128 and the ActiBA tables;
 * the wrappers' rules: kernel 2's body rule (``prefill_chunk.path``) and
   head-set rule, kernel 1's rows-per-block rule (``step_rows``), and the
-  packed argument layouts of kernels 1, 2, 3, 5, 6 and 12 against the C
-  structs they fill;
+  packed argument layouts of kernels 1, 2, 3, 4, 5, 6, 9 and 12 against
+  the C structs they fill;
 * the plain prefill against ``chip_smoke.py``'s fp64 witness of the
   function on the card test's seed-280 inputs.
 """
@@ -44,6 +44,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import pwl as tpwl
 from repro_torch.core.xamba import XambaConfig as TXamba
 from repro_torch.kernels import actiba, decode_step as ds
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import prefill_chunk as pc
 from repro_torch.kernels.gated_norm import gated_norm_plain
 from repro_torch.nn import layers
@@ -399,12 +400,14 @@ def _c_struct(source, name):
     ("mamba1_step.cu", "M1Args", ds.M1_FIELDS, ds._M1_ARGS),
     ("rglru_step.cu", "RgArgs", ds.RG_FIELDS, ds._RG_ARGS),
     ("decode_step.cu", "SsdArgs", ds.SSD_FIELDS, ds._SSD_ARGS),
-    ("actiba.cu", "PwlLaunch", actiba.PWL_FIELDS, actiba._PWL_ARGS)],
+    ("actiba.cu", "PwlLaunch", actiba.PWL_FIELDS, actiba._PWL_ARGS),
+    ("mamba1_step.cu", "SscanArgs", ds.SSCAN_FIELDS, ds._SSCAN_ARGS),
+    ("flash_attention.cu", "FlashArgs", fa.FLASH_FIELDS, fa._FLASH_ARGS)],
     ids=["kernel 1", "kernel 2", "kernel 5", "kernel 6", "kernel 3",
-         "kernel 12"])
+         "kernel 12", "kernel 4", "kernel 9"])
 def test_packed_arguments_match_the_c_struct(source, name, fields, packer):
     """Each launcher's one packed buffer: the fields in the C struct's
-    order, 8 bytes each (int64_t, a pointer or the double eps)."""
+    order, 8 bytes each (int64_t, a pointer or a double: eps, scale)."""
     names, types = _c_struct(source, name)
     assert tuple(names) == tuple(fields)
     assert packer.size == 8 * len(fields)

@@ -212,11 +212,14 @@ def _attn_shapes():
 @pytest.mark.parametrize("b,hq,hkv,L,d", _attn_shapes())
 def test_flash_attention_body_on_the_model_shapes(b, hq, hkv, L, d):
     """The (b, s, h, d) projections seen as (b, h, s, d) take the
-    ``wgmma`` body in bf16 and the SIMT body in fp32."""
+    ``wgmma`` body in bf16; in fp32 the fp32 tensor-core body at head_dim
+    64, 128 and 256 (every full-width model's) and the SIMT body at 32 (the
+    reduced gemma's)."""
     q = _bf16(b, L, hq, d).transpose(1, 2)
     k, v = (_bf16(b, L, hkv, d).transpose(1, 2) for _ in range(2))
     assert fa.path(q, k, v) == "wgmma"
-    assert fa.path(q.float(), k.float(), v.float()) == "simt"
+    assert fa.path(q.float(), k.float(), v.float()) == (
+        "wgmma_fp32" if d in (64, 128, 256) else "simt")
     assert fa.path(q.contiguous(), k.contiguous(), v.contiguous()) == "wgmma"
 
 
