@@ -32,9 +32,14 @@ qwen1.5-4b:
    gated) at m = 4 and 512 against (2560, 7680), each run twice for the
    same bits;
    ``qmatmul`` (W8) at mamba2-130m's in_proj and out_proj shapes with
-   m = 4, 8, 256 and 512, at mamba2-2.7b's at m = 4, and in its PWL and
-   gated forms at (512, 768) x (768, 2048), each run twice and held to
-   give the same bits; ``mamba1_step`` at mamba-130m's widths (b = 1 and
+   m = 4, 8, 256 and 512, at mamba2-2.7b's at m = 4, in its PWL and
+   gated forms at (512, 768) x (768, 2048), and in bf16 at gemma-2b's and
+   recurrentgemma-2b's W8 shapes (``W8_CASES``: the attention and RG-LRU
+   projections, the GeGLU MLP's wi / wg in the gated form with the GeLU
+   table, wo) at m = 4 (GEMV) and 256 (``wgmma``), each run twice and
+   held to give the same bits; kernel 2 on a speculative verify window
+   (b = 4, l = ``SPEC_K``, a carried state: the SIMT body) and kernel 6
+   with W8 gate weights dequantized to fp32 (exact and ActiBA); ``mamba1_step`` at mamba-130m's widths (b = 1 and
    4, and with the ActiBA tables), ``sscan_step`` at (4, 1536, 16) with
    and without D and with the state an offset view (the element path),
    ``ssd_step`` at mamba2-130m's step widths (b = 4), each also run twice
@@ -83,7 +88,27 @@ qwen1.5-4b:
    4096-token prompt at b = 1 (past the 2048-key blocked threshold: 18
    launches) and the ``loss`` forward at b = 1, l = 512 (18 launches).
    4f: qwen1.5-4b at full width, depth 4 (of 40), untied ``lm_head``,
-   the wave engine: 4 launches for its prefill;
+   the wave engine: 4 launches for its prefill.
+   4g: speculation and the prefix cache through the CLI at mamba2-130m's
+   full size (continuous engine, chunk 64, 12 requests, batch 4, 16
+   greedy tokens): ``--speculate-k 4`` (bf16 verify, W8 draft), a 64-token
+   ``--shared-prefix`` with 64-token suffixes without and with
+   ``--prefix-cache-mb 256``, and both flags; each run's launches exact
+   from the engine's counters (kernel 1: 24 x (draft + drain + plain
+   steps); kernel 10's GEMV: 2 x 24 x draft steps; kernel 2: 24 x verify
+   calls on its SIMT body and 24 x chunk calls on its ``wgmma`` body),
+   bursts and prefix hits > 0, fewer prompt tokens with the cache.
+   mamba-130m's ``--speculate-k 4`` (kernels 5 and 10 in the drafts, a
+   plain-op verify); recurrentgemma-2b and gemma-2b at full width and
+   depths ``SPEC_DEPTH`` with a W8 draft (kernel 6 on dequantized gates
+   and kernel 10 in the drafts), then their W8 weights under ``pallas()``
+   (kernel 10's gated PWL form in the MLP, its launches counted by body
+   in ``qmatmul.gated_launches``); the bf16 speculative runs' tokens
+   equal the plain runs' up to the first position whose top-2 margin is
+   within twice the measured verify-to-step logit gap, the cache alone's
+   exactly; a mamba2 run under
+   ``pallas()`` whose verify windows take the unfused chain, counted by
+   ``nn/ssm.py: PREFILL_BRANCHES`` and printed;
 5. parity  — the same model in fp32, kernel path on the card against the
    plain path on the CPU, teacher-forced over 16 greedy tokens of 4
    prompts, with fp32 weights and with W8 weights: tokens agree
@@ -105,7 +130,12 @@ qwen1.5-4b:
    on the ``wgmma_fp32`` body, none on the SIMT body), and on the card
    ``use_flash`` on against off.  5f: ``reduce_sum`` and ``mean`` in
    ``pallas`` mode at (2048, 2048), one launch of kernel 14 each,
-   against their ``naive`` modes;
+   against their ``naive`` modes.  5g: full-width fp32 mamba2-130m, 8
+   requests with a shared prefix through the continuous engine (chunk
+   64) plain, with speculation (k = 4, W8 draft) and with the prefix
+   cache: tokens identical to the plain run up to the first position
+   whose top-2 margin is within the logit tolerance, rollbacks and
+   prefix hits > 0;
 6. ablation — the paper's Fig. 4a variants (``examples/xamba_ablation.py``:
    baseline, +CumBA, +ReduBA, +CumBA+ReduBA, +ActiBA) and ``pallas()``
    through ``repro_torch.launch.ablation``: ``MambaLM.forward`` of the fp32
@@ -137,7 +167,9 @@ qwen1.5-4b:
    kernel 13's row, the wrapper's host microseconds per call and
    ``torch.matmul``'s (``torch.cumsum``'s for kernel 13; 1000 calls, no
    synchronisation), and kernel 10's GEMV also with its
-   weights cold (a rotation of copies larger than the 50 MB L2); kernels
+   weights cold (a rotation of copies larger than the 50 MB L2); kernel
+   2 on the verify window and kernel 10's gated GEMV at gemma-2b's MLP
+   (beside its two ``torch.matmul`` calls), a row each; kernels
    5 and 6 with their host microseconds a call (one launch each now),
    kernel 6 also cold (three weight sets in turn, 78.6 MB), and ptxas's
    report of both; kernel 12 at the ``pallas()`` forward's three fp32
@@ -254,6 +286,25 @@ QMM_CASES = (("in_proj", D_MODEL, D_IN_PROJ, (4, 8, 256, 512)),
              ("2.7b out_proj", 5120, 2560, (4,)))
 # The PWL and gated forms at an MLP-like shape: (m, k, n).
 QMM_MLP = (512, 768, 2048)
+# Kernel 10 at the W8 widths of gemma-2b (src/repro/configs/gemma_2b.py:
+# d_model 2048, 8 query heads and 1 KV head of 256, GeGLU d_ff 16384) and
+# recurrentgemma-2b (d_model = lru_width 2560, 10 heads and 1 KV head of
+# 256, GeGLU d_ff 7680; the RG-LRU's in_x, in_gate, out and gates at 2560):
+# (label, k, n, gated), the gated MLP with the GeLU table, at the decode
+# and draft steps' m = 4 (the GEMV) and a chunk's m = 256 (``wgmma``).
+W8_CASES = (("gemma-2b q, o", 2048, 2048, False),
+            ("gemma-2b k, v", 2048, 256, False),
+            ("gemma-2b wi/wg gated", 2048, 16384, True),
+            ("gemma-2b wo", 16384, 2048, False),
+            ("recurrentgemma-2b q, o, in_x, in_gate, out", 2560, 2560, False),
+            ("recurrentgemma-2b k, v", 2560, 256, False),
+            ("recurrentgemma-2b wi/wg gated", 2560, 7680, True),
+            ("recurrentgemma-2b wo", 7680, 2560, False))
+W8_MS = (4, 256)
+# Speculative decoding's window (serve/continuous.py): k draft tokens a
+# burst, verified in one chunk of k tokens (kernel 2's SIMT body: a chunk
+# below 64) at b = 4 slots with a carried state.
+SPEC_K = 4
 # mamba-130m's mixer (src/repro/configs/mamba_130m.py): d_inner 1536,
 # d_state 16, dt_rank 48, conv width 4.
 M1_D_INNER, M1_D_STATE, M1_DT_RANK = 2 * D_MODEL, 16, 48
@@ -303,11 +354,14 @@ GEMMA_PARITY_DEPTH = 2
 
 
 def reset_counts(counters) -> None:
-    """Every wrapper's launch count to 0 (qmatmul's by path too)."""
+    """Every wrapper's launch count to 0 (by body and qmatmul's gated
+    form's by body too)."""
     for fn in counters.values():
         fn.launches = 0
-        for k in getattr(fn, "path_launches", {}):
-            fn.path_launches[k] = 0
+        for by in (getattr(fn, "path_launches", {}),
+                   getattr(fn, "gated_launches", {})):
+            for k in by:
+                by[k] = 0
 
 
 def read_counts(counters) -> dict:
@@ -704,6 +758,7 @@ def kernel_cases(dev, kernels, tables):
     from repro_torch.kernels.prefill_chunk import path as prefill_path
     from repro_torch.kernels.qmatmul import path as qmatmul_path
     from repro_torch.kernels.ssd_chunk import path as ssd_chunk_path
+    from repro_torch.nn.quant import dequantize, quantize_tensor
     kw = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM)
     worst = {k: 0.0 for k in ("mamba2_step", "mamba2_prefill", "cumsum_last",
                               "ssd_chunk", "pwl_activate", "qmatmul",
@@ -766,6 +821,16 @@ def kernel_cases(dev, kernels, tables):
                                                      **kw, **tk),
                    lambda: kernels["mamba2_prefill_plain"](
                        **ins, chunk=chunk, **kw, **tp), dn, FUSED_OUTS)
+
+        ins = prefill_inputs(4, SPEC_K, dev, dtype, seed=24)
+        routed("mamba2_prefill", f"{dn} verify window b=4 l={SPEC_K} "
+               f"chunk={SPEC_K} (carried state)",
+               prefill_path(ins["xbc"], ins["ssm_state"], chunk=SPEC_K,
+                            head_dim=HEAD_DIM),
+               lambda: kernels["mamba2_prefill"](**ins, chunk=SPEC_K, **kw),
+               lambda: kernels["mamba2_prefill_plain"](**ins, chunk=SPEC_K,
+                                                       **kw),
+               dn, FUSED_OUTS)
 
         if dtype == torch.bfloat16:
             fails.extend(prefill_witness_check(dev, kernels))
@@ -845,6 +910,17 @@ def kernel_cases(dev, kernels, tables):
                   lambda: kernels["rglru_step"](**ins, **rtab),
                   lambda: kernels["rglru_step_plain"](**ins, **ract), dn,
                   rg_outs)
+        # W8 gate weights, dequantized once to fp32 (``decode_view``).
+        ins = rglru_inputs(4, dev, dtype, seed=85)
+        ins.update({k: dequantize(quantize_tensor(ins[k].float()))
+                    for k in ("rg_w", "ig_w")})
+        twice("rglru_step", f"{dn} b=4 w={RG_W} W8 gates dequantized to "
+              f"fp32", lambda: kernels["rglru_step"](**ins),
+              lambda: kernels["rglru_step_plain"](**ins), dn, rg_outs)
+        twice("rglru_step", f"{dn} b=4 w={RG_W} W8 gates dequantized to "
+              f"fp32, actiba", lambda: kernels["rglru_step"](**ins, **rtab),
+              lambda: kernels["rglru_step_plain"](**ins, **ract), dn,
+              rg_outs)
         for l in (256, 300):
             a, bb = rg_scan_inputs(4, l, dev, dtype, seed=90 + l)
             twice("rg_lru_scan", f"{dn} (4, {l}, {RG_W})",
@@ -921,7 +997,9 @@ def qmatmul_inputs(m, k, n, dev, dtype, seed, gated=False):
 
 
 def qmatmul_cases(dev, dtype, tables):
-    """Phase 3's qmatmul cases: (label, args, kwargs)."""
+    """Phase 3's qmatmul cases: (label, args, kwargs); in bf16 also the
+    transformer's and recurrentgemma's W8 shapes (``W8_CASES``)."""
+    import torch
     out = []
     for name, k, n, ms in QMM_CASES:
         for m in ms:
@@ -933,6 +1011,16 @@ def qmatmul_cases(dev, dtype, tables):
                                   gated=form == "gated")
         out.append((f"{form} (silu table) x ({m}, {k}) q ({k}, {n})", args,
                     dict(kw, table=tables["silu"])))
+    if dtype != torch.bfloat16:
+        return out
+    for name, k, n, gated in W8_CASES:
+        for m in W8_MS:
+            args, kw = qmatmul_inputs(m, k, n, dev, dtype, seed=m + k + n,
+                                      gated=gated)
+            if gated:
+                kw["table"] = tables["gelu"]
+            out.append((f"W8 {name}{' (gelu table)' if gated else ''} x "
+                        f"({m}, {k}) q ({k}, {n})", args, kw))
     return out
 
 
@@ -1127,6 +1215,400 @@ def continuous_phase(serve_main, counters, argv):
     return engine, launches, paths
 
 
+SPEC_ARGV = CONT_ARGV + ["--speculate-k", str(SPEC_K)]
+# The prefix-cache runs: a 64-token shared prefix and 64-token suffixes
+# (chunk-aligned: every prompt's first chunk is the shared one).
+PREFIX_ARGV = [a if a != "128" else "64" for a in CONT_ARGV] + [
+    "--shared-prefix", "64"]
+PREFIX_CACHE = ["--prefix-cache-mb", "256"]
+# The recurrentgemma-2b and gemma-2b speculation runs: full width at this
+# depth (of 26 and 18), for the script's time.
+SPEC_DEPTH = {"recurrentgemma-2b": 6, "gemma-2b": 4}
+
+
+def draft_qmatmuls(engine) -> int:
+    """``qmatmul`` launches of one draft step: the W8 weights of the
+    draft's layers that a decode step multiplies through ``qdot``, every
+    quantized weight but the RG-LRU gates, which kernel 6 takes
+    dequantized from ``decode_view``."""
+    from repro_torch.nn import quant
+    n = 0
+    for lay in engine._draft_params["layers"]:
+        for part, sub in lay.items():
+            for name, p in (sub.items() if isinstance(sub, dict) else ()):
+                if isinstance(p, dict) and quant.is_quantized(p.get("w")) \
+                        and not (part == "rglru" and name in ("rg", "ig")):
+                    n += 1
+    return n
+
+
+def spec_launches(engine) -> tuple:
+    """The launches a continuous serve run with speculation (or without:
+    no bursts) must make, from the engine's counters, and the bodies of
+    kernels 2 and 10.  A burst is ``k`` draft steps and one verify call;
+    ``decode_steps`` counts the verify calls besides the plain and
+    rollback-drain steps.  Each draft, drain and plain step runs the
+    family's fused step once a (recurrent) layer, each draft step the
+    draft's W8 projections through kernel 10's GEMV
+    (``draft_qmatmuls``); a Mamba-2 verify window (k tokens) runs kernel
+    2's SIMT body once a layer, each prompt chunk its ``wgmma`` body.
+    Mamba-1's, recurrentgemma's and the transformer's verify windows and
+    chunks are plain ops, as in the JAX package.  Returns (launches,
+    bodies, the run's counts)."""
+    cfg = engine.model.cfg
+    m = engine.metrics.summary()
+    bursts = m["spec_bursts"]
+    drafts = engine.spec_k * bursts
+    steps, calls = m["decode_steps"] - bursts, m["prefill_chunks"]
+    n = cfg.n_layers
+    want, bodies = {}, {}
+    if cfg.family == "mamba2":
+        want = {"mamba2_step": n * (drafts + steps),
+                "mamba2_prefill": n * (bursts + calls)}
+        bodies["mamba2_prefill"] = {"wgmma": n * calls, "simt": n * bursts}
+    elif cfg.family == "mamba":
+        want = {"mamba1_step": n * (drafts + steps)}
+    elif cfg.family == "recurrentgemma":
+        want = {"rglru_step": engine.model.n_rec * (drafts + steps)}
+    if drafts:
+        want["qmatmul"] = draft_qmatmuls(engine) * drafts
+    bodies["qmatmul"] = {"gemv": want.get("qmatmul", 0), "wgmma": 0,
+                         "tiled": 0}
+    return want, bodies, dict(bursts=bursts, drafts=drafts, steps=steps,
+                              calls=calls)
+
+
+def token_agreement(a, b) -> str:
+    """How far two engines' runs of the same requests agree: requests
+    with identical tokens, and for the others (uid, first position that
+    differs).  In bf16 a verify chunk and a decode step round apart, so
+    greedy tokens may part where two logits lie within a rounding; phase
+    5g holds fp32 runs to the margin rule."""
+    ta = {r.uid: r.out_tokens for r in a._finished}
+    tb = {r.uid: r.out_tokens for r in b._finished}
+    assert sorted(ta) == sorted(tb), "the runs served other requests"
+    parts = [(u, next((i for i, (x, y) in enumerate(zip(ta[u], tb[u]))
+                       if x != y), min(len(ta[u]), len(tb[u]))))
+             for u in sorted(ta) if ta[u] != tb[u]]
+    return (f"{len(ta) - len(parts)}/{len(ta)} requests token-identical; "
+            f"the others part at (request, position) {parts}")
+
+
+def _staged_cache(engine, prompts):
+    """``prompts`` (one a row of the engine's ``slots``) staged as
+    ``ContinuousEngine._admit_chunked`` stages them: each capped at the
+    largest bucket, left-padded with ``pad_id`` to ``span`` (the longest
+    row's chunk span) and run through ``prefill_chunk`` a chunk at a time
+    at the engine's batch.  Returns (the last chunk's logits, cache,
+    span)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.scheduler import chunk_span
+    model, C = engine.model, engine.chunk
+    capped = [p[-engine.buckets[-1]:] for p in prompts]
+    span = max(chunk_span(engine.buckets, C, len(p)) for p in capped)
+    toks = np.full((engine.slots, span), engine.cfg.pad_id, np.int64)
+    for row, p in enumerate(capped):
+        toks[row, span - len(p):] = p
+    t = torch.from_numpy(toks).to(model.device)
+    cache = model.init_cache(engine.slots, engine.max_seq, model.cfg.dtype)
+    for off in range(0, span, C):
+        logits, cache = model.prefill_chunk(engine.params, t[:, off:off + C],
+                                            cache, off)
+    return logits, cache, span
+
+
+def verify_step_gap(engine, reqs):
+    """How far a verify window's logits lie from the decode step's at the
+    same positions, from the same state: ``reqs``' prompts (one a row)
+    staged as the engine stages them, then each row's own 16 tokens
+    teacher forced two ways, through 16 decode steps and through
+    ``SPEC_K``-token ``verify_chunk`` windows whose state carries from
+    window to window as accepted bursts carry it.  Returns the largest
+    absolute gap over every position and vocabulary entry."""
+    import torch
+    model, params = engine.model, engine.params
+    rows = range(engine.slots)
+    feed = torch.tensor([r.out_tokens[:16] for r in reqs],
+                        device=model.device)
+    with torch.inference_mode():
+        _, cache, span = _staged_cache(engine, [r.prompt for r in reqs])
+        sc, steps = model.export_state(cache, None, rows), []
+        for i in range(16):
+            logits, sc = model.decode_step(params, feed[:, i:i + 1], sc,
+                                           span + i)
+            steps.append(logits.float())
+        vc, wins = model.export_state(cache, None, rows), []
+        for w in range(0, 16, SPEC_K):
+            logits, vc = model.verify_chunk(params, feed[:, w:w + SPEC_K],
+                                            vc, span + w)
+            wins.append(logits.float())
+    return float((torch.cat(wins, 1) - torch.stack(steps, 1)).abs().max())
+
+
+def step_margin(engine, req, toks):
+    """The top-2 margin of the decode step's logits after ``toks`` of
+    ``req``, re-run as the engine ran it (the prompt staged in every row
+    of a batch of ``slots``, then decode steps over ``toks``), and the
+    greedy tokens the re-run picked along the way (the first from the
+    last chunk's logits)."""
+    import torch
+    model, params = engine.model, engine.params
+    with torch.inference_mode():
+        logits, cache, span = _staged_cache(engine,
+                                            [req.prompt] * engine.slots)
+        picks = [int(logits[0].argmax())]
+        for i, t in enumerate(toks):
+            tok = torch.full((engine.slots, 1), t, dtype=torch.long,
+                             device=model.device)
+            logits, cache = model.decode_step(params, tok, cache, span + i)
+            picks.append(int(logits[0].argmax()))
+        top2 = logits[0].float().topk(2).values
+    return float(top2[0] - top2[1]), picks
+
+
+def bf16_margin_rule(plain, spec, label):
+    """Holds a bf16 speculative run to ``engines_phase``'s margin rule at a
+    tolerance measured here: each request's tokens must equal the plain
+    run's up to the first position whose top-2 margin on the plain path
+    is within twice the verify-to-step gap (:func:`verify_step_gap` on
+    the plain run's first ``slots`` requests; two logits that each move
+    by at most the gap can swap only if they lie within twice it).  The
+    margins come from :func:`step_margin`, whose re-run must pick the
+    plain run's own tokens up to the parting.  Returns the gap."""
+    pr = {r.uid: r for r in plain._finished}
+    sr = {r.uid: r.out_tokens for r in spec._finished}
+    assert sorted(pr) == sorted(sr), f"{label}: other requests served"
+    gap = verify_step_gap(plain, [pr[u] for u in sorted(pr)[:plain.slots]])
+    tol = 2 * gap
+    margins, faithful = [], True
+    for uid in sorted(pr):
+        a, b = pr[uid].out_tokens, sr[uid]
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            assert len(a) == len(b), f"{label}: request {uid} lengths"
+            continue
+        mg, picks = step_margin(plain, pr[uid], a[:j])
+        faithful = faithful and picks == list(a[:j + 1])
+        margins.append((uid, j, mg))
+    print(f"  {label}, bf16: verify-to-step logit gap {gap:.4e} (tolerance "
+          f"{tol:.4e}); first divergences (request, position, top-2 "
+          f"margin on the plain path): {margins}; the re-runs pick the "
+          f"plain run's tokens: {faithful}", flush=True)
+    assert faithful, f"{label}: the margin re-run is not the plain run's"
+    assert all(mg <= tol for _, _, mg in margins), \
+        f"{label}: tokens differ where the margin exceeds the bf16 tolerance"
+    return gap
+
+
+def spec_serve(counters, label, run):
+    """One phase-4g serve run (``run()`` returns the engine and its
+    completed requests): every request its 16 tokens in the vocabulary,
+    every logit row finite, the exact launches of :func:`spec_launches`
+    by kernel and by body; prints the speculation and prefix-cache
+    counters and the rate.  Returns (engine, summary, bodies)."""
+    import torch
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    engine, done = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    bodies = {k: dict(counters[k].path_launches)
+              for k in ("mamba2_prefill", "qmatmul")}
+    cfg = engine.model.cfg
+    m = engine.metrics.summary()
+    assert all(len(r.out_tokens) == 16 for r in done), \
+        f"{label}: every request must get 16 tokens"
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens)
+    assert m["logit_rows"] > 0 and m["nonfinite_logit_rows"] == 0, \
+        f"{label}: non-finite logits"
+    want, want_bodies, c = spec_launches(engine)
+    want = dict({k: 0 for k in launches}, **want)
+    if cfg.family != "mamba2":
+        want_bodies["mamba2_prefill"] = {"wgmma": 0, "simt": 0}
+    print(f"  {label}: {len(done)} requests, {c['bursts']} bursts "
+          f"({c['drafts']} draft steps), {c['steps']} plain and drain "
+          f"steps, {c['calls']} chunk calls; launches {launches}, by body "
+          f"{bodies}; expected {want}, {want_bodies}", flush=True)
+    assert launches == want and bodies == want_bodies, \
+        f"{label}: kernel launch counts"
+    print(f"    spec_bursts {m['spec_bursts']} spec_drafted_tokens "
+          f"{m['spec_drafted_tokens']} spec_accept_rate "
+          f"{m['spec_accept_rate']:.4f} spec_tokens_per_verify "
+          f"{m['spec_tokens_per_verify']:.4f} spec_rollbacks "
+          f"{m['spec_rollbacks']}; prefix_hits {m['prefix_hits']} "
+          f"prefix_misses {m['prefix_misses']} prefix_hit_tokens "
+          f"{m['prefix_hit_tokens']}; {m['prefill_tokens']} prompt tokens "
+          f"in {m['prefill_chunks']} chunk calls; {m['generated_tokens']} "
+          f"tokens: {m['tokens_per_s']:.1f} tok/s, decode step mean "
+          f"{m['token_latency_s'] * 1e3:.3f} ms, ttft_mean_s "
+          f"{m['ttft_mean_s']:.4f}; call wall {wall:.3f} s", flush=True)
+    return engine, m, bodies
+
+
+def spec_prefix_phase(serve_main, counters, dev, plain):
+    """Phase 4g: speculation and the prefix cache through the CLI at
+    mamba2-130m's full size (continuous engine, chunk 64, 12 requests,
+    batch 4, 16 greedy tokens, bf16 verify with a W8 draft), each run's
+    launches exact by kernel and body; mamba-130m's speculation;
+    recurrentgemma-2b and gemma-2b at full width and ``SPEC_DEPTH`` with a
+    W8 draft, then their W8 weights under ``pallas()`` (kernel 10's gated
+    PWL form in the MLP: six launches a layer a call instead of seven);
+    and a mamba2 run under ``pallas()`` whose 4-token verify windows take
+    the unfused chain, counted (``nn/ssm.py: PREFILL_BRANCHES``).  The
+    bf16 speculative runs are held to the plain runs (phase 4b's
+    ``plain``; the prefix runs without the cache) by
+    :func:`bf16_margin_rule`, at twice the measured verify-to-step gap;
+    the cache alone must change no token.  Returns the engines and
+    launches the later phases report."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.xamba import XambaConfig
+    from repro_torch.models import build_model
+    from repro_torch.nn import quant, ssm
+    from repro_torch.nn.params import init_params
+    from repro_torch.serve import ContinuousEngine, ServeConfig
+
+    out = {}
+    spec, m, bodies = spec_serve(counters, "mamba2-130m --speculate-k 4",
+                                 lambda: serve_main(SPEC_ARGV))
+    assert m["spec_bursts"] > 0, "spec: no burst ran"
+    print(f"  bf16 speculation against phase 4b's plain run: "
+          f"{token_agreement(plain, spec)}", flush=True)
+    bf16_margin_rule(plain, spec, "speculation against phase 4b")
+    out["mamba2_prefill_verify"] = bodies["mamba2_prefill"]["simt"]
+    out["spec_engine"] = spec
+    no_cache, off, _ = spec_serve(counters, "mamba2-130m shared prefix 64, "
+                                  "no cache", lambda: serve_main(PREFIX_ARGV))
+    pre, on, _ = spec_serve(counters, "mamba2-130m shared prefix 64, "
+                            "--prefix-cache-mb 256",
+                            lambda: serve_main(PREFIX_ARGV + PREFIX_CACHE))
+    out["prefix_engine"] = pre
+    both_engine, both, _ = spec_serve(
+        counters, "mamba2-130m shared prefix 64, --prefix-cache-mb 256 "
+        "--speculate-k 4",
+        lambda: serve_main(PREFIX_ARGV + PREFIX_CACHE +
+                           ["--speculate-k", str(SPEC_K)]))
+    for label, mm, eng in (("cache", on, pre),
+                           ("cache + speculation", both, both_engine)):
+        print(f"  {label}: {mm['prefill_tokens']} prompt tokens prefilled "
+              f"against {off['prefill_tokens']} without the cache; bf16 "
+              f"against the run without: {token_agreement(no_cache, eng)}",
+              flush=True)
+        if eng is both_engine:
+            bf16_margin_rule(no_cache, eng, "cache + speculation against "
+                             "no cache")
+        else:
+            # A restored snapshot is the state the chunks computed, bit
+            # for bit: the cache alone changes no token.
+            assert token_agreement(no_cache, eng).startswith("12/12"), \
+                "cache: tokens differ from the run without it"
+        assert mm["prefix_hits"] > 0, f"{label}: no prefix hit"
+        assert mm["prefill_tokens"] < off["prefill_tokens"], \
+            f"{label}: the cache saved no prefill"
+    assert both["spec_bursts"] > 0
+    m1_argv = [a if a != "mamba2-130m" else "mamba-130m" for a in SPEC_ARGV]
+    _, m1, _ = spec_serve(counters, "mamba-130m --speculate-k 4",
+                          lambda: serve_main(m1_argv))
+    assert m1["spec_bursts"] > 0
+
+    rng = np.random.default_rng(0)
+    kw = dict(max_batch=4, prefill_buckets=(32, 128), max_new_tokens=16,
+              prefill_chunk=64)
+    for arch, depth in SPEC_DEPTH.items():
+        cfg = get_config(arch).replace(n_layers=depth)
+        t0 = time.perf_counter()
+        model = build_model(cfg, dev)
+        params = init_params(model.param_specs(), 0, cfg.dtype, dev)
+        torch.cuda.synchronize()
+        print(f"  {arch} at full width, depth {depth}: init "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+                   for n in rng.integers(4, 129, 8)]
+
+        def run(model, params, n=8, **skw):
+            eng = ContinuousEngine(model, params, ServeConfig(**kw, **skw))
+            for p in prompts[:n]:
+                eng.submit(p)
+            return eng, eng.run()
+        _, mm, _ = spec_serve(
+            counters, f"{arch} depth {depth}, bf16 verify, W8 draft, k "
+            f"{SPEC_K}", lambda: run(model, params, speculate_k=SPEC_K))
+        assert mm["spec_bursts"] > 0
+        pcfg = cfg.replace(xamba=XambaConfig.pallas()).with_quant("w8")
+        pmodel = build_model(pcfg, dev)
+        w8 = quant.quantize_params_for_mode(params, "w8")
+        reset_counts(counters)
+        eng, done = run(pmodel, w8, n=4)
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        paths = dict(counters["qmatmul"].path_launches)
+        gated = dict(counters["qmatmul"].gated_launches)
+        pm = eng.metrics.summary()
+        n_rec = getattr(pmodel, "n_rec", 0)
+        # Through kernel 10, each layer: the gated MLP (wi and wg in one
+        # launch) and wo; an attention layer q, k, v and o; a recurrent
+        # layer in_x, in_gate and out, and in a chunk also its gates rg and
+        # ig (a decode step hands them to kernel 6, dequantized).
+        per_step = 5 * n_rec + 6 * (depth - n_rec)
+        per_chunk = per_step + 2 * n_rec
+        want_paths = dict(gemv=per_step * pm["decode_steps"],
+                          wgmma=per_chunk * pm["prefill_chunks"], tiled=0)
+        want = dict(qmatmul=want_paths["gemv"] + want_paths["wgmma"],
+                    rglru_step=n_rec * pm["decode_steps"])
+        # The gated form: every layer's MLP, once a step and a chunk call.
+        want_gated = dict(gemv=depth * pm["decode_steps"],
+                          wgmma=depth * pm["prefill_chunks"], tiled=0)
+        got = {k: launches[k] for k in want}
+        print(f"  {arch} depth {depth}, W8 weights under pallas(): "
+              f"{len(done)} requests, {pm['decode_steps']} decode steps, "
+              f"{pm['prefill_chunks']} chunk calls, "
+              f"{pm['nonfinite_logit_rows']} of {pm['logit_rows']} logit "
+              f"rows not finite; launches "
+              f"{ {k: v for k, v in launches.items() if v} }, qmatmul by "
+              f"body {paths}, its gated form by body {gated}; expected "
+              f"{want}, {want_paths}, {want_gated}", flush=True)
+        assert all(len(r.out_tokens) == 16 for r in done)
+        # RecurrentGemma under ActiBA overflows at this random init (phase
+        # 4d's finding), so only the transformer's rows must be finite.
+        assert n_rec or pm["nonfinite_logit_rows"] == 0
+        assert got == want and paths == want_paths \
+            and gated == want_gated, \
+            f"{arch} W8 pallas(): kernel launch counts"
+        if arch == "gemma-2b":
+            out["qmatmul_gated_gemma"] = gated["gemv"]
+        del model, params, pmodel, w8, eng
+
+    cfg = get_config("mamba2-130m").replace(xamba=XambaConfig.pallas())
+    model = build_model(cfg, dev)
+    params = init_params(model.param_specs(), 0, cfg.dtype, dev)
+    eng = ContinuousEngine(model, params, ServeConfig(
+        **dict(kw, max_new_tokens=8), speculate_k=SPEC_K))
+    for n in rng.integers(65, 129, 4):
+        eng.submit(rng.integers(1, cfg.vocab_size, int(n)).tolist())
+    reset_counts(counters)
+    before = dict(ssm.PREFILL_BRANCHES)
+    done = eng.run()
+    torch.cuda.synchronize()
+    branches = {k: ssm.PREFILL_BRANCHES[k] - before[k] for k in before}
+    pm = eng.metrics.summary()
+    n = cfg.n_layers
+    want = {"fused": n * pm["prefill_chunks"],
+            "unfused": n * pm["spec_bursts"]}
+    print(f"  mamba2-130m under pallas(), k {SPEC_K}: {pm['spec_bursts']} "
+          f"verify windows of {SPEC_K} tokens took the unfused chain (the "
+          f"reference's fallback: a chunk not a multiple of 64), "
+          f"{pm['prefill_chunks']} chunks of 64 the fused prefill; prefill "
+          f"branches {branches} (expected {want}); launches "
+          f"{read_counts(counters)}", flush=True)
+    assert branches == want and pm["spec_bursts"] > 0
+    assert all(len(r.out_tokens) == 8 for r in done)
+    assert pm["nonfinite_logit_rows"] == 0
+    return out
+
+
 def parity_phase(dev, seed, cfg, counters, quant_mode="none"):
     """Phase 5: fp32 kernel path (card) vs plain path (CPU), teacher
     forced over the kernel path's own greedy tokens; ``quant_mode``
@@ -1313,6 +1795,102 @@ def engines_phase(dev, seed, cfg, tol=LOGIT_TOL):
           f"position, top-2 margin): {margins}", flush=True)
     assert all(mg <= tol for _, _, mg in margins), \
         "engines: tokens differ where the margin exceeds the tolerance"
+
+
+def spec_prefix_exactness_phase(dev, seed):
+    """Phase 5g: speculation and the prefix cache change no token on the
+    card.  Full-width fp32 mamba2-130m, 8 requests (a shared 64-token
+    prefix and 64-token suffixes), batch 4, chunk 64, 16 greedy tokens,
+    through the continuous engine three ways: plain, with speculation (k =
+    ``SPEC_K``, W8 draft) and with the prefix cache.  Each request's tokens
+    must equal the plain run's up to the first position whose top-2 margin
+    (the model re-run on that request alone, in the engine's chunks) is
+    within ``LOGIT_TOL``, as in ``engines_phase``; speculation must have
+    rolled rows back and the cache must have hit.  The verify-to-step
+    logit gap (:func:`verify_step_gap`) must be within ``LOGIT_TOL``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import init_params
+    from repro_torch.serve import ContinuousEngine, ServeConfig
+
+    cfg = get_config("mamba2-130m").replace(param_dtype="float32")
+    model = build_model(cfg, dev)
+    params = init_params(model.param_specs(), seed, torch.float32, dev)
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, cfg.vocab_size, 64).tolist()
+    prompts = [shared + rng.integers(1, cfg.vocab_size, 64).tolist()
+               for _ in range(8)]
+    kw = dict(max_batch=4, prefill_buckets=(32, 128), max_new_tokens=16,
+              prefill_chunk=64)
+    runs = {"plain": {}, "speculation": dict(speculate_k=SPEC_K),
+            "prefix cache": dict(prefix_cache_mb=256)}
+    outs, summaries, engines = {}, {}, {}
+    for label, extra in runs.items():
+        eng = ContinuousEngine(model, params, ServeConfig(**kw, **extra))
+        for p in prompts:
+            eng.submit(p)
+        outs[label] = {r.uid: r.out_tokens for r in eng.run()}
+        summaries[label] = eng.metrics.summary()
+        engines[label] = eng
+    torch.cuda.synchronize()
+    # The verify window computes the decode step's function: in fp32 the
+    # two paths' logits lie within the parity tolerance (phase 4g's bf16
+    # gap is this one's rounding, scaled by bf16's coarser epsilon).
+    plain_eng = engines["plain"]
+    firsts = sorted(plain_eng._finished, key=lambda r: r.uid)
+    gap = verify_step_gap(plain_eng, firsts[:plain_eng.slots])
+    print(f"  fp32 verify-to-step logit gap {gap:.4e} (tol {LOGIT_TOL:.1e})",
+          flush=True)
+    assert gap <= LOGIT_TOL, "speculation: the verify window is not the step"
+    view = model.decode_view(params)
+
+    def margin(uid, toks):
+        """Top-2 margin of the logits after ``toks`` of request ``uid``."""
+        p = torch.tensor([prompts[uid - 1]], device=dev)
+        cache = model.init_cache(1, 0, torch.float32)
+        for c in range(2):
+            logits, cache = model.prefill_chunk(
+                view, p[:, 64 * c:64 * c + 64], cache, 64 * c)
+        for i, t in enumerate(toks):
+            logits, cache = model.decode_step(
+                view, torch.tensor([[t]], device=dev), cache, 128 + i)
+        top2 = logits[0].topk(2).values
+        return float(top2[0] - top2[1])
+
+    base = outs["plain"]
+    with torch.inference_mode():
+        for label in ("speculation", "prefix cache"):
+            got, m = outs[label], summaries[label]
+            assert sorted(got) == sorted(base) == list(range(1, 9))
+            same, margins = 0, []
+            for uid in sorted(base):
+                a, b = base[uid], got[uid]
+                j = next((i for i, (x, y) in enumerate(zip(a, b))
+                          if x != y), None)
+                if j is None and len(a) == len(b) == 16:
+                    same += 1
+                    continue
+                assert j is not None, f"{label}: request {uid} lengths"
+                margins.append((uid, j, margin(uid, a[:j])))
+            print(f"  {label} vs plain, fp32: {same}/8 requests "
+                  f"token-identical; first divergences (request, position, "
+                  f"top-2 margin): {margins}; spec_bursts "
+                  f"{m['spec_bursts']} spec_accept_rate "
+                  f"{m['spec_accept_rate']:.4f} spec_tokens_per_verify "
+                  f"{m['spec_tokens_per_verify']:.4f} spec_rollbacks "
+                  f"{m['spec_rollbacks']}; prefix_hits {m['prefix_hits']} "
+                  f"prefix_hit_tokens {m['prefix_hit_tokens']}; prompt "
+                  f"tokens {m['prefill_tokens']} (plain "
+                  f"{summaries['plain']['prefill_tokens']})", flush=True)
+            assert all(mg <= LOGIT_TOL for _, _, mg in margins), \
+                f"{label}: tokens differ where the margin exceeds the " \
+                f"tolerance"
+    assert summaries["speculation"]["spec_rollbacks"] > 0, \
+        "speculation: no row rolled back on the card"
+    assert summaries["prefix cache"]["prefix_hits"] > 0, \
+        "prefix cache: no hit"
 
 
 RG_SERVE_ARGV = ["--arch", "recurrentgemma-2b", "--requests", "8", "--batch",
@@ -1540,12 +2118,14 @@ def rgemma_parity_phase(dev, seed, counters):
 def rgemma_times(dev, kernels, launches, worst, tables):
     """Phase 7's rows for kernels 6, 8 and 11 at recurrentgemma-2b's serve
     shapes: kernel 6 at b = 4, bf16 (launches of the continuous bf16 CLI
-    run); kernel 8 at (4, 256, 2560) fp32 (the loss run's launches);
+    run), then with W8 gates dequantized to fp32 (printed beside it, not
+    a row); kernel 8 at (4, 256, 2560) fp32 (the loss run's launches);
     kernel 11 gated with the gelu table, bf16, GEMV at m = 4 and tiled at
     m = 512 (the pallas() Engine run's launches by path).  Library for
     kernel 11: its two ``torch.matmul`` products alone."""
     import torch
     from repro_torch.kernels import decode_step
+    from repro_torch.nn.quant import dequantize, quantize_tensor
     rows = []
     ins = rglru_inputs(4, dev, torch.bfloat16, seed=100)
     outs = kernels["rglru_step"](**ins)
@@ -1577,6 +2157,25 @@ def rgemma_times(dev, kernels, launches, worst, tables):
           f"{launches['rglru_step']} launches in the continuous serve run; "
           f"the two-launch body it replaced read device 0.0345 ms warm, "
           f"call 0.1362 ms (PERF.md's table)", flush=True)
+    # W8 gate weights, dequantized once to fp32 as ``decode_view`` hands
+    # them over (the W8 decode step and the W8 draft): twice the bf16
+    # gates' bytes, warm and cold, on the same card.
+    w8 = dict(ins, **{k: dequantize(quantize_tensor(ins[k].float()))
+                      for k in ("rg_w", "ig_w")})
+    ms_8 = time_call(lambda: kernels["rglru_step"](**w8))
+    dev_8 = _ours(device_profile(lambda: kernels["rglru_step"](**w8)))
+    cold, cold_mb8 = rglru_cold(kernels["rglru_step"], w8)
+    cold_ms8 = time_call(cold)
+    cold_dev8 = _ours(device_profile(cold, n=30))
+    del cold
+    bound_8, by_8 = _bound(_bytes(*w8.values(), *outs), ops)
+    print(f"  rglru_step b=4 bf16 w={RG_W}, W8 gates dequantized to fp32 "
+          f"(plan {decode_step.rglru_plan(RG_W, 4)}): kernel {ms_8:.4f} ms "
+          f"(device {dev_8:.4f} ms warm), weights cold ({cold_mb8:.1f} MB "
+          f"in turn): kernel {cold_ms8:.4f} ms, device {cold_dev8:.4f} ms; "
+          f"bound {bound_8:.4f} ms ({by_8}); the bf16 gates above: device "
+          f"{dev_ms:.4f} ms warm, {cold_dev:.4f} ms cold", flush=True)
+    del w8
     rtab = {f"{k}_table": tables[k] for k in ("sigmoid", "softplus", "gelu")}
     ms_a = time_call(lambda: kernels["rglru_step"](**ins, **rtab))
     dev_a = _ours(device_profile(lambda: kernels["rglru_step"](**ins,
@@ -2676,7 +3275,7 @@ def _bound(nbytes, ops, flop_per_s=FP32_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def qmatmul_times(dev, kernels, paths, worst):
+def qmatmul_times(dev, kernels, paths, worst, gated_launches):
     """Phase 7's qmatmul rows: the serve path's shapes in bf16, decode (m =
     4 slots, the GEMV) and chunked prefill (m = 4 x 64, the ``wgmma``
     body), in_proj and out_proj, a row each.  Beside each: the wrapper's
@@ -2688,8 +3287,15 @@ def qmatmul_times(dev, kernels, paths, worst):
     rate or 2 m k n operations at bf16 tensor-core rate (the int8 weights
     widen exactly to bf16).  Library: one ``torch.matmul`` of x with the
     int8 payload cast once to bf16 (the same contraction, before the
-    per-channel scale)."""
+    per-channel scale).  Then the gated form with the GeLU table at
+    gemma-2b's MLP (wi / wg 2048 -> 16384) at m = 4, the GEMV, beside the
+    two ``torch.matmul`` calls of the two products (no single call
+    computes the gated form: library null); its launches are the GEMV
+    gated ones that ``qmatmul.gated_launches`` counted in phase 4g's
+    gemma-2b run under ``pallas()``."""
     import torch
+    from repro_torch.core.pwl import table_for
+    from repro_torch.core.xamba import XambaConfig
     rows = []
     for body, m in (("gemv", 4), ("wgmma", 256)):
         for proj, k, n in (("in_proj", D_MODEL, D_IN_PROJ),
@@ -2744,6 +3350,35 @@ def qmatmul_times(dev, kernels, paths, worst):
                 launches=paths[body], max_abs_err=worst["qmatmul"],
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib_ms))
+    m, k, n = 4, 2048, 16384
+    args, kw = qmatmul_inputs(m, k, n, dev, torch.bfloat16, seed=41,
+                              gated=True)
+    kw["table"] = table_for("gelu", XambaConfig.pallas())
+    x, q, scale = args
+    call = lambda: kernels["qmatmul"](*args, **kw)     # noqa: E731
+    out = call()
+    ms = time_call(call)
+    plain_ms = time_call(lambda: kernels["qmatmul_plain"](*args, **kw))
+    dev_ms = _ours(device_profile(call))
+    qc, qvc = q.to(x.dtype), kw["qv"].to(x.dtype)
+    lib = lambda: (torch.matmul(x, qc), torch.matmul(x, qvc))  # noqa: E731
+    lib_ms = time_call(lib)
+    bound_ms, bound_by = _bound(
+        _bytes(x, q, scale, kw["qv"], kw["vscale"], out), 4 * m * k * n,
+        BF16_TC_FLOP_PER_S)
+    print(f"  qmatmul gemv gated (gelu table) gemma-2b MLP bf16 x ({m}, {k}) "
+          f"q, qv ({k}, {n}): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"the two torch.matmul calls on the bf16 casts {lib_ms:.4f} ms "
+          f"(before the scales, the table and the product); "
+          f"{gated_launches} gated GEMV launches counted in phase 4g's "
+          f"gemma-2b W8 pallas() run", flush=True)
+    rows.append(dict(
+        name="qmatmul_gemv_gated_gemma_mlp", route="cuda",
+        source="src/repro_torch/csrc/qmatmul.cu",
+        replaces="src/repro/kernels/qmatmul.py:85", launches=gated_launches,
+        max_abs_err=worst["qmatmul"], ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
     for gated in (0, 1):
         print(f"  qmatmul wgmma body ({'gated' if gated else 'plain'}): "
               f"{wgmma_smem('qmatmul', 'qmatmul_wgmma_smem', gated)} bytes "
@@ -2936,6 +3571,34 @@ def times_phase(dev, kernels, launches, steps, waves, worst, tables):
                 **ins, chunk=128, **kw, **ktab)))
             print(f"  mamba2_prefill b=4 l=128 bf16 with the ActiBA tables: "
                   f"kernel {ms_a:.4f} ms (device {dev_a:.4f} ms)", flush=True)
+    # The verify window of phase 4g's bursts: b = 4, l = k, one chunk of k
+    # on the SIMT body, a carried state.
+    ins = prefill_inputs(4, SPEC_K, dev, dtype, seed=34)
+    call = lambda: kernels["mamba2_prefill"](      # noqa: E731
+        **ins, chunk=SPEC_K, **kw)
+    outs = call()
+    ms = time_call(call)
+    plain_ms = time_call(lambda: kernels["mamba2_prefill_plain"](
+        **ins, chunk=SPEC_K, **kw))
+    dev_ms = _ours(device_profile(call))
+    us = host_us(call)
+    bound_ms, bound_by, _, _, _ = prefill_tc_bound(ins, outs, SPEC_K)
+    body = prefill_chunk_path(ins["xbc"], ins["ssm_state"], chunk=SPEC_K,
+                              head_dim=HEAD_DIM)
+    rows.append(dict(
+        name="mamba2_prefill_verify", route="cuda",
+        source="src/repro_torch/csrc/prefill_chunk.cu",
+        replaces="src/repro/kernels/prefill_chunk.py:294",
+        launches=launches["mamba2_prefill_verify"],
+        max_abs_err=worst["mamba2_prefill"], ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    print(f"  mamba2_prefill verify window b=4 l={SPEC_K} bf16 ({body} body, "
+          f"carried state): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+          f"host {us:.1f} us a call, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); "
+          f"{launches['mamba2_prefill_verify']} launches in phase 4g's "
+          f"speculative run (one a layer a burst); library: no single "
+          f"PyTorch call", flush=True)
     print(f"    wgmma body: {wgmma_smem('prefill_chunk', 'mamba2_prefill_wgmma_smem', 1, 128)}"
           f" bytes of dynamic shared memory at bf16, chunk 128", flush=True)
     for line in ptxas_lines("prefill_chunk", "ssd_prefill_wgmma_kernel"):
@@ -2994,7 +3657,7 @@ def times_phase(dev, kernels, launches, steps, waves, worst, tables):
         elif name == "pwl_activate":
             pwl_times(dev, kernels, launches, tables)
     return rows + qmatmul_times(dev, kernels, launches["qmatmul_paths"],
-                                worst)
+                                worst, launches["qmatmul_gated_gemma"])
 
 
 def mamba1_times(dev, kernels, launches, steps, worst, tables):
@@ -3222,6 +3885,13 @@ def main() -> int:
     launches.update(gemma_launches)
     phase(f"4f. serve (qwen1.5-4b, depth {QWEN_DEPTH}, use_flash, wave)")
     qwen_wave = qwen_phase(dev, counters)
+    phase("4g. speculation and the prefix cache (continuous engine, chunk "
+          "64: mamba2-130m, mamba-130m, " + ", ".join(
+              f"{a} depth {d}" for a, d in SPEC_DEPTH.items()) + ")")
+    with torch.inference_mode():
+        spec_out = spec_prefix_phase(serve.main, counters, dev, cont_engine)
+    launches.update(mamba2_prefill_verify=spec_out["mamba2_prefill_verify"],
+                    qmatmul_gated_gemma=spec_out["qmatmul_gated_gemma"])
 
     phase("5. path parity (fp32, kernel path vs plain path)")
     parity_phase(dev, 1, get_config("mamba2-130m"), counters)
@@ -3243,6 +3913,10 @@ def main() -> int:
     phase("5f. ReduBA (kernel 14 through core/reduce.py)")
     with torch.inference_mode():
         launches.update(reduba_phase(dev, counters))
+
+    phase("5g. speculation and the prefix cache vs plain (mamba2-130m, "
+          "fp32)")
+    spec_prefix_exactness_phase(dev, 3)
 
     phase("6. ablation (fp32 forward, b=4, l=300)")
     launches.update({k: v for k, v in ablation_phase(
@@ -3267,6 +3941,10 @@ def main() -> int:
     engines_summary((("mamba2 wave, bf16 (8 requests)", engine),
                      ("mamba2 continuous 64, bf16 (12)", cont_engine),
                      ("mamba2 continuous 64, W8 (12)", w8_engine),
+                     (f"mamba2 continuous 64, spec k {SPEC_K} (12)",
+                      spec_out["spec_engine"]),
+                     ("mamba2 continuous 64, prefix cache (12)",
+                      spec_out["prefix_engine"]),
                      ("mamba1 wave, bf16 (8 requests)", m1_wave),
                      ("mamba1 continuous 64, bf16 (12)", m1_engine),
                      ("mamba1 continuous 64, W8 (12)", m1_w8_engine),

@@ -15,7 +15,8 @@ identity; ``qv`` / ``vscale`` give the gated two-weight form of the MLPs.
   group and k split from :func:`gemv_plan`), the bf16 tensor-core body
   (``wgmma``; its k split from :func:`wgmma_splits`) for bf16 x above,
   else the SIMT tiled product.  CUDA tensors only; calls are counted in
-  ``qmatmul.launches`` and, by body, in ``qmatmul.path_launches``.
+  ``qmatmul.launches``, by body in ``qmatmul.path_launches``, and the
+  gated form's by body in ``qmatmul.gated_launches``.
 * :func:`qmatmul_plain` — the same arithmetic in PyTorch: fp32 sums, the
   scale multiplied once into them, the PWL table in ``eval_pwl``'s order;
   the CPU path, and what the kernel is held to on the card.
@@ -180,9 +181,13 @@ def qmatmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
         common.check_launch(err, "qmatmul", f"qmatmul {body} kernel")
     qmatmul.launches += 1
     qmatmul.path_launches[body] += 1
+    if gated:
+        qmatmul.gated_launches[body] += 1
     return out
 
 
 qmatmul.launches = 0
 # The same calls by the body they took (GEMV, bf16 tensor-core, SIMT tiled).
 qmatmul.path_launches = {"gemv": 0, "wgmma": 0, "tiled": 0}
+# The gated calls among them (``qv`` given), by body.
+qmatmul.gated_launches = {"gemv": 0, "wgmma": 0, "tiled": 0}

@@ -6,11 +6,13 @@ GPU (or ``--device cpu``), with weights drawn from ``--seed``.
 Takes the JAX CLI's flags for what the port serves: ``--engine``,
 ``--decode-mode`` / ``--prefill-mode`` (``naive`` = the unfused op
 chains), ``--prefill-chunk`` / ``--prefill-token-budget`` (the continuous
-engine's chunked prefill) and ``--quant`` (W8 weights through the
-``qmatmul`` kernel; not ported for recurrentgemma and the transformer,
-where any mode but ``none`` raises ``NotImplementedError``).  ActiBA has
-no flag, as in the JAX CLI: it comes with the ``XambaConfig`` presets;
-nor has the flash attention kernel (``use_flash``, a config override).
+engine's chunked prefill), ``--speculate-k`` (self-speculative bursts
+with a W8 draft), ``--prefix-cache-mb`` / ``--prefix-chunk`` /
+``--shared-prefix`` (the prefix-state cache, and requests that share a
+prompt prefix to exercise it) and ``--quant`` (W8 weights through the
+``qmatmul`` kernel, every family).  ActiBA has no flag, as in the JAX
+CLI: it comes with the ``XambaConfig`` presets; nor has the flash
+attention kernel (``use_flash``, a config override).
 """
 from __future__ import annotations
 
@@ -57,6 +59,27 @@ def main(argv=None):
     ap.add_argument("--prefill-token-budget", type=int, default=0,
                     help="max prefill tokens per engine step under "
                          "--prefill-chunk (0 = one chunk call per step)")
+    ap.add_argument("--prefix-cache-mb", type=float, default=0.0,
+                    help="prefix-state cache budget in MB: admissions "
+                         "reuse chunk-boundary state snapshots of "
+                         "previously served prompt prefixes (continuous "
+                         "engine, requires --prefill-chunk; 0 = off)")
+    ap.add_argument("--prefix-chunk", type=int, default=None,
+                    help="snapshot granularity in tokens (multiple of "
+                         "--prefill-chunk; default: one snapshot per "
+                         "prefill chunk)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many shared 'system prompt' tokens "
+                         "to every request (exercises the prefix cache)")
+    ap.add_argument("--speculate-k", type=int, default=0, metavar="K",
+                    help="self-speculative decoding: draft K tokens per "
+                         "burst with w8 params, verify them in one batched "
+                         "full-precision step, roll back rejected drafts "
+                         "via state snapshots (continuous engine only; "
+                         "outputs are plain decode's up to rounding: the "
+                         "verify window and the decode step round apart, "
+                         "so greedy picks may part where the top two "
+                         "logits lie within that gap; 0 = off)")
     ap.add_argument("--quant", default="none", choices=QUANT_MODES,
                     help="W8 weight-only quantization of the big linear "
                          "weights (every w8 mode runs the qmatmul kernel "
@@ -70,13 +93,17 @@ def main(argv=None):
     if args.prefill_chunk and args.engine != "continuous":
         log.warning("--prefill-chunk only applies to --engine continuous; "
                     "the wave engine keeps monolithic bucketed prefill")
+    if args.speculate_k and args.engine != "continuous":
+        log.warning("--speculate-k only applies to --engine continuous")
+    if args.speculate_k and args.quant != "none":
+        log.warning("--speculate-k with --quant %s: the draft params are "
+                    "a re-quantization of already-quantized weights: the "
+                    "draft/verify gap (and the speedup) collapses",
+                    args.quant)
+    if args.prefix_cache_mb and args.engine != "continuous":
+        log.warning("--prefix-cache-mb only applies to --engine continuous")
 
     cfg = get_config(args.arch, reduced=args.reduced)
-    if args.quant != "none" and cfg.family in ("recurrentgemma",
-                                               "transformer"):
-        raise NotImplementedError(
-            f"--quant {args.quant}: W8 weights for {args.arch} are not "
-            f"ported yet")
     if args.decode_mode:
         cfg = cfg.with_decode_mode(args.decode_mode)
     if args.prefill_mode:
@@ -99,14 +126,27 @@ def main(argv=None):
                        prefill_chunk=(args.prefill_chunk
                                       if args.engine == "continuous"
                                       else None),
-                       prefill_token_budget=args.prefill_token_budget)
+                       prefill_token_budget=args.prefill_token_budget,
+                       prefix_cache_mb=(args.prefix_cache_mb
+                                        if args.engine == "continuous"
+                                        else 0.0),
+                       prefix_chunk=args.prefix_chunk,
+                       speculate_k=(args.speculate_k
+                                    if args.engine == "continuous" else 0))
     engine_cls = ContinuousEngine if args.engine == "continuous" else Engine
     engine = engine_cls(model, params, scfg)
 
     rng = np.random.default_rng(args.seed)
+    shared = rng.integers(1, cfg.vocab_size, args.shared_prefix).tolist()
     for _ in range(args.requests):
         plen = int(rng.integers(4, args.prompt_len + 1))
-        engine.submit(rng.integers(1, cfg.vocab_size, plen).tolist())
+        # Suffix lengths in whole prefill chunks keep the padded streams
+        # aligned, so that the shared prefix hits.
+        if args.shared_prefix and args.prefill_chunk:
+            plen = max(args.prefill_chunk,
+                       plen - plen % args.prefill_chunk)
+        engine.submit(shared + rng.integers(1, cfg.vocab_size,
+                                            plen).tolist())
     done = engine.run()
     for r in done[:4]:
         log.info("req %d: %d prompt toks -> %s%s", r.uid, len(r.prompt),
@@ -117,6 +157,15 @@ def main(argv=None):
              "goodput_tok_s: %.1f  (wall source: %s)",
              m["slot_occupancy"], m["ttft_mean_s"], m["ttft_p99_s"],
              m["goodput_tokens_per_s"], m["wall_source"])
+    if m["spec_bursts"]:
+        log.info("speculative: %d bursts  accept_rate %.3f  "
+                 "tokens_per_verify %.2f  rollbacks %d",
+                 m["spec_bursts"], m["spec_accept_rate"],
+                 m["spec_tokens_per_verify"], m["spec_rollbacks"])
+    if m["prefix_hits"] or m["prefix_misses"]:
+        log.info("prefix cache: %d hits  %d misses  %d hit tokens",
+                 m["prefix_hits"], m["prefix_misses"],
+                 m["prefix_hit_tokens"])
     return engine, done
 
 

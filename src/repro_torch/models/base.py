@@ -1,7 +1,10 @@
 """Model configuration: the ``repro.models.base.ModelConfig`` fields that
 the Mamba-1, Mamba-2, RecurrentGemma and dense transformer families use,
-with ``dtype`` as a ``torch.dtype``; and the shared helpers
-``chunk_positions`` and ``cross_entropy_loss``."""
+with ``dtype`` as a ``torch.dtype``; the shared helpers
+``chunk_positions`` and ``cross_entropy_loss``; and :class:`DecodeAPI`,
+the serving surface's shared part (``prefill_chunk`` and
+``verify_chunk`` over each family's chunk trunk, and the reference
+``speculative_step``) that the three model classes inherit."""
 from __future__ import annotations
 
 import dataclasses
@@ -43,6 +46,109 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     hit = (logits.argmax(-1) == labels_safe).to(logits.dtype)
     acc = torch.where(valid, hit, zero).sum() / denom
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+
+def _host_tokens(tokens) -> np.ndarray:
+    """Token ids (a tensor on any device, or an array) as flat int64."""
+    if isinstance(tokens, torch.Tensor):
+        tokens = tokens.cpu().numpy()
+    return np.asarray(tokens, np.int64).reshape(-1)
+
+
+def _greedy(logits: torch.Tensor) -> np.ndarray:
+    return np.argmax(logits.float().cpu().numpy(), axis=-1).astype(np.int64)
+
+
+class DecodeAPI:
+    """What every served family shares beyond its own ``prefill``,
+    ``_chunk_hidden``, ``_logits``, ``decode_step`` and ``export_state`` /
+    ``import_state`` (the JAX package's ``DecodeAPI``)."""
+
+    def _chunk_hidden(self, params, tokens, cache, index):
+        """The family's chunk trunk: ``tokens`` (b, l), the first at
+        ``index`` (int or per row), through every layer with carried
+        state -> (final hidden states (b, l, d), cache)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement _chunk_hidden")
+
+    def prefill_chunk(self, params, tokens, cache, index):
+        """One prompt slice ``tokens`` (b, l) with carried state, its first
+        token at ``index`` (int or per row) -> (last logits (b, V) fp32,
+        cache)."""
+        x, new = self._chunk_hidden(params, tokens, cache, index)
+        return self._logits(params, x[:, -1]), new
+
+    def verify_chunk(self, params, tokens, cache, index):
+        """:meth:`prefill_chunk` with per-position logits: ``(b, s, V)``
+        fp32 instead of the last position's, so that one batched call
+        scores every token of a speculative draft window against the
+        full-precision stream (``serve/speculative.py``).  The same trunk,
+        so the carried state and KV writes are those of
+        ``prefill_chunk``."""
+        x, new = self._chunk_hidden(params, tokens, cache, index)
+        return self._logits(params, x), new
+
+    def speculative_step(self, params_draft, params_verify, token, cache,
+                         index, k: int):
+        """One self-speculative burst, host-driven (the reference the
+        continuous engine's burst must match; the accept rule is in
+        ``serve/speculative.py``): draft ``k`` greedy tokens with
+        ``params_draft`` from ``cache``, verify them in one
+        ``verify_chunk`` call with ``params_verify``, emit the longest
+        verified prefix plus one correction token, and repair rows that
+        consumed a rejected draft by re-advancing their pre-burst
+        snapshot through ``decode_step``.
+
+        ``token``: ``(b, 1)`` pending next-input tokens; ``index``: an
+        int or ``(b,)`` consumed-token counts.  Returns ``(emitted,
+        n_emit, cache, new_index)``: ``emitted`` is ``(b, k)`` int64 with
+        only the first ``n_emit[i]`` entries of row ``i`` meaningful, and
+        ``new_index = index + n_emit``.  Every entry point allocates the
+        cache it returns, so the caller's ``cache`` stays valid."""
+        from repro_torch.serve.speculative import accept_lengths, \
+            emit_counts, needs_rollback
+        if k < 1:
+            raise ValueError(f"speculative_step needs k >= 1, got {k}")
+        tok0 = _host_tokens(token)
+        b = tok0.shape[0]
+        idx = np.asarray(index, np.int64)
+        if idx.ndim == 0:
+            idx = np.full((b,), idx, np.int64)
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        # Draft pass: decode_step writes a new cache, so ``cache`` itself
+        # survives as the pre-burst snapshot.
+        dcache, cur = cache, tok0
+        drafts = np.zeros((b, k), np.int64)
+        for j in range(k):
+            logits, dcache = self.decode_step(params_draft, dev(cur[:, None]),
+                                              dcache, idx + j)
+            cur = drafts[:, j] = _greedy(logits)
+
+        # Verify pass: one chunk over [t0, d_1 .. d_{k-1}].
+        vtoks = np.concatenate([tok0[:, None], drafts[:, :k - 1]], axis=1)
+        vlogits, vcache = self.verify_chunk(params_verify, dev(vtoks), cache,
+                                            idx)
+        verify = _greedy(vlogits)
+
+        m = accept_lengths(drafts, verify)
+        n_emit = emit_counts(m, k).astype(np.int64)
+        # Rolled-back rows: re-advance the pre-burst row over the tokens
+        # the emitted stream consumed, [t0, g_0 .. g_{n-2}], through the
+        # full-precision step: exactly the non-speculative trajectory.
+        for i in np.nonzero(needs_rollback(m, k))[0]:
+            rcache = self.export_state(cache, None, [int(i)])
+            consume = [int(tok0[i])] + [int(t) for t in
+                                        verify[i, :int(n_emit[i]) - 1]]
+            for j, t in enumerate(consume):
+                _, rcache = self.decode_step(
+                    params_verify, dev(np.array([[t]], np.int64)), rcache,
+                    int(idx[i]) + j)
+            vcache = self.import_state(
+                vcache, None, [int(i)], self.export_state(rcache, None, [0]))
+        return verify, n_emit, vcache, idx + n_emit
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,9 +12,10 @@ layout, the family's state with a leading ``n_layers`` axis: mamba2's
 (L, b, h, p, n) fp32; mamba1's ``Mamba1State`` conv (L, b, w-1, d_inner)
 and ssm (L, b, d_inner, n) fp32.  Each step allocates the next cache once
 and every layer's kernel writes its new state straight into its slice of
-it.  The continuous engine's API (``prefill_chunk``, ``cache_batch_axes``,
-``export_state`` / ``import_state``) addresses rows on batch axis 1 and
-works on either family.
+it.  The continuous engine's API (``prefill_chunk``, ``verify_chunk``,
+``cache_batch_axes``, ``export_state`` / ``import_state``) addresses rows
+on batch axis 1 and works on either family; ``speculative_step`` comes
+from ``models/base.py: DecodeAPI``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.core.device import DeviceLike, resolve_device
-from repro_torch.models.base import ModelConfig
+from repro_torch.models.base import DecodeAPI, ModelConfig
 from repro_torch.nn import layers, ssm
 from repro_torch.nn.params import stack_specs
 
@@ -34,7 +35,7 @@ from repro_torch.nn.params import stack_specs
 _MIXERS = {"mamba2": "mamba2", "mamba": "mamba1"}
 
 
-class MambaLM:
+class MambaLM(DecodeAPI):
     """family == "mamba" (Mamba-1, selective scan) or "mamba2" (SSD);
     runs on ``device`` (default ``cuda``)."""
 
@@ -120,15 +121,17 @@ class MambaLM:
         x, new_cache = self._trunk(params, x, cache)
         return self._logits(params, x[:, -1]), new_cache
 
-    def prefill_chunk(self, params, tokens, cache, index
-                      ) -> Tuple[torch.Tensor, Any]:
-        """One prompt slice ``tokens`` (b, l) with carried state -> (last
-        logits (b, V) fp32, cache).  ``index`` is accepted for API
-        uniformity and ignored: the conv tail and SSM state carry position,
-        so a chunk is the whole-sequence trunk re-entered with the previous
-        chunk's state."""
+    def _chunk_hidden(self, params, tokens, cache, index):
+        """The whole-sequence trunk re-entered with the previous chunk's
+        state; ``index`` is ignored (the conv tail and SSM state carry
+        position).  A Mamba-2 chunk shorter than 64 tokens (a verify
+        window) takes kernel 2's SIMT body (``kernels/prefill_chunk.py:
+        path``); under a ``pallas`` prefill mode it takes the unfused
+        chain (``nn/ssm.py``, counted in ``ssm.PREFILL_BRANCHES``).
+        Mamba-1's is the plain-op scan."""
         del index
-        return self.prefill(params, {"tokens": tokens}, cache)
+        return self._trunk(params, layers.embed(params["embed"], tokens),
+                           cache)
 
     def cache_batch_axes(self, cache):
         """Each cache leaf's batch axis: 1 behind the stacked layer axis."""

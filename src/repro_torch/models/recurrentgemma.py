@@ -44,16 +44,17 @@ class RGemmaCache(NamedTuple):
     v: torch.Tensor      # (n_attn, b, T, n_kv, head_dim), cache dtype
 
 
-class RecurrentGemma:
+class RecurrentGemma(base.DecodeAPI):
     """Layer stack = ``n_groups`` whole pattern groups + a tail; runs on
-    ``device`` (default ``cuda``)."""
+    ``device`` (default ``cuda``).  W8 weights (``nn/quant.py``) go
+    through ``layers.linear``'s ``qdot`` (kernel 10 on the card), the
+    ActiBA gated MLP under ``pallas()`` through kernel 10's gated PWL form,
+    and the decode step's gates to kernel 6 dequantized once
+    (:meth:`decode_view`)."""
 
     def __init__(self, cfg: base.ModelConfig, device: DeviceLike = None):
         if not cfg.tie_embeddings:
             raise NotImplementedError("untied embeddings are not ported yet")
-        if cfg.xamba.quant != "none":
-            raise NotImplementedError(
-                "W8 weights for recurrentgemma are not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.pattern = tuple(cfg.block_pattern or
@@ -103,8 +104,9 @@ class RecurrentGemma:
     def decode_view(self, params) -> dict:
         """``params`` with each recurrent layer carrying kernel 6's
         operands (``ssm.rglru_kernel_operands``: the small ones fp32, the
-        gate weights as stored), so no step casts them again.  Build it
-        once per weight set; every entry point takes either form."""
+        gate weights as stored, W8 gate weights dequantized to fp32), so
+        no step casts or dequantizes them again.  Build it once per weight
+        set; every entry point takes either form."""
         return dict(params, layers=[
             dict(p, rglru=dict(p["rglru"], kernel=ssm.rglru_kernel_operands(
                 p["rglru"]))) if "rglru" in p else p
@@ -208,18 +210,16 @@ class RecurrentGemma:
             cache)
         return self._logits(params, x[:, -1]), new
 
-    def prefill_chunk(self, params, tokens, cache, index
-                      ) -> Tuple[torch.Tensor, Any]:
-        """One prompt slice ``tokens`` (b, l) whose first token sits at
-        ``index`` (int or per row) -> (last logits (b, V) fp32, cache):
+    def _chunk_hidden(self, params, tokens, cache, index):
+        """A chunk whose first token sits at ``index`` (int or per row):
         the RG-LRU layers resume from the carried state, the attention
-        layers append the chunk's k / v and attend to the cached prefix
-        (``nn/attention.py: chunk_attention``)."""
+        layers append the chunk's k / v at ``index .. index + l - 1`` and
+        attend to the cached prefix (``nn/attention.py:
+        chunk_attention``)."""
         idx = np.asarray(index, np.int64)
-        x = self._embed(params, tokens)
         pos = base.chunk_positions(idx, *tokens.shape)
-        x, new = self._trunk(params, x, self._positions(pos), cache, idx)
-        return self._logits(params, x[:, -1]), new
+        return self._trunk(params, self._embed(params, tokens),
+                           self._positions(pos), cache, idx)
 
     def decode_step(self, params, token, cache, index
                     ) -> Tuple[torch.Tensor, Any]:

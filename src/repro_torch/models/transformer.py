@@ -42,9 +42,12 @@ from repro_torch.nn import attention, layers, mlp as mlp_mod
 from repro_torch.nn.params import stack_specs
 
 
-class TransformerLM:
+class TransformerLM(base.DecodeAPI):
     """Dense GQA / MQA transformer; runs on ``device`` (default ``cuda``).
-    MoE layers, the vision frontend and W8 weights are not ported."""
+    MoE layers and the vision frontend are not ported.  W8 weights
+    (``nn/quant.py``) go through ``layers.linear``'s ``qdot`` (kernel 10
+    on the card), the ActiBA gated MLP under ``pallas()`` through kernel
+    10's gated PWL form."""
 
     def __init__(self, cfg: base.ModelConfig, device: DeviceLike = None):
         if cfg.moe:
@@ -53,9 +56,6 @@ class TransformerLM:
         if cfg.frontend is not None:
             raise NotImplementedError(f"the {cfg.frontend!r} frontend is not "
                                       f"ported yet")
-        if cfg.xamba.quant != "none":
-            raise NotImplementedError(
-                "W8 weights for the transformer are not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -167,17 +167,15 @@ class TransformerLM:
             cache)
         return self._logits(params, x[:, -1]), new
 
-    def prefill_chunk(self, params, tokens, cache, index
-                      ) -> Tuple[torch.Tensor, Any]:
-        """One prompt slice ``tokens`` (b, l) whose first token sits at
-        ``index`` (int or per row) -> (last logits (b, V) fp32, cache):
-        each layer appends the chunk's k / v and attends to the cached
-        prefix (``nn/attention.py: chunk_attention``)."""
+    def _chunk_hidden(self, params, tokens, cache, index):
+        """A chunk whose first token sits at ``index`` (int or per row):
+        each layer appends the chunk's k / v at ``index .. index + l - 1``
+        and attends to the cached prefix (``nn/attention.py:
+        chunk_attention``)."""
         idx = np.asarray(index, np.int64)
-        x = self._embed(params, tokens)
         pos = base.chunk_positions(idx, *tokens.shape)
-        x, new = self._trunk(params, x, self._positions(pos), cache, idx)
-        return self._logits(params, x[:, -1]), new
+        return self._trunk(params, self._embed(params, tokens),
+                           self._positions(pos), cache, idx)
 
     def decode_step(self, params, token, cache, index
                     ) -> Tuple[torch.Tensor, Any]:

@@ -4,9 +4,11 @@
 The gated form is ``act(x @ wg) * (x @ wi)`` then ``wo``.  Under
 ActiBA with a ``pallas`` CumBA mode (``XambaConfig.pallas()``) the gated
 unit runs as one ``matmul_pwl`` call (TPU kernel 11: the activation's PWL
-table in the product's drain, ``kernels/ops.py``), as the JAX package
-dispatches it (``mlp.py:39-40``); otherwise the products run in the
-stream dtype and the activation (``core/pwl.py: activation``) after.
+table in the product's drain, ``kernels/ops.py``), or with W8 weights as
+one ``qmatmul`` call in its gated PWL form (TPU kernel 10), as the JAX
+package dispatches them (``mlp.py:52-58``); otherwise the products run
+in the stream dtype (``layers.linear``: ``qdot`` for a W8 weight) and the
+activation (``core/pwl.py: activation``) after.
 GeLU is the tanh approximation, as ``jax.nn.gelu``'s default.
 """
 from __future__ import annotations
@@ -33,11 +35,16 @@ def apply(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     xamba = cfg.xamba
     if xamba.actiba and xamba.cumba in ("pallas", "pallas_interpret"):
         wg, wi = params["wg"]["w"], params["wi"]["w"]
-        if quant.is_quantized(wg) or quant.is_quantized(wi):
-            raise NotImplementedError(
-                "W8 weights in the ActiBA gated MLP are not ported")
-        h = ops.matmul_pwl(x.reshape(-1, x.shape[-1]), wg,
-                           pwl.table_for(act_name, xamba), wi)
+        x2 = x.reshape(-1, x.shape[-1])
+        table = pwl.table_for(act_name, xamba)
+        if quant.is_quantized(wg):
+            # W8 and ActiBA composed: kernel 10's gated form, the int8
+            # weights widened in the kernel and the PWL table applied to
+            # the scaled gate sums in its drain.
+            h = ops.qmatmul(x2, wg.q, wg.scale.reshape(-1), table=table,
+                            qv=wi.q, vscale=wi.scale.reshape(-1))
+        else:
+            h = ops.matmul_pwl(x2, wg, table, wi)
         h = h.reshape(x.shape[:-1] + (h.shape[-1],))
     else:
         act = pwl.activation(act_name, xamba)

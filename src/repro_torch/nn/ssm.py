@@ -13,7 +13,9 @@ carried state) and the single-token decode step with the same params:
   conv -> activations -> ``core/ssd.py: ssd`` -> gate), as the JAX
   package falls back to it: ``prefill="naive"``, ``ssd_dtype`` other than
   fp32, a seqlen that is not a chunk multiple, or a ``pallas`` chunk that
-  is not a multiple of 64.  Each reason is logged once per shape.
+  is not a multiple of 64 (a speculative verify window of k < 64 tokens
+  under ``pallas()``).  Each reason is logged once per shape, and every
+  call is counted by branch in ``PREFILL_BRANCHES``.
 
 ``mamba1_apply`` is the Mamba-1 mixer with the same contract:
 
@@ -51,11 +53,15 @@ import torch
 
 from repro_torch.core import pwl, selective_scan as sscan, ssd as ssd_mod
 from repro_torch.kernels import ops
-from repro_torch.nn import layers
+from repro_torch.nn import layers, quant
 from repro_torch.nn.params import ParamSpec
 
 log = logging.getLogger("repro_torch.ssm")
 _LOGGED = set()    # (mode, reason, b, l) already logged
+# Mamba-2 prefills (whole prompts, chunks, verify windows) by the branch
+# they took, one count a layer a call: the fused prefill (kernel 2 on the
+# card) or the unfused chain the JAX package falls back to.
+PREFILL_BRANCHES = {"fused": 0, "unfused": 0}
 
 
 class Mamba2State(NamedTuple):
@@ -242,8 +248,10 @@ def mamba2_apply(params: dict, cfg, x: torch.Tensor,
             _LOGGED.add(key)
             log.info("fused prefill (%s) skipped: %s — running the unfused "
                      "chain", cfg.xamba.prefill, reason)
+        PREFILL_BRANCHES["unfused"] += 1
         h, new_state = _mamba2_prefill_unfused(params, cfg, x, init, out)
     else:
+        PREFILL_BRANCHES["fused"] += 1
         y, new_conv, new_ssm = ops.mamba2_prefill(
             x, params["in_proj"]["w"], init.conv, init.ssm,
             **_operands(params), ngroups=g, head_dim=cfg.ssm_head_dim,
@@ -426,15 +434,20 @@ def rglru_kernel_operands(params: dict) -> dict:
     """The block's step operands as kernel 6 takes them: the small ones
     (conv, biases, ``lam``) contiguous fp32, the w x w gate weights as they
     are stored (the kernel widens bf16 exactly; an fp32 copy would double
-    its bytes).  Built once per weight set by the model's
-    ``decode_view``."""
+    its bytes).  A W8 gate weight is dequantized to fp32 here, once per
+    weight set (kernel 6 takes fp gate weights, as the JAX package's
+    ``maybe_dequant`` feeds its kernel).  Built once per weight set by the
+    model's ``decode_view``."""
     def f32(t):
         return t.float().contiguous()
+
+    def gate_w(w):
+        return quant.maybe_dequant(w).contiguous()
     return {"conv_w": f32(params["conv"]["w"]),
             "conv_b": f32(params["conv"]["b"]),
-            "rg_w": params["rg"]["w"].contiguous(),
+            "rg_w": gate_w(params["rg"]["w"]),
             "rg_b": f32(params["rg"]["b"]),
-            "ig_w": params["ig"]["w"].contiguous(),
+            "ig_w": gate_w(params["ig"]["w"]),
             "ig_b": f32(params["ig"]["b"]),
             "lam": f32(params["lam"])}
 

@@ -3,16 +3,22 @@ state pool.
 
 :class:`Engine` (``engine.py``) batches requests into lockstep waves;
 :class:`ContinuousEngine` (``continuous.py``) refills slots mid-decode,
-with monolithic or chunked prefill.  :class:`Scheduler` admits requests,
-:class:`StatePool` holds the decode state on the model's device and moves
-its rows, ``sampling`` picks tokens (numpy, the JAX package's streams) and
-:class:`ServeMetrics` keeps TTFT, occupancy and goodput.
+with monolithic or chunked prefill, self-speculative bursts
+(``speculative.py``) and the prefix-state cache (``prefix_cache.py``).
+:class:`Scheduler` admits requests, :class:`StatePool` holds the decode
+state on the model's device and moves its rows, ``sampling`` picks
+tokens (numpy, the JAX package's streams) and :class:`ServeMetrics` keeps
+TTFT, occupancy, goodput and the speculation and prefix-cache counters.
 """
 from repro_torch.serve.continuous import ContinuousEngine
 from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.speculative import accept_lengths, emit_counts, \
+    needs_rollback
 from repro_torch.serve.state_pool import StatePool
 
 __all__ = ["ContinuousEngine", "Engine", "ServeConfig", "ServeMetrics",
-           "Request", "Scheduler", "StatePool"]
+           "PrefixCache", "Request", "Scheduler", "StatePool",
+           "accept_lengths", "emit_counts", "needs_rollback"]

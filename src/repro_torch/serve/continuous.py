@@ -20,16 +20,34 @@ admitted into it mid-decode.  Every call keeps the JAX engine's shapes:
   consumed row moves to the decode pool and its first token is sampled
   from the chunk's last logits.
 
+* **speculative bursts** (``ServeConfig.speculate_k``): when no live row
+  has tokens left to drain, a poll drafts ``k`` tokens per slot with the
+  draft params (a W8 quantization of the serve params by default) on a
+  scratch pool, verifies them in one ``verify_chunk`` call on the decode
+  pool, emits each row's verified prefix plus one correction
+  (``serve/speculative.py``) and restores rows that consumed a rejected
+  draft from a pre-burst backup pool; their emitted tokens are then
+  re-consumed one a poll by the ordinary decode step (the overflow
+  drain);
+* **prefix-state cache** (``ServeConfig.prefix_cache_mb``, chunked
+  prefill only): an admission restores the longest cached chunk-boundary
+  snapshot of its padded prompt into its staging row and resumes there
+  (``serve/prefix_cache.py``); the staging rows' snapshots are inserted
+  as they cross snapshot boundaries.
+
 Tokens are sampled with noise keyed on ``(seed, uid, position)``
 (``EngineBase._sample_rows``), so greedy and sampled outputs do not
-depend on slot assignment: greedy outputs are those of the JAX
-``ContinuousEngine`` on the same weights and requests.
+depend on slot assignment or on the prefix cache, and on speculation only
+through rounding: a verify window computes a decode step's logits in
+another order, so a pick may part where the top two logits lie within
+that gap (in bf16 at random weights, within a few tokens; in fp32 only at
+near-ties).  Greedy outputs are those of the JAX ``ContinuousEngine`` on
+the same weights, requests and options, up to the same rounding.
 
-Not ported: speculative bursts, the prefix cache, tracing and the flight
-recorder, the program registry and budgets, step monitors and the
-watchdog, fault injection, poison probes, overload and in-flight
-shedding, retries, and the JAX engine's backend fallback: a failed kernel
-launch raises here.
+Not ported: tracing and the flight recorder, the program registry and
+budgets, step monitors and the watchdog, fault injection, poison probes,
+overload and in-flight shedding, retries, and the JAX engine's backend
+fallback: a failed kernel launch raises here.
 """
 from __future__ import annotations
 
@@ -40,8 +58,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.nn import quant
 from repro_torch.serve.engine import EngineBase, ServeConfig
+from repro_torch.serve.prefix_cache import PrefixCache, chunk_key
 from repro_torch.serve.scheduler import Request, bucket_for, chunk_span
+from repro_torch.serve.speculative import accept_lengths, emit_counts, \
+    needs_rollback
 from repro_torch.serve.state_pool import StatePool
 
 log = logging.getLogger("repro_torch.serve")
@@ -50,14 +72,21 @@ log = logging.getLogger("repro_torch.serve")
 class ContinuousEngine(EngineBase):
     """Slot-scheduled serving over a shared per-slot state pool."""
 
-    def __init__(self, model, params, cfg: ServeConfig):
+    def __init__(self, model, params, cfg: ServeConfig, *,
+                 draft_params=None):
         super().__init__(model, params, cfg)
         self.slots = cfg.max_batch
         self.buckets = tuple(sorted(cfg.prefill_buckets))
         self.chunk = cfg.prefill_chunk or None
+        self.spec_k = int(cfg.speculate_k or 0)
+        if self.spec_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {self.spec_k}")
         max_prompt = (chunk_span(self.buckets, self.chunk, self.buckets[-1])
                       if self.chunk else self.buckets[-1])
-        self.max_seq = max_prompt + cfg.max_new_tokens
+        # A burst near the output budget consumes up to k tokens past the
+        # last decode position: attention caches get that headroom.
+        self.max_seq = max_prompt + cfg.max_new_tokens + \
+            (self.spec_k + 1 if self.spec_k else 0)
         dtype = model.cfg.dtype
         self.pool = StatePool(model, self.slots, self.max_seq, dtype)
         # Zeroed prefill input cache, reused by every monolithic admission
@@ -74,6 +103,49 @@ class ContinuousEngine(EngineBase):
             self._pref_req: List[Optional[Request]] = [None] * self.slots
             self._pref_toks: List[Optional[np.ndarray]] = [None] * self.slots
             self._pref_off = np.zeros(self.slots, np.int64)
+        if self.spec_k:
+            # Draft params: the raw params quantized (``decode_view``'s
+            # fp32 kernel operands must not be), unless the caller hands
+            # in its own; then their decode view, built once.
+            if draft_params is None:
+                draft_params = quant.quantize_params_for_mode(
+                    params, cfg.speculate_draft)
+            self._draft_params = model.decode_view(draft_params)
+            # The draft scratch rows (refreshed from the live rows each
+            # burst) and the pre-burst backup rows rollback restores from.
+            self._dpool = StatePool(model, self.slots, self.max_seq, dtype)
+            self._bpool = StatePool(model, self.slots, self.max_seq, dtype)
+            # A rolled-back row's emitted tokens, re-consumed one a poll by
+            # the decode step; bursts run only when every live row drained.
+            self._overflow: List[List[int]] = [[] for _ in range(self.slots)]
+        self._pcache: Optional[PrefixCache] = None
+        if cfg.prefix_cache_mb:
+            if not self.chunk:
+                raise ValueError(
+                    "prefix_cache_mb requires chunked prefill: snapshots "
+                    "live at chunk boundaries (set prefill_chunk)")
+            grain = cfg.prefix_chunk or self.chunk
+            if grain % self.chunk:
+                raise ValueError(
+                    f"prefix_chunk ({grain}) must be a multiple of "
+                    f"prefill_chunk ({self.chunk}): snapshots are taken "
+                    "between chunk calls")
+            self._pcache = PrefixCache(int(cfg.prefix_cache_mb * 2 ** 20),
+                                       grain)
+            # Per-slot trie walk while staging: the chunk key of the
+            # padded stream, the deepest visited node (new snapshots attach
+            # under it), the pins released when the request leaves
+            # staging, and an insert gate that closes when the budget
+            # refuses a node (children would dangle).
+            self._pref_key: List[Optional[list]] = [None] * self.slots
+            self._pref_node: List[Optional[object]] = [None] * self.slots
+            self._pref_pins: List[list] = [[] for _ in range(self.slots)]
+            self._pref_insert_ok = [True] * self.slots
+
+    @property
+    def prefix_cache(self) -> Optional[PrefixCache]:
+        """The prefix-state cache (None when ``prefix_cache_mb`` is 0)."""
+        return self._pcache
 
     @property
     def busy(self) -> bool:
@@ -180,13 +252,70 @@ class ContinuousEngine(EngineBase):
             toks = np.full(span, self.cfg.pad_id, np.int64)
             toks[span - len(p):] = p
             req.bucket = span
-            # The row's previous tenant left state behind; the chunk calls
-            # accumulate into the row, so it starts from zero.
-            self._ppool.reset_rows([slot])
+            off = 0
+            if self._pcache is not None:
+                off = self._prefix_match(slot, toks, span)
+            if not off:
+                # The row's previous tenant left state behind; the chunk
+                # calls accumulate into the row, so it starts from zero (a
+                # restore overwrites the whole row instead).
+                self._ppool.reset_rows([slot])
             self._pref_req[slot] = req
             self._pref_toks[slot] = toks
-            self._pref_off[slot] = 0
+            self._pref_off[slot] = off
         return len(batch)
+
+    # -- prefix-state cache ---------------------------------------------------
+    def _prefix_match(self, slot: int, toks: np.ndarray, span: int) -> int:
+        """Longest-prefix lookup for a staged (padded) stream: restore the
+        matched snapshot into the staging row and return the offset the
+        chunks resume from (0 = miss).  The match is capped so that at
+        least one chunk runs: its last logits give the first token."""
+        cache = self._pcache
+        key = chunk_key(toks, cache.chunk)
+        cap = max(0, (span - self.chunk) // cache.chunk)
+        node, depth = cache.match(key, max_depth=cap)
+        off = depth * cache.chunk
+        self.metrics.record_prefix_lookup(off)
+        self._pref_key[slot] = key
+        self._pref_node[slot] = node
+        self._pref_pins[slot] = [node] if node is not None else []
+        self._pref_insert_ok[slot] = True
+        if node is not None:
+            self._ppool.restore_row(slot, node.snapshot, index=off)
+        return off
+
+    def _prefix_insert(self, row: int) -> None:
+        """After a chunk call: if the row crossed a snapshot boundary the
+        cache has not seen, snapshot the staging row and attach it under
+        the row's trie cursor.  A budget refusal closes the gate: deeper
+        nodes would have no parent path."""
+        cache = self._pcache
+        off = int(self._pref_off[row])
+        if off % cache.chunk or not self._pref_insert_ok[row]:
+            return
+        depth = off // cache.chunk
+        key = self._pref_key[row]
+        if depth > len(key):
+            return
+        nxt = cache.child(self._pref_node[row], key[depth - 1])
+        if nxt is None:
+            nxt = cache.insert(self._pref_node[row], key[depth - 1],
+                               self._ppool.clone_row(row, index=off))
+            if nxt is None:
+                self._pref_insert_ok[row] = False
+                return
+        self._pref_node[row] = nxt
+        self._pref_pins[row].append(nxt)
+
+    def _prefix_release(self, row: int) -> None:
+        """Staging is over: unpin the row's trie path, whose nodes become
+        evictable again."""
+        for node in self._pref_pins[row]:
+            self._pcache.release(node)
+        self._pref_pins[row] = []
+        self._pref_node[row] = None
+        self._pref_key[row] = None
 
     def _prefill_step(self) -> int:
         """Advance every staging row by one chunk (one call at ``(slots,
@@ -210,7 +339,11 @@ class ContinuousEngine(EngineBase):
         done_rows = []
         for i in rows:
             self._pref_off[i] += C
+            if self._pcache is not None:
+                self._prefix_insert(i)
             if self._pref_off[i] >= len(self._pref_toks[i]):
+                if self._pcache is not None:
+                    self._prefix_release(i)
                 done_rows.append(i)
         if done_rows:
             uids = np.zeros(self.slots, np.int64)
@@ -234,6 +367,88 @@ class ContinuousEngine(EngineBase):
         """Per-slot owning-request uids (0 for dead and staging rows,
         whose sampled tokens are dropped)."""
         return [r.uid if r is not None else 0 for r in self._slot_req]
+
+    def _spec_burst(self, live: List[int]) -> None:
+        """One speculative burst across the live slots (accept rule and
+        notation: ``serve/speculative.py``): back up the live rows, draft
+        ``k`` tokens with the draft params on the scratch pool, verify all
+        ``k`` in one chunk call on the decode pool, emit per row
+        ``min(m + 1, k)`` verify-stream tokens, restore rows that consumed
+        a rejected draft and park their emitted tokens in the overflow
+        queue for the decode-step drain.  Dead and staging rows are left
+        stale: the verify chunk advances them as sinks and a refill
+        overwrites the whole row."""
+        cfg = self.cfg
+        k = self.spec_k
+        uids = self._row_uids()
+        # In-place row copies: the backup and scratch arenas never alias
+        # the live one (``StatePool.insert_rows`` gathers fresh rows).
+        self._bpool.insert_rows(self.pool.cache, live, live)
+        self._dpool.insert_rows(self.pool.cache, live, live)
+
+        drafts = np.zeros((self.slots, k), np.int64)
+        cur = self._next_tok.copy()
+        for j in range(k):
+            logits, self._dpool.cache = self.model.decode_step(
+                self._draft_params, self._tokens(cur[:, None]),
+                self._dpool.cache, self._pos + j)
+            cur = self._sample_rows(logits, uids, self._pos + j + 1)
+            drafts[:, j] = cur
+
+        # Verify: ONE chunk call over [t0, d_1 .. d_{k-1}] on the decode
+        # pool; rows that keep their window inherit its state as it is.
+        vtoks = np.concatenate([self._next_tok[:, None], drafts[:, :k - 1]],
+                               axis=1)
+        t0 = time.perf_counter()
+        vlogits, self.pool.cache = self.model.verify_chunk(
+            self.params, self._tokens(vtoks), self.pool.cache, self._pos)
+        vl = vlogits.float().cpu()            # the call ends on the device
+        self.metrics.record_step(len(live), time.perf_counter() - t0)
+
+        # Position j's token samples with the key the plain decode step
+        # would use there: (uid, pos + j + 1).
+        verify = np.stack([self._sample_rows(vl[:, j], uids,
+                                             self._pos + j + 1)
+                           for j in range(k)], axis=1)
+        m = accept_lengths(drafts, verify)
+        n_emit = emit_counts(m, k)
+        rollback = needs_rollback(m, k)
+        now = time.time()
+        emitted_total = accepted = rollbacks = 0
+        for i in live:
+            req = self._slot_req[i]
+            accepted += int(m[i])
+            emitted: List[int] = []
+            finished = False
+            for j in range(int(n_emit[i])):
+                tok = int(verify[i, j])
+                req.emit(tok)
+                emitted.append(tok)
+                self.metrics.record_token()
+                if (cfg.eos_id >= 0 and tok == cfg.eos_id) or \
+                        len(req.out_tokens) >= req.max_new_tokens:
+                    self._finish(req, now)
+                    self._slot_req[i] = None
+                    finished = True
+                    break
+            emitted_total += len(emitted)
+            if finished:
+                self._overflow[i] = []
+                continue
+            if rollback[i]:
+                rollbacks += 1
+                self.pool.insert_rows(self._bpool.cache, [i], [i])
+                # _pos / _next_tok stay pre-burst: the drain re-consumes
+                # the emitted tokens from the restored state.
+                self._overflow[i] = emitted
+            else:
+                # The chunk consumed exactly the emitted stream's prefix:
+                # its state is the post-emission state.
+                self._pos[i] = min(int(self._pos[i]) + k, self.max_seq - 1)
+                self._next_tok[i] = int(verify[i, k - 1])
+        self.metrics.record_speculative(
+            rows=len(live), drafted=k * len(live), accepted=accepted,
+            emitted=emitted_total, rollbacks=rollbacks)
 
     def poll(self) -> List[Request]:
         """Admit waiting requests (monolithic: prefill them; chunked: stage
@@ -262,7 +477,10 @@ class ContinuousEngine(EngineBase):
                 now = time.time()
 
         live = [i for i, r in enumerate(self._slot_req) if r is not None]
-        if live:
+        if live and self.spec_k and \
+                not any(self._overflow[i] for i in live):
+            self._spec_burst(live)
+        elif live:
             t0 = time.perf_counter()
             tok = self._tokens(self._next_tok[:, None])
             logits, self.pool.cache = self.model.decode_step(
@@ -275,6 +493,14 @@ class ContinuousEngine(EngineBase):
             now = time.time()
             for i in live:
                 req = self._slot_req[i]
+                if self.spec_k and self._overflow[i]:
+                    # Rollback drain: this step re-consumed a token the
+                    # burst already emitted, re-advancing the restored
+                    # state on the non-speculative trajectory; the token
+                    # it sampled is dropped (once the queue is empty the
+                    # next step computes it again from the same state).
+                    self._next_tok[i] = self._overflow[i].pop(0)
+                    continue
                 tok_i = int(nxt[i])
                 req.emit(tok_i)
                 self.metrics.record_token()

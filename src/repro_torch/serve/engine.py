@@ -29,9 +29,9 @@ from repro_torch.serve.state_pool import StatePool
 @dataclasses.dataclass
 class ServeConfig:
     """The JAX package's ``ServeConfig`` fields that the port serves.  The
-    robustness, tracing, speculation and prefix-cache fields are not
-    ported, so passing one is a ``TypeError``; in particular there is no
-    ``backend_fallback``: a failed kernel launch raises."""
+    robustness and tracing fields are not ported, so passing one is a
+    ``TypeError``; in particular there is no ``backend_fallback``: a
+    failed kernel launch raises."""
 
     max_batch: int = 8
     prefill_buckets: Sequence[int] = (32, 128, 512)
@@ -50,6 +50,32 @@ class ServeConfig:
     # Prompt tokens per poll, counted as chunk per prefilling slot per
     # chunk call; 0 = exactly one chunk call per poll.
     prefill_token_budget: int = 0
+    # -- prefix-state cache (continuous engine, needs prefill_chunk) --------
+    # Byte budget (MB) for cross-request reuse of chunk-boundary state
+    # snapshots: admissions skip past any cached prompt prefix
+    # (``serve/prefix_cache.py``; the snapshots stay on the model's
+    # device).  0 disables.
+    prefix_cache_mb: float = 0.0
+    # Snapshot granularity in tokens: a multiple of prefill_chunk; None
+    # means one snapshot per prefill chunk.  Coarser grains store fewer,
+    # larger entries (less snapshot overhead, less sharing resolution).
+    prefix_chunk: Optional[int] = None
+    # -- self-speculative decoding (continuous engine only) -----------------
+    # Draft this many tokens per burst with the cheap draft params (a W8
+    # quantization of the serve params unless the engine is given its
+    # own), verify them in ONE batched full-precision verify_chunk call,
+    # emit the longest verified prefix + one correction token, and restore
+    # mismatching rows from their pre-burst state.  Outputs are those of
+    # the non-speculative path up to rounding (sampled ones too: the
+    # continuous engine keys sampling noise on (seed, uid, position),
+    # ``serve/sampling.py: sample_keyed``).  The verify window and the
+    # decode step compute the same logits in different orders, so a pick
+    # may part where the top two logits lie within their gap: at random
+    # weights in bf16 that happens within a few tokens.  0 disables.  See
+    # serve/speculative.py.
+    speculate_k: int = 0
+    # Quant mode for the derived draft params (``nn/quant.py``).
+    speculate_draft: str = "w8"
 
 
 class EngineBase:

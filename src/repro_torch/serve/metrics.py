@@ -9,6 +9,12 @@ Definitions (the JAX package's):
 * **wall_source** — ``"measured"`` when the engine stamped
   ``record_wall``, else ``"decode_time"`` (an upper bound on throughput),
   or ``"none"``.
+* **spec_accept_rate** — draft tokens the verify stream confirmed over
+  draft tokens; **spec_tokens_per_verify** — tokens emitted per live row
+  per verify call (a verify call counts as one decode step).
+* **prefix_hits / misses / hit_tokens** — admissions that restored a
+  cached prefix snapshot, those that did not, and the prompt tokens the
+  hits skipped.
 
 Latencies go into a log-bucketed :class:`StreamingHistogram` (constant
 memory, percentiles interpolated within a bucket).
@@ -100,6 +106,15 @@ class ServeMetrics:
         self.prefill_chunks = 0
         self.prefill_tokens = 0
         self.prefill_time_s = 0.0
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_hit_tokens = 0
+        self.spec_bursts = 0
+        self.spec_rows = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
+        self.spec_rollbacks = 0
 
     def record_arrival(self) -> None:
         self.arrivals += 1
@@ -131,6 +146,29 @@ class ServeMetrics:
         self.prefill_tokens += tokens
         self.prefill_time_s += dt_s
 
+    def record_prefix_lookup(self, matched_tokens: int) -> None:
+        """One prefix-cache admission lookup: ``matched_tokens`` prompt
+        tokens were skipped by restoring a cached snapshot (0 = miss)."""
+        if matched_tokens > 0:
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += matched_tokens
+        else:
+            self.prefix_misses += 1
+
+    def record_speculative(self, rows: int, drafted: int, accepted: int,
+                           emitted: int, rollbacks: int) -> None:
+        """One speculative draft / verify burst (``serve/speculative.py``)
+        across ``rows`` live slots: ``drafted`` draft tokens, ``accepted``
+        of them confirmed by the verify stream, ``emitted`` tokens that
+        entered request outputs (accepted + up to one correction a row),
+        ``rollbacks`` rows restored to their pre-burst state."""
+        self.spec_bursts += 1
+        self.spec_rows += rows
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        self.spec_emitted += emitted
+        self.spec_rollbacks += rollbacks
+
     def record_wall(self, dt_s: float) -> None:
         self.wall_s += dt_s
 
@@ -160,6 +198,16 @@ class ServeMetrics:
             "prefill_chunks": self.prefill_chunks,
             "prefill_tokens": self.prefill_tokens,
             "prefill_time_s": self.prefill_time_s,
+            "prefix_hits": self.prefix_hits,
+            "prefix_misses": self.prefix_misses,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "spec_bursts": self.spec_bursts,
+            "spec_drafted_tokens": self.spec_drafted,
+            "spec_accept_rate": (self.spec_accepted / self.spec_drafted
+                                 if self.spec_drafted else 0.0),
+            "spec_tokens_per_verify": (self.spec_emitted / self.spec_rows
+                                       if self.spec_rows else 0.0),
+            "spec_rollbacks": self.spec_rollbacks,
             "latency_mean_s": self.latency.mean,
             "decode_steps": self.decode_steps,
             "token_latency_s": (self.decode_time_s / self.decode_steps

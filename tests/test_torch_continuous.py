@@ -141,11 +141,16 @@ def test_continuous_monolithic_matches_wave_engine():
 
 def test_serve_config_has_no_unported_fields():
     """Options of the JAX engine that the port leaves out are refused,
-    not ignored; there is no backend fallback."""
+    not ignored; there is no backend fallback.  Speculation and the
+    prefix cache are ported, with the JAX defaults."""
     fields = {f.name for f in dataclasses.fields(ServeConfig)}
-    assert {"prefill_chunk", "prefill_token_budget"} <= fields
-    for name in ("backend_fallback", "speculate_k", "prefix_cache_mb",
-                 "trace", "fault_plan"):
+    assert {"prefill_chunk", "prefill_token_budget", "speculate_k",
+            "speculate_draft", "prefix_cache_mb", "prefix_chunk"} <= fields
+    for name in ("speculate_k", "speculate_draft", "prefix_cache_mb",
+                 "prefix_chunk"):
+        assert getattr(ServeConfig(), name) == \
+            getattr(JServeConfig(), name), name
+    for name in ("backend_fallback", "trace", "fault_plan"):
         assert name not in fields
         with pytest.raises(TypeError):
             ServeConfig(**{name: 1})

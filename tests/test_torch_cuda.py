@@ -507,10 +507,13 @@ def test_qmatmul_kernel_matches_plain(dev, dtype, variant, m, k, n):
     assert body == ("gemv" if m <= 8 else "tiled")
     before = qm.qmatmul.launches
     paths = dict(qm.qmatmul.path_launches)
+    gated = dict(qm.qmatmul.gated_launches)
     got = qm.qmatmul(x, q, scale, **kw)
     assert qm.qmatmul.launches == before + 1
     assert torch.equal(qm.qmatmul(x, q, scale, **kw), got)
     assert qm.qmatmul.path_launches[body] == paths[body] + 2
+    assert qm.qmatmul.gated_launches[body] == \
+        gated[body] + (2 if variant == "gated" else 0)
     _close(got, qm.qmatmul_plain(x, q, scale, **kw), TOL[dtype, "stream"],
            f"qmatmul {variant}")
 
@@ -1210,3 +1213,51 @@ def test_sscan_kernel_four_lanes_match_plain(dev, n, offset):
         for name, a, r in zip(("ssm", "y"), got, ds.sscan_step_plain(*args)):
             _close(a, r, TOL[dtype, "state" if name == "ssm" else "stream"],
                    name)
+
+
+# Kernel 2 on a speculative verify window (serve/continuous.py): k = 1-8
+# tokens after a carried state at mamba2-130m's widths (b = 4, 24 heads of
+# 64, d_state 128).  A chunk below 64 takes the SIMT body.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", range(1, 9))
+def test_prefill_verify_window_matches_plain(dev, dtype, l):
+    ins = _inputs(dev, dtype, 4, l, 24, 64, 1, 128, 4, seed=300 + l)
+    assert float(ins["ssm_state"].abs().max()) > 0
+    kw = dict(ngroups=1, head_dim=64, chunk=l)
+    got = _wgmma_prefill(dev, ins, "simt", **kw)
+    _check(got, pc.mamba2_prefill_plain(**ins, **kw), dtype)
+
+
+# Kernel 10 at the W8 widths of gemma-2b (d_model 2048) and
+# recurrentgemma-2b (d_model 2560): the attention and RG-LRU projections
+# plain, the GeGLU MLP's wi / wg in the gated form with the GeLU table
+# (ActiBA under pallas()) and wo plain, at m = 4 (the GEMV: decode and
+# draft steps) and m = 256 (the wgmma body: chunks), bf16.
+W8_SHAPES = [("gemma q/o", 2048, 2048, False), ("gemma k/v", 2048, 256, False),
+             ("gemma wi/wg", 2048, 16384, True),
+             ("gemma wo", 16384, 2048, False),
+             ("rgemma q/o/in", 2560, 2560, False),
+             ("rgemma k/v", 2560, 256, False),
+             ("rgemma wi/wg", 2560, 7680, True),
+             ("rgemma wo", 7680, 2560, False)]
+
+
+@pytest.mark.parametrize("m", [4, 256])
+@pytest.mark.parametrize("name,k,n,gated", W8_SHAPES,
+                         ids=[s[0] for s in W8_SHAPES])
+def test_qmatmul_at_the_w8_transformer_shapes(dev, name, k, n, gated, m):
+    gen = torch.Generator().manual_seed(k + n + m)
+    x = torch.randn(m, k, generator=gen).to(dev).to(torch.bfloat16)
+    qt = quant.quantize_tensor(torch.randn(k, n, generator=gen).to(dev))
+    kw = {}
+    if gated:
+        qv = quant.quantize_tensor(torch.randn(k, n, generator=gen).to(dev))
+        kw = dict(table=pwl.table_for("gelu", XambaConfig.pallas()),
+                  qv=qv.q, vscale=qv.scale.reshape(-1))
+    args = (x, qt.q, qt.scale.reshape(-1))
+    body = "gemv" if m <= qm.GEMV_M else "wgmma"
+    assert qm.path(x, qt.q, kw.get("qv")) == body
+    got = _twice_on(dev, qm.qmatmul, qm.qmatmul.path_launches, body, args,
+                    kw)
+    _close(got, qm.qmatmul_plain(*args, **kw), TOL[torch.bfloat16, "stream"],
+           f"qmatmul {name}")

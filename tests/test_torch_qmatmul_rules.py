@@ -170,3 +170,52 @@ def test_no_split_is_empty(n):
             splits = qm.wgmma_splits(m, k, n)
             assert splits & (splits - 1) == 0 and splits <= qm.MAX_SPLITS
             assert (splits - 1) * math.ceil(steps / splits) < steps, (k, m)
+
+
+def _w8_shapes(arch):
+    """(name, k, n) of every weight W8 quantizes in one layer of each
+    kind of ``arch`` at full width (``nn/quant.py``'s skip-list and
+    smallest size), from the model's param specs."""
+    from repro_torch.nn.quant import DEFAULT_MIN_DIM, DEFAULT_SKIP
+    specs = build_model(get_config(arch), "cpu").param_specs()
+    blocks = [specs["layers"]] if "layers" in specs else \
+        list(specs["groups"].values())
+    out = set()
+    for blk in blocks:
+        for part, sub in blk.items():
+            if not isinstance(sub, dict) or part in DEFAULT_SKIP:
+                continue
+            for name, p in sub.items():
+                if not isinstance(p, dict) or "w" not in p or \
+                        name in DEFAULT_SKIP:
+                    continue
+                k, n = p["w"].shape[-2:]
+                if min(k, n) >= DEFAULT_MIN_DIM:
+                    out.add((f"{part}.{name}", k, n))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("m", [4, 256, 512])
+@pytest.mark.parametrize("arch", ["gemma-2b", "recurrentgemma-2b"])
+def test_qmatmul_body_on_the_w8_transformer_shapes(arch, m):
+    """Kernel 10 under W8 at gemma-2b's and recurrentgemma-2b's widths
+    (the attention projections, the gated MLP's wi / wg and wo, the
+    RG-LRU's projections and gates): the GEMV at m <= ``GEMV_M`` (decode
+    and the draft steps), the ``wgmma`` body above it in bf16 (chunks and
+    verify windows), never the SIMT ``tiled`` body; the gated form too."""
+    shapes = _w8_shapes(arch)
+    names = {s[0] for s in shapes}
+    assert {"mlp.wi", "mlp.wg", "mlp.wo"} <= names
+    assert ({"attn.wq", "attn.wk", "attn.wv", "attn.wo"} <= names
+            if arch == "gemma-2b" else
+            {"rglru.in_x", "rglru.rg", "rglru.out", "attn.wq"} <= names)
+    want = "gemv" if m <= qm.GEMV_M else "wgmma"
+    for name, k, n in shapes:
+        q = _q(k, n)
+        assert qm.path(_x(m, k), q) == want, name
+        assert qm.path(_x(m, k), q, _q(k, n)) == want, name
+        if want == "wgmma":
+            assert 1 <= qm.wgmma_splits(m, k, n) <= qm.MAX_SPLITS
+        else:
+            lanes, splits = qm.gemv_plan(k, n, 16)
+            assert lanes in qm.GEMV_LANES and splits in qm.GEMV_SPLITS

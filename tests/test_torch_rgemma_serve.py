@@ -20,6 +20,7 @@ from repro.serve import ContinuousEngine as JContinuous, \
     Engine as JEngine, ServeConfig as JServeConfig
 from repro_torch.core.xamba import XambaConfig
 from repro_torch.launch import serve as tserve
+from repro_torch.nn import quant as tquant
 from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
 from test_torch_rgemma import BF16_STEP, RG_TOL, RTOL, V, _pair, _rel
 
@@ -206,5 +207,8 @@ def test_cli_serves_recurrentgemma_on_cpu(engine):
     assert len(done) == 3 and all(len(r.out_tokens) == 3 for r in done)
     assert all(0 <= t < 512 for r in done for t in r.out_tokens)
     assert eng.metrics.summary()["nonfinite_logit_rows"] == 0
-    with pytest.raises(NotImplementedError, match="W8"):
-        tserve.main(argv + ["--quant", "w8"])
+    # W8 weights serve too (the MLP's wi through qdot).
+    eng, done = tserve.main(argv + ["--quant", "w8"])
+    assert tquant.is_quantized(eng.params["layers"][0]["mlp"]["wi"]["w"])
+    assert len(done) == 3 and all(len(r.out_tokens) == 3 for r in done)
+    assert eng.metrics.summary()["nonfinite_logit_rows"] == 0

@@ -156,8 +156,9 @@ def test_unported_transformer_modes_raise():
                        (dict(frontend="vision_stub"), "frontend")):
         with pytest.raises(NotImplementedError, match=match):
             build_model(cfg.replace(**bad), device="cpu")
-    with pytest.raises(NotImplementedError, match="W8"):
-        build_model(cfg.with_quant("w8"), device="cpu")
+    # W8 weights are served (tests/test_torch_w8_families.py).
+    assert build_model(cfg.with_quant("w8"), device="cpu").cfg.xamba.quant \
+        == "w8"
 
 
 # ---------------------------------------------------------------------------
