@@ -109,6 +109,25 @@ qwen1.5-4b:
    exactly; a mamba2 run under
    ``pallas()`` whose verify windows take the unfused chain, counted by
    ``nn/ssm.py: PREFILL_BRANCHES`` and printed;
+   4h: tracing (``serve/tracing.py``) on mamba2-130m's continuous engine
+   (bf16, chunk 64, 12 requests, batch 4, 16 greedy tokens): a warm run,
+   ``reset_stats()``, then traced runs under ``strict_recompile`` with
+   ``metrics_every`` 4, plain, with ``speculate_k`` 4 and with a 64-token
+   shared prefix under a 256 MB prefix cache: zero sentinel trips, the
+   port's ``trace_report.check`` passes, every request has its
+   ``queue``, ``staging`` and ``decode`` spans, the launches are exact,
+   greedy tokens equal the untraced engine's; after arming, a decode
+   call with the engine's own argument types at batch 4 trips nothing,
+   one at batch 2 trips the sentinel and one at batch 3 raises under
+   strict; the CLI's ``--trace --metrics-every 4 --strict-recompile`` run
+   passes ``trace_report --check``; the ``decode`` cards of mamba2-130m
+   (bf16, W8) and mamba-130m are printed and meet their budgets with
+   every launch counter unmoved; the traced run's seconds by span name;
+   the hooks' host time in the engine's own polls (``HookClock``), batch
+   after batch with no reset until the metrics' windows are full, under
+   2% of the median ``decode_step`` span in the last batch, and the
+   untraced engine's; tokens/s with tracing off and on (three
+   interleaved runs each, reported, not asserted);
 5. parity  — the same model in fp32, kernel path on the card against the
    plain path on the CPU, teacher-forced over 16 greedy tokens of 4
    prompts, with fp32 weights and with W8 weights: tokens agree
@@ -1445,6 +1464,395 @@ def spec_serve(counters, label, run):
           f"{m['token_latency_s'] * 1e3:.3f} ms, ttft_mean_s "
           f"{m['ttft_mean_s']:.4f}; call wall {wall:.3f} s", flush=True)
     return engine, m, bodies
+
+
+TRACE_REQUESTS = 12
+TRACE_RUNS = 3          # interleaved untraced / traced runs for tokens/s
+HOOK_SHARE = 0.02       # the JAX package's tracing budget
+
+
+def _trace_prompts(cfg, shared):
+    """Phase 4h's prompts: 12 of 4-128 tokens (CONT_ARGV's), or with
+    ``shared`` a 64-token shared prefix and 64-token suffixes
+    (PREFIX_ARGV's)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    head = rng.integers(1, cfg.vocab_size, 64 if shared else 0).tolist()
+    return [head + rng.integers(1, cfg.vocab_size, 64 if shared else int(
+        rng.integers(4, 129))).tolist() for _ in range(TRACE_REQUESTS)]
+
+
+def _traced_serve(engine, prompts):
+    """One drain of ``prompts`` after ``reset_stats()``: (tokens in uid
+    order, wall seconds)."""
+    import torch
+    engine.reset_stats()
+    for p in prompts:
+        engine.submit(p)
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [r.out_tokens for r in sorted(done, key=lambda r: r.uid)], wall
+
+
+def trace_checks(engine, label, n_requests):
+    """Phase 4h's checks of one traced run: zero trips, the port's
+    ``trace_report.check``, each request's three spans.  Returns the
+    report."""
+    from repro_torch.launch import trace_report
+    events = engine.tracer.events
+    trips = engine.counters["recompile_trips"]
+    assert not any(trips.values()), f"{label}: sentinel trips {trips}"
+    rep = trace_report.analyze(events)
+    problems = trace_report.check(rep)
+    assert not problems, f"{label}: trace check {problems}"
+    for kind in ("queue", "staging", "decode"):
+        uids = {e["args"]["uid"] for e in events
+                if e["ph"] == "X" and e["name"] == kind}
+        assert len(uids) == n_requests, f"{label}: {kind} spans {uids}"
+    pb = rep["phase_breakdown"]
+    print(f"  {label}: trips {trips}; check OK (coverage "
+          f"{pb['coverage']:.4f}, wall {pb['wall_s']:.4f} s); "
+          f"{rep['metrics_snapshots']} metrics snapshots; "
+          f"{len(events)} events", flush=True)
+    return rep
+
+
+def span_breakdown(events):
+    """Seconds and share of the trace's wall by span name (self time on
+    the engine and host tracks, trace_report's nesting)."""
+    from repro_torch.launch import trace_report
+    wall = trace_report.wall_extent_s(events)
+    selfs = trace_report.self_times_s(events)
+    print(f"  traced run's self time by span name (wall {wall:.6f} s):")
+    for name, sec in sorted(selfs.items(), key=lambda kv: -kv[1]):
+        calls = sum(1 for e in events if e["ph"] == "X" and e["tid"] in
+                    (0, 1) and e["name"] == name)
+        print(f"    {name:18s} {sec:.6f} s  {sec / wall:7.2%}  x{calls}")
+    return selfs, wall
+
+
+class HookClock:
+    """Host time an engine spends in the tracing layer during its own
+    polls: while entered, every call it makes into its tracer (spans,
+    their enter and exit, complete events, instants, counters), its
+    metrics' ``record_token``, ``observe_gauges`` and ``maybe_snapshot``
+    (snapshots included), its sentinel checks and its programs' signature
+    and library reads is timed, the outermost call only (nested hooks
+    count once), and ``poll`` is counted.  The timer's own cost a call
+    is inside what it reads, an upper bound; :meth:`own_us` reads that
+    cost on an empty call."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.s = 0.0
+        self.polls = 0
+        self.calls = 0
+        self._busy = False
+        self._undo = []
+
+    def _timed(self, fn):
+        def call(*args, **kw):
+            if self._busy:
+                return fn(*args, **kw)
+            self._busy = True
+            self.calls += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.s += time.perf_counter() - t0
+                self._busy = False
+        return call
+
+    def _patch(self, owner, name, wrap):
+        self._undo.append((owner, name, vars(owner).get(name, self)))
+        setattr(owner, name, wrap(getattr(owner, name)))
+
+    def __enter__(self):
+        from repro_torch.kernels import build
+        from repro_torch.serve import tracing
+        eng = self.engine
+
+        def counted(fn):
+            def call(*args, **kw):
+                self.polls += 1
+                return fn(*args, **kw)
+            return call
+        self._patch(eng, "poll", counted)
+        for name in ("span", "complete", "instant", "counter",
+                     "pc_from_walltime"):
+            if hasattr(eng.tracer, name):       # the null tracer lacks one
+                self._patch(eng.tracer, name, self._timed)
+        for cls in (tracing._Span, tracing._NullSpan):
+            for name in ("__enter__", "__exit__"):
+                self._patch(cls, name, self._timed)
+        for name in ("record_token", "observe_gauges", "maybe_snapshot"):
+            self._patch(eng.metrics, name, self._timed)
+        self._patch(eng, "check_sentinels", self._timed)
+        self._patch(tracing, "signature", self._timed)
+        self._patch(build, "loaded", self._timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, old in reversed(self._undo):
+            if old is self:             # was not the owner's own
+                delattr(owner, name)
+            else:
+                setattr(owner, name, old)
+        self._undo.clear()
+
+    def us_per_poll(self) -> float:
+        return self.s / max(1, self.polls) * 1e6
+
+    @staticmethod
+    def own_us(n: int = 20000) -> float:
+        """The timer's reading of an empty call, in us (median of 5)."""
+        clock = HookClock(None)
+        call = clock._timed(lambda: None)
+        runs = []
+        for _ in range(5):
+            clock.s = 0.0
+            for _ in range(n):
+                call()
+            runs.append(clock.s / n * 1e6)
+        return statistics.median(runs)
+
+
+def steady_hook_cost(engine, prompts):
+    """Serve ``prompts`` on the traced ``engine`` batch after batch, with
+    no ``reset_stats`` between them, until the metrics' windows have
+    been filling for GAUGE_WINDOW_S, then one batch more, each under a
+    :class:`HookClock`: the first batch meets empty windows, the last
+    full ones, as a server that has run for longer than a window.
+    Returns [(us a poll, polls, timed calls)] a batch and the window's
+    samples (the
+    ``live_slots`` gauge's and the token rate's) at the end."""
+    from repro_torch.serve.metrics import GAUGE_WINDOW_S
+    engine.reset_stats()
+    t_start = time.perf_counter()
+    batches = []
+    full = False
+    while not full:
+        full = time.perf_counter() - t_start >= GAUGE_WINDOW_S
+        for p in prompts:
+            engine.submit(p)
+        with HookClock(engine) as clock:
+            engine.run()
+        batches.append((clock.us_per_poll(), clock.polls, clock.calls))
+    gauge = engine.metrics.gauges["live_slots"].snapshot()["n"]
+    return batches, gauge, len(engine.metrics.tok_rate._pts)
+
+
+def print_card(card):
+    """One program card on a few lines."""
+    top = ", ".join(f"{k[:60]} x{v}" for k, v in
+                    list(card.ops.items())[:6])
+    print(f"  card {card.program_id}: {sum(card.ops.values())} device "
+          f"ops ({len(card.ops)} kinds), copies {card.copies} "
+          f"({card.copy_bytes / 2 ** 20:.3f} MB), argument "
+          f"{card.argument_bytes / 2 ** 20:.3f} MB, output "
+          f"{card.output_bytes / 2 ** 20:.3f} MB, temp "
+          f"{card.temp_bytes / 2 ** 20:.3f} MB, device "
+          f"{card.device_ms:.4f} ms, memory roofline "
+          f"{card.roofline_s * 1e3:.4f} ms, budget "
+          f"{card.budget.to_dict() if card.budget else None}, violations "
+          f"{card.check_budget()}", flush=True)
+    print(f"    ops: {top}", flush=True)
+
+
+def card_phase(engine, counters, label):
+    """The engine's decode card, printed and held to its budget; every
+    launch counter (and each by-body dict) the same before and after."""
+    def snap():
+        return {name: (fn.launches, dict(getattr(fn, "path_launches", {})),
+                       dict(getattr(fn, "gated_launches", {})))
+                for name, fn in counters.items()}
+    before = snap()
+    card = engine.registry.card("decode")
+    assert snap() == before, f"{label}: a card moved a launch counter"
+    print(f"  {label}:", flush=True)
+    print_card(card)
+    assert card.budget is not None, f"{label}: no budget at full width"
+    assert not card.check_budget(), f"{label}: {card.check_budget()}"
+    return card
+
+
+def tracing_phase(serve_main, counters, dev):
+    """Phase 4h (see the module docstring).  Returns the traced plain
+    engine."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import trace_report
+    from repro_torch.models import build_model
+    from repro_torch.nn import quant
+    from repro_torch.nn.params import init_params
+    from repro_torch.serve import ContinuousEngine, ServeConfig
+    from repro_torch.serve.tracing import RecompileError
+
+    cfg = get_config("mamba2-130m")
+    model = build_model(cfg, dev)
+    params = init_params(model.param_specs(), 0, cfg.dtype, dev)
+    base = dict(max_batch=4, prefill_buckets=(32, 128), max_new_tokens=16,
+                prefill_chunk=64)
+    traced = dict(trace=True, strict_recompile=True, metrics_every=4)
+
+    def pair(prompts, **kw):
+        """An untraced and a traced engine of the same options, each
+        warmed on ``prompts``."""
+        off = ContinuousEngine(model, params, ServeConfig(**base, **kw))
+        on = ContinuousEngine(model, params,
+                              ServeConfig(**base, **kw, **traced))
+        for eng in (off, on):
+            _traced_serve(eng, prompts)
+        return off, on
+
+    prompts = _trace_prompts(cfg, shared=False)
+    off, on = pair(prompts)
+    rates = {"off": [], "on": []}
+    for _ in range(TRACE_RUNS):
+        for key, eng in (("off", off), ("on", on)):
+            if key == "on":
+                reset_counts(counters)
+            toks, wall = _traced_serve(eng, prompts)
+            rates[key].append(sum(map(len, toks)) / wall)
+            if key == "off":
+                want = toks
+            else:
+                assert toks == want, "tracing changed greedy tokens"
+    launches = read_counts(counters)
+    m = on.metrics.summary()
+    exp = dict({k: 0 for k in launches}, **path_launches(
+        cfg, steps=m["decode_steps"], prefills=m["prefill_chunks"]))
+    assert launches == exp, f"traced run launches {launches} vs {exp}"
+    prefill_bodies(counters, "traced run")
+    rep = trace_checks(on, "traced plain run", TRACE_REQUESTS)
+    events = on.tracer.events
+    selfs, wall = span_breakdown(events)
+    steps = sorted(e["dur"] for e in events
+                   if e["ph"] == "X" and e["name"] == "decode_step")
+    step_us = statistics.median(steps)
+    pb = rep["phase_breakdown"]
+    print(f"  phases: " + ", ".join(
+        f"{k} {v:.6f} s ({pb['phases_frac'][k]:.2%})"
+        for k, v in pb["phases_s"].items()), flush=True)
+    print(f"  decode_step spans: median {step_us:.1f} us over {len(steps)}",
+          flush=True)
+
+    spec_prompts = prompts
+    spec_off, spec_on = pair(spec_prompts, speculate_k=SPEC_K)
+    want, _ = _traced_serve(spec_off, spec_prompts)
+    got, _ = _traced_serve(spec_on, spec_prompts)
+    assert got == want, "tracing changed the speculative run's tokens"
+    srep = trace_checks(spec_on, f"traced speculative run (k {SPEC_K})",
+                        TRACE_REQUESTS)
+    sm = spec_on.metrics.summary()
+    print(f"    spec_bursts {sm['spec_bursts']} rollbacks "
+          f"{sm['spec_rollbacks']}; draft / verify / rollback spans "
+          + " / ".join(str(sum(1 for e in spec_on.tracer.events
+                               if e['ph'] == 'X' and e['name'] == n))
+                       for n in ('draft', 'verify', 'rollback')),
+          flush=True)
+    assert sm["spec_bursts"] > 0
+    del srep
+
+    pre_prompts = _trace_prompts(cfg, shared=True)
+    pre_off, pre_on = pair(pre_prompts, prefix_cache_mb=256)
+    want, _ = _traced_serve(pre_off, pre_prompts)
+    got, _ = _traced_serve(pre_on, pre_prompts)
+    assert got == want, "tracing changed the prefix-cache run's tokens"
+    trace_checks(pre_on, "traced prefix-cache run", TRACE_REQUESTS)
+    pm = pre_on.metrics.summary()
+    print(f"    prefix_hits {pm['prefix_hits']} prefix_hit_tokens "
+          f"{pm['prefix_hit_tokens']}", flush=True)
+    assert pm["prefix_hits"] > 0
+
+    # The CLI's flags on the card; its sentinels arm lazily (no warmup).
+    out = ROOT / "build" / "trace"
+    out.mkdir(parents=True, exist_ok=True)
+    path = str(out / "serve_trace.json")
+    serve_main(CONT_ARGV + ["--trace", path, "--metrics-every", "4",
+                            "--strict-recompile"])
+    rc = trace_report.main([path, "--check"])
+    assert rc == 0, f"CLI trace: trace_report --check exit {rc}"
+
+    # Negative control, after arming: a decode call with the engine's own
+    # argument types at its own batch trips nothing; at batch 2 it trips,
+    # at batch 3 under strict it raises.
+    on.reset_stats()
+    sent = on.sentinels["decode"]
+    with torch.inference_mode():
+        for b, strict, trips in ((on.slots, False, 0), (2, False, 1),
+                                 (3, True, 2)):
+            sent.strict = strict
+            cache = model.init_cache(b, on.max_seq, cfg.dtype)
+            tok = torch.zeros((b, 1), dtype=torch.long, device=dev)
+            on._decode(on.params, tok, cache, np.zeros(b, np.int64))
+            try:
+                on.check_sentinels()
+                raised = False
+            except RecompileError as err:
+                raised = True
+                print(f"  control (batch {b}, strict): {err}", flush=True)
+            assert raised == strict and sent.trips == trips, \
+                f"control batch {b}: trips {sent.trips}, raised {raised}"
+    print(f"  control: a decode call at batch {on.slots} tripped nothing, "
+          f"one at batch 2 tripped the armed sentinel (trips 1), one at "
+          f"batch 3 raised under strict", flush=True)
+    sent.strict = True
+    on.reset_stats()
+
+    cards = [card_phase(on, counters, "mamba2-130m bf16 decode")]
+    w8_cfg = cfg.with_quant("w8")
+    w8_model = build_model(w8_cfg, dev)
+    w8 = ContinuousEngine(w8_model, quant.quantize_params_for_mode(
+        params, "w8"), ServeConfig(**base))
+    cards.append(card_phase(w8, counters, "mamba2-130m W8 decode"))
+    del w8
+    m1_cfg = get_config("mamba-130m")
+    m1_model = build_model(m1_cfg, dev)
+    m1 = ContinuousEngine(m1_model, init_params(
+        m1_model.param_specs(), 0, m1_cfg.dtype, dev), ServeConfig(**base))
+    cards.append(card_phase(m1, counters, "mamba-130m bf16 decode"))
+    del m1
+
+    batches, n_gauge, n_rate = steady_hook_cost(on, prompts)
+    steady_steps = sorted(e["dur"] for e in on.tracer.events
+                          if e["ph"] == "X" and e["name"] == "decode_step")
+    steady_us = statistics.median(steady_steps)
+    first, last = batches[0], batches[-1]
+    own = HookClock.own_us()
+    share = last[0] / steady_us
+    print(f"  hooks in the engine's own polls (HookClock), {len(batches)} "
+          f"batches of {TRACE_REQUESTS} requests, no reset between: first "
+          f"batch {first[0]:.2f} us a poll ({first[1]} polls, windows "
+          f"empty), last {last[0]:.2f} us ({last[1]} polls, "
+          f"{last[2] / last[1]:.1f} timed calls a poll at {own:.3f} us of "
+          f"the timer's own each; windows full: {n_gauge} live_slots "
+          f"samples, {n_rate} token-rate points) = {share:.3%} of the "
+          f"median decode_step span ({steady_us:.1f} us over "
+          f"{len(steady_steps)}); every batch: "
+          + ", ".join(f"{b[0]:.2f}" for b in batches)
+          + f"; budget {HOOK_SHARE:.0%}", flush=True)
+    assert share < HOOK_SHARE, "tracing hooks over budget"
+    for p in prompts:
+        off.submit(p)
+    with HookClock(off) as clock:
+        off.run()
+    print(f"  untraced engine: {clock.us_per_poll():.2f} us a poll in the "
+          f"tracing layer ({clock.polls} polls, "
+          f"{clock.calls / clock.polls:.1f} timed calls a poll: null spans, "
+          f"inert sentinels, metrics_every 0)", flush=True)
+    for key in ("off", "on"):
+        r = rates[key]
+        print(f"  tokens/s tracing {key}: runs "
+              + ", ".join(f"{x:.1f}" for x in r)
+              + f"; median {statistics.median(r):.1f}, spread "
+              f"{max(r) - min(r):.1f} (reported, not asserted)",
+              flush=True)
+    return on
 
 
 def spec_prefix_phase(serve_main, counters, dev, plain):
@@ -3892,6 +4300,9 @@ def main() -> int:
         spec_out = spec_prefix_phase(serve.main, counters, dev, cont_engine)
     launches.update(mamba2_prefill_verify=spec_out["mamba2_prefill_verify"],
                     qmatmul_gated_gemma=spec_out["qmatmul_gated_gemma"])
+    phase("4h. tracing (mamba2-130m, continuous engine, chunk 64: traced "
+          "runs, sentinels, cards, the hooks' cost)")
+    tracing_phase(serve.main, counters, dev)
 
     phase("5. path parity (fp32, kernel path vs plain path)")
     parity_phase(dev, 1, get_config("mamba2-130m"), counters)

@@ -84,6 +84,12 @@ def build_all() -> float:
     return secs
 
 
+def loaded() -> int:
+    """How many libraries :func:`library` has loaded in this process (the
+    serve stack's recompile sentinels count a load after warmup)."""
+    return len(_LIBS)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for source ``name`` (built on first use)."""
     lib = _LIBS.get(name)

@@ -13,11 +13,18 @@ prompt prefix to exercise it) and ``--quant`` (W8 weights through the
 ``qmatmul`` kernel, every family).  ActiBA has no flag, as in the JAX
 CLI: it comes with the ``XambaConfig`` presets; nor has the flash
 attention kernel (``use_flash``, a config override).
+
+``--trace PATH`` records per-request span traces (Chrome/Perfetto JSON at
+PATH plus a ``.jsonl`` event log beside it; fold them with ``python -m
+repro_torch.launch.trace_report PATH``); ``--metrics-every N`` emits a
+metrics snapshot every N polls; ``--strict-recompile`` makes a program
+that meets a new signature or builds a kernel after warmup raise.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 import numpy as np
 
@@ -88,6 +95,18 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; 'cpu' "
                          "runs the kernels' plain PyTorch versions)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record a span trace: Chrome/Perfetto JSON at "
+                         "PATH + a JSONL event log at PATH with a .jsonl "
+                         "suffix (analyze with "
+                         "repro_torch.launch.trace_report)")
+    ap.add_argument("--metrics-every", type=int, default=0, metavar="N",
+                    help="emit a metrics snapshot every N engine polls "
+                         "(0 = off; snapshots also land in the trace)")
+    ap.add_argument("--strict-recompile", action="store_true",
+                    help="raise RecompileError if a compile-once program "
+                         "(decode / prefill_chunk) retraces after warmup "
+                         "(here: meets a new signature or builds a kernel)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     if args.prefill_chunk and args.engine != "continuous":
@@ -132,7 +151,9 @@ def main(argv=None):
                                         else 0.0),
                        prefix_chunk=args.prefix_chunk,
                        speculate_k=(args.speculate_k
-                                    if args.engine == "continuous" else 0))
+                                    if args.engine == "continuous" else 0),
+                       trace=args.trace, metrics_every=args.metrics_every,
+                       strict_recompile=args.strict_recompile)
     engine_cls = ContinuousEngine if args.engine == "continuous" else Engine
     engine = engine_cls(model, params, scfg)
 
@@ -166,6 +187,17 @@ def main(argv=None):
         log.info("prefix cache: %d hits  %d misses  %d hit tokens",
                  m["prefix_hits"], m["prefix_misses"],
                  m["prefix_hit_tokens"])
+    trips = {k: s.trips for k, s in engine.sentinels.items() if s.trips}
+    if trips:
+        log.warning("recompile sentinels tripped: %s", trips)
+    log.info("compile counters: %s", engine.counters)
+    if args.trace:
+        engine.tracer.save(args.trace)
+        jsonl = os.path.splitext(args.trace)[0] + ".jsonl"
+        engine.tracer.save_jsonl(jsonl)
+        log.info("trace: %d events -> %s (+ %s); analyze with "
+                 "python -m repro_torch.launch.trace_report %s",
+                 len(engine.tracer.events), args.trace, jsonl, args.trace)
     return engine, done
 
 

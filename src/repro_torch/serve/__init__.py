@@ -8,17 +8,28 @@ with monolithic or chunked prefill, self-speculative bursts
 :class:`Scheduler` admits requests, :class:`StatePool` holds the decode
 state on the model's device and moves its rows, ``sampling`` picks
 tokens (numpy, the JAX package's streams) and :class:`ServeMetrics` keeps
-TTFT, occupancy, goodput and the speculation and prefix-cache counters.
+TTFT, occupancy, goodput and the speculation and prefix-cache counters,
+with windowed gauges and periodic snapshots.  :class:`Tracer` records the
+JAX package's span taxonomy (Chrome/Perfetto JSON + JSONL, folded by
+``launch/trace_report.py``), :class:`RecompileSentinel` checks that no
+program meets a new signature or builds a kernel after warmup, and
+``program_registry`` gives each program an id and, on demand, a cost
+card.
 """
 from repro_torch.serve.continuous import ContinuousEngine
 from repro_torch.serve.engine import Engine, ServeConfig
-from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.metrics import RateMeter, ServeMetrics, \
+    StreamingHistogram, WindowedGauge
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.serve.speculative import accept_lengths, emit_counts, \
     needs_rollback
 from repro_torch.serve.state_pool import StatePool
+from repro_torch.serve.tracing import NULL_TRACER, NullTracer, \
+    RecompileError, RecompileSentinel, Tracer
 
 __all__ = ["ContinuousEngine", "Engine", "ServeConfig", "ServeMetrics",
+           "StreamingHistogram", "WindowedGauge", "RateMeter",
            "PrefixCache", "Request", "Scheduler", "StatePool",
-           "accept_lengths", "emit_counts", "needs_rollback"]
+           "accept_lengths", "emit_counts", "needs_rollback", "NULL_TRACER",
+           "NullTracer", "RecompileError", "RecompileSentinel", "Tracer"]

@@ -44,10 +44,24 @@ that gap (in bf16 at random weights, within a few tokens; in fp32 only at
 near-ties).  Greedy outputs are those of the JAX ``ContinuousEngine`` on
 the same weights, requests and options, up to the same rounding.
 
-Not ported: tracing and the flight recorder, the program registry and
-budgets, step monitors and the watchdog, fault injection, poison probes,
-overload and in-flight shedding, retries, and the JAX engine's backend
-fallback: a failed kernel launch raises here.
+Observability (``serve/tracing.py``, the JAX engine's span names and
+argument keys): with ``ServeConfig.trace`` every poll records ``poll``,
+``host_gap``, ``admit``, ``prefix_lookup``, ``prefill_bucket`` /
+``prefill_chunk``, ``decode_step`` or a burst's ``spec_copy``, ``draft``,
+``verify`` and ``rollback``, the pools' row spans, and each request's
+``queue``, ``staging`` and ``decode`` spans and ``finish`` instant; a
+``prefill_chunk`` span closes once the chunk's logits are on the host,
+``decode_step`` and ``verify`` once the logits reach the host for
+sampling (the syncs the untraced engine takes too).  The programs
+(``decode``, ``prefill``, ``prefill_chunk``, ``verify``, ``draft``,
+``qmatmul`` and the decode pool's row ops) are registered in
+``engine.registry`` under the JAX names, order and ids, and their
+recompile sentinels are checked every poll (armed when tracing or under
+``strict_recompile``, inert otherwise).
+
+Not ported: the flight recorder, step monitors and the watchdog, fault
+injection, poison probes, overload and in-flight shedding, retries, and
+the JAX engine's backend fallback: a failed kernel launch raises here.
 """
 from __future__ import annotations
 
@@ -58,13 +72,18 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.nn import quant
+from repro_torch.serve import state_pool
 from repro_torch.serve.engine import EngineBase, ServeConfig
 from repro_torch.serve.prefix_cache import PrefixCache, chunk_key
+from repro_torch.serve.program_registry import TensorSpec, budget_for
 from repro_torch.serve.scheduler import Request, bucket_for, chunk_span
 from repro_torch.serve.speculative import accept_lengths, emit_counts, \
     needs_rollback
 from repro_torch.serve.state_pool import StatePool
+from repro_torch.serve.tracing import (TID_HOST, TID_QUEUE, TID_SLOT0,
+                                       RecompileSentinel, TracedProgram)
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -88,7 +107,8 @@ class ContinuousEngine(EngineBase):
         self.max_seq = max_prompt + cfg.max_new_tokens + \
             (self.spec_k + 1 if self.spec_k else 0)
         dtype = model.cfg.dtype
-        self.pool = StatePool(model, self.slots, self.max_seq, dtype)
+        self.pool = StatePool(model, self.slots, self.max_seq, dtype,
+                              tracer=self.tracer, watch=self._watch)
         # Zeroed prefill input cache, reused by every monolithic admission
         # (prefill writes a new cache; its rows are copied into the pool).
         self._scratch = model.init_cache(self.slots, self.max_seq, dtype)
@@ -99,7 +119,11 @@ class ContinuousEngine(EngineBase):
         if self.chunk:
             # Staging pool: row i accumulates slot i's prompt state chunk
             # by chunk until the prompt is consumed.
-            self._ppool = StatePool(model, self.slots, self.max_seq, dtype)
+            self._ppool = StatePool(model, self.slots, self.max_seq, dtype,
+                                    tracer=self.tracer)
+            self._chunk_step = TracedProgram("prefill_chunk",
+                                             model.prefill_chunk,
+                                             watch=self._watch)
             self._pref_req: List[Optional[Request]] = [None] * self.slots
             self._pref_toks: List[Optional[np.ndarray]] = [None] * self.slots
             self._pref_off = np.zeros(self.slots, np.int64)
@@ -113,8 +137,12 @@ class ContinuousEngine(EngineBase):
             self._draft_params = model.decode_view(draft_params)
             # The draft scratch rows (refreshed from the live rows each
             # burst) and the pre-burst backup rows rollback restores from.
-            self._dpool = StatePool(model, self.slots, self.max_seq, dtype)
-            self._bpool = StatePool(model, self.slots, self.max_seq, dtype)
+            self._dpool = StatePool(model, self.slots, self.max_seq, dtype,
+                                    tracer=self.tracer)
+            self._bpool = StatePool(model, self.slots, self.max_seq, dtype,
+                                    tracer=self.tracer)
+            self._verify = TracedProgram("verify", model.verify_chunk,
+                                         watch=self._watch)
             # A rolled-back row's emitted tokens, re-consumed one a poll by
             # the decode step; bursts run only when every live row drained.
             self._overflow: List[List[int]] = [[] for _ in range(self.slots)]
@@ -131,7 +159,7 @@ class ContinuousEngine(EngineBase):
                     f"prefill_chunk ({self.chunk}): snapshots are taken "
                     "between chunk calls")
             self._pcache = PrefixCache(int(cfg.prefix_cache_mb * 2 ** 20),
-                                       grain)
+                                       grain, tracer=self.tracer)
             # Per-slot trie walk while staging: the chunk key of the
             # padded stream, the deepest visited node (new snapshots attach
             # under it), the pins released when the request leaves
@@ -141,6 +169,97 @@ class ContinuousEngine(EngineBase):
             self._pref_node: List[Optional[object]] = [None] * self.slots
             self._pref_pins: List[list] = [[] for _ in range(self.slots)]
             self._pref_insert_ok = [True] * self.slots
+        # Sentinels in the JAX engine's order (verify before
+        # prefill_chunk; the pool's row ops join in _register_programs).
+        strict = cfg.strict_recompile
+        if self.spec_k:
+            self.sentinels["verify"] = RecompileSentinel(
+                "verify", self._verify, strict=strict)
+        if self.chunk:
+            self.sentinels["prefill_chunk"] = RecompileSentinel(
+                "prefill_chunk", self._chunk_step, strict=strict)
+        self._register_programs()
+        # Host scheduling gaps (the time between two polls) get their own
+        # track, so that a phase breakdown accounts for all wall time.
+        self._last_poll_end: Optional[float] = None
+
+    def reset_stats(self) -> None:
+        # The cleared poll stamp keeps the first post-warmup poll from
+        # emitting a host_gap that spans the warmup.
+        self._last_poll_end = None
+        super().reset_stats()
+
+    # -- program registry -----------------------------------------------------
+    def _register_programs(self) -> None:
+        """Attach every program this engine calls to the registry at its
+        serve shapes (specs only: cards build lazily, off the serve path),
+        under the JAX engine's names and order so that the ids match; the
+        sentinels learn their program ids, and the decode pool's row ops
+        get sentinels of their own."""
+        reg = self.registry
+        model, dev, i64 = self.model, self.device, torch.int64
+        tok = TensorSpec((self.slots, 1), i64, dev)
+        pos = np.zeros(self.slots, np.int64)
+        reg.register("decode", model.decode_step,
+                     (tok, self.pool.cache, pos), weights=self.params,
+                     budget=budget_for(model.cfg, "decode"))
+        reg.register("prefill", model.prefill,
+                     ({"tokens": TensorSpec((self.slots, self.buckets[-1]),
+                                            i64, dev)}, self._scratch),
+                     weights=self.params)
+        if self.chunk:
+            reg.register("prefill_chunk", model.prefill_chunk,
+                         (TensorSpec((self.slots, self.chunk), i64, dev),
+                          self._ppool.cache, pos), weights=self.params)
+        if self.spec_k:
+            reg.register("verify", model.verify_chunk,
+                         (TensorSpec((self.slots, self.spec_k), i64, dev),
+                          self.pool.cache, pos), weights=self.params)
+            # The draft step is the decode program on the W8 weights.
+            reg.register("draft", model.decode_step,
+                         (tok, self.pool.cache, pos),
+                         weights=self._draft_params)
+            # The W8 dequant-matmul the draft calls, at a representative
+            # (slots, d_model) x (d_model, d_model) shape: kernel 10 on
+            # the card, its plain version on the CPU.
+            d = model.cfg.d_model
+            reg.register("qmatmul", ops.qmatmul,
+                         (TensorSpec((self.slots, d), model.cfg.dtype, dev),
+                          TensorSpec((d, d), torch.int8, dev),
+                          TensorSpec((1, d), torch.float32, dev)))
+        pool = self.pool
+        row = TensorSpec((1,), i64, dev)
+        reg.register("pool_insert",
+                     lambda c, s, r, i: state_pool.insert_rows(c, s, r, i,
+                                                               pool.axes),
+                     (pool.cache, pool.cache, row, row))
+        reg.register("pool_extract",
+                     lambda c, i: state_pool.extract_rows(c, i, pool.axes),
+                     (pool.cache, row))
+        reg.register("pool_reset",
+                     lambda c, i: state_pool.reset_rows(c, i, pool.axes),
+                     (pool.cache, row))
+        for name, s in self.sentinels.items():
+            s.program_id = reg.program_id(name)
+        for name, prog in (("pool_insert", pool.insert_program),
+                           ("pool_reset", pool.reset_program)):
+            self.sentinels[name] = RecompileSentinel(
+                name, prog, strict=self.cfg.strict_recompile,
+                program_id=reg.program_id(name))
+        # Span args take these id strings: no registry lookup per call.
+        self._pid_decode = reg.program_id("decode")
+        self._pid_prefill = reg.program_id("prefill")
+        self._pid_chunk = reg.program_id("prefill_chunk")
+        self._pid_verify = reg.program_id("verify")
+        self._pid_draft = reg.program_id("draft")
+
+    def _snapshot_extra(self) -> dict:
+        """Engine facts folded into each periodic metrics snapshot."""
+        out = {"recompile_trips": {name: s.trips
+                                   for name, s in self.sentinels.items()}}
+        if self._pcache is not None:
+            out["prefix_cache"] = self._pcache.stats()
+        return out
 
     @property
     def prefix_cache(self) -> Optional[PrefixCache]:
@@ -162,11 +281,20 @@ class ContinuousEngine(EngineBase):
                 if r is None and
                 (self.chunk is None or self._pref_req[i] is None)]
 
-    def _finish(self, req: Request, now: float) -> None:
+    def _finish(self, req: Request, now: float, slot: int) -> None:
         req.done = True
         req.finish_s = now
         req.latency_s = now - req.arrival_s
         self.metrics.record_finish(req.latency_s, len(req.out_tokens))
+        if self.tracer.enabled:
+            if req.decode_pc is not None:
+                self.tracer.complete("decode", req.decode_pc,
+                                     time.perf_counter(),
+                                     tid=TID_SLOT0 + slot, uid=req.uid,
+                                     tokens=len(req.out_tokens))
+            self.tracer.instant("finish", uid=req.uid,
+                                tokens=len(req.out_tokens),
+                                latency_s=req.latency_s)
         self._finished.append(req)
 
     def _start_tenant(self, slot: int, req: Request, span: int, tok: int,
@@ -182,13 +310,21 @@ class ContinuousEngine(EngineBase):
                         "clamping to %d", req.uid, req.max_new_tokens, budget)
             req.max_new_tokens = budget
         req.first_token_s = t_first
+        t_first_pc = time.perf_counter()
+        if self.tracer.enabled and req.admit_pc is not None:
+            # Staging residency: queue pop -> first token (the request's
+            # prefill calls and the waits between them).
+            self.tracer.complete("staging", req.admit_pc, t_first_pc,
+                                 tid=TID_SLOT0 + slot, uid=req.uid,
+                                 span=span)
         self.metrics.record_first_token(t_first - req.arrival_s)
         self.metrics.record_token()
         req.emit(tok)
         if (cfg.eos_id >= 0 and tok == cfg.eos_id) or \
                 len(req.out_tokens) >= req.max_new_tokens:
-            self._finish(req, t_first)
+            self._finish(req, t_first, slot)
         else:
+            req.decode_pc = t_first_pc
             self._slot_req[slot] = req
             self._pos[slot] = span
             self._next_tok[slot] = tok
@@ -202,6 +338,11 @@ class ContinuousEngine(EngineBase):
             req = self._scheduler.pop_ready(now)
             if req is None:
                 break
+            req.admit_pc = time.perf_counter()
+            if self.tracer.enabled:
+                self.tracer.complete(
+                    "queue", self.tracer.pc_from_walltime(req.arrival_s),
+                    req.admit_pc, tid=TID_QUEUE, uid=req.uid)
             batch.append((free.pop(0), req))
         for _ in range(len(self._scheduler.expired) - n_shed0):
             self.metrics.record_shed()
@@ -223,7 +364,7 @@ class ContinuousEngine(EngineBase):
                 p = req.prompt[-bucket:]
                 tokens[row, bucket - len(p):] = p
             t0 = time.perf_counter()
-            logits, cache = self.model.prefill(
+            logits, cache = self._prefill(
                 self.params, {"tokens": self._tokens(tokens)}, self._scratch)
             # First tokens sample at position = bucket (tokens consumed).
             uids = np.zeros(self.slots, np.int64)
@@ -231,8 +372,12 @@ class ContinuousEngine(EngineBase):
                 uids[row] = req.uid
             first = self._sample_rows(logits, uids,
                                       np.full(self.slots, bucket, np.int64))
-            self.metrics.record_prefill(bucket * len(group),
-                                        time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            self.tracer.complete("prefill_bucket", t0, t1, bucket=bucket,
+                                 rows=len(group),
+                                 tokens=bucket * len(group),
+                                 program=self._pid_prefill)
+            self.metrics.record_prefill(bucket * len(group), t1 - t0)
             self.pool.insert_rows(cache, range(len(group)),
                                   [slot for slot, _ in group])
             t_first = time.time()
@@ -272,10 +417,12 @@ class ContinuousEngine(EngineBase):
         chunks resume from (0 = miss).  The match is capped so that at
         least one chunk runs: its last logits give the first token."""
         cache = self._pcache
-        key = chunk_key(toks, cache.chunk)
-        cap = max(0, (span - self.chunk) // cache.chunk)
-        node, depth = cache.match(key, max_depth=cap)
-        off = depth * cache.chunk
+        with self.tracer.span("prefix_lookup") as sp:
+            key = chunk_key(toks, cache.chunk)
+            cap = max(0, (span - self.chunk) // cache.chunk)
+            node, depth = cache.match(key, max_depth=cap)
+            off = depth * cache.chunk
+            sp.args["matched_tokens"] = off
         self.metrics.record_prefix_lookup(off)
         self._pref_key[slot] = key
         self._pref_node[slot] = node
@@ -331,11 +478,14 @@ class ContinuousEngine(EngineBase):
             off = self._pref_off[i]
             tokens[i] = self._pref_toks[i][off:off + C]
         t0 = time.perf_counter()
-        logits, self._ppool.cache = self.model.prefill_chunk(
+        logits, self._ppool.cache = self._chunk_step(
             self.params, self._tokens(tokens), self._ppool.cache,
             self._pref_off)
         host = logits.float().cpu()           # the call ends on the device
-        self.metrics.record_prefill(C * len(rows), time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        self.tracer.complete("prefill_chunk", t0, t1, rows=len(rows),
+                             tokens=C * len(rows), program=self._pid_chunk)
+        self.metrics.record_prefill(C * len(rows), t1 - t0)
         done_rows = []
         for i in rows:
             self._pref_off[i] += C
@@ -383,27 +533,36 @@ class ContinuousEngine(EngineBase):
         uids = self._row_uids()
         # In-place row copies: the backup and scratch arenas never alias
         # the live one (``StatePool.insert_rows`` gathers fresh rows).
-        self._bpool.insert_rows(self.pool.cache, live, live)
-        self._dpool.insert_rows(self.pool.cache, live, live)
+        with self.tracer.span("spec_copy", rows=len(live)):
+            self._bpool.insert_rows(self.pool.cache, live, live)
+            self._dpool.insert_rows(self.pool.cache, live, live)
 
+        # The draft steps are the decode program on the draft weights.
         drafts = np.zeros((self.slots, k), np.int64)
         cur = self._next_tok.copy()
+        t0 = time.perf_counter()
         for j in range(k):
-            logits, self._dpool.cache = self.model.decode_step(
+            logits, self._dpool.cache = self._decode(
                 self._draft_params, self._tokens(cur[:, None]),
                 self._dpool.cache, self._pos + j)
             cur = self._sample_rows(logits, uids, self._pos + j + 1)
             drafts[:, j] = cur
+        self.tracer.complete("draft", t0, time.perf_counter(),
+                             rows=len(live), k=k, tokens=k * len(live),
+                             program=self._pid_draft)
 
         # Verify: ONE chunk call over [t0, d_1 .. d_{k-1}] on the decode
         # pool; rows that keep their window inherit its state as it is.
         vtoks = np.concatenate([self._next_tok[:, None], drafts[:, :k - 1]],
                                axis=1)
         t0 = time.perf_counter()
-        vlogits, self.pool.cache = self.model.verify_chunk(
+        vlogits, self.pool.cache = self._verify(
             self.params, self._tokens(vtoks), self.pool.cache, self._pos)
         vl = vlogits.float().cpu()            # the call ends on the device
-        self.metrics.record_step(len(live), time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        self.tracer.complete("verify", t0, t1, rows=len(live),
+                             tokens=k * len(live), program=self._pid_verify)
+        self.metrics.record_step(len(live), t1 - t0)
 
         # Position j's token samples with the key the plain decode step
         # would use there: (uid, pos + j + 1).
@@ -427,7 +586,7 @@ class ContinuousEngine(EngineBase):
                 self.metrics.record_token()
                 if (cfg.eos_id >= 0 and tok == cfg.eos_id) or \
                         len(req.out_tokens) >= req.max_new_tokens:
-                    self._finish(req, now)
+                    self._finish(req, now, i)
                     self._slot_req[i] = None
                     finished = True
                     break
@@ -437,7 +596,9 @@ class ContinuousEngine(EngineBase):
                 continue
             if rollback[i]:
                 rollbacks += 1
-                self.pool.insert_rows(self._bpool.cache, [i], [i])
+                with self.tracer.span("rollback", slot=i,
+                                      accepted=int(m[i])):
+                    self.pool.insert_rows(self._bpool.cache, [i], [i])
                 # _pos / _next_tok stay pre-burst: the drain re-consumes
                 # the emitted tokens from the restored state.
                 self._overflow[i] = emitted
@@ -457,13 +618,23 @@ class ContinuousEngine(EngineBase):
         requests completed this poll."""
         cfg = self.cfg
         done0 = len(self._finished)
+        t_poll0 = time.perf_counter()
+        if self.tracer.enabled and self._last_poll_end is not None:
+            # Host scheduling gap: everything between two polls (the
+            # caller's loop, idle waits) on its own track.
+            self.tracer.complete("host_gap", self._last_poll_end, t_poll0,
+                                 tid=TID_HOST)
+        poll_span = self.tracer.span("poll")
+        poll_span.__enter__()
         now = time.time()
         if self.chunk:
-            self._admit_chunked(now)
+            with self.tracer.span("admit") as sp:
+                sp.args["admitted"] = self._admit_chunked(now)
             spent = self._prefill_step()
             while spent and cfg.prefill_token_budget > spent:
                 # An EOS-on-prefill finish frees its slot for the queue.
-                self._admit_chunked(time.time())
+                with self.tracer.span("admit") as sp:
+                    sp.args["admitted"] = self._admit_chunked(time.time())
                 adv = self._prefill_step()
                 if not adv:
                     break
@@ -472,7 +643,9 @@ class ContinuousEngine(EngineBase):
             # Re-admit until the slots are full or the queue drains (a
             # request that ends on its prefill token frees its slot).
             while self._free_slots() and len(self._scheduler):
-                if not self._admit(now):
+                with self.tracer.span("admit") as sp:
+                    n_admitted = sp.args["admitted"] = self._admit(now)
+                if not n_admitted:
                     break
                 now = time.time()
 
@@ -483,14 +656,20 @@ class ContinuousEngine(EngineBase):
         elif live:
             t0 = time.perf_counter()
             tok = self._tokens(self._next_tok[:, None])
-            logits, self.pool.cache = self.model.decode_step(
+            logits, self.pool.cache = self._decode(
                 self.params, tok, self.pool.cache, self._pos)
             nxt = self._sample_rows(logits, self._row_uids(), self._pos + 1)
-            self.metrics.record_step(len(live), time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            if self.tracer.enabled:
+                self.tracer.complete("decode_step", t0, t1, live=len(live),
+                                     tokens=len(live),
+                                     program=self._pid_decode)
+            self.metrics.record_step(len(live), t1 - t0)
             # A dead slot's position pins to the last cache column until a
             # refill overwrites its row.
             self._pos = np.minimum(self._pos + 1, self.max_seq - 1)
             now = time.time()
+            emitted = 0
             for i in live:
                 req = self._slot_req[i]
                 if self.spec_k and self._overflow[i]:
@@ -503,12 +682,26 @@ class ContinuousEngine(EngineBase):
                     continue
                 tok_i = int(nxt[i])
                 req.emit(tok_i)
-                self.metrics.record_token()
+                emitted += 1
                 self._next_tok[i] = tok_i
                 if (cfg.eos_id >= 0 and tok_i == cfg.eos_id) or \
                         len(req.out_tokens) >= req.max_new_tokens:
-                    self._finish(req, now)
+                    self._finish(req, now, i)
                     self._slot_req[i] = None
+            if emitted:
+                self.metrics.record_token(emitted)     # one sample a step
+        poll_span.__exit__(None, None, None)
+        self._last_poll_end = time.perf_counter()
+        self.check_sentinels()
+        if self.metrics.metrics_every:
+            self.metrics.observe_gauges(
+                queue_depth=len(self._scheduler),
+                live_slots=len(live),
+                staging_depth=(sum(r is not None for r in self._pref_req)
+                               if self.chunk else 0),
+                **({"prefix_resident_bytes": self._pcache.resident_bytes}
+                   if self._pcache is not None else {}))
+        self.metrics.maybe_snapshot(self._snapshot_extra)
         return self._finished[done0:]
 
     def run(self) -> List[Request]:
@@ -519,11 +712,15 @@ class ContinuousEngine(EngineBase):
         with torch.inference_mode():
             while self.busy:
                 done.extend(self.poll())
-        self.metrics.record_wall(time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        self.tracer.complete("serve.run", t0, t1)
+        self.metrics.record_wall(t1 - t0)
         return done
 
     def stats(self, requests: Optional[List[Request]] = None) -> dict:
-        """The metrics' summary (``requests`` is accepted for parity with
-        the wave engine's ``stats``)."""
+        """The metrics' summary and the recompile sentinels' trips
+        (``requests`` is accepted for parity with the wave engine's
+        ``stats``)."""
         del requests
-        return self.metrics.summary()
+        return dict(self.metrics.summary(),
+                    recompile_trips=self.counters["recompile_trips"])

@@ -9,6 +9,20 @@ The model runs on its own device; the engine moves token ids there and
 logits back to the host for sampling (``serve/sampling.py``, numpy), so
 greedy outputs are those of the JAX engine on the same weights.  The
 continuous engine (``serve/continuous.py``) shares :class:`EngineBase`.
+
+Observability (the JAX package's, ``serve/tracing.py``): with
+``ServeConfig.trace`` the engines record spans (the wave engine's
+``poll``, ``prefill_bucket`` and ``decode_step``, each request's
+``queue``, ``staging`` and ``decode``) into ``engine.tracer``;
+``metrics_every`` takes a metrics snapshot every N polls (waves); the
+model calls go through :class:`~repro_torch.serve.tracing.TracedProgram`
+wrappers whose recompile sentinels are checked after every poll and
+re-armed by ``reset_stats()``, and ``strict_recompile`` makes a trip
+raise.  The programs record call signatures only when tracing or under
+``strict_recompile``; otherwise the sentinels are inert and count no
+trips.  Spans around a model call close after the host sync that
+sampling takes anyway (the logits' copy to the host); tracing adds no
+sync.
 """
 from __future__ import annotations
 
@@ -19,18 +33,23 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.serve import sampling
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.program_registry import ProgramRegistry
 from repro_torch.serve.scheduler import (Request, Scheduler, bucket_for,
                                          build_request)
 from repro_torch.serve.state_pool import StatePool
+from repro_torch.serve.tracing import (NULL_TRACER, TID_QUEUE, TID_SLOT0,
+                                       RecompileSentinel, TracedProgram,
+                                       Tracer)
 
 
 @dataclasses.dataclass
 class ServeConfig:
     """The JAX package's ``ServeConfig`` fields that the port serves.  The
-    robustness and tracing fields are not ported, so passing one is a
-    ``TypeError``; in particular there is no ``backend_fallback``: a
+    robustness and flight-recorder fields are not ported, so passing one
+    is a ``TypeError``; in particular there is no ``backend_fallback``: a
     failed kernel launch raises."""
 
     max_batch: int = 8
@@ -76,11 +95,25 @@ class ServeConfig:
     speculate_k: int = 0
     # Quant mode for the derived draft params (``nn/quant.py``).
     speculate_draft: str = "w8"
+    # -- observability (serve/tracing.py) -----------------------------------
+    # Truthy enables span tracing: the engine records events in memory and
+    # the caller saves them (``engine.tracer.save(path)``; launch/serve's
+    # --trace PATH).  Falsy keeps the near-zero-overhead null tracer.
+    trace: object = None
+    # A metrics snapshot every N engine polls (0 = off): windowed gauges
+    # and histogram quick stats into ``engine.metrics.snapshots`` and,
+    # when tracing, the trace's counter track and event log.
+    metrics_every: int = 0
+    # Recompile sentinels raise RecompileError when a program meets a new
+    # signature or builds a kernel after warmup, instead of counting.
+    strict_recompile: bool = False
 
 
 class EngineBase:
-    """Plumbing the engines share: the model and params, uid and
-    sampling-step counters, submit-time bookkeeping and metrics."""
+    """Plumbing the engines share: the model and params, the traced model
+    programs, uid and sampling-step counters, submit-time bookkeeping,
+    metrics, the tracer, the program registry and the recompile
+    sentinels."""
 
     def __init__(self, model, params, cfg: ServeConfig):
         self.model = model
@@ -88,10 +121,30 @@ class EngineBase:
         self.params = model.decode_view(params)
         self.cfg = cfg
         self.device = model.device
-        self._scheduler = Scheduler(cfg.policy)
+        # Programs record call signatures only where something reads them.
+        self._watch = bool(cfg.trace) or cfg.strict_recompile
+        self._decode = TracedProgram("decode", model.decode_step,
+                                     watch=self._watch)
+        self._prefill = TracedProgram("prefill", model.prefill,
+                                      watch=self._watch)
+        self.tracer = Tracer() if cfg.trace else NULL_TRACER
+        self._scheduler = Scheduler(cfg.policy, tracer=self.tracer)
         self._uid = 0
         self._step = 0              # sampling-rng step counter
-        self.metrics = ServeMetrics(cfg.max_batch)
+        self.metrics = ServeMetrics(cfg.max_batch, tracer=self.tracer,
+                                    metrics_every=cfg.metrics_every)
+        # Program ids ride in sentinels and spans; the wave engine
+        # registers its programs by name only (its shapes vary by wave),
+        # the continuous engine with its serve shapes.
+        self.registry = ProgramRegistry()
+        self.registry.register("decode", model.decode_step)
+        self.registry.register("prefill", model.prefill)
+        strict = cfg.strict_recompile
+        self.sentinels = {
+            name: RecompileSentinel(name, prog, strict=strict,
+                                    program_id=self.registry.program_id(name))
+            for name, prog in (("decode", self._decode),
+                               ("prefill", self._prefill))}
 
     def submit(self, prompt: Sequence[int],
                max_new_tokens: Optional[int] = None, *,
@@ -130,13 +183,36 @@ class EngineBase:
                                      uids, positions)
 
     @property
+    def counters(self) -> dict:
+        """Each sentinel's program's distinct signatures, the kernel
+        libraries loaded in this process, and the sentinels' trips."""
+        return {**{f"{name}_signatures": len(s._fn.signatures)
+                   for name, s in self.sentinels.items()},
+                "kernel_libraries": build.loaded(),
+                "recompile_trips":
+                {name: s.trips for name, s in self.sentinels.items()}}
+
+    def check_sentinels(self) -> None:
+        """Run every recompile sentinel (a set-size read each); nothing
+        when the programs are not watched (the sentinels are inert)."""
+        if not self._watch:
+            return
+        for s in self.sentinels.values():
+            s.check(self.tracer)
+
+    @property
     def expired(self) -> List[Request]:
         """Requests shed because their deadline passed while queued."""
         return self._scheduler.expired
 
     def reset_stats(self) -> None:
-        """Drop accumulated metrics (e.g. after a warmup run)."""
+        """Drop accumulated metrics and trace events and re-arm the
+        recompile sentinels (e.g. after a warmup run): what is observed
+        afterwards is post-warmup."""
         self.metrics.reset()
+        self.tracer.reset()
+        for s in self.sentinels.values():
+            s.arm()
 
 
 class Engine(EngineBase):
@@ -161,6 +237,12 @@ class Engine(EngineBase):
                     req = self._scheduler.pop_ready(now)
                     if req is None:
                         break
+                    req.admit_pc = time.perf_counter()
+                    if self.tracer.enabled:
+                        self.tracer.complete(
+                            "queue",
+                            self.tracer.pc_from_walltime(req.arrival_s),
+                            req.admit_pc, tid=TID_QUEUE, uid=req.uid)
                     wave.append(req)
                 for _ in range(len(self._scheduler.expired) - n_shed0):
                     self.metrics.record_shed()
@@ -171,6 +253,8 @@ class Engine(EngineBase):
     def _run_wave(self, wave: List[Request]) -> List[Request]:
         cfg = self.cfg
         t0 = time.time()
+        wave_span = self.tracer.span("poll", requests=len(wave))
+        wave_span.__enter__()
         b = cfg.max_batch
         bucket = bucket_for(cfg.prefill_buckets,
                             max(len(r.prompt) for r in wave))[0]
@@ -186,38 +270,53 @@ class Engine(EngineBase):
         pool = StatePool(self.model, b,
                          bucket + max(cfg.max_new_tokens, max_new),
                          self.model.cfg.dtype)
-        logits, cache = self.model.prefill(
-            self.params, {"tokens": torch.from_numpy(tokens).to(self.device)},
-            pool.cache)
-        next_tok = self._sample(logits)
+        with self.tracer.span("prefill_bucket", bucket=bucket,
+                              rows=len(wave)):
+            logits, cache = self._prefill(
+                self.params,
+                {"tokens": torch.from_numpy(tokens).to(self.device)},
+                pool.cache)
+            next_tok = self._sample(logits)
 
-        def finish(r: Request) -> None:
+        def finish(r: Request, slot: int) -> None:
             r.done = True
             r.finish_s = time.time()
             r.latency_s = r.finish_s - r.arrival_s
             self.metrics.record_finish(r.latency_s, len(r.out_tokens))
+            if self.tracer.enabled and r.decode_pc is not None:
+                self.tracer.complete("decode", r.decode_pc,
+                                     time.perf_counter(),
+                                     tid=TID_SLOT0 + slot, uid=r.uid,
+                                     tokens=len(r.out_tokens))
 
         alive = np.array([True] * len(wave) + [False] * (b - len(wave)))
         t_first = time.time()
+        t_first_pc = time.perf_counter()
         for i, r in enumerate(wave):
             r.first_token_s = t_first
+            r.decode_pc = t_first_pc
             self.metrics.record_first_token(t_first - r.arrival_s)
             self.metrics.record_token()
+            if self.tracer.enabled and r.admit_pc is not None:
+                self.tracer.complete("staging", r.admit_pc, t_first_pc,
+                                     tid=TID_SLOT0 + i, uid=r.uid)
             r.emit(int(next_tok[i]))
             if (cfg.eos_id >= 0 and next_tok[i] == cfg.eos_id) or \
                     r.max_new_tokens == 1:
                 alive[i] = False
-                finish(r)
+                finish(r, i)
 
         for t in range(1, max_new):
             if not alive[:len(wave)].any():
                 break
             ts0 = time.perf_counter()
             tok = torch.from_numpy(next_tok[:, None].astype(np.int64))
-            logits, cache = self.model.decode_step(
+            logits, cache = self._decode(
                 self.params, tok.to(self.device), cache, bucket + t - 1)
             next_tok = self._sample(logits)
             ts1 = time.perf_counter()
+            self.tracer.complete("decode_step", ts0, ts1,
+                                 live=int(alive[:len(wave)].sum()))
             self.metrics.record_step(int(alive[:len(wave)].sum()), ts1 - ts0)
             for i, r in enumerate(wave):
                 if alive[i] and len(r.out_tokens) < r.max_new_tokens:
@@ -226,21 +325,26 @@ class Engine(EngineBase):
                     if (cfg.eos_id >= 0 and next_tok[i] == cfg.eos_id) or \
                             len(r.out_tokens) >= r.max_new_tokens:
                         alive[i] = False
-                        finish(r)
+                        finish(r, i)
 
-        for r in wave:
+        for i, r in enumerate(wave):
             if not r.done:
-                finish(r)
+                finish(r, i)
         dt = time.time() - t0
         self._wall_s += dt
         self.metrics.record_wall(dt)
+        wave_span.__exit__(None, None, None)
+        self.check_sentinels()
+        self.metrics.maybe_snapshot()
         return wave
 
     def stats(self, requests: List[Request]) -> Dict[str, float]:
-        """Throughput over the summed sequential wave time."""
+        """Throughput over the summed sequential wave time, and the
+        recompile sentinels' trips."""
         toks = sum(len(r.out_tokens) for r in requests)
         wall = self._wall_s or (max((r.latency_s for r in requests),
                                     default=0.0))
         return {"requests": len(requests), "generated_tokens": toks,
                 "tokens_per_s": toks / wall if wall else 0.0,
-                "wall_s": wall}
+                "wall_s": wall,
+                "recompile_trips": self.counters["recompile_trips"]}

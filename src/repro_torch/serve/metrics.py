@@ -1,5 +1,6 @@
 """Serving metrics: the subset of ``repro.serve.metrics`` that the two
-engines and the CLI read.
+engines, the CLI and ``launch/trace_report`` read, streaming snapshots
+included.
 
 Definitions (the JAX package's):
 
@@ -17,12 +18,43 @@ Definitions (the JAX package's):
   hits skipped.
 
 Latencies go into a log-bucketed :class:`StreamingHistogram` (constant
-memory, percentiles interpolated within a bucket).
+memory, percentiles interpolated within a bucket).  Under
+``metrics_every`` per-poll gauges and emitted tokens go into sliding
+time windows (:class:`WindowedGauge`, :class:`RateMeter`, O(1) a sample
+and a reading), and every ``metrics_every`` polls ``maybe_snapshot``
+appends a point-in-time snapshot to ``snapshots`` and, when tracing,
+emits the ``serve_gauges`` counter sample and a ``metrics_snapshot``
+instant; with ``metrics_every`` 0 nothing reads the windows and nothing
+fills them (the JAX engine fills them on every poll).  The JAX package's
+robustness counters (quarantines, poison probes, backend fallbacks,
+watchdog recoveries, overload, stragglers, rejections) are not ported,
+and neither are their snapshot keys.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional, Sequence
+
+from repro_torch.serve.tracing import NULL_TRACER
+
+# The windowed gauges' and the token rate's trailing window (the JAX
+# package's default).
+GAUGE_WINDOW_S = 10.0
+
+
+def _percentile(xs: List[float], q: float) -> float:
+    """Linear-interpolation percentile of a list (numpy ``quantile``
+    semantics)."""
+    if not xs:
+        return 0.0
+    ys = sorted(xs)
+    pos = q * (len(ys) - 1)
+    lo = int(math.floor(pos))
+    hi = min(len(ys) - 1, lo + 1)
+    frac = pos - lo
+    return ys[lo] * (1.0 - frac) + ys[hi] * frac
 
 
 class StreamingHistogram:
@@ -43,6 +75,7 @@ class StreamingHistogram:
         self.total = 0.0
         self.vmin = math.inf
         self.vmax = -math.inf
+        self._summary = (0, None)       # (count, summary) of the last read
 
     def _bucket(self, x: float) -> int:
         if x <= self.lo:
@@ -65,38 +98,155 @@ class StreamingHistogram:
     def percentile(self, q: float) -> float:
         """Rank ``q * (count - 1)`` interpolated geometrically inside its
         bucket, clamped to the observed min/max."""
+        return self.percentiles((q,))[0]
+
+    def percentiles(self, qs: Sequence[float]) -> List[float]:
+        """:meth:`percentile` of each of ``qs``, in one walk over the
+        buckets between the min's and the max's, the only ones that can
+        hold a sample (a snapshot reads four of each of three
+        histograms)."""
         if not self.count:
-            return 0.0
+            return [0.0] * len(qs)
         if self.count == 1:
-            return self.vmin
-        rank = q * (self.count - 1)
-        cum = 0
-        for b, n in enumerate(self.counts):
+            return [self.vmin] * len(qs)
+        ranks = sorted((q * (self.count - 1), i) for i, q in enumerate(qs))
+        out = [self.vmax] * len(qs)
+        j, cum, m = 0, 0, len(ranks)
+        counts = self.counts
+        for b in range(self._bucket(self.vmin), self._bucket(self.vmax) + 1):
+            n = counts[b]
             if not n:
                 continue
-            if rank < cum + n:
+            while j < m and ranks[j][0] < cum + n:
+                rank, i = ranks[j]
                 frac = (rank - cum + 0.5) / n
                 lo_edge = 10.0 ** (self._log_lo + b / self.bpd)
                 v = lo_edge * 10.0 ** (frac / self.bpd)
-                return min(max(v, self.vmin), self.vmax)
+                out[i] = min(max(v, self.vmin), self.vmax)
+                j += 1
+            if j == m:
+                break
             cum += n
-        return self.vmax
+        return out
+
+    def summary(self) -> Dict[str, float]:
+        """Count, mean, min, max and four percentiles; kept until the next
+        sample (a snapshot reads three histograms, most of them
+        unchanged since the last one)."""
+        count, kept = self._summary
+        if kept is None or count != self.count:
+            p50, p90, p95, p99 = self.percentiles((0.50, 0.90, 0.95, 0.99))
+            kept = {"count": self.count, "mean": self.mean,
+                    "min": self.vmin if self.count else 0.0,
+                    "max": self.vmax if self.count else 0.0,
+                    "p50": p50, "p90": p90, "p95": p95, "p99": p99}
+            self._summary = (self.count, kept)
+        return dict(kept)
+
+
+class WindowedGauge:
+    """Sliding-time-window gauge: last / windowed mean / windowed max of a
+    sampled value (queue depth, live slots, resident bytes, ...).
+
+    The JAX package's readings at O(1) a sample: a running sum, from
+    which expired points are taken as they leave the window, and a
+    monotonic deque whose front is the window's max, so a snapshot costs
+    the same with one sample in the window or a full server's thousands.
+    The mean equals the JAX package's ``sum(window) / n`` exactly for
+    integer samples (every gauge the engines observe: counts and bytes);
+    float samples may part from it in the last bits."""
+
+    def __init__(self, window_s: float = GAUGE_WINDOW_S):
+        self.window_s = window_s
+        self._pts: deque = deque()      # (t, value)
+        self._top: deque = deque()      # (t, value), values decreasing
+        self._sum = 0
+        self.last = 0.0
+
+    def record(self, value: float, now: Optional[float] = None) -> None:
+        now = time.perf_counter() if now is None else now
+        self.last = value
+        self._pts.append((now, value))
+        self._sum += value
+        top = self._top
+        while top and top[-1][1] <= value:
+            top.pop()
+        top.append((now, value))
+        self._trim(now)
+
+    def _trim(self, now: float) -> None:
+        cut = now - self.window_s
+        pts, top = self._pts, self._top
+        while pts and pts[0][0] < cut:
+            self._sum -= pts.popleft()[1]
+        while top and top[0][0] < cut:
+            top.popleft()
+        if not pts:
+            self._sum = 0
+
+    def snapshot(self, now: Optional[float] = None) -> Dict[str, float]:
+        now = time.perf_counter() if now is None else now
+        self._trim(now)
+        n = len(self._pts)
+        if not n:
+            return {"last": self.last, "mean": self.last,
+                    "max": self.last, "n": 0}
+        return {"last": self.last, "mean": self._sum / n,
+                "max": self._top[0][1], "n": n}
+
+
+class RateMeter:
+    """Sliding-window event rate (tokens/s) over the trailing
+    ``window_s`` seconds; a running count, so a reading is O(1)."""
+
+    def __init__(self, window_s: float = GAUGE_WINDOW_S):
+        self.window_s = window_s
+        self._pts: deque = deque()      # (t, n)
+        self._sum = 0
+
+    def record(self, n: int = 1, now: Optional[float] = None) -> None:
+        now = time.perf_counter() if now is None else now
+        self._pts.append((now, n))
+        self._sum += n
+        self._trim(now)
+
+    def _trim(self, now: float) -> None:
+        cut = now - self.window_s
+        pts = self._pts
+        while pts and pts[0][0] < cut:
+            self._sum -= pts.popleft()[1]
+        if not pts:
+            self._sum = 0
+
+    def rate(self, now: Optional[float] = None) -> float:
+        now = time.perf_counter() if now is None else now
+        self._trim(now)
+        if not self._pts:
+            return 0.0
+        span = max(now - self._pts[0][0], 1e-9)
+        return self._sum / span
 
 
 class ServeMetrics:
-    def __init__(self, slots: int):
+    def __init__(self, slots: int, tracer=NULL_TRACER,
+                 metrics_every: int = 0):
         self.slots = max(1, slots)
+        self.tracer = tracer
+        self.metrics_every = metrics_every
         self.reset()
 
     def reset(self) -> None:
         self.arrivals = 0
         self.completed = 0
         self.shed = 0
+        self.shed_reasons: Dict[str, int] = {}
         self.truncated = 0
         self.emitted_tokens = 0
         self.completed_tokens = 0
         self.ttft = StreamingHistogram()
         self.latency = StreamingHistogram()
+        self.step_hist = StreamingHistogram()
+        self.prefill_hist = StreamingHistogram()
         self.decode_steps = 0
         self.decode_time_s = 0.0
         self.live_slot_s = 0.0
@@ -115,6 +265,10 @@ class ServeMetrics:
         self.spec_accepted = 0
         self.spec_emitted = 0
         self.spec_rollbacks = 0
+        self.polls = 0
+        self.gauges: Dict[str, WindowedGauge] = {}
+        self.tok_rate = RateMeter()
+        self.snapshots: List[dict] = []
 
     def record_arrival(self) -> None:
         self.arrivals += 1
@@ -124,20 +278,25 @@ class ServeMetrics:
 
     def record_token(self, n: int = 1) -> None:
         self.emitted_tokens += n
+        if self.metrics_every:
+            self.tok_rate.record(n)
 
     def record_finish(self, latency_s: float, n_tokens: int) -> None:
         self.completed += 1
         self.completed_tokens += n_tokens
         self.latency.add(latency_s)
 
-    def record_shed(self) -> None:
+    def record_shed(self, reason: str = "deadline") -> None:
+        """One shed request; ``shed_reasons`` counts them by reason."""
         self.shed += 1
+        self.shed_reasons[reason] = self.shed_reasons.get(reason, 0) + 1
 
     def record_step(self, live_slots: int, dt_s: float) -> None:
         """One decode step: ``live_slots`` rows produced useful tokens."""
         self.decode_steps += 1
         self.decode_time_s += dt_s
         self.live_slot_s += live_slots * dt_s
+        self.step_hist.add(dt_s)
 
     def record_prefill(self, tokens: int, dt_s: float) -> None:
         """One prefill call (a monolithic bucket or one chunk) that
@@ -145,6 +304,7 @@ class ServeMetrics:
         self.prefill_chunks += 1
         self.prefill_tokens += tokens
         self.prefill_time_s += dt_s
+        self.prefill_hist.add(dt_s)
 
     def record_prefix_lookup(self, matched_tokens: int) -> None:
         """One prefix-cache admission lookup: ``matched_tokens`` prompt
@@ -177,6 +337,69 @@ class ServeMetrics:
         them holding a NaN or an Inf."""
         self.logit_rows += rows
         self.nonfinite_logit_rows += nonfinite_rows
+
+    def observe_gauges(self, **values: float) -> None:
+        """Per-poll gauge samples from the engine (queue depth, staging
+        depth, live slots, prefix-cache resident bytes); kept only under
+        ``metrics_every``, whose snapshots are their one reader."""
+        if not self.metrics_every:
+            return
+        now = time.perf_counter()
+        for key, v in values.items():
+            g = self.gauges.get(key)
+            if g is None:
+                g = self.gauges[key] = WindowedGauge()
+            g.record(v, now)
+
+    def maybe_snapshot(self,
+                       extra_fn: Optional[Callable[[], dict]] = None) -> None:
+        """Count one engine poll; every ``metrics_every`` polls (0 = off)
+        take a snapshot: appended to ``snapshots`` and, when tracing,
+        emitted as a ``serve_gauges`` counter sample plus a
+        ``metrics_snapshot`` instant carrying the whole snapshot."""
+        self.polls += 1
+        if not self.metrics_every or self.polls % self.metrics_every:
+            return
+        snap = self.snapshot()
+        if extra_fn is not None:
+            snap.update(extra_fn())
+        self.snapshots.append(snap)
+        if self.tracer.enabled:
+            gauges = snap["gauges"]
+            self.tracer.counter("serve_gauges", {
+                "queue_depth": gauges.get("queue_depth", {}).get("last",
+                                                                 0.0),
+                "staging_depth": gauges.get("staging_depth",
+                                            {}).get("last", 0.0),
+                "live_slots": gauges.get("live_slots", {}).get("last", 0.0),
+                "tokens_per_s": snap["tokens_per_s_window"],
+                "prefix_resident_mb": gauges.get(
+                    "prefix_resident_bytes", {}).get("last", 0.0) / 2 ** 20,
+            })
+            self.tracer.instant("metrics_snapshot", **snap)
+
+    def snapshot(self) -> dict:
+        """Point-in-time view: cumulative counters, windowed gauges and
+        histogram quick stats."""
+        return {
+            "polls": self.polls,
+            "arrivals": self.arrivals,
+            "completed": self.completed,
+            "shed": self.shed,
+            "shed_reasons": dict(self.shed_reasons),
+            "emitted_tokens": self.emitted_tokens,
+            "tokens_per_s_window": self.tok_rate.rate(),
+            "prefix_hits": self.prefix_hits,
+            "prefix_misses": self.prefix_misses,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "spec_bursts": self.spec_bursts,
+            "spec_accept_rate": (self.spec_accepted / self.spec_drafted
+                                 if self.spec_drafted else 0.0),
+            "ttft": self.ttft.summary(),
+            "decode_step": self.step_hist.summary(),
+            "prefill_call": self.prefill_hist.summary(),
+            "gauges": {k: g.snapshot() for k, g in self.gauges.items()},
+        }
 
     def summary(self) -> Dict[str, float]:
         """Cumulative KPI rollup (keys as the JAX package's summary)."""

@@ -42,7 +42,8 @@ Mechanics
   block eviction the insert is *refused*, so residency never exceeds the
   budget.
 * **Metrics**: hits, misses, hit tokens, inserts, refused inserts,
-  evictions, resident and peak bytes (:meth:`PrefixCache.stats`).
+  evictions, resident and peak bytes (:meth:`PrefixCache.stats`); a
+  tracer gets ``prefix_evict`` and ``prefix_insert_refused`` instants.
 
 The trie itself is host Python (dict walks over token tuples); the device
 work is the pools' row copies.
@@ -53,6 +54,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.serve.tracing import NULL_TRACER
 
 
 def _leaves(tree):
@@ -110,11 +113,12 @@ class _Node:
 class PrefixCache:
     """Token-keyed radix cache of chunk-boundary state snapshots."""
 
-    def __init__(self, capacity_bytes: int, chunk: int):
+    def __init__(self, capacity_bytes: int, chunk: int, tracer=NULL_TRACER):
         if chunk <= 0:
             raise ValueError("prefix cache chunk must be positive")
         self.capacity_bytes = int(capacity_bytes)
         self.chunk = int(chunk)
+        self.tracer = tracer
         self.root = _Node(None, None, None, 0, 0)
         self._nodes: List[_Node] = []
         self.resident_bytes = 0
@@ -189,6 +193,8 @@ class PrefixCache:
         nbytes = snapshot_nbytes(snapshot)
         if not self._make_room(nbytes):
             self.inserts_refused += 1
+            self.tracer.instant("prefix_insert_refused", nbytes=nbytes,
+                                resident_bytes=self.resident_bytes)
             return None
         self._clock += 1
         child = _Node(chunk, parent, snapshot, nbytes, self._clock)
@@ -229,6 +235,8 @@ class PrefixCache:
         self.resident_bytes -= node.nbytes
         node.snapshot = None
         self.evictions += 1
+        self.tracer.instant("prefix_evict", nbytes=node.nbytes,
+                            resident_bytes=self.resident_bytes)
 
     def stats(self) -> dict:
         return {

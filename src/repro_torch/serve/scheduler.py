@@ -1,9 +1,12 @@
 """Request admission: queue policy, priorities, deadlines, bucketing.
 
-Port of ``repro.serve.scheduler`` (without the tracer hooks): FCFS or
-priority ordering, deadline-based load shedding, the prompt ->
-prefill-bucket mapping with explicit truncation accounting, and the
-chunked prefill's padded span (``chunk_span``).
+Port of ``repro.serve.scheduler``: FCFS or priority ordering,
+deadline-based load shedding (a ``shed`` instant in the trace), the
+prompt -> prefill-bucket mapping with explicit truncation accounting,
+and the chunked prefill's padded span (``chunk_span``).  A request
+carries the trace stamps ``admit_pc`` and ``decode_pc`` (perf_counter
+seconds) from which the engines build its ``staging`` and ``decode``
+spans.
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ import heapq
 import logging
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
+
+from repro_torch.serve.tracing import NULL_TRACER
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -34,6 +39,9 @@ class Request:
     first_token_s: Optional[float] = None
     finish_s: Optional[float] = None
     on_token: Optional[Callable[[int, int], None]] = None  # (uid, token)
+    # Trace stamps (perf_counter seconds; serve/tracing.py):
+    admit_pc: Optional[float] = None     # popped from the queue
+    decode_pc: Optional[float] = None    # first token -> decode residency
 
     def emit(self, token: int) -> None:
         self.out_tokens.append(token)
@@ -95,10 +103,11 @@ class Scheduler:
     absolute ``deadline_s`` passed while queued are shed into
     ``self.expired`` instead of taking a slot."""
 
-    def __init__(self, policy: str = "fcfs"):
+    def __init__(self, policy: str = "fcfs", tracer=None):
         if policy not in ("fcfs", "priority"):
             raise ValueError(f"unknown scheduler policy {policy!r}")
         self.policy = policy
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self._heap: List[Tuple[Tuple[int, int], Request]] = []
         self._seq = 0
         self.expired: List[Request] = []
@@ -120,6 +129,8 @@ class Scheduler:
                 req.done = True
                 req.status = "shed_deadline"
                 self.expired.append(req)
+                self.tracer.instant("shed", uid=req.uid, reason="deadline",
+                                    queued_s=now - req.arrival_s)
                 log.warning("request %d: deadline missed while queued; "
                             "shedding", req.uid)
                 continue

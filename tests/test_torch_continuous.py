@@ -141,16 +141,19 @@ def test_continuous_monolithic_matches_wave_engine():
 
 def test_serve_config_has_no_unported_fields():
     """Options of the JAX engine that the port leaves out are refused,
-    not ignored; there is no backend fallback.  Speculation and the
-    prefix cache are ported, with the JAX defaults."""
+    not ignored; there is no backend fallback and no flight recorder.
+    Speculation, the prefix cache and tracing are ported, with the JAX
+    defaults."""
     fields = {f.name for f in dataclasses.fields(ServeConfig)}
     assert {"prefill_chunk", "prefill_token_budget", "speculate_k",
-            "speculate_draft", "prefix_cache_mb", "prefix_chunk"} <= fields
+            "speculate_draft", "prefix_cache_mb", "prefix_chunk", "trace",
+            "metrics_every", "strict_recompile"} <= fields
     for name in ("speculate_k", "speculate_draft", "prefix_cache_mb",
-                 "prefix_chunk"):
+                 "prefix_chunk", "trace", "metrics_every",
+                 "strict_recompile"):
         assert getattr(ServeConfig(), name) == \
             getattr(JServeConfig(), name), name
-    for name in ("backend_fallback", "trace", "fault_plan"):
+    for name in ("backend_fallback", "fault_plan", "flight_records"):
         assert name not in fields
         with pytest.raises(TypeError):
             ServeConfig(**{name: 1})
