@@ -128,6 +128,36 @@ qwen1.5-4b:
    2% of the median ``decode_step`` span in the last batch, and the
    untraced engine's; tokens/s with tracing off and on (three
    interleaved runs each, reported, not asserted);
+   4i: robustness (``runtime/faults.py``, ``runtime/health.py``,
+   ``serve/flight_recorder.py``) on mamba2-130m's continuous engine (bf16
+   unless stated, chunk 64, phase 4h's 12 prompts, batch 4, 16 greedy
+   tokens, weights from seed 0), each run held to a fault-free control
+   with the same options and its launches of kernels 1 and 2 exact for
+   its decode steps and chunk calls: (a) ``poison@4:slot=1`` under the
+   ``state`` and then the ``logits`` probe: exactly one request
+   ``poisoned``, the other 11 ``ok`` with the control's tokens,
+   ``quarantined`` 1, ``shed_reasons`` {poison: 1}, no sentinel trip
+   (``strict_recompile``); (b) a ``STALL_S`` decode stall past a
+   ``WATCHDOG_S`` watchdog under ``recover``: a fire, a recovery,
+   ``retries`` equal to the rows requeued, every request ``ok`` with the
+   control's tokens, ``monitor_decode.max_s`` >= ``STALL_S``; (c)
+   ``fail@3:program=decode`` raises ``InjectedBackendError`` out of
+   ``run()`` (that type, nothing else caught); (d) the 64-token shared
+   prefix under a 256 MB prefix cache with ``snap_corrupt`` and then
+   ``snap_drop``: every resident snapshot finite, the cached control's
+   tokens; (e) 12 submissions at ``max_queue_depth`` 10,
+   ``overload_queue_depth`` 6 and ``shed_inflight`` with one in-flight
+   deadline moved into the past: 2 rejected, one overload entry and one
+   exit, ``shed_reasons`` {deadline: 1}; (f) fp32 with ``speculate_k`` 4
+   and ``poison@4:slot=1`` under the ``logits`` probe (caught at the
+   verify): one ``poisoned``, the rest the fp32 speculative control's
+   tokens; (g) the CLI with ``--fault-plan 'poison@4:slot=1'
+   --poison-probe logits --flight-records 16 --flight-path`` and
+   ``trace_report --flight --check`` on its dump (a ``quarantine``
+   dump); (h) the ``logits`` probe's host time in the engine's own polls
+   (``ProbeClock``) at steady state under ``PROBE_SHARE`` (3%) of the
+   median decode step, and the ``state`` probe's device and host
+   microseconds; the phase under ``ROBUST_BUDGET_S`` (60 s);
 5. parity  — the same model in fp32, kernel path on the card against the
    plain path on the CPU, teacher-forced over 16 greedy tokens of 4
    prompts, with fp32 weights and with W8 weights: tokens agree
@@ -1570,17 +1600,17 @@ class HookClock:
         self._undo.append((owner, name, vars(owner).get(name, self)))
         setattr(owner, name, wrap(getattr(owner, name)))
 
+    def _counted(self, fn):
+        def call(*args, **kw):
+            self.polls += 1
+            return fn(*args, **kw)
+        return call
+
     def __enter__(self):
         from repro_torch.kernels import build
         from repro_torch.serve import tracing
         eng = self.engine
-
-        def counted(fn):
-            def call(*args, **kw):
-                self.polls += 1
-                return fn(*args, **kw)
-            return call
-        self._patch(eng, "poll", counted)
+        self._patch(eng, "poll", self._counted)
         for name in ("span", "complete", "instant", "counter",
                      "pc_from_walltime"):
             if hasattr(eng.tracer, name):       # the null tracer lacks one
@@ -1853,6 +1883,301 @@ def tracing_phase(serve_main, counters, dev):
               f"{max(r) - min(r):.1f} (reported, not asserted)",
               flush=True)
     return on
+
+
+ROBUST_BUDGET_S = 60.0      # phase 4i's seconds
+PROBE_SHARE = 0.03          # the JAX package's healthy-path probe budget
+STALL_S = 1.0               # 4i (b): the injected decode stall
+WATCHDOG_S = 0.3            # 4i (b): the watchdog's deadline
+
+
+class ProbeClock(HookClock):
+    """Host time an engine spends in its poison probe (``_probe_rows``,
+    the decode step's and the verify's) during its own polls, and the
+    polls counted: :class:`HookClock`'s timer on the probe alone."""
+
+    def __enter__(self):
+        self._patch(self.engine, "poll", self._counted)
+        self._patch(self.engine, "_probe_rows", self._timed)
+        return self
+
+
+def _resident_finite(cache) -> bool:
+    """Every snapshot in the prefix cache's trie is finite (a reduction a
+    leaf on the device)."""
+    import torch
+    stack, ok = list(cache.root.children.values()), []
+    while stack:
+        node = stack.pop()
+        stack.extend(node.children.values())
+        ok += [torch.isfinite(leaf).all() for leaf in node.snapshot]
+    return bool(torch.stack(ok).all()) if ok else True
+
+
+def robustness_phase(serve_main, counters, dev):
+    """Phase 4i (see the module docstring).  Returns the probe's cost
+    figures."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import trace_report
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import init_params
+    from repro_torch.serve import ContinuousEngine, InjectedBackendError, \
+        ServeConfig, load_flight
+
+    t_phase = time.perf_counter()
+    cfg = get_config("mamba2-130m")
+    model = build_model(cfg, dev)
+    params = init_params(model.param_specs(), 0, cfg.dtype, dev)
+    base = dict(max_batch=4, prefill_buckets=(32, 128), max_new_tokens=16,
+                prefill_chunk=64)
+    prompts = _trace_prompts(cfg, shared=False)
+
+    def serve(label, kw, prompts=prompts, mdl=model, prm=params,
+              before_run=None):
+        """One fresh engine over ``prompts``: (engine, {uid: request});
+        the launches of kernels 1 and 2 exact for its decode steps and
+        chunk calls (``spec_launches``: bursts included)."""
+        eng = ContinuousEngine(mdl, prm, ServeConfig(**base, **kw))
+        reset_counts(counters)
+        try:
+            for p in prompts:
+                eng.submit(p)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                if before_run is not None:
+                    before_run(eng)
+                done = {r.uid: r for r in eng.run()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            eng.close()
+        want, bodies, n = spec_launches(eng)
+        got = {k: v for k, v in read_counts(counters).items() if v}
+        assert got == {k: v for k, v in want.items() if v}, \
+            f"{label}: launches {got} vs {want}"
+        assert dict(counters["mamba2_prefill"].path_launches) == \
+            bodies["mamba2_prefill"], f"{label}: kernel 2's bodies"
+        print(f"  {label}: launches {got} ({n['steps']} decode steps, "
+              f"{n['calls']} chunk calls, {n['bursts']} bursts); wall "
+              f"{wall:.3f} s", flush=True)
+        return eng, done
+
+    def blast(label, eng, done, control):
+        """One request poisoned, the rest ok with the control's tokens."""
+        m = eng.metrics.summary()
+        bad = [u for u, r in done.items() if r.status == "poisoned"]
+        ok = [u for u, r in done.items() if r.status == "ok"]
+        same = [u for u in ok if done[u].out_tokens == control[u]]
+        print(f"  {label}: poisoned {bad}, ok {len(ok)}, token-identical "
+              f"to the control {len(same)}/{len(ok)}; quarantined "
+              f"{m['quarantined']} shed_reasons {m['shed_reasons']} "
+              f"poison_probes {m['poison_probes']} nonfinite_logit_rows "
+              f"{m['nonfinite_logit_rows']}; trips "
+              f"{eng.counters['recompile_trips']}; fired "
+              f"{eng._injector.summary()['fired']}", flush=True)
+        assert len(bad) == 1 and len(ok) == len(control) - 1, label
+        assert same == ok, f"{label}: a healthy row's tokens moved"
+        assert m["quarantined"] == 1 and m["shed_reasons"] == {"poison": 1}
+        assert not any(eng.counters["recompile_trips"].values()), label
+        assert eng._injector.summary()["fired"] == {"poison": 1}
+
+    _, ctl = serve("control (bf16)", dict(strict_recompile=True))
+    control = {u: r.out_tokens for u, r in ctl.items()}
+    assert all(r.status == "ok" and len(r.out_tokens) == 16
+               for r in ctl.values())
+
+    # (a) poison in the decode pool, caught by the state and logits probes.
+    for probe in ("state", "logits"):
+        eng, done = serve(f"(a) poison@4:slot=1, {probe} probe",
+                          dict(strict_recompile=True, poison_probe=probe,
+                               fault_plan="poison@4:slot=1"))
+        blast(f"(a) {probe} probe", eng, done, control)
+
+    # (b) a 1 s decode stall past a 0.3 s watchdog, recovered.
+    eng, done = serve("(b) stall + watchdog recover",
+                      dict(fault_plan=f"stall@6:program=decode,"
+                                      f"stall_s={STALL_S}",
+                           watchdog_s=WATCHDOG_S, watchdog_action="recover",
+                           max_retries=3))
+    m = eng.metrics.summary()
+    retried = sum(r.retries for r in done.values())
+    print(f"  (b) watchdog_fires {m['watchdog_fires']} watchdog_recoveries "
+          f"{m['watchdog_recoveries']} retries {m['retries']} (rows "
+          f"requeued {retried}); monitor_decode max_s "
+          f"{eng.monitor_decode.max_s:.4f} median_s "
+          f"{eng.monitor_decode.summary()['median_s']:.6f}; stragglers "
+          f"{m['stragglers_decode']}", flush=True)
+    assert m["watchdog_fires"] >= 1 and m["watchdog_recoveries"] >= 1
+    assert m["retries"] == retried > 0
+    assert len(done) == len(control) and all(
+        r.status == "ok" and r.out_tokens == control[u]
+        for u, r in done.items()), "(b): a replayed request moved"
+    assert eng.monitor_decode.max_s >= STALL_S
+
+    # (c) an injected decode failure raises out of run(), nothing else.
+    eng = ContinuousEngine(model, params, ServeConfig(
+        **base, fault_plan="fail@3:program=decode"))
+    for p in prompts:
+        eng.submit(p)
+    raised = None
+    try:
+        with torch.inference_mode():
+            eng.run()
+    except InjectedBackendError as err:
+        raised = err
+    finally:
+        eng.close()
+    assert type(raised) is InjectedBackendError, "(c): no failure raised"
+    print(f"  (c) fail@3:program=decode raised {type(raised).__name__}: "
+          f"{raised}", flush=True)
+
+    # (d) snapshot faults under the prefix cache: nothing non-finite is
+    # resident, the tokens are the cached control's.
+    shared = _trace_prompts(cfg, shared=True)
+    pre = dict(prefix_cache_mb=256)
+    _, cdone = serve("(d) cached control", pre, prompts=shared)
+    cached = {u: r.out_tokens for u, r in cdone.items()}
+    for fault in ("snap_corrupt", "snap_drop"):
+        eng, done = serve(f"(d) {fault}@0",
+                          dict(pre, poison_probe="logits",
+                               fault_plan=f"{fault}@0"), prompts=shared)
+        s = eng.prefix_cache.stats()
+        finite = _resident_finite(eng.prefix_cache)
+        print(f"  (d) {fault}: fired {eng._injector.summary()['fired']}; "
+              f"{s['nodes']} nodes resident, all finite {finite}; hits "
+              f"{s['hits']}", flush=True)
+        assert eng._injector.summary()["fired"] == {fault: 1}
+        assert finite and s["hits"] > 0
+        assert {u: r.out_tokens for u, r in done.items()} == cached, \
+            f"(d) {fault}: tokens moved"
+
+    # (e) bounded admission, overload and in-flight shedding: 12
+    # submissions at a queue bound of 10 (2 rejected), degraded from a
+    # depth of 6 until it falls to 3 (the queue only drains: one entry,
+    # one exit), and the first in-flight request's deadline moved into
+    # the past after the first poll (one in-flight shed).
+    victim = []
+
+    def expire_one(eng):
+        eng.poll()
+        victim.append(next(r for r in eng._slot_req + eng._pref_req
+                           if r is not None))
+        victim[0].deadline_s = time.time() - 1.0
+    eng = ContinuousEngine(model, params, ServeConfig(
+        **base, max_queue_depth=10, overload_queue_depth=6,
+        shed_inflight=True))
+    reset_counts(counters)
+    uids = [eng.submit(p) for p in prompts]
+    with torch.inference_mode():
+        expire_one(eng)
+        done = {r.uid: r for r in eng.run()}
+    torch.cuda.synchronize()
+    eng.close()
+    m = eng.metrics.summary()
+    want = dict({k: 0 for k in counters}, **path_launches(
+        cfg, steps=m["decode_steps"], prefills=m["prefill_chunks"]))
+    got = read_counts(counters)
+    print(f"  (e) uids {uids}; rejected {m['rejected']} overload "
+          f"{m['overload_entries']} in / {m['overload_exits']} out; "
+          f"shed_reasons {m['shed_reasons']} (request {victim[0].uid}); "
+          f"launches {got} = {cfg.n_layers} x {m['decode_steps']} decode "
+          f"steps, {cfg.n_layers} x {m['prefill_chunks']} chunk calls",
+          flush=True)
+    assert uids == list(range(1, 11)) + [None, None]
+    assert m["rejected"] == 2
+    assert m["overload_entries"] == m["overload_exits"] == 1
+    assert m["shed_reasons"] == {"deadline": 1}
+    assert done[victim[0].uid].status == "shed_deadline"
+    assert all(r.out_tokens == control[u] for u, r in done.items()
+               if r.status == "ok") and len(done) == 10
+    assert got == want, f"(e): launches {got} vs {want}"
+    prefill_bodies(counters, "(e)")
+
+    # (f) fp32 speculation: poison caught at the verify.
+    f32 = cfg.replace(param_dtype="float32")
+    m32 = build_model(f32, dev)
+    p32 = init_params(m32.param_specs(), 0, torch.float32, dev)
+    spec = dict(speculate_k=SPEC_K)
+    _, sdone = serve("(f) fp32 speculative control", spec, mdl=m32, prm=p32)
+    scontrol = {u: r.out_tokens for u, r in sdone.items()}
+    eng, done = serve("(f) fp32 speculative, poison@4:slot=1",
+                      dict(spec, poison_probe="logits",
+                           fault_plan="poison@4:slot=1"), mdl=m32, prm=p32)
+    assert eng.metrics.spec_bursts > 0
+    blast("(f) fp32 speculative", eng, done, scontrol)
+    del m32, p32
+
+    # (g) the CLI's flags, then trace_report --flight on its dump.
+    out = ROOT / "build" / "robustness"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "flight.jsonl"
+    if path.exists():
+        path.unlink()
+    reset_counts(counters)
+    engine, cli_done = serve_main(CONT_ARGV + [
+        "--fault-plan", "poison@4:slot=1", "--poison-probe", "logits",
+        "--flight-records", "16", "--flight-path", str(path)])
+    assert engine.metrics.quarantined == 1 and len(cli_done) == 12
+    rc = trace_report.main(["--flight", str(path), "--check"])
+    kinds = [d["header"]["kind"] for d in load_flight(str(path))]
+    print(f"  (g) CLI flight dumps {kinds}; trace_report --flight --check "
+          f"exit {rc}", flush=True)
+    assert rc == 0 and "quarantine" in kinds
+
+    # (h) the probes' cost on the healthy path.
+    eng = ContinuousEngine(model, params, ServeConfig(
+        **base, poison_probe="logits"))
+    with torch.inference_mode():
+        for p in prompts:                       # warm
+            eng.submit(p)
+        eng.run()
+        eng.reset_stats()
+        batches = []
+        for _ in range(2):
+            for p in prompts:
+                eng.submit(p)
+            with ProbeClock(eng) as clock:
+                eng.run()
+            batches.append((clock.us_per_poll(), clock.polls, clock.calls))
+        step_s = eng.monitor_decode.summary()["median_s"]
+        state_ms = time_call(eng._state_finite, n=50)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            eng._state_finite()
+        state_host_us = (time.perf_counter() - t0) / 50 * 1e6
+        # The state probe on the card: one non-finite element of any leaf
+        # flags its row and no other.
+        assert eng._state_finite().all()
+        for leaf in eng.pool.cache:
+            for value in (float("nan"), float("inf"), float("-inf")):
+                at = (leaf.shape[0] - 1, 2) + tuple(n // 2
+                                                    for n in leaf.shape[2:])
+                keep = leaf[at].clone()
+                leaf[at] = value
+                flags = eng._state_finite().tolist()
+                leaf[at] = keep
+                assert flags == [True, True, False, True], (value, flags)
+    eng.close()
+    per_poll, polls, calls = batches[-1]
+    share = per_poll * 1e-6 / step_s
+    own = HookClock.own_us()
+    print(f"  (h) logits probe in the engine's own polls: "
+          + ", ".join(f"{b[0]:.2f}" for b in batches)
+          + f" us a poll ({polls} polls, {calls} probe calls in the last "
+          f"batch, {own:.3f} us of the timer's own a call) = {share:.3%} "
+          f"of the median decode step ({step_s * 1e6:.1f} us, "
+          f"monitor_decode); budget {PROBE_SHARE:.0%}; state probe "
+          f"{state_ms * 1e3:.1f} us device (CUDA events), "
+          f"{state_host_us:.1f} us host a probe (to the host's bools; "
+          "no gate: poison_check_every amortizes it)", flush=True)
+    assert share < PROBE_SHARE, "poison probe over budget"
+    secs = time.perf_counter() - t_phase
+    print(f"  phase 4i: {secs:.1f} s (budget {ROBUST_BUDGET_S:.0f} s)",
+          flush=True)
+    assert secs < ROBUST_BUDGET_S, "phase 4i over its time budget"
+    return dict(probe_us=per_poll, probe_share=share, state_ms=state_ms,
+                state_host_us=state_host_us)
 
 
 def spec_prefix_phase(serve_main, counters, dev, plain):
@@ -4303,6 +4628,8 @@ def main() -> int:
     phase("4h. tracing (mamba2-130m, continuous engine, chunk 64: traced "
           "runs, sentinels, cards, the hooks' cost)")
     tracing_phase(serve.main, counters, dev)
+    phase("4i. robustness (mamba2-130m, continuous engine, chunk 64)")
+    robustness_phase(serve.main, counters, dev)
 
     phase("5. path parity (fp32, kernel path vs plain path)")
     parity_phase(dev, 1, get_config("mamba2-130m"), counters)

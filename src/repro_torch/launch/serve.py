@@ -19,6 +19,17 @@ PATH plus a ``.jsonl`` event log beside it; fold them with ``python -m
 repro_torch.launch.trace_report PATH``); ``--metrics-every N`` emits a
 metrics snapshot every N polls; ``--strict-recompile`` makes a program
 that meets a new signature or builds a kernel after warmup raise.
+
+The robustness flags are the JAX CLI's: ``--fault-plan SPEC`` (chaos
+faults on the continuous engine's poll clock, e.g. ``'poison@4:slot=1'``),
+``--poison-probe off|logits|state`` and ``--poison-check-every``,
+``--watchdog-s`` / ``--watchdog-action log|recover`` with
+``--max-retries`` and ``--retry-backoff-s``, ``--max-queue-depth``,
+``--overload-queue-depth`` / ``--overload-ttft-p95-s``,
+``--shed-inflight``, and ``--flight-records N`` / ``--flight-path PATH``
+(render the dumps with ``python -m repro_torch.launch.trace_report
+--flight PATH``).  ``--no-backend-fallback`` is accepted and changes
+nothing: the port has no fallback, a failed kernel raises.
 """
 from __future__ import annotations
 
@@ -107,6 +118,56 @@ def main(argv=None):
                     help="raise RecompileError if a compile-once program "
                          "(decode / prefill_chunk) retraces after warmup "
                          "(here: meets a new signature or builds a kernel)")
+    ap.add_argument("--watchdog-s", type=float, default=0.0,
+                    help="flag the run as hung if no engine step completes "
+                         "for this many seconds (0 = off)")
+    ap.add_argument("--watchdog-action", choices=("log", "recover"),
+                    default="log",
+                    help="hang-watchdog escalation: 'recover' aborts the "
+                         "stuck burst at the next poll and requeues its "
+                         "requests with bounded retries")
+    ap.add_argument("--fault-plan", default=None, metavar="SPEC",
+                    help="chaos fault-injection schedule, e.g. "
+                         "'poison@5:slot=1;fail@8:program=decode;"
+                         "stall@12:stall_s=0.2' (continuous engine; see "
+                         "repro_torch.runtime.faults.parse_plan)")
+    ap.add_argument("--max-queue-depth", type=int, default=0,
+                    help="bounded admission queue: submit() rejects once "
+                         "this many requests queue (0 = unbounded)")
+    ap.add_argument("--overload-queue-depth", type=int, default=0,
+                    help="enter degraded overload mode at this queue depth "
+                         "(prefill budget 0, speculation paused; 0 = off)")
+    ap.add_argument("--overload-ttft-p95-s", type=float, default=0.0,
+                    help="also enter degraded mode when TTFT p95 crosses "
+                         "this many seconds (0 = off)")
+    ap.add_argument("--poison-probe", choices=("off", "logits", "state"),
+                    default="off",
+                    help="NaN/Inf quarantine probes: 'logits' checks the "
+                         "step's host logits, 'state' adds a per-row state "
+                         "finiteness reduction on the device")
+    ap.add_argument("--poison-check-every", type=int, default=1,
+                    help="run poison probes every N polls (amortizes the "
+                         "'state' probe)")
+    ap.add_argument("--no-backend-fallback", action="store_true",
+                    help="accepted for the JAX CLI's sake and changes "
+                         "nothing: the port has no backend fallback, a "
+                         "failed kernel raises")
+    ap.add_argument("--max-retries", type=int, default=1,
+                    help="watchdog-recovery requeue budget per request")
+    ap.add_argument("--retry-backoff-s", type=float, default=0.0,
+                    help="base for exponential retry backoff (0 = requeue "
+                         "immediately)")
+    ap.add_argument("--shed-inflight", action="store_true",
+                    help="also shed staged/decoding requests whose deadline "
+                         "passed (default: deadlines only shed queued work)")
+    ap.add_argument("--flight-records", type=int, default=0, metavar="N",
+                    help="keep a flight-recorder ring of the last N "
+                         "request timelines, dumped to --flight-path on "
+                         "fault events (0 = off; continuous engine only)")
+    ap.add_argument("--flight-path", default=None, metavar="PATH",
+                    help="JSONL file for flight-recorder fault dumps "
+                         "(render with repro_torch.launch.trace_report "
+                         "--flight PATH)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     if args.prefill_chunk and args.engine != "continuous":
@@ -153,7 +214,25 @@ def main(argv=None):
                        speculate_k=(args.speculate_k
                                     if args.engine == "continuous" else 0),
                        trace=args.trace, metrics_every=args.metrics_every,
-                       strict_recompile=args.strict_recompile)
+                       strict_recompile=args.strict_recompile,
+                       watchdog_s=args.watchdog_s,
+                       watchdog_action=args.watchdog_action,
+                       fault_plan=(args.fault_plan
+                                   if args.engine == "continuous" else None),
+                       max_queue_depth=args.max_queue_depth,
+                       overload_queue_depth=args.overload_queue_depth,
+                       overload_ttft_p95_s=args.overload_ttft_p95_s,
+                       poison_probe=(args.poison_probe
+                                     if args.engine == "continuous"
+                                     else "off"),
+                       poison_check_every=args.poison_check_every,
+                       max_retries=args.max_retries,
+                       retry_backoff_s=args.retry_backoff_s,
+                       shed_inflight=args.shed_inflight,
+                       flight_records=(args.flight_records
+                                       if args.engine == "continuous"
+                                       else 0),
+                       flight_path=args.flight_path)
     engine_cls = ContinuousEngine if args.engine == "continuous" else Engine
     engine = engine_cls(model, params, scfg)
 
@@ -168,7 +247,10 @@ def main(argv=None):
                        plen - plen % args.prefill_chunk)
         engine.submit(shared + rng.integers(1, cfg.vocab_size,
                                             plen).tolist())
-    done = engine.run()
+    try:
+        done = engine.run()
+    finally:
+        engine.close()
     for r in done[:4]:
         log.info("req %d: %d prompt toks -> %s%s", r.uid, len(r.prompt),
                  r.out_tokens[:8], "..." if len(r.out_tokens) > 8 else "")
@@ -187,6 +269,18 @@ def main(argv=None):
         log.info("prefix cache: %d hits  %d misses  %d hit tokens",
                  m["prefix_hits"], m["prefix_misses"],
                  m["prefix_hit_tokens"])
+    if m["stragglers_decode"] or m["stragglers_prefill"] or \
+            m["watchdog_fires"]:
+        log.warning("health: %d decode stragglers, %d prefill stragglers, "
+                    "%d watchdog fires", m["stragglers_decode"],
+                    m["stragglers_prefill"], m["watchdog_fires"])
+    if m["rejected"] or m["quarantined"] or m["shed"] or \
+            m["watchdog_recoveries"]:
+        log.warning("robustness: %d rejected, %d quarantined, %d shed %s, "
+                    "%d backend fallbacks, %d watchdog recoveries, "
+                    "%d retries", m["rejected"], m["quarantined"], m["shed"],
+                    m["shed_reasons"], m["backend_fallbacks"],
+                    m["watchdog_recoveries"], m["retries"])
     trips = {k: s.trips for k, s in engine.sentinels.items() if s.trips}
     if trips:
         log.warning("recompile sentinels tripped: %s", trips)

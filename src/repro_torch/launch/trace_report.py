@@ -25,8 +25,11 @@ JSON or the JSONL event log) into:
     python -m repro_torch.launch.trace_report serve_trace.json [--json]
         [--check] [--cards CARDS.json]
 
-The flight recorder's dumps (the JAX tool's ``--flight``) come with the
-port's flight recorder.
+``--flight PATH`` renders the flight recorder's dumps instead
+(``serve/flight_recorder.py``, ``launch/serve --flight-path``); with
+``--check`` it fails unless the file holds a dump.  The fault instants
+the report tallies are the JAX engine's, but ``backend_fallback``, which
+the port never emits: it has no backend fallback, a failed kernel raises.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import sys
 from collections import defaultdict
 from typing import Any, Dict, List, Optional
 
+from repro_torch.serve.flight_recorder import load_flight
 from repro_torch.serve.metrics import _percentile
 from repro_torch.serve.tracing import TID_ENGINE, TID_HOST, TID_SLOT0
 
@@ -470,11 +474,44 @@ def check(rep: Dict[str, Any], tolerance: float = 0.05) -> List[str]:
     return problems
 
 
+def print_flight(dumps: List[dict]) -> None:
+    """Human-facing render of flight-recorder dumps (header, fault and
+    ring of each)."""
+    if not dumps:
+        print("no flight dumps in file")
+        return
+    for d in dumps:
+        h = d["header"]
+        fault = d.get("fault") or {}
+        facts = ", ".join(f"{k}={v}" for k, v in sorted(fault.items())
+                          if k != "kind")
+        print(f"== flight dump {h.get('flight_dump')} — "
+              f"{h.get('kind', '?')}" + (f" ({facts})" if facts else "") +
+              f" — last {h.get('entries', 0)} of "
+              f"{h.get('recorded_total', '?')} request(s) ==")
+        if d["requests"]:
+            print(f"  {'uid':>5s} {'status':<16s} {'slot':>4s} "
+                  f"{'queue':>9s} {'staging':>9s} {'decode':>9s} "
+                  f"{'tokens':>6s} {'retries':>7s}")
+
+        def ms(x):
+            return f"{x * 1e3:7.1f}ms" if x is not None else "        ?"
+
+        for r in d["requests"]:
+            print(f"  {r.get('uid', '?'):>5} {r.get('status', '?'):<16s} "
+                  f"{r.get('slot') if r.get('slot') is not None else '?':>4} "
+                  f"{ms(r.get('queue_s'))} {ms(r.get('staging_s'))} "
+                  f"{ms(r.get('decode_s'))} {r.get('tokens', '?'):>6} "
+                  f"{r.get('retries', 0):>7}")
+        print()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Fold a serve trace (Chrome JSON or JSONL) into phase "
                     "breakdowns, TTFT decomposition, and slot timelines.")
-    ap.add_argument("trace", help="trace path from launch/serve --trace")
+    ap.add_argument("trace", nargs="?",
+                    help="trace path from launch/serve --trace")
     ap.add_argument("--json", action="store_true",
                     help="print the full report as JSON instead of tables")
     ap.add_argument("--check", action="store_true",
@@ -489,7 +526,25 @@ def main(argv=None) -> int:
                     help="program-card JSON (name -> card dict, e.g. "
                          "ProgramRegistry.to_dict()) to fold roofline "
                          "utilization into the program breakdown")
+    ap.add_argument("--flight", metavar="PATH",
+                    help="render a flight-recorder JSONL dump "
+                         "(launch/serve --flight-path) instead of a trace")
     args = ap.parse_args(argv)
+
+    if args.flight:
+        dumps = load_flight(args.flight)
+        if args.json:
+            json.dump(dumps, sys.stdout, indent=2)
+            print()
+        else:
+            print_flight(dumps)
+        # --check in flight mode: the file holds a well-formed dump.
+        if args.check and not dumps:
+            print("CHECK FAILED: no flight dumps parsed", file=sys.stderr)
+            return 1
+        return 0
+    if not args.trace:
+        ap.error("trace path required (or use --flight PATH)")
 
     cards = None
     if args.cards:

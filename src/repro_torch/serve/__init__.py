@@ -15,9 +15,21 @@ JAX package's span taxonomy (Chrome/Perfetto JSON + JSONL, folded by
 program meets a new signature or builds a kernel after warmup, and
 ``program_registry`` gives each program an id and, on demand, a cost
 card.
+
+Fault tolerance (the JAX package's): ``ServeConfig.fault_plan`` threads a
+:class:`~repro_torch.runtime.faults.FaultInjector` schedule through the
+continuous engine; ``max_queue_depth`` bounds admission with explicit
+backpressure, ``overload_queue_depth`` adds a degraded overload mode,
+``poison_probe`` quarantines NaN / Inf slots, ``watchdog_action="recover"``
+escalates the hang watchdog to a recovery with bounded retries, and
+:class:`FlightRecorder` dumps the last request timelines on each fault.
+There is no backend fallback: a failed kernel raises.
 """
+from repro_torch.runtime.faults import FaultEvent, FaultInjector, \
+    InjectedBackendError, parse_plan
 from repro_torch.serve.continuous import ContinuousEngine
 from repro_torch.serve.engine import Engine, ServeConfig
+from repro_torch.serve.flight_recorder import FlightRecorder, load_flight
 from repro_torch.serve.metrics import RateMeter, ServeMetrics, \
     StreamingHistogram, WindowedGauge
 from repro_torch.serve.prefix_cache import PrefixCache
@@ -28,7 +40,9 @@ from repro_torch.serve.state_pool import StatePool
 from repro_torch.serve.tracing import NULL_TRACER, NullTracer, \
     RecompileError, RecompileSentinel, Tracer
 
-__all__ = ["ContinuousEngine", "Engine", "ServeConfig", "ServeMetrics",
+__all__ = ["FaultEvent", "FaultInjector", "InjectedBackendError",
+           "parse_plan", "FlightRecorder", "load_flight",
+           "ContinuousEngine", "Engine", "ServeConfig", "ServeMetrics",
            "StreamingHistogram", "WindowedGauge", "RateMeter",
            "PrefixCache", "Request", "Scheduler", "StatePool",
            "accept_lengths", "emit_counts", "needs_rollback", "NULL_TRACER",

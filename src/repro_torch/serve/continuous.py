@@ -59,9 +59,26 @@ sampling (the syncs the untraced engine takes too).  The programs
 recompile sentinels are checked every poll (armed when tracing or under
 ``strict_recompile``, inert otherwise).
 
-Not ported: the flight recorder, step monitors and the watchdog, fault
-injection, poison probes, overload and in-flight shedding, retries, and
-the JAX engine's backend fallback: a failed kernel launch raises here.
+Fault tolerance (the JAX engine's, ``ServeConfig``'s robustness fields):
+``fault_plan`` threads a :class:`~repro_torch.runtime.faults.FaultInjector`
+through the polls (poison a live row, stall or fail a program call,
+drop or corrupt a prefix snapshot); ``poison_probe`` quarantines a row
+whose logits (the finiteness ``_host_logits`` takes anyway) or, in
+``state`` mode, whose decode-pool state (one reduction a leaf on the
+device) is non-finite, at the decode step, the staging rows' first-token
+logits and the speculative verify; step monitors time each program call
+up to its logits' arrival on the host (so a call's seconds include the
+device's work, and a hung device is seen at that sync) and pet a
+watchdog thread, which only sets flags, counts and writes the flight
+dump; under ``watchdog_action="recover"`` the next poll aborts every
+in-flight request and requeues it with bounded retries and exponential
+backoff; ``overload_queue_depth`` / ``overload_ttft_p95_s`` enter a
+degraded mode (one chunk call a poll, no bursts); ``shed_inflight``
+sheds staged and decoding requests past their deadline; and
+``flight_records`` keeps the last N request timelines, dumped as JSONL on
+every fault (``serve/flight_recorder.py``).  The one difference kept:
+there is no backend fallback (the JAX engine's decode-mode ladder); an
+injected or real kernel failure raises out of ``poll()``.
 """
 from __future__ import annotations
 
@@ -74,8 +91,12 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.nn import quant
+from repro_torch.runtime.elastic import backoff_delay_s
+from repro_torch.runtime.faults import as_injector
+from repro_torch.runtime.health import StepMonitor, Watchdog
 from repro_torch.serve import state_pool
 from repro_torch.serve.engine import EngineBase, ServeConfig
+from repro_torch.serve.flight_recorder import FlightRecorder
 from repro_torch.serve.prefix_cache import PrefixCache, chunk_key
 from repro_torch.serve.program_registry import TensorSpec, budget_for
 from repro_torch.serve.scheduler import Request, bucket_for, chunk_span
@@ -169,6 +190,11 @@ class ContinuousEngine(EngineBase):
             self._pref_node: List[Optional[object]] = [None] * self.slots
             self._pref_pins: List[list] = [[] for _ in range(self.slots)]
             self._pref_insert_ok = [True] * self.slots
+        # Flight recorder, created before the watchdog so that its thread
+        # can always dump.
+        self.flight: Optional[FlightRecorder] = None
+        if cfg.flight_records:
+            self.flight = FlightRecorder(cfg.flight_records, cfg.flight_path)
         # Sentinels in the JAX engine's order (verify before
         # prefill_chunk; the pool's row ops join in _register_programs).
         strict = cfg.strict_recompile
@@ -182,10 +208,68 @@ class ContinuousEngine(EngineBase):
         # Host scheduling gaps (the time between two polls) get their own
         # track, so that a phase breakdown accounts for all wall time.
         self._last_poll_end: Optional[float] = None
+        # Step-time health: straggler flags on the program calls, and a
+        # watchdog that fires when no call completes within watchdog_s.
+        self.monitor_decode = StepMonitor()
+        self.monitor_prefill = StepMonitor()
+        self.monitor_spec = StepMonitor()
+        self._watchdog: Optional[Watchdog] = None
+        if cfg.watchdog_s:
+            if cfg.watchdog_action not in ("log", "recover"):
+                raise ValueError(
+                    f"watchdog_action must be 'log' or 'recover', got "
+                    f"{cfg.watchdog_action!r}")
+            self._watchdog = Watchdog(cfg.watchdog_s, on_hang=self._on_hang)
+        probe = cfg.poison_probe or "off"
+        if probe not in ("off", "logits", "state"):
+            raise ValueError(f"poison_probe must be off|logits|state, "
+                             f"got {probe!r}")
+        self._poison_probe = probe
+        self._injector = as_injector(cfg.fault_plan)
+        self._poll_idx = 0          # the poll clock fault plans count on
+        self._overloaded = False    # degraded overload mode latch
+        self._recover_pending = False   # the watchdog asked for a recovery
+
+    @property
+    def poll_index(self) -> int:
+        """The engine's poll clock: fault-plan polls are absolute, so a
+        harness arms a plan relative to this after a warmup."""
+        return self._poll_idx
+
+    def set_fault_plan(self, plan) -> None:
+        """(Re)arm the fault injector mid-run (None disarms)."""
+        self._injector = as_injector(plan)
+
+    def _on_hang(self) -> None:
+        """The watchdog's callback, on its thread: counters, a trace
+        instant and the flight dump (host JSON); no tensor is touched.
+        Under ``recover`` the next ``poll()`` does the abort."""
+        self.metrics.watchdog_fires += 1
+        self.tracer.instant("watchdog_hang", deadline_s=self.cfg.watchdog_s)
+        log.error("serve watchdog: no program call completed within %.1fs "
+                  "— engine may be hung", self.cfg.watchdog_s)
+        if self.flight is not None:
+            self.flight.record_fault("watchdog_hang",
+                                     deadline_s=self.cfg.watchdog_s)
+        if self.cfg.watchdog_action == "recover":
+            self._recover_pending = True
+
+    def close(self) -> None:
+        """Stop the watchdog thread (idempotent); asserts that the thread
+        joined, so a leaked watchdog fails loudly."""
+        if self._watchdog is not None:
+            wd = self._watchdog
+            wd.stop()
+            assert not wd.alive, "watchdog thread failed to join in close()"
+            self._watchdog = None
 
     def reset_stats(self) -> None:
-        # The cleared poll stamp keeps the first post-warmup poll from
-        # emitting a host_gap that spans the warmup.
+        # Fresh monitors: warmup calls would pollute the straggler
+        # baseline.  The cleared poll stamp keeps the first post-warmup
+        # poll from emitting a host_gap that spans the warmup.
+        self.monitor_decode = StepMonitor()
+        self.monitor_prefill = StepMonitor()
+        self.monitor_spec = StepMonitor()
         self._last_poll_end = None
         super().reset_stats()
 
@@ -255,11 +339,252 @@ class ContinuousEngine(EngineBase):
 
     def _snapshot_extra(self) -> dict:
         """Engine facts folded into each periodic metrics snapshot."""
-        out = {"recompile_trips": {name: s.trips
+        out = {"monitor_decode": self.monitor_decode.summary(),
+               "monitor_prefill": self.monitor_prefill.summary(),
+               "recompile_trips": {name: s.trips
                                    for name, s in self.sentinels.items()}}
+        if self.spec_k:
+            out["monitor_spec"] = self.monitor_spec.summary()
         if self._pcache is not None:
             out["prefix_cache"] = self._pcache.stats()
+        if self._injector is not None:
+            out["fault_injector"] = self._injector.summary()
+        out["overloaded"] = self._overloaded
         return out
+
+    # -- fault tolerance --------------------------------------------------------
+    def _observe_step(self, monitor: StepMonitor, kind: str,
+                      dt_s: float) -> None:
+        """Feed one program call's seconds (up to its logits on the host)
+        to its monitor; a straggler is counted and traced; the watchdog is
+        petted."""
+        if monitor.observe(None, dt_s).straggler:
+            self.metrics.record_straggler(kind)
+            self.tracer.instant(f"straggler_{kind}", seconds=dt_s)
+        if self._watchdog is not None:
+            self._watchdog.pet()
+
+    def _guarded_call(self, program: str, fn, *args):
+        """``fn(*args)`` behind the fault boundary: the injector's hook
+        first (a stall sleeps inside the call's timing window, an injected
+        failure raises before the program launches anything).  Nothing is
+        caught: a failed call raises out of ``poll()``."""
+        if self._injector is not None:
+            self._injector.pre_call(program, self._poll_idx)
+        return fn(*args)
+
+    def _evict(self, slot: int) -> None:
+        """Free a decoding slot: its pool row zeroed, its position, next
+        token and overflow cleared."""
+        self.pool.reset_rows([slot])
+        self._pos[slot] = 0
+        self._next_tok[slot] = self.cfg.pad_id
+        if self.spec_k:
+            self._overflow[slot] = []
+        self._slot_req[slot] = None
+
+    def _unstage(self, row: int) -> None:
+        """Free a staging row (its trie pins released)."""
+        if self._pcache is not None:
+            self._prefix_release(row)
+        self._pref_req[row] = None
+        self._pref_toks[row] = None
+
+    def _poisoned(self, req: Request, slot: int, now: float,
+                  where: str) -> None:
+        """Finish a request whose row was quarantined: status
+        ``poisoned``, counted as shed (reason ``poison``), not completed."""
+        req.done = True
+        req.status = "poisoned"
+        req.finish_s = now
+        req.latency_s = now - req.arrival_s
+        self.metrics.record_quarantine()
+        self.metrics.record_shed("poison")
+        self.tracer.instant("quarantine", uid=req.uid, slot=slot,
+                            where=where, tokens=len(req.out_tokens))
+        if self.flight is not None:
+            self.flight.record_request(req, slot=slot, status="poisoned")
+            self.flight.record_fault("quarantine", uid=req.uid, slot=slot,
+                                     where=where)
+        log.error("request %d: non-finite %s output in slot %d — "
+                  "quarantined (row reset, request shed)", req.uid, where,
+                  slot)
+        self._finished.append(req)
+
+    def _state_finite(self) -> np.ndarray:
+        """bool[slots]: every state element of each decode-pool row is
+        finite.  One reduction a leaf on the device (a row's min and max,
+        read in one pass: NaN propagates into both, +-Inf into one), then
+        one bool[slots] copy to the host."""
+        ok = None
+        for leaf, ax in zip(self.pool.cache, self.pool.axes):
+            lo, hi = torch.aminmax(
+                leaf.reshape(tuple(leaf.shape[:ax + 1]) + (-1,)), dim=-1)
+            f = (lo.isfinite() & hi.isfinite()).movedim(ax, 0)
+            f = f.reshape(self.slots, -1).all(-1)
+            ok = f if ok is None else ok & f
+        return ok.cpu().numpy()
+
+    def _probe_rows(self, live: List[int], rows_ok: np.ndarray, n_bad: int,
+                    now: float, where: str) -> List[int]:
+        """Poison probe over one call's live rows: ``rows_ok`` is the
+        finiteness of their logits and ``n_bad`` its count of non-finite
+        rows (both taken by ``_host_logits`` for the metrics anyway), and
+        in ``state`` mode the decode pool's rows are reduced too.
+        Quarantines every hit; returns the quarantined slots."""
+        if self._poison_probe == "off" or not live:
+            return []
+        if self._poll_idx % max(1, self.cfg.poison_check_every):
+            return []
+        self.metrics.record_poison_probe()
+        state = self._poison_probe == "state"
+        if not state and not n_bad:
+            return []
+        bad = {i for i in live if not rows_ok[i]}
+        if state:
+            finite = self._state_finite()
+            bad.update(i for i in live if not finite[i])
+        for i in sorted(bad):
+            req = self._slot_req[i]
+            self._evict(i)
+            self._poisoned(req, i, now, where)
+        return sorted(bad)
+
+    def _inject_poison(self) -> None:
+        """Apply due poison faults: a live row's snapshot, corrupted,
+        written back (``clone_row`` / ``restore_row``)."""
+        live = [i for i, r in enumerate(self._slot_req) if r is not None]
+        for slot, mode in self._injector.poison_targets(self._poll_idx,
+                                                        live):
+            snap = self.pool.clone_row(slot)
+            self.pool.restore_row(slot, self._injector.corrupt(snap, mode))
+
+    @staticmethod
+    def _snapshot_finite(snap) -> bool:
+        """Whether every floating leaf of a prefix snapshot is finite:
+        reduced on the device, one bool to the host."""
+        flags = [torch.isfinite(x).all() for x in snap
+                 if x.is_floating_point()]
+        return bool(torch.stack(flags).all()) if flags else True
+
+    def _update_overload(self) -> None:
+        """Degraded-mode state machine: enter when the queue depth or the
+        TTFT p95 crosses its threshold; while degraded the prefill budget
+        is one chunk call a poll and bursts pause.  Exit on the queue depth
+        alone, at ``overload_clear_frac`` of its threshold (TTFT p95 is
+        cumulative and would latch forever)."""
+        cfg = self.cfg
+        q_thresh = cfg.overload_queue_depth
+        t_thresh = cfg.overload_ttft_p95_s
+        if not q_thresh and not t_thresh:
+            return
+        depth = len(self._scheduler)
+        if not self._overloaded:
+            trip = bool(q_thresh and depth >= q_thresh) or bool(
+                t_thresh and self.metrics.ttft.count and
+                self.metrics.ttft.percentile(0.95) > t_thresh)
+            if trip:
+                self._overloaded = True
+                self.metrics.record_overload(True)
+                self.tracer.instant("overload_enter", queue_depth=depth)
+                log.warning("overload: entering degraded mode (queue "
+                            "depth %d) — prefill budget 0, speculation "
+                            "paused", depth)
+        else:
+            clear_at = cfg.overload_clear_frac * q_thresh if q_thresh else 0
+            if depth <= clear_at:
+                self._overloaded = False
+                self.metrics.record_overload(False)
+                self.tracer.instant("overload_exit", queue_depth=depth)
+                log.info("overload cleared (queue depth %d): restoring "
+                         "prefill budget and speculation", depth)
+
+    def _shed_inflight(self, now: float) -> None:
+        """Shed decoding and staged requests whose deadline passed: their
+        capacity goes to work that can still meet its deadline."""
+        for i, req in enumerate(self._slot_req):
+            if req is None or req.deadline_s is None or \
+                    now <= req.deadline_s:
+                continue
+            self._evict(i)
+            self._shed_request(req, now, "deadline", "shed_deadline")
+        if self.chunk:
+            for i, req in enumerate(self._pref_req):
+                if req is None or req.deadline_s is None or \
+                        now <= req.deadline_s:
+                    continue
+                self._unstage(i)
+                self._shed_request(req, now, "deadline", "shed_deadline")
+
+    def _shed_request(self, req: Request, now: float, reason: str,
+                      status: str) -> None:
+        """An in-flight request finishes unsuccessfully (deadline, retries
+        exhausted): it lands in the poll's finished list and in
+        ``expired``."""
+        req.done = True
+        req.expired = True
+        req.status = status
+        req.finish_s = now
+        req.latency_s = now - req.arrival_s
+        self.metrics.record_shed(reason)
+        self._scheduler.expired.append(req)
+        self.tracer.instant("shed", uid=req.uid, reason=reason,
+                            inflight=True)
+        if self.flight is not None:
+            self.flight.record_request(req, status=status)
+            self.flight.record_fault("shed", uid=req.uid, reason=reason)
+        log.warning("request %d: shed in flight (%s)", req.uid, reason)
+        self._finished.append(req)
+
+    def _watchdog_recover(self, now: float) -> None:
+        """Recovery after a watchdog fire (``watchdog_action="recover"``):
+        abort every decoding and staged request, reset their rows and
+        requeue each with a bounded retry budget and backoff.  A requeued
+        request starts again from its prompt; keyed sampling replays the
+        same stream."""
+        self._recover_pending = False
+        requeued = 0
+        for i, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            self._evict(i)
+            requeued += self._retry_or_shed(req, now)
+        if self.chunk:
+            for i, req in enumerate(self._pref_req):
+                if req is None:
+                    continue
+                self._unstage(i)
+                requeued += self._retry_or_shed(req, now)
+        self.metrics.record_watchdog_recovery(requeued)
+        self.tracer.instant("watchdog_recover", requeued=requeued)
+        if self.flight is not None:
+            self.flight.record_fault("watchdog_recover", requeued=requeued)
+        log.error("watchdog recovery: aborted stuck burst, requeued %d "
+                  "request(s)", requeued)
+
+    def _retry_or_shed(self, req: Request, now: float) -> int:
+        """Requeue an aborted request (1), or shed it (0) once its retry
+        budget is spent.  Its emitted tokens are dropped and its admission
+        deferred by the backoff curve."""
+        req.retries += 1
+        if req.retries > self.cfg.max_retries:
+            self._shed_request(req, now, "retry_exhausted",
+                               "retry_exhausted")
+            return 0
+        req.out_tokens.clear()
+        req.done = False
+        req.first_token_s = None
+        req.decode_pc = None
+        req.admit_pc = None
+        base = self.cfg.retry_backoff_s
+        req.not_before_s = (now + backoff_delay_s(req.retries, base)
+                            if base else None)
+        self.tracer.instant("retry", uid=req.uid, attempt=req.retries)
+        if self.flight is not None:
+            self.flight.record_fault("retry", uid=req.uid,
+                                     attempt=req.retries)
+        self._scheduler.submit(req)
+        return 1
 
     @property
     def prefix_cache(self) -> Optional[PrefixCache]:
@@ -286,6 +611,8 @@ class ContinuousEngine(EngineBase):
         req.finish_s = now
         req.latency_s = now - req.arrival_s
         self.metrics.record_finish(req.latency_s, len(req.out_tokens))
+        if self.flight is not None:
+            self.flight.record_request(req, slot=slot, status=req.status)
         if self.tracer.enabled:
             if req.decode_pc is not None:
                 self.tracer.complete("decode", req.decode_pc,
@@ -364,8 +691,9 @@ class ContinuousEngine(EngineBase):
                 p = req.prompt[-bucket:]
                 tokens[row, bucket - len(p):] = p
             t0 = time.perf_counter()
-            logits, cache = self._prefill(
-                self.params, {"tokens": self._tokens(tokens)}, self._scratch)
+            logits, cache = self._guarded_call(
+                "prefill", self._prefill, self.params,
+                {"tokens": self._tokens(tokens)}, self._scratch)
             # First tokens sample at position = bucket (tokens consumed).
             uids = np.zeros(self.slots, np.int64)
             for row, (_, req) in enumerate(group):
@@ -377,6 +705,7 @@ class ContinuousEngine(EngineBase):
                                  rows=len(group),
                                  tokens=bucket * len(group),
                                  program=self._pid_prefill)
+            self._observe_step(self.monitor_prefill, "prefill", t1 - t0)
             self.metrics.record_prefill(bucket * len(group), t1 - t0)
             self.pool.insert_rows(cache, range(len(group)),
                                   [slot for slot, _ in group])
@@ -447,8 +776,26 @@ class ContinuousEngine(EngineBase):
             return
         nxt = cache.child(self._pref_node[row], key[depth - 1])
         if nxt is None:
-            nxt = cache.insert(self._pref_node[row], key[depth - 1],
-                               self._ppool.clone_row(row, index=off))
+            snap = self._ppool.clone_row(row, index=off)
+            if self._injector is not None:
+                fault = self._injector.snapshot_fault(self._poll_idx)
+                if fault == "drop":
+                    # A lost write closes the gate like a budget refusal.
+                    self._pref_insert_ok[row] = False
+                    return
+                if fault == "corrupt":
+                    snap = self._injector.corrupt(snap)
+            if self._poison_probe != "off" and \
+                    not self._snapshot_finite(snap):
+                # A non-finite snapshot never enters the cross-request
+                # cache; deeper nodes of this request are not attached.
+                self._pref_insert_ok[row] = False
+                self.tracer.instant("snapshot_poison_refused", slot=row,
+                                    offset=off)
+                log.error("prefix snapshot at offset %d (row %d) is "
+                          "non-finite — refused", off, row)
+                return
+            nxt = cache.insert(self._pref_node[row], key[depth - 1], snap)
             if nxt is None:
                 self._pref_insert_ok[row] = False
                 return
@@ -478,13 +825,14 @@ class ContinuousEngine(EngineBase):
             off = self._pref_off[i]
             tokens[i] = self._pref_toks[i][off:off + C]
         t0 = time.perf_counter()
-        logits, self._ppool.cache = self._chunk_step(
-            self.params, self._tokens(tokens), self._ppool.cache,
-            self._pref_off)
+        logits, self._ppool.cache = self._guarded_call(
+            "prefill_chunk", self._chunk_step, self.params,
+            self._tokens(tokens), self._ppool.cache, self._pref_off)
         host = logits.float().cpu()           # the call ends on the device
         t1 = time.perf_counter()
         self.tracer.complete("prefill_chunk", t0, t1, rows=len(rows),
                              tokens=C * len(rows), program=self._pid_chunk)
+        self._observe_step(self.monitor_prefill, "prefill", t1 - t0)
         self.metrics.record_prefill(C * len(rows), t1 - t0)
         done_rows = []
         for i in rows:
@@ -496,12 +844,26 @@ class ContinuousEngine(EngineBase):
                     self._prefix_release(i)
                 done_rows.append(i)
         if done_rows:
+            lg = self._host_logits(host)
+        if done_rows and self._poison_probe != "off":
+            # Gate the staging -> decode handoff: a non-finite first-token
+            # logits row means the staged state is poisoned; it never
+            # reaches the decode pool.
+            now_p = time.time()
+            ok = self.rows_finite
+            for i in [i for i in done_rows if not ok[i]]:
+                req = self._pref_req[i]
+                self._unstage(i)
+                self._ppool.reset_rows([i])
+                self._poisoned(req, i, now_p, "prefill")
+            done_rows = [i for i in done_rows if ok[i]]
+        if done_rows:
             uids = np.zeros(self.slots, np.int64)
             poss = np.zeros(self.slots, np.int64)
             for i in done_rows:
                 uids[i] = self._pref_req[i].uid
                 poss[i] = len(self._pref_toks[i])
-            first = self._sample_rows(host, uids, poss)
+            first = self._sample_rows(lg, uids, poss)
             # Staging row i becomes slot i's decode state.
             self.pool.insert_rows(self._ppool.cache, done_rows, done_rows)
             t_first = time.time()
@@ -542,40 +904,54 @@ class ContinuousEngine(EngineBase):
         cur = self._next_tok.copy()
         t0 = time.perf_counter()
         for j in range(k):
-            logits, self._dpool.cache = self._decode(
-                self._draft_params, self._tokens(cur[:, None]),
-                self._dpool.cache, self._pos + j)
+            logits, self._dpool.cache = self._guarded_call(
+                "draft", self._decode, self._draft_params,
+                self._tokens(cur[:, None]), self._dpool.cache,
+                self._pos + j)
             cur = self._sample_rows(logits, uids, self._pos + j + 1)
             drafts[:, j] = cur
-        self.tracer.complete("draft", t0, time.perf_counter(),
-                             rows=len(live), k=k, tokens=k * len(live),
-                             program=self._pid_draft)
+        t1 = time.perf_counter()
+        self.tracer.complete("draft", t0, t1, rows=len(live), k=k,
+                             tokens=k * len(live), program=self._pid_draft)
+        self._observe_step(self.monitor_spec, "draft", t1 - t0)
 
         # Verify: ONE chunk call over [t0, d_1 .. d_{k-1}] on the decode
         # pool; rows that keep their window inherit its state as it is.
         vtoks = np.concatenate([self._next_tok[:, None], drafts[:, :k - 1]],
                                axis=1)
         t0 = time.perf_counter()
-        vlogits, self.pool.cache = self._verify(
-            self.params, self._tokens(vtoks), self.pool.cache, self._pos)
+        vlogits, self.pool.cache = self._guarded_call(
+            "verify", self._verify, self.params, self._tokens(vtoks),
+            self.pool.cache, self._pos)
         vl = vlogits.float().cpu()            # the call ends on the device
         t1 = time.perf_counter()
         self.tracer.complete("verify", t0, t1, rows=len(live),
                              tokens=k * len(live), program=self._pid_verify)
+        self._observe_step(self.monitor_spec, "verify", t1 - t0)
         self.metrics.record_step(len(live), t1 - t0)
 
         # Position j's token samples with the key the plain decode step
         # would use there: (uid, pos + j + 1).
-        verify = np.stack([self._sample_rows(vl[:, j], uids,
+        verify = np.empty((self.slots, k), np.int64)
+        rows_ok = np.ones(self.slots, bool)
+        n_bad = 0
+        for j in range(k):
+            verify[:, j] = self._sample_rows(vl[:, j], uids,
                                              self._pos + j + 1)
-                           for j in range(k)], axis=1)
+            rows_ok &= self.rows_finite
+            n_bad += self.nonfinite_rows
         m = accept_lengths(drafts, verify)
         n_emit = emit_counts(m, k)
         rollback = needs_rollback(m, k)
         now = time.time()
+        # Poison probe on the verify logits: quarantined rows leave the
+        # emit loop.
+        self._probe_rows(live, rows_ok, n_bad, now, "verify")
         emitted_total = accepted = rollbacks = 0
         for i in live:
             req = self._slot_req[i]
+            if req is None:         # quarantined by the probe
+                continue
             accepted += int(m[i])
             emitted: List[int] = []
             finished = False
@@ -627,11 +1003,22 @@ class ContinuousEngine(EngineBase):
         poll_span = self.tracer.span("poll")
         poll_span.__enter__()
         now = time.time()
+        # Fault-tolerance pre-work, in the JAX engine's order.
+        self._poll_idx += 1
+        if self._recover_pending:
+            self._watchdog_recover(now)
+        if self._injector is not None:
+            self._inject_poison()
+        if cfg.shed_inflight:
+            self._shed_inflight(now)
+        self._update_overload()
         if self.chunk:
             with self.tracer.span("admit") as sp:
                 sp.args["admitted"] = self._admit_chunked(now)
             spent = self._prefill_step()
-            while spent and cfg.prefill_token_budget > spent:
+            # Degraded overload mode: one chunk call a poll.
+            budget = 0 if self._overloaded else cfg.prefill_token_budget
+            while spent and budget > spent:
                 # An EOS-on-prefill finish frees its slot for the queue.
                 with self.tracer.span("admit") as sp:
                     sp.args["admitted"] = self._admit_chunked(time.time())
@@ -650,28 +1037,36 @@ class ContinuousEngine(EngineBase):
                 now = time.time()
 
         live = [i for i, r in enumerate(self._slot_req) if r is not None]
-        if live and self.spec_k and \
+        if live and self.spec_k and not self._overloaded and \
                 not any(self._overflow[i] for i in live):
             self._spec_burst(live)
         elif live:
             t0 = time.perf_counter()
             tok = self._tokens(self._next_tok[:, None])
-            logits, self.pool.cache = self._decode(
-                self.params, tok, self.pool.cache, self._pos)
+            logits, self.pool.cache = self._guarded_call(
+                "decode", self._decode, self.params, tok, self.pool.cache,
+                self._pos)
             nxt = self._sample_rows(logits, self._row_uids(), self._pos + 1)
             t1 = time.perf_counter()
             if self.tracer.enabled:
                 self.tracer.complete("decode_step", t0, t1, live=len(live),
                                      tokens=len(live),
                                      program=self._pid_decode)
+            self._observe_step(self.monitor_decode, "decode", t1 - t0)
             self.metrics.record_step(len(live), t1 - t0)
             # A dead slot's position pins to the last cache column until a
             # refill overwrites its row.
             self._pos = np.minimum(self._pos + 1, self.max_seq - 1)
             now = time.time()
+            # Poison probe on this step's logits: quarantined rows leave
+            # the emit loop.
+            self._probe_rows(live, self.rows_finite, self.nonfinite_rows,
+                             now, "decode")
             emitted = 0
             for i in live:
                 req = self._slot_req[i]
+                if req is None:     # quarantined by the probe
+                    continue
                 if self.spec_k and self._overflow[i]:
                     # Rollback drain: this step re-consumed a token the
                     # burst already emitted, re-advancing the restored
@@ -697,6 +1092,7 @@ class ContinuousEngine(EngineBase):
             self.metrics.observe_gauges(
                 queue_depth=len(self._scheduler),
                 live_slots=len(live),
+                overloaded=float(self._overloaded),
                 staging_depth=(sum(r is not None for r in self._pref_req)
                                if self.chunk else 0),
                 **({"prefix_resident_bytes": self._pcache.resident_bytes}

@@ -23,10 +23,19 @@ raise.  The programs record call signatures only when tracing or under
 trips.  Spans around a model call close after the host sync that
 sampling takes anyway (the logits' copy to the host); tracing adds no
 sync.
+
+Robustness (the JAX package's ``ServeConfig`` fields and defaults):
+``max_queue_depth`` bounds admission in both engines (``submit`` returns
+None and counts a ``reject``); the fault plan, poison probes, step
+monitors, the watchdog and its recovery with retries, overload and
+in-flight shedding and the flight recorder act in the continuous engine
+(``serve/continuous.py``).  The one difference kept: there is no
+``backend_fallback``; a failed kernel launch raises out of the engine.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -44,13 +53,14 @@ from repro_torch.serve.tracing import (NULL_TRACER, TID_QUEUE, TID_SLOT0,
                                        RecompileSentinel, TracedProgram,
                                        Tracer)
 
+log = logging.getLogger("repro_torch.serve")
+
 
 @dataclasses.dataclass
 class ServeConfig:
-    """The JAX package's ``ServeConfig`` fields that the port serves.  The
-    robustness and flight-recorder fields are not ported, so passing one
-    is a ``TypeError``; in particular there is no ``backend_fallback``: a
-    failed kernel launch raises."""
+    """The JAX package's ``ServeConfig`` fields, with its defaults, but
+    ``backend_fallback`` (passing it is a ``TypeError``): the port does
+    not give way to plainer code when a kernel fails; the launch raises."""
 
     max_batch: int = 8
     prefill_buckets: Sequence[int] = (32, 128, 512)
@@ -107,6 +117,46 @@ class ServeConfig:
     # Recompile sentinels raise RecompileError when a program meets a new
     # signature or builds a kernel after warmup, instead of counting.
     strict_recompile: bool = False
+    # Deadline (seconds) of the continuous engine's hang watchdog: it
+    # fires when no program call completes within it.  0 disables.
+    watchdog_s: float = 0.0
+    # -- fault tolerance (continuous engine) --------------------------------
+    # Fault-injection plan: a FaultInjector, a spec string
+    # (``runtime/faults.parse_plan``) or an iterable of FaultEvent.  None
+    # serves with no injection hook on the path.
+    fault_plan: object = None
+    # Bounded admission queue: submit() refuses (returns None, counted in
+    # metrics.rejected) once this many requests are queued.  0 =
+    # unbounded.
+    max_queue_depth: int = 0
+    # Degraded overload mode: entered when the queue depth reaches
+    # overload_queue_depth or TTFT p95 passes overload_ttft_p95_s (0
+    # disables either trigger); while degraded the prefill token budget is
+    # one chunk call a poll and speculative bursts pause.  Cleared when
+    # the queue depth falls to overload_clear_frac * overload_queue_depth.
+    overload_queue_depth: int = 0
+    overload_ttft_p95_s: float = 0.0
+    overload_clear_frac: float = 0.5
+    # Poison quarantine probes: "off" | "logits" (the finiteness of the
+    # step's host logits, which sampling takes anyway) | "state" (adds a
+    # per-row finiteness reduction over the decode pool on the device).
+    # A poisoned slot is reset and its request finished as "poisoned".
+    poison_probe: str = "off"
+    poison_check_every: int = 1   # probe every N polls
+    # Watchdog escalation: "log" (metrics and a trace instant) or
+    # "recover" (abort every in-flight request at the next poll and
+    # requeue it, with bounded retries and exponential backoff).
+    watchdog_action: str = "log"
+    max_retries: int = 1
+    retry_backoff_s: float = 0.0  # base of runtime/elastic.backoff_delay_s
+    # Deadline shedding for requests in flight (staged or decoding), not
+    # only queued ones.
+    shed_inflight: bool = False
+    # -- flight recorder (continuous engine; serve/flight_recorder.py) ------
+    # Keep the last N finished-request timelines in a ring and dump them
+    # (JSONL at flight_path) whenever a fault fires.  0 disables.
+    flight_records: int = 0
+    flight_path: Optional[str] = None
 
 
 class EngineBase:
@@ -131,6 +181,10 @@ class EngineBase:
         self._scheduler = Scheduler(cfg.policy, tracer=self.tracer)
         self._uid = 0
         self._step = 0              # sampling-rng step counter
+        # Each row's finiteness in the last host logits, and the count of
+        # non-finite rows (the poison probe reads both).
+        self.rows_finite = np.ones(cfg.max_batch, bool)
+        self.nonfinite_rows = 0
         self.metrics = ServeMetrics(cfg.max_batch, tracer=self.tracer,
                                     metrics_every=cfg.metrics_every)
         # Program ids ride in sentinels and spans; the wave engine
@@ -149,8 +203,16 @@ class EngineBase:
     def submit(self, prompt: Sequence[int],
                max_new_tokens: Optional[int] = None, *,
                priority: int = 0, deadline_s: Optional[float] = None,
-               on_token=None) -> int:
-        """Queue a request; returns its uid."""
+               on_token=None) -> Optional[int]:
+        """Queue a request; returns its uid, or None when the bounded
+        admission queue (``max_queue_depth``) is full: backpressure the
+        caller must handle."""
+        cap = self.cfg.max_queue_depth
+        if cap and len(self._scheduler) >= cap:
+            self.metrics.record_reject()
+            self.tracer.instant("reject", queue_depth=len(self._scheduler))
+            log.warning("admission queue full (%d): rejecting request", cap)
+            return None
         self._uid += 1
         req = build_request(
             self._uid, prompt, max_new_tokens or self.cfg.max_new_tokens,
@@ -161,10 +223,12 @@ class EngineBase:
 
     def _host_logits(self, logits: torch.Tensor) -> np.ndarray:
         """Logits on the host as fp32 numpy, rows counted (non-finite
-        ones apart) in the metrics."""
+        ones apart) in the metrics; ``rows_finite`` and
+        ``nonfinite_rows`` keep them for the poison probe."""
         host = logits.float().cpu().numpy()
-        self.metrics.record_logits(
-            host.shape[0], int((~np.isfinite(host).all(axis=-1)).sum()))
+        self.rows_finite = np.isfinite(host).all(axis=-1)
+        self.nonfinite_rows = int((~self.rows_finite).sum())
+        self.metrics.record_logits(host.shape[0], self.nonfinite_rows)
         return host
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
@@ -174,13 +238,16 @@ class EngineBase:
         self._step += 1
         return out
 
-    def _sample_rows(self, logits: torch.Tensor, uids: Sequence[int],
+    def _sample_rows(self, logits, uids: Sequence[int],
                      positions: Sequence[int]) -> np.ndarray:
         """Keyed sampling (continuous engine): a row's noise is a function
-        of ``(seed, uid, position)`` alone (``sampling.sample_keyed``)."""
-        return sampling.sample_keyed(self._host_logits(logits),
-                                     self.cfg.temperature, self.cfg.seed,
-                                     uids, positions)
+        of ``(seed, uid, position)`` alone (``sampling.sample_keyed``).
+        ``logits`` is a tensor, or host logits that ``_host_logits``
+        already took."""
+        if isinstance(logits, torch.Tensor):
+            logits = self._host_logits(logits)
+        return sampling.sample_keyed(logits, self.cfg.temperature,
+                                     self.cfg.seed, uids, positions)
 
     @property
     def counters(self) -> dict:
@@ -213,6 +280,10 @@ class EngineBase:
         self.tracer.reset()
         for s in self.sentinels.values():
             s.arm()
+
+    def close(self) -> None:
+        """Release background resources (the continuous engine's watchdog
+        thread); the engine stays readable afterwards."""
 
 
 class Engine(EngineBase):

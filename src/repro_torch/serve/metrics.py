@@ -25,10 +25,15 @@ and a reading), and every ``metrics_every`` polls ``maybe_snapshot``
 appends a point-in-time snapshot to ``snapshots`` and, when tracing,
 emits the ``serve_gauges`` counter sample and a ``metrics_snapshot``
 instant; with ``metrics_every`` 0 nothing reads the windows and nothing
-fills them (the JAX engine fills them on every poll).  The JAX package's
-robustness counters (quarantines, poison probes, backend fallbacks,
-watchdog recoveries, overload, stragglers, rejections) are not ported,
-and neither are their snapshot keys.
+fills them (the JAX engine fills them on every poll).
+
+The robustness counters are the JAX package's, under its names in
+``summary()`` and the snapshots: ``rejected`` (the bounded queue refused a
+submit), ``quarantined`` and ``poison_probes``, ``watchdog_fires``,
+``watchdog_recoveries`` and ``retries``, ``overload_entries`` /
+``overload_exits``, ``stragglers`` by program, and ``shed_reasons``, which
+sums to ``shed``.  ``backend_fallbacks`` keeps its key and reads 0: the
+port has no backend fallback.
 """
 from __future__ import annotations
 
@@ -239,7 +244,21 @@ class ServeMetrics:
         self.arrivals = 0
         self.completed = 0
         self.shed = 0
+        # Shed breakdown (sums to ``shed``): deadline | overload | poison |
+        # retry_exhausted.
         self.shed_reasons: Dict[str, int] = {}
+        self.rejected = 0           # submit() refused: the queue was full
+        self.quarantined = 0        # slots reset after a poison probe hit
+        self.poison_probes = 0      # probe passes run
+        # The JAX engine's decode-mode fallbacks; the port has none (a
+        # failed kernel raises), so this stays 0.
+        self.backend_fallbacks = 0
+        self.watchdog_recoveries = 0
+        self.retries = 0            # requests requeued by recovery
+        self.overload_entries = 0
+        self.overload_exits = 0
+        self.stragglers = {"decode": 0, "prefill": 0}
+        self.watchdog_fires = 0
         self.truncated = 0
         self.emitted_tokens = 0
         self.completed_tokens = 0
@@ -290,6 +309,31 @@ class ServeMetrics:
         """One shed request; ``shed_reasons`` counts them by reason."""
         self.shed += 1
         self.shed_reasons[reason] = self.shed_reasons.get(reason, 0) + 1
+
+    def record_reject(self) -> None:
+        """submit() refused a request (the bounded admission queue)."""
+        self.rejected += 1
+
+    def record_quarantine(self) -> None:
+        """A poison probe hit: one slot reset, its request shed."""
+        self.quarantined += 1
+
+    def record_poison_probe(self) -> None:
+        self.poison_probes += 1
+
+    def record_watchdog_recovery(self, requeued: int) -> None:
+        self.watchdog_recoveries += 1
+        self.retries += requeued
+
+    def record_overload(self, entered: bool) -> None:
+        if entered:
+            self.overload_entries += 1
+        else:
+            self.overload_exits += 1
+
+    def record_straggler(self, kind: str) -> None:
+        """A step monitor flagged one call of ``kind`` as a straggler."""
+        self.stragglers[kind] = self.stragglers.get(kind, 0) + 1
 
     def record_step(self, live_slots: int, dt_s: float) -> None:
         """One decode step: ``live_slots`` rows produced useful tokens."""
@@ -387,6 +431,10 @@ class ServeMetrics:
             "completed": self.completed,
             "shed": self.shed,
             "shed_reasons": dict(self.shed_reasons),
+            "rejected": self.rejected,
+            "quarantined": self.quarantined,
+            "backend_fallbacks": self.backend_fallbacks,
+            "watchdog_recoveries": self.watchdog_recoveries,
             "emitted_tokens": self.emitted_tokens,
             "tokens_per_s_window": self.tok_rate.rate(),
             "prefix_hits": self.prefix_hits,
@@ -395,6 +443,8 @@ class ServeMetrics:
             "spec_bursts": self.spec_bursts,
             "spec_accept_rate": (self.spec_accepted / self.spec_drafted
                                  if self.spec_drafted else 0.0),
+            "stragglers": dict(self.stragglers),
+            "watchdog_fires": self.watchdog_fires,
             "ttft": self.ttft.summary(),
             "decode_step": self.step_hist.summary(),
             "prefill_call": self.prefill_hist.summary(),
@@ -410,6 +460,15 @@ class ServeMetrics:
             "requests": self.arrivals,
             "completed": self.completed,
             "shed": self.shed,
+            "shed_reasons": dict(self.shed_reasons),
+            "rejected": self.rejected,
+            "quarantined": self.quarantined,
+            "poison_probes": self.poison_probes,
+            "backend_fallbacks": self.backend_fallbacks,
+            "watchdog_recoveries": self.watchdog_recoveries,
+            "retries": self.retries,
+            "overload_entries": self.overload_entries,
+            "overload_exits": self.overload_exits,
             "truncated": self.truncated,
             "generated_tokens": self.emitted_tokens,
             "tokens_per_s": self.emitted_tokens / wall if wall else 0.0,
@@ -440,6 +499,9 @@ class ServeMetrics:
                                if self.decode_time_s else 0.0),
             "logit_rows": self.logit_rows,
             "nonfinite_logit_rows": self.nonfinite_logit_rows,
+            "stragglers_decode": self.stragglers.get("decode", 0),
+            "stragglers_prefill": self.stragglers.get("prefill", 0),
+            "watchdog_fires": self.watchdog_fires,
             "wall_s": wall,
             "wall_source": wall_source,
         }

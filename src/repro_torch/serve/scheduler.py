@@ -2,11 +2,11 @@
 
 Port of ``repro.serve.scheduler``: FCFS or priority ordering,
 deadline-based load shedding (a ``shed`` instant in the trace), the
-prompt -> prefill-bucket mapping with explicit truncation accounting,
-and the chunked prefill's padded span (``chunk_span``).  A request
-carries the trace stamps ``admit_pc`` and ``decode_pc`` (perf_counter
-seconds) from which the engines build its ``staging`` and ``decode``
-spans.
+retry backoff's deferral, the prompt -> prefill-bucket mapping with
+explicit truncation accounting, and the chunked prefill's padded span
+(``chunk_span``).  A request carries the trace stamps ``admit_pc`` and
+``decode_pc`` (perf_counter seconds) from which the engines build its
+``staging`` and ``decode`` spans.
 """
 from __future__ import annotations
 
@@ -34,7 +34,11 @@ class Request:
     deadline_s: Optional[float] = None   # absolute time.time() admission SLA
     expired: bool = False         # shed: deadline passed while queued
     bucket: int = 0               # prefill bucket chosen at admission
+    # Outcome: "ok" | "shed_deadline" | "shed_overload" | "poisoned" |
+    # "retry_exhausted" (callers split completions from casualties).
     status: str = "ok"
+    retries: int = 0              # watchdog-recovery requeues so far
+    not_before_s: Optional[float] = None  # retry backoff: defer admission
     arrival_s: float = 0.0
     first_token_s: Optional[float] = None
     finish_s: Optional[float] = None
@@ -121,18 +125,31 @@ class Scheduler:
         heapq.heappush(self._heap, ((level, self._seq), req))
 
     def pop_ready(self, now: float) -> Optional[Request]:
-        """Next admissible request, shedding any whose deadline passed."""
-        while self._heap:
-            _, req = heapq.heappop(self._heap)
-            if req.deadline_s is not None and now > req.deadline_s:
-                req.expired = True
-                req.done = True
-                req.status = "shed_deadline"
-                self.expired.append(req)
-                self.tracer.instant("shed", uid=req.uid, reason="deadline",
-                                    queued_s=now - req.arrival_s)
-                log.warning("request %d: deadline missed while queued; "
-                            "shedding", req.uid)
-                continue
-            return req
-        return None
+        """Next admissible request, shedding any whose deadline passed.
+
+        A request with a retry-backoff stamp (``not_before_s``) in the
+        future is deferred: pushed back at the end of its priority level
+        (a retried request yields to fresher arrivals)."""
+        deferred: List[Request] = []
+        try:
+            while self._heap:
+                _, req = heapq.heappop(self._heap)
+                if req.deadline_s is not None and now > req.deadline_s:
+                    req.expired = True
+                    req.done = True
+                    req.status = "shed_deadline"
+                    self.expired.append(req)
+                    self.tracer.instant("shed", uid=req.uid,
+                                        reason="deadline",
+                                        queued_s=now - req.arrival_s)
+                    log.warning("request %d: deadline missed while queued; "
+                                "shedding", req.uid)
+                    continue
+                if req.not_before_s is not None and now < req.not_before_s:
+                    deferred.append(req)
+                    continue
+                return req
+            return None
+        finally:
+            for req in deferred:
+                self.submit(req)

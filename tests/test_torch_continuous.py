@@ -141,22 +141,27 @@ def test_continuous_monolithic_matches_wave_engine():
 
 def test_serve_config_has_no_unported_fields():
     """Options of the JAX engine that the port leaves out are refused,
-    not ignored; there is no backend fallback and no flight recorder.
-    Speculation, the prefix cache and tracing are ported, with the JAX
-    defaults."""
+    not ignored: there is no backend fallback (a failed kernel raises).
+    Speculation, the prefix cache, tracing and the robustness layer (the
+    fault plan, probes, watchdog, retries, overload, shedding and the
+    flight recorder) are ported, with the JAX defaults."""
     fields = {f.name for f in dataclasses.fields(ServeConfig)}
-    assert {"prefill_chunk", "prefill_token_budget", "speculate_k",
-            "speculate_draft", "prefix_cache_mb", "prefix_chunk", "trace",
-            "metrics_every", "strict_recompile"} <= fields
-    for name in ("speculate_k", "speculate_draft", "prefix_cache_mb",
-                 "prefix_chunk", "trace", "metrics_every",
-                 "strict_recompile"):
+    ported = ("speculate_k", "speculate_draft", "prefix_cache_mb",
+              "prefix_chunk", "trace", "metrics_every", "strict_recompile",
+              "watchdog_s", "fault_plan", "max_queue_depth",
+              "overload_queue_depth", "overload_ttft_p95_s",
+              "overload_clear_frac", "poison_probe", "poison_check_every",
+              "watchdog_action", "max_retries", "retry_backoff_s",
+              "shed_inflight", "flight_records", "flight_path")
+    assert {"prefill_chunk", "prefill_token_budget", *ported} <= fields
+    for name in ported:
         assert getattr(ServeConfig(), name) == \
             getattr(JServeConfig(), name), name
-    for name in ("backend_fallback", "fault_plan", "flight_records"):
-        assert name not in fields
-        with pytest.raises(TypeError):
-            ServeConfig(**{name: 1})
+    assert fields == {f.name for f in dataclasses.fields(JServeConfig)} - \
+        {"backend_fallback"}
+    assert "backend_fallback" not in fields
+    with pytest.raises(TypeError):
+        ServeConfig(backend_fallback=True)
 
 
 def _filled_pool(tm, slots=3):

@@ -270,7 +270,7 @@ def test_programs_are_watched_only_when_read(kw, watched):
                                                  metrics_every=2, **kw))
     _run(every, _prompts())
     assert set(every.metrics.gauges) == {"queue_depth", "live_slots",
-                                         "staging_depth"}
+                                         "overloaded", "staging_depth"}
     assert every.metrics.tok_rate._pts
 
 
@@ -392,8 +392,8 @@ def test_attention_family_trace_matches_jax():
 
 def test_metrics_every_cadence_and_content_match_jax():
     """Snapshots every N polls, in the trace as a ``serve_gauges`` counter
-    and a ``metrics_snapshot`` instant, with the JAX snapshot's keys but
-    the robustness layer's (not ported); the same counts in both."""
+    and a ``metrics_snapshot`` instant, with the JAX snapshot's keys (the
+    robustness counters' included); the same counts in both."""
     jm = jmetrics.ServeMetrics(2, tracer=jtracing.Tracer(), metrics_every=3)
     tm = metrics.ServeMetrics(2, tracer=tracing.Tracer(), metrics_every=3)
     for m in (jm, tm):
@@ -407,10 +407,8 @@ def test_metrics_every_cadence_and_content_match_jax():
             m.observe_gauges(queue_depth=i, live_slots=2, staging_depth=1)
             m.maybe_snapshot(lambda: {"recompile_trips": {"decode": 0}})
     assert len(tm.snapshots) == len(jm.snapshots) == 3
-    robustness = {"rejected", "quarantined", "backend_fallbacks",
-                  "watchdog_recoveries", "stragglers", "watchdog_fires"}
     for ts, js in zip(tm.snapshots, jm.snapshots):
-        assert set(ts) == set(js) - robustness
+        assert set(ts) == set(js)
         for k in set(ts) - {"tokens_per_s_window", "gauges"}:
             assert ts[k] == js[k], k
         assert ts["gauges"] == js["gauges"]
@@ -433,8 +431,10 @@ def test_engine_metrics_every_matches_jax():
     assert [s["emitted_tokens"] for s in te.metrics.snapshots] == \
         [s["emitted_tokens"] for s in je.metrics.snapshots]
     assert all(set(s["gauges"]) == {"queue_depth", "live_slots",
-                                    "staging_depth"}
+                                    "overloaded", "staging_depth"}
                for s in te.metrics.snapshots)
+    assert [set(s) for s in te.metrics.snapshots] == \
+        [set(s) for s in je.metrics.snapshots]
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(prefill_chunk=8),
