@@ -2,8 +2,10 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Drives ``src/repro_torch`` (never JAX) at the full width of mamba2-130m,
-of mamba-130m (Mamba-1), of recurrentgemma-2b, of gemma-2b and of
-qwen1.5-4b:
+of mamba-130m (Mamba-1), of recurrentgemma-2b, of gemma-2b, of
+qwen1.5-4b, of the MoE transformers qwen3-moe-30b-a3b and grok-1-314b,
+of llava-next-mistral-7b (the vision stub), of deepseek-7b and
+internlm2-20b, and of mamba2-2.7b:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — ``nvcc`` builds every kernel from ``src/repro_torch/csrc``;
@@ -33,21 +35,28 @@ qwen1.5-4b:
    same bits;
    ``qmatmul`` (W8) at mamba2-130m's in_proj and out_proj shapes with
    m = 4, 8, 256 and 512, at mamba2-2.7b's at m = 4, in its PWL and
-   gated forms at (512, 768) x (768, 2048), and in bf16 at gemma-2b's and
-   recurrentgemma-2b's W8 shapes (``W8_CASES``: the attention and RG-LRU
-   projections, the GeGLU MLP's wi / wg in the gated form with the GeLU
-   table, wo) at m = 4 (GEMV) and 256 (``wgmma``), each run twice and
-   held to give the same bits; kernel 2 on a speculative verify window
+   gated forms at (512, 768) x (768, 2048), and in bf16 at gemma-2b's,
+   recurrentgemma-2b's and qwen3-moe-30b-a3b's W8 shapes (``W8_CASES``:
+   the attention and RG-LRU projections, the GeGLU MLP's wi / wg in the
+   gated form with the GeLU table, wo) at m = 4 (GEMV) and 256
+   (``wgmma``), and qwen3-moe's lm_head (2048 -> 151936) at m = 4, each
+   run twice and held to give the same bits; kernel 2 on a speculative verify window
    (b = 4, l = ``SPEC_K``, a carried state: the SIMT body) and kernel 6
-   with W8 gate weights dequantized to fp32 (exact and ActiBA); ``mamba1_step`` at mamba-130m's widths (b = 1 and
+   with W8 gate weights dequantized to fp32 (exact and ActiBA); kernels
+   1 (b = 4) and 2 (b = 4, l = 64 at chunk 64 and l = 256 at chunk 256,
+   on its ``wgmma`` body) at mamba2-2.7b's width (80 heads of 64), twice
+   each; ``mamba1_step`` at mamba-130m's widths (b = 1 and
    4, and with the ActiBA tables), ``sscan_step`` at (4, 1536, 16) with
    and without D and with the state an offset view (the element path),
    ``ssd_step`` at mamba2-130m's step widths (b = 4), each also run twice
    for the same bits; ``flash_attention`` at gemma-2b's prefill (b = 4, L
    = 128, 8 query heads and 1 KV head of 256), ragged (L = 300), under a
    64-token window, not causal (L = 100), at qwen1.5-4b's MHA (20 heads of
-   128, L = 512), at b = 1, L = 4096 and with q an offset view (the SIMT
-   body); ``reduce_rows`` at (2048, 2048) and (1000, 300); each twice.
+   128, L = 512), at b = 1, L = 4096, at the prefills of qwen3-moe (32
+   query heads to 4 KV heads of 128), internlm2-20b (48 to 8) and
+   deepseek-7b (32 to 32) at b = 4, L = 128 and llava's 576 + 64
+   positions, and with q an offset view (the SIMT body); ``reduce_rows``
+   at (2048, 2048) and (1000, 300); each twice.
    Kernels 9, 10 and 11 print the body each case took by their path
    counts (kernel 9: bf16 the ``wgmma`` body, fp32 the ``wgmma_fp32``
    body, views TMA cannot read the SIMT body; 10 and 11: the tensor-core
@@ -158,6 +167,28 @@ qwen1.5-4b:
    (``ProbeClock``) at steady state under ``PROBE_SHARE`` (3%) of the
    median decode step, and the ``state`` probe's device and host
    microseconds; the phase under ``ROBUST_BUDGET_S`` (60 s);
+   4j: the transformer's variants and mamba2-2.7b at full width, depths
+   cut as the phase's constants say (each cut printed; never a width):
+   qwen3-moe-30b-a3b (depth ``MOE_DEPTH``, bf16, ``use_flash``) through
+   the continuous engine at chunk 64 (8 requests, no kernel), with W8
+   weights (kernel 10, 4 x depth + 1 a decode step and a chunk call:
+   the attention projections and the ``lm_head``, the experts and router
+   unquantized) and the wave engine (kernel 9 once a layer), the share
+   of (token, slot) pairs dropped in decode and in prefill calls, the
+   decode step's byte bound, and the ``decode`` card with no temporary
+   or copy as large as one layer's experts; qwen3-moe in fp32 at depth
+   ``MOE_PARITY_DEPTH``, the card against the CPU's plain path (every
+   router call's expert ids and keep mask identical, the logits within
+   phase 5e's rule, a second card run bit for bit); grok-1-314b at
+   depth ``GROK_DEPTH`` through the wave engine (2 requests of 8
+   tokens; its soft-cap keeps kernel 9 idle); llava-next-mistral-7b at
+   depth ``LLAVA_DEPTH`` (``prefill`` of 576 seeded ``image_embeds``
+   ahead of 64 tokens: kernel 9 once a layer on 640 positions; 8 decode
+   steps from index 640); deepseek-7b and internlm2-20b at depth
+   ``DENSE_DEPTH`` through the wave engine (kernel 9 once a layer);
+   mamba2-2.7b at full depth through the CLI's continuous engine (chunk
+   64, 4 requests: kernels 1 and 2 64 times a decode step and a chunk
+   call);
 5. parity  — the same model in fp32, kernel path on the card against the
    plain path on the CPU, teacher-forced over 16 greedy tokens of 4
    prompts, with fp32 weights and with W8 weights: tokens agree
@@ -226,7 +257,15 @@ qwen1.5-4b:
    byte bound and its instruction floor, ptxas); kernels 3 and 4 with
    their host microseconds and ptxas; kernel 9's fp32 body at phase 5e's
    shape and at b = 1, L = 4096 with the SIMT body on the same inputs
-   beside it (``simt_flash``, not counted), its shared memory and ptxas.
+   beside it (``simt_flash``, not counted), its shared memory and ptxas;
+   kernels 1 and 2 at mamba2-2.7b's width (phase 4j's decode step and
+   chunk shapes), a row each, and the decode step and prefill of
+   qwen3-moe (depth ``MOE_DEPTH``, seeded prompt ids) and mamba2-2.7b.
+   Device times are the profiler's, each session bracketed by two spin
+   kernels and held to their CUDA-event duration
+   (``serve/program_registry.py: profile_bracketed``); a reading none of
+   whose sessions stood prints nan, and the phase ends with how many
+   readings stood.
    Each phase's seconds are printed after it.
 
 Any failure raises (exit code 1).  Without a GPU it exits 1 before doing
@@ -321,6 +360,12 @@ PREFILL_WITNESS_X = 1.25
 PREFILL_WITNESS_OFF = 0.001
 
 N_HEADS, HEAD_DIM, D_STATE, N_GROUPS, WIDTH = 24, 64, 128, 1, 4
+# mamba2-2.7b (src/repro/configs/mamba2_2p7b.py): d_model 2560, d_inner
+# 5120 = 80 heads of 64, the same d_state, groups and conv width.
+M27_HEADS = 80
+# Kernel 2's cases at mamba2-2.7b's width (b, l, chunk): the continuous
+# engine's chunk of 64 and one whole chunk of 256.
+M27_PREFILL_CASES = ((4, 64, 64), (4, 256, 256))
 D_MODEL = 768
 D_INNER = N_HEADS * HEAD_DIM
 D_XBC = D_INNER + 2 * N_GROUPS * D_STATE
@@ -336,20 +381,30 @@ QMM_CASES = (("in_proj", D_MODEL, D_IN_PROJ, (4, 8, 256, 512)),
 # The PWL and gated forms at an MLP-like shape: (m, k, n).
 QMM_MLP = (512, 768, 2048)
 # Kernel 10 at the W8 widths of gemma-2b (src/repro/configs/gemma_2b.py:
-# d_model 2048, 8 query heads and 1 KV head of 256, GeGLU d_ff 16384) and
+# d_model 2048, 8 query heads and 1 KV head of 256, GeGLU d_ff 16384),
 # recurrentgemma-2b (d_model = lru_width 2560, 10 heads and 1 KV head of
-# 256, GeGLU d_ff 7680; the RG-LRU's in_x, in_gate, out and gates at 2560):
-# (label, k, n, gated), the gated MLP with the GeLU table, at the decode
-# and draft steps' m = 4 (the GEMV) and a chunk's m = 256 (``wgmma``).
-W8_CASES = (("gemma-2b q, o", 2048, 2048, False),
-            ("gemma-2b k, v", 2048, 256, False),
-            ("gemma-2b wi/wg gated", 2048, 16384, True),
-            ("gemma-2b wo", 16384, 2048, False),
-            ("recurrentgemma-2b q, o, in_x, in_gate, out", 2560, 2560, False),
-            ("recurrentgemma-2b k, v", 2560, 256, False),
-            ("recurrentgemma-2b wi/wg gated", 2560, 7680, True),
-            ("recurrentgemma-2b wo", 7680, 2560, False))
+# 256, GeGLU d_ff 7680; the RG-LRU's in_x, in_gate, out and gates at 2560)
+# and qwen3-moe-30b-a3b (src/repro/configs/qwen3_moe_30b_a3b.py: d_model
+# 2048, 32 query heads and 4 KV heads of 128, the untied lm_head to vocab
+# 151936; its experts stay bf16 under W8): (label, k, n, gated, m values),
+# the gated MLP with the GeLU table, at the decode and draft steps' m = 4
+# (the GEMV) and a chunk's m = 256 (``wgmma``); qwen3-moe's lm_head only
+# at m = 4, as phase 4j's chunk calls give it the last position of each
+# of the 4 rows.
 W8_MS = (4, 256)
+W8_CASES = (("gemma-2b q, o", 2048, 2048, False, W8_MS),
+            ("gemma-2b k, v", 2048, 256, False, W8_MS),
+            ("gemma-2b wi/wg gated", 2048, 16384, True, W8_MS),
+            ("gemma-2b wo", 16384, 2048, False, W8_MS),
+            ("recurrentgemma-2b q, o, in_x, in_gate, out", 2560, 2560, False,
+             W8_MS),
+            ("recurrentgemma-2b k, v", 2560, 256, False, W8_MS),
+            ("recurrentgemma-2b wi/wg gated", 2560, 7680, True, W8_MS),
+            ("recurrentgemma-2b wo", 7680, 2560, False, W8_MS),
+            ("qwen3-moe-30b-a3b q", 2048, 4096, False, W8_MS),
+            ("qwen3-moe-30b-a3b k, v", 2048, 512, False, W8_MS),
+            ("qwen3-moe-30b-a3b o", 4096, 2048, False, W8_MS),
+            ("qwen3-moe-30b-a3b lm_head", 2048, 151936, False, (4,)))
 # Speculative decoding's window (serve/continuous.py): k draft tokens a
 # burst, verified in one chunk of k tokens (kernel 2's SIMT body: a chunk
 # below 64) at b = 4 slots with a carried state.
@@ -381,13 +436,20 @@ RG_RING_PROMPT, RG_RING_CHUNK = 2304, 256
 # gemma-2b's prefill (src/repro/configs/gemma_2b.py: 8 query heads, 1 KV
 # head of 256) at the wave engine's bucket, ragged, under a window and not
 # causal (held to attention_ref's plain version); qwen1.5-4b's MHA (20
-# heads of 128); gemma's 4096-token prompt.
+# heads of 128); gemma's 4096-token prompt; the prefills of qwen3-moe (32
+# query heads to 4 KV heads of 128), internlm2-20b (48 to 8) and
+# deepseek-7b (32 to 32) at b = 4, L = 128, and llava's 576 image
+# positions ahead of 64 tokens.
 FLASH_CASES = (("gemma prefill", 4, 8, 1, 128, 256, True, None),
                ("ragged", 4, 8, 1, 300, 256, True, None),
                ("qwen MHA", 4, 20, 20, 512, 128, True, None),
                ("window 64", 4, 8, 1, 300, 256, True, 64),
                ("non-causal", 4, 8, 1, 100, 256, False, None),
-               ("long", 1, 8, 1, 4096, 256, True, None))
+               ("long", 1, 8, 1, 4096, 256, True, None),
+               ("qwen3-moe prefill", 4, 32, 4, 128, 128, True, None),
+               ("internlm2-20b prefill", 4, 48, 8, 128, 128, True, None),
+               ("deepseek-7b prefill", 4, 32, 32, 128, 128, True, None),
+               ("llava 576+64", 1, 32, 8, 640, 128, True, None))
 # Kernel 14's cases: paper Fig. 1's ReduceSum
 # (benchmarks/bench_fig1_op_breakdown.py) and a ragged one, (m, n).
 REDUCE_CASES = ((2048, 2048), (1000, 300))
@@ -430,45 +492,50 @@ def _rand(gen, shape, scale, dev, dtype):
     return (torch.randn(shape, generator=gen) * scale).to(dev).to(dtype)
 
 
-def decode_inputs(b, dev, dtype, seed):
-    """Full-width decode-step operands (the JAX tests' recipe); streams in
+def decode_inputs(b, dev, dtype, seed, heads=N_HEADS):
+    """Full-width decode-step operands (the JAX tests' recipe) of
+    mamba2-130m (or, with ``heads=M27_HEADS``, mamba2-2.7b); streams in
     ``dtype``, the state and the small parameters in fp32, as the model's
     ``decode_view`` hands them to the kernels."""
     import torch
     g = torch.Generator().manual_seed(seed)
     f32 = torch.float32
+    di = heads * HEAD_DIM
+    dx = di + 2 * N_GROUPS * D_STATE
     return dict(
-        z=_rand(g, (b, D_INNER), 1.0, dev, dtype),
-        xbc=_rand(g, (b, D_XBC), 1.0, dev, dtype),
-        dt=_rand(g, (b, N_HEADS), 1.0, dev, dtype),
-        conv_state=_rand(g, (b, WIDTH - 1, D_XBC), 1.0, dev, dtype),
-        ssm_state=_rand(g, (b, N_HEADS, HEAD_DIM, D_STATE), 1.0, dev, f32),
-        conv_w=_rand(g, (WIDTH, D_XBC), 0.3, dev, f32),
-        conv_b=_rand(g, (D_XBC,), 0.1, dev, f32),
-        dt_bias=_rand(g, (N_HEADS,), 0.1, dev, f32),
-        A=-torch.rand(N_HEADS, generator=g).mul(1.9).add(0.1).to(dev),
-        D=_rand(g, (N_HEADS,), 1.0, dev, f32),
-        norm_scale=_rand(g, (D_INNER,), 1.0, dev, f32))
+        z=_rand(g, (b, di), 1.0, dev, dtype),
+        xbc=_rand(g, (b, dx), 1.0, dev, dtype),
+        dt=_rand(g, (b, heads), 1.0, dev, dtype),
+        conv_state=_rand(g, (b, WIDTH - 1, dx), 1.0, dev, dtype),
+        ssm_state=_rand(g, (b, heads, HEAD_DIM, D_STATE), 1.0, dev, f32),
+        conv_w=_rand(g, (WIDTH, dx), 0.3, dev, f32),
+        conv_b=_rand(g, (dx,), 0.1, dev, f32),
+        dt_bias=_rand(g, (heads,), 0.1, dev, f32),
+        A=-torch.rand(heads, generator=g).mul(1.9).add(0.1).to(dev),
+        D=_rand(g, (heads,), 1.0, dev, f32),
+        norm_scale=_rand(g, (di,), 1.0, dev, f32))
 
 
-def prefill_inputs(b, l, dev, dtype, seed):
-    """Full-width prefill operands with a nonzero carried state (dtypes
-    as :func:`decode_inputs`)."""
+def prefill_inputs(b, l, dev, dtype, seed, heads=N_HEADS):
+    """Full-width prefill operands with a nonzero carried state (widths
+    and dtypes as :func:`decode_inputs`)."""
     import torch
     g = torch.Generator().manual_seed(seed)
     f32 = torch.float32
+    di = heads * HEAD_DIM
+    dx = di + 2 * N_GROUPS * D_STATE
     return dict(
-        z=_rand(g, (b, l, D_INNER), 1.0, dev, dtype),
-        xbc=_rand(g, (b, l, D_XBC), 1.0, dev, dtype),
-        dt=_rand(g, (b, l, N_HEADS), 1.0, dev, dtype),
-        conv_state=_rand(g, (b, WIDTH - 1, D_XBC), 1.0, dev, dtype),
-        ssm_state=_rand(g, (b, N_HEADS, HEAD_DIM, D_STATE), 0.1, dev, f32),
-        conv_w=_rand(g, (WIDTH, D_XBC), 0.3, dev, f32),
-        conv_b=_rand(g, (D_XBC,), 0.1, dev, f32),
-        dt_bias=_rand(g, (N_HEADS,), 0.1, dev, f32),
-        A=-torch.exp(torch.randn(N_HEADS, generator=g) * 0.3).to(dev),
-        D=_rand(g, (N_HEADS,), 0.2, dev, f32),
-        norm_scale=(torch.randn(D_INNER, generator=g).abs() + 0.5).to(dev))
+        z=_rand(g, (b, l, di), 1.0, dev, dtype),
+        xbc=_rand(g, (b, l, dx), 1.0, dev, dtype),
+        dt=_rand(g, (b, l, heads), 1.0, dev, dtype),
+        conv_state=_rand(g, (b, WIDTH - 1, dx), 1.0, dev, dtype),
+        ssm_state=_rand(g, (b, heads, HEAD_DIM, D_STATE), 0.1, dev, f32),
+        conv_w=_rand(g, (WIDTH, dx), 0.3, dev, f32),
+        conv_b=_rand(g, (dx,), 0.1, dev, f32),
+        dt_bias=_rand(g, (heads,), 0.1, dev, f32),
+        A=-torch.exp(torch.randn(heads, generator=g) * 0.3).to(dev),
+        D=_rand(g, (heads,), 0.2, dev, f32),
+        norm_scale=(torch.randn(di, generator=g).abs() + 0.5).to(dev))
 
 
 def mamba1_inputs(b, dev, dtype, seed):
@@ -881,6 +948,24 @@ def kernel_cases(dev, kernels, tables):
                                                        **kw),
                dn, FUSED_OUTS)
 
+        # mamba2-2.7b's width: 80 heads (kernel 1 at the decode step's
+        # b = 4, kernel 2 on its tensor-core body).
+        ins = decode_inputs(4, dev, dtype, seed=15, heads=M27_HEADS)
+        twice("mamba2_step", f"{dn} mamba2-2.7b b=4 h={M27_HEADS}",
+              lambda: kernels["mamba2_step"](**ins, **kw),
+              lambda: kernels["mamba2_step_plain"](**ins, **kw), dn)
+        for b, l, chunk in M27_PREFILL_CASES:
+            ins = prefill_inputs(b, l, dev, dtype, seed=25 + l,
+                                 heads=M27_HEADS)
+            routed("mamba2_prefill", f"{dn} mamba2-2.7b b={b} l={l} "
+                   f"chunk={chunk} h={M27_HEADS}",
+                   prefill_path(ins["xbc"], ins["ssm_state"], chunk=chunk,
+                                head_dim=HEAD_DIM),
+                   lambda: kernels["mamba2_prefill"](**ins, chunk=chunk,
+                                                     **kw),
+                   lambda: kernels["mamba2_prefill_plain"](
+                       **ins, chunk=chunk, **kw), dn, FUSED_OUTS)
+
         if dtype == torch.bfloat16:
             fails.extend(prefill_witness_check(dev, kernels))
 
@@ -1062,8 +1147,8 @@ def qmatmul_cases(dev, dtype, tables):
                     dict(kw, table=tables["silu"])))
     if dtype != torch.bfloat16:
         return out
-    for name, k, n, gated in W8_CASES:
-        for m in W8_MS:
+    for name, k, n, gated, ms in W8_CASES:
+        for m in ms:
             args, kw = qmatmul_inputs(m, k, n, dev, dtype, seed=m + k + n,
                                       gated=gated)
             if gated:
@@ -1685,7 +1770,9 @@ def print_card(card):
           f"{card.argument_bytes / 2 ** 20:.3f} MB, output "
           f"{card.output_bytes / 2 ** 20:.3f} MB, temp "
           f"{card.temp_bytes / 2 ** 20:.3f} MB, device "
-          f"{card.device_ms:.4f} ms, memory roofline "
+          + (f"{card.device_ms:.4f} ms" if card.device_ms is not None else
+             "not measured (the profiler lost or misdated a bracket)")
+          + f", memory roofline "
           f"{card.roofline_s * 1e3:.4f} ms, budget "
           f"{card.budget.to_dict() if card.budget else None}, violations "
           f"{card.check_budget()}", flush=True)
@@ -2951,7 +3038,7 @@ def rgemma_times(dev, kernels, launches, worst, tables):
             host = (f"; host {host_us(lambda: kernels['matmul_pwl'](*args)):.1f}"
                     f" us a call, the library's two products "
                     f"{host_us(lib):.1f} us, their device time "
-                    f"{sum(device_profile(lib).values()):.4f} ms")
+                    f"{_total(device_profile(lib)):.4f} ms")
         bound_ms, bound_by = _bound(_bytes(x, w, v, out),
                                     2 * 2 * m * RG_W * RG_D_FF,
                                     BF16_TC_FLOP_PER_S)
@@ -3016,11 +3103,13 @@ def _transformer(arch, dev, **overrides):
     return model, params
 
 
-def transformer_serve(engine, counters, prompts, want_flash, label):
+def transformer_serve(engine, counters, prompts, want_flash, label,
+                      want_more=None):
     """Serve ``prompts`` through ``engine`` (16 tokens each unless the
     engine says fewer); every token in the vocabulary, every logit row
     finite, and ``flash_attention`` launched exactly ``want_flash(metrics)``
-    times, no other kernel.  Returns the launches."""
+    times, the kernels of ``want_more(metrics)`` (a dict) as it says, no
+    other kernel.  Returns the launches."""
     import torch
     cfg = engine.model.cfg
     for p in prompts:
@@ -3039,15 +3128,16 @@ def transformer_serve(engine, counters, prompts, want_flash, label):
     assert all(0 <= t < cfg.vocab_size for t in toks), f"{label}: token id"
     assert m["logit_rows"] > 0 and m["nonfinite_logit_rows"] == 0, \
         f"{label}: non-finite logits {m['nonfinite_logit_rows']}"
-    want = dict({k: 0 for k in launches}, flash_attention=want_flash(m))
+    want = dict({k: 0 for k in launches}, flash_attention=want_flash(m),
+                **(want_more(m) if want_more else {}))
     body = "wgmma" if cfg.dtype == torch.bfloat16 else "wgmma_fp32"
     paths = dict(counters["flash_attention"].path_launches)
     print(f"  {label}: {len(done)} requests (prompts "
           f"{sorted(len(p) for p in prompts)}), {len(toks)} tokens, "
           f"{m['decode_steps']} decode steps, {m['prefill_chunks']} chunk "
           f"calls; launches {({k: v for k, v in launches.items() if v})} "
-          f"(expected flash_attention {want['flash_attention']}, by body "
-          f"{paths}); "
+          f"(expected {({k: v for k, v in want.items() if v})}, kernel 9 by "
+          f"body {paths}); "
           f"{m['tokens_per_s']:.1f} tok/s, ttft_mean_s {m['ttft_mean_s']:.4f}"
           f", ttft_p99_s {m['ttft_p99_s']:.4f}, decode step mean "
           f"{m['token_latency_s'] * 1e3:.3f} ms; wall {wall:.3f} s",
@@ -3132,6 +3222,349 @@ def qwen_phase(dev, counters):
     transformer_serve(eng, counters, prompts, lambda m: QWEN_DEPTH,
                       "wave (one prefill)")
     return eng
+
+
+# Phase 4j: the transformer's MoE and vision-stub variants, the dense
+# configs deepseek-7b and internlm2-20b, and mamba2-2.7b, at full width.
+# Depths are cut for the weights' CPU draw (``init_params`` draws every
+# leaf on the host: qwen3-moe's stacked experts at 48 layers are 9.66 G
+# values, 38.6 GB in fp32) and for the script's time; never widths.
+MOE_DEPTH = 4               # qwen3-moe-30b-a3b, of 48
+MOE_PARITY_DEPTH = 1        # qwen3-moe-30b-a3b fp32, card vs CPU
+GROK_DEPTH = 1              # grok-1-314b, of 64 (9.66 GB of experts a layer)
+LLAVA_DEPTH = 2             # llava-next-mistral-7b, of 32
+DENSE_DEPTH = 2             # deepseek-7b (of 30) and internlm2-20b (of 48)
+LLAVA_TOKENS, LLAVA_STEPS = 64, 8
+M27_ARGV = ["--arch", "mamba2-2.7b", "--engine", "continuous",
+            "--prefill-chunk", "64", "--requests", "4", "--batch", "4",
+            "--prompt-len", "128", "--max-new", "16", "--temperature", "0",
+            "--seed", "0"]
+
+
+@contextlib.contextmanager
+def moe_routes(out):
+    """While open, every ``nn/moe.route`` call appends its (tokens, expert
+    ids, keep mask) to ``out`` (``apply`` looks ``route`` up at call
+    time)."""
+    from repro_torch.nn import moe
+    route = moe.route
+
+    def rec(w, cfg, xf):
+        r = route(w, cfg, xf)
+        out.append((xf.shape[0], r.expert_ids, r.keep))
+        return r
+    moe.route = rec
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def drop_shares(routes, slots):
+    """The share of (token, slot) pairs dropped in decode calls (one token
+    a row: at most ``slots`` tokens) and in prefill calls."""
+    out = {}
+    for kind, pick in (("decode", lambda n: n <= slots),
+                       ("prefill", lambda n: n > slots)):
+        keeps = [k for n, _, k in routes if pick(n)]
+        pairs = sum(k.numel() for k in keeps)
+        dropped = sum(int((~k).sum()) for k in keeps)
+        out[kind] = (dropped, pairs, dropped / pairs if pairs else 0.0)
+    return out
+
+
+def moe_decode_bytes(cfg, layers):
+    """The bytes a decode step must read, by part, for ``layers`` layers:
+    every expert's wi, wg and wo (dense dispatch runs all of them), the
+    router, the attention projections, and the ``lm_head`` (bf16)."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    attn = d * cfg.head_dim * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    return {"experts": 2 * 3 * e * d * f * layers,
+            "router": 2 * d * e * layers, "attention": 2 * attn * layers,
+            "lm_head": 2 * d * cfg.vocab_size}
+
+
+def moe_phase(dev, counters):
+    """Phase 4j (a): qwen3-moe-30b-a3b at full width (d_model 2048, 32 / 4
+    heads of 128, 128 experts top-8 of width 768, vocab 151936) and depth
+    ``MOE_DEPTH`` (of 48: cut for the host's weight draw, 38.6 GB of fp32
+    experts at full depth, and the script's time), bf16, ``use_flash``: the continuous engine at chunk 64
+    with 8 requests (no kernel: chunked prefill and decode attend with
+    tensor code, the experts are batched products), the same with W8
+    weights (kernel 10 for the attention projections and the ``lm_head``
+    on every decode step and chunk call: the GEMV at m <= 8, the
+    ``wgmma`` body for a chunk's projections), the wave engine with 4
+    requests (kernel 9 once a layer for its one prefill), the share of
+    (token, slot) pairs dropped in decode and prefill calls, the decode
+    step's byte bound, and the decode program card: no temporary and no
+    copy reaches one layer's expert bytes (no fp32 copy of the experts).
+    Returns (continuous engine, its W8 twin, launches by run)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.nn import quant
+    from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
+
+    model, params = _transformer("qwen3-moe-30b-a3b", dev,
+                                 n_layers=MOE_DEPTH)
+    cfg = model.cfg
+    print(f"  depth cut to {MOE_DEPTH} of 48 layers: the CPU draws every "
+          f"weight, and 48 layers of experts are 38.6 GB in fp32 there",
+          flush=True)
+    n, vocab = cfg.n_layers, cfg.vocab_size
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, vocab, int(k)).tolist()
+               for k in [128] + rng.integers(4, 129, 7).tolist()]
+    kw = dict(max_batch=4, prefill_buckets=(32, 128), max_new_tokens=16)
+    routes = []
+    cont = ContinuousEngine(model, params, ServeConfig(**kw,
+                                                       prefill_chunk=64))
+    with moe_routes(routes):
+        transformer_serve(cont, counters, prompts, lambda m: 0,
+                          "continuous, chunk 64")
+    for kind, (dropped, pairs, share) in drop_shares(
+            routes, kw["max_batch"]).items():
+        print(f"  {kind} calls: {dropped} of {pairs} (token, slot) pairs "
+              f"dropped ({100 * share:.3f}%)", flush=True)
+    per_layer = moe_decode_bytes(cfg, 1)["experts"]
+    for layers, what in ((n, f"this depth ({n})"), (48, "full depth (48)")):
+        parts = moe_decode_bytes(cfg, layers)
+        total = sum(parts.values())
+        print(f"  decode step byte bound at {what}: "
+              + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in parts.items())
+              + f"; {total / 1e9:.3f} GB at 3.35 TB/s = "
+              f"{total / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+    before = {k: (fn.launches, dict(getattr(fn, "path_launches", {})))
+              for k, fn in counters.items()}
+    card = cont.registry.card("decode")
+    assert before == {k: (fn.launches, dict(getattr(fn, "path_launches",
+                                                    {})))
+                      for k, fn in counters.items()}, "moe card: counters"
+    print_card(card)
+    print(f"  card temp {card.temp_bytes / 1e9:.4f} GB, copies "
+          f"{card.copy_bytes / 1e9:.4f} GB, against one layer's experts "
+          f"{per_layer / 1e9:.4f} GB", flush=True)
+    assert card.temp_bytes < per_layer and card.copy_bytes < per_layer, \
+        "moe decode card: a per-call copy of the experts"
+
+    w8cfg = cfg.with_quant("w8")
+    w8 = ContinuousEngine(build_model(w8cfg, dev),
+                          quant.quantize_params_for_mode(params, "w8"),
+                          ServeConfig(**kw, prefill_chunk=64))
+    assert not quant.is_quantized(w8.params["layers"][0]["moe"]["wi"])
+    per_call = 4 * n + 1            # q, k, v, o a layer, and the lm_head
+    launches = transformer_serve(
+        w8, counters, prompts, lambda m: 0, "continuous, chunk 64, W8",
+        want_more=lambda m: {"qmatmul": per_call * (
+            m["decode_steps"] + m["prefill_chunks"])})
+    m = w8.metrics.summary()
+    paths = dict(counters["qmatmul"].path_launches)
+    want_paths = {"gemv": per_call * m["decode_steps"]
+                  + m["prefill_chunks"],
+                  "wgmma": 4 * n * m["prefill_chunks"], "tiled": 0}
+    print(f"  qmatmul by body {paths} (expected {want_paths})", flush=True)
+    assert paths == want_paths, "moe W8: kernel 10's bodies"
+
+    wave = Engine(model, params, ServeConfig(**kw))
+    out = {"flash_attention_moe": transformer_serve(
+        wave, counters, prompts[:4], lambda m: n, "wave (one prefill)")[
+            "flash_attention"], "qmatmul_moe": launches["qmatmul"]}
+    return cont, w8, out
+
+
+def moe_parity_phase(dev, seed, counters):
+    """Phase 4j (b): qwen3-moe-30b-a3b at full width and depth
+    ``MOE_PARITY_DEPTH`` (of 48: the CPU holds a second fp32 copy of the
+    weights and runs the plain path), fp32, ``use_flash``: the card against the CPU's
+    plain path (4 prompts of 64, then 15 decode steps teacher-forced with
+    the card's greedy tokens), as phase 5e: every router call on the card
+    picks the CPU's expert ids and keep mask; the logits within
+    ``RG_SENS_X`` times the CPU's response to a one-ulp move of every
+    embedding element (at least ``LOGIT_TOL``); a second card run gives
+    the same bits; kernel 9 once a layer on the ``wgmma_fp32`` body."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import init_params
+
+    cfg = get_config("qwen3-moe-30b-a3b", use_flash=True).replace(
+        n_layers=MOE_PARITY_DEPTH, param_dtype="float32")
+    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+    params = init_params(gpu.param_specs(), seed, torch.float32, "cpu")
+    gparams = _move(params, dev)
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, size=(4, 64)).astype(np.int64))
+    groutes, again, croutes = [], [], []
+    with torch.inference_mode():
+        reset_counts(counters)
+        with moe_routes(groutes):
+            lk = _rg_logits(gpu, gparams, prompts, None, dev)
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        paths = dict(counters["flash_attention"].path_launches)
+        with moe_routes(again):
+            lk2 = _rg_logits(gpu, gparams, prompts, None, dev)
+        forced = lk.argmax(-1)
+        t0 = time.perf_counter()
+        with moe_routes(croutes):
+            lp = _rg_logits(cpu, params, prompts, forced, "cpu")
+        lp1 = _rg_logits(cpu, _nudged(params), prompts, forced, "cpu")
+    cpu_s = time.perf_counter() - t0
+    same_routes = len(groutes) == len(croutes) and all(
+        torch.equal(g[1].cpu(), c[1]) and torch.equal(g[2].cpu(), c[2])
+        for g, c in zip(groutes, croutes))
+    sens = float((lp1 - lp).abs().max())
+    tol = max(LOGIT_TOL, RG_SENS_X * sens)
+    err = float((lk - lp).abs().max())
+    dropped = sum(int((~c[2]).sum()) for c in croutes)
+    print(f"  depth {cfg.n_layers} fp32, logits up to "
+          f"{float(lp.abs().max()):.3f}: {len(croutes)} router calls, "
+          f"expert ids and keep masks identical card vs CPU: {same_routes} "
+          f"({dropped} pairs dropped); a one-ulp move of the embeddings "
+          f"moves the CPU's logits by {sens:.3e} ({cpu_s:.1f} s on the CPU); "
+          f"card vs CPU {err:.3e} (tol {tol:.3e}); second card run "
+          f"bit-identical: {torch.equal(lk, lk2)}; launches "
+          f"{({k: v for k, v in counts.items() if v})}, kernel 9 by body "
+          f"{paths}", flush=True)
+    assert same_routes, "moe parity: routing differs card vs CPU"
+    assert counts == dict({k: 0 for k in counts},
+                          flash_attention=cfg.n_layers), "moe parity: launches"
+    assert paths == {"wgmma": 0, "wgmma_fp32": cfg.n_layers, "simt": 0}, \
+        "moe parity: kernel 9's body"
+    assert torch.isfinite(lk).all() and err <= tol, \
+        f"moe parity: logit error {err}"
+    assert torch.equal(lk, lk2) and all(
+        torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+        for a, b in zip(groutes, again)), "moe parity: card runs differ"
+
+
+def variants_phase(dev, counters, serve_main):
+    """Phase 4j (c)-(f), each at full width: grok-1-314b at depth
+    ``GROK_DEPTH`` (of 64: one layer's experts are 9.66 GB in bf16 and the
+    model does not fit one card; the wave engine, 2 requests of 8 tokens:
+    its attention soft-cap keeps kernel 9 idle, and no other kernel
+    runs); llava-next-mistral-7b at depth ``LLAVA_DEPTH`` (of 32, for the
+    script's time; ``prefill`` of 576 seeded ``image_embeds`` ahead of
+    ``LLAVA_TOKENS`` tokens: kernel 9 once a layer on the 640-long
+    sequence; then ``LLAVA_STEPS`` decode steps from index 640);
+    deepseek-7b and internlm2-20b at depth ``DENSE_DEPTH`` (of 30 and 48,
+    for the script's time; the wave engine with ``use_flash``, 2
+    requests: kernel 9 once a layer); mamba2-2.7b at full depth (64) through the CLI's continuous engine (chunk 64, 4
+    requests: kernel 1 64 times a decode step, kernel 2 64 times a chunk
+    call, on its tensor-core body).  Frees each model before the next.
+    Returns (launches by run, mamba2-2.7b's engine, its decode steps and
+    chunk calls)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import Engine, ServeConfig
+    out = {}
+
+    model, params = _transformer("grok-1-314b", dev, n_layers=GROK_DEPTH)
+    print(f"  depth cut to {GROK_DEPTH} of 64 layers: one layer's experts "
+          f"are 9.66 GB in bf16, and the whole model does not fit one card",
+          flush=True)
+    rng = np.random.default_rng(6)
+    eng = Engine(model, params, ServeConfig(
+        max_batch=2, prefill_buckets=(8, 32), max_new_tokens=16))
+    transformer_serve(eng, counters, [rng.integers(1, model.cfg.vocab_size,
+                                                   8).tolist()
+                                      for _ in range(2)],
+                      lambda m: 0, "wave, soft-cap (no kernel 9)")
+    del model, params, eng
+    torch.cuda.empty_cache()
+
+    model, params = _transformer("llava-next-mistral-7b", dev,
+                                 n_layers=LLAVA_DEPTH)
+    cfg = model.cfg
+    print(f"  depth cut to {LLAVA_DEPTH} of 32 layers for the script's "
+          f"time", flush=True)
+    g = torch.Generator().manual_seed(7)
+    img = torch.randn(2, cfg.num_patches, cfg.d_model, generator=g).to(dev)
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (2, LLAVA_TOKENS))).to(dev)
+    pos = cfg.num_patches + LLAVA_TOKENS
+    with torch.inference_mode():
+        reset_counts(counters)
+        logits, cache = model.prefill(
+            params, {"tokens": toks, "image_embeds": img},
+            model.init_cache(2, pos + LLAVA_STEPS, cfg.dtype))
+        torch.cuda.synchronize()
+        pre = read_counts(counters)
+        paths = dict(counters["flash_attention"].path_launches)
+        rows = [logits]
+        t0 = time.perf_counter()
+        for t in range(LLAVA_STEPS):
+            logits, cache = model.decode_step(
+                params, logits.argmax(-1, keepdim=True), cache, pos + t)
+            rows.append(logits)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / LLAVA_STEPS * 1e3
+    after = read_counts(counters)
+    print(f"  llava prefill of {cfg.num_patches} image positions + "
+          f"{LLAVA_TOKENS} tokens (b=2): launches "
+          f"{({k: v for k, v in pre.items() if v})}, kernel 9 by body "
+          f"{paths}; {LLAVA_STEPS} decode steps from index {pos}: "
+          f"{step_ms:.3f} ms a step, {2 * 1e3 / step_ms:.1f} tok/s; logits "
+          f"finite: {all(bool(torch.isfinite(r).all()) for r in rows)}",
+          flush=True)
+    assert pre == dict({k: 0 for k in pre}, flash_attention=cfg.n_layers), \
+        "llava prefill: launches"
+    assert paths == {"wgmma": cfg.n_layers, "wgmma_fp32": 0, "simt": 0}, \
+        "llava prefill: kernel 9's body"
+    assert after == pre, "llava decode: a kernel launched"
+    assert all(bool(torch.isfinite(r).all()) for r in rows), "llava logits"
+    out["flash_attention_llava"] = pre["flash_attention"]
+    del model, params, cache
+    torch.cuda.empty_cache()
+
+    for arch, full in (("deepseek-7b", 30), ("internlm2-20b", 48)):
+        model, params = _transformer(arch, dev, n_layers=DENSE_DEPTH)
+        print(f"  depth cut to {DENSE_DEPTH} of {full} layers for the "
+              f"script's time", flush=True)
+        eng = Engine(model, params, ServeConfig(
+            max_batch=2, prefill_buckets=(32, 128), max_new_tokens=16))
+        prompts = [rng.integers(1, model.cfg.vocab_size, k).tolist()
+                   for k in (128, 57)]
+        out[f"flash_attention_{arch}"] = transformer_serve(
+            eng, counters, prompts, lambda m: DENSE_DEPTH,
+            "wave (one prefill)")["flash_attention"]
+        del model, params, eng
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    reset_counts(counters)
+    engine, done = serve_main(M27_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    cfg = engine.model.cfg
+    m = engine.metrics.summary()
+    steps, calls = m["decode_steps"], m["prefill_chunks"]
+    want = dict({k: 0 for k in launches}, **path_launches(
+        cfg, steps=steps, prefills=calls))
+    toks = [t for r in done for t in r.out_tokens]
+    print(f"  mamba2-2.7b (full depth {cfg.n_layers}, d_model "
+          f"{cfg.d_model}, continuous chunk 64): launches "
+          f"{({k: v for k, v in launches.items() if v})} expected "
+          f"{({k: v for k, v in want.items() if v})} ({steps} decode steps,"
+          f" {calls} chunk calls: {launches['mamba2_step'] / max(steps, 1):.0f}"
+          f" kernel-1 launches a step, "
+          f"{launches['mamba2_prefill'] / max(calls, 1):.0f} kernel-2 "
+          f"launches a chunk call); {m['tokens_per_s']:.1f} tok/s, decode "
+          f"step mean {m['token_latency_s'] * 1e3:.3f} ms, ttft_mean_s "
+          f"{m['ttft_mean_s']:.4f}; call wall {wall:.1f} s (weights "
+          f"included)", flush=True)
+    assert len(done) == 4 and all(len(r.out_tokens) == 16 for r in done)
+    assert all(0 <= t < cfg.vocab_size for t in toks)
+    assert m["nonfinite_logit_rows"] == 0 and m["logit_rows"] > 0
+    assert cfg.n_layers == 64 and launches == want, \
+        "mamba2-2.7b: kernel launch counts"
+    prefill_bodies(counters, "mamba2-2.7b")
+    out.update(mamba2_step_2p7b=launches["mamba2_step"],
+               mamba2_prefill_2p7b=launches["mamba2_prefill"])
+    return out, engine, steps, calls
 
 
 def gemma_parity_phase(dev, seed, counters):
@@ -3476,7 +3909,7 @@ def ablation_phase(dev, seed, cfg, counters, kernels, worst):
               f"{top1:14.4f}  "
               f"{ {k: v for k, v in launches[name].items() if v} }")
         by = by_kernel[name]
-        dev_ms = sum(by.values())
+        dev_ms = _total(by)
         top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
         print(f"    device {dev_ms:.3f} ms per forward ({100 * dev_ms / r['ms']:.1f}"
               f"% of the event time); " + "; ".join(
@@ -3733,20 +4166,40 @@ OUR_KERNELS = ("mamba2_step_kernel", "gated_norm_kernel", "conv_act_kernel",
                "reduce_partials_kernel")
 
 
+# Called with each phase's heading (None at the end) before the phase
+# starts, when set: ``scripts/profiler_window.py --smoke`` probes the
+# profiler there.
+PHASE_HOOK = None
+# Each ``device_profile`` call: (seconds on the host's clock, whether a
+# session of ``serve/program_registry.py: profile_bracketed`` stood, the
+# absorbers its last session dropped, the call's seconds).
+PROFILE_SESSIONS = []
+
+
 def device_profile(fn, n=10):
     """Device milliseconds per call of ``fn()`` by kernel name, from
-    ``torch.profiler`` (CUDA activity only); empty when the profiler saw
-    no device time."""
+    ``torch.profiler`` (CUDA activity only) through ``profile_bracketed``
+    (its spin kernels left out); empty when the profiler saw no device
+    time or no session stood."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from repro_torch.serve.program_registry import SPIN, profile_bracketed
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    prof, stood, dropped, _ = profile_bracketed(run, [ProfilerActivity.CUDA])
+    PROFILE_SESSIONS.append((t0, stood, dropped, time.perf_counter() - t0))
+    if not stood:
+        return {}
     by = {}
     for ev in prof.key_averages():
+        if SPIN in ev.key:
+            continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
@@ -3755,19 +4208,52 @@ def device_profile(fn, n=10):
     return by
 
 
+def profile_summary(t_start):
+    """Print how many ``device_profile`` calls had a session that stood,
+    when (seconds from ``t_start``) none did, the absorbers dropped early
+    and late in the run, and the calls' seconds."""
+    from repro_torch.serve.program_registry import PROFILE_ABSORB
+    lost = [round(t - t_start, 1) for t, stood, _, _ in PROFILE_SESSIONS
+            if not stood]
+    dropped = [(round(t - t_start, 1), d) for t, _, d, _ in PROFILE_SESSIONS]
+    print(f"  profiler: {len(PROFILE_SESSIONS) - len(lost)} of "
+          f"{len(PROFILE_SESSIONS)} readings stood; none of the sessions "
+          f"stood at {lost} s; absorbers dropped (s, of "
+          f"{PROFILE_ABSORB}): first {dropped[:3]}, last {dropped[-3:]}, "
+          f"most {max(d for _, d in dropped)}; "
+          f"{sum(s for *_, s in PROFILE_SESSIONS):.1f} s in these calls",
+          flush=True)
+
+
 def _ours(by):
+    """The ported kernels' share of a profile; NaN when it is empty."""
+    if not by:
+        return float("nan")
     return sum(v for k, v in by.items() if any(o in k for o in OUR_KERNELS))
 
 
-def step_breakdown(engine, label):
+def _total(by):
+    """A profile's device milliseconds; NaN when it is empty."""
+    return sum(by.values()) if by else float("nan")
+
+
+def step_breakdown(engine, label, seed=None):
     """One full-width decode step and one prefill (b = 4, l = 128) of the
     served model (``label``: its weights): host wall per call, device
     time per call from the profiler, the device's busy share, and the
-    largest kernels."""
+    largest kernels.  The prompt is token id 1 throughout, or with a
+    ``seed`` ids drawn from the vocabulary (an MoE model: the ids decide
+    its routing, and one id puts every pair on the same experts)."""
+    import numpy as np
     import torch
     model, params = engine.model, engine.params
     b = engine.cfg.max_batch
-    toks = torch.ones((b, 128), dtype=torch.long, device=model.device)
+    if seed is None:
+        toks = torch.ones((b, 128), dtype=torch.long, device=model.device)
+    else:
+        ids = np.random.default_rng(seed).integers(
+            1, model.cfg.vocab_size, (b, 128))
+        toks = torch.as_tensor(ids, dtype=torch.long, device=model.device)
 
     def prefill():
         return model.prefill(params, {"tokens": toks},
@@ -3791,7 +4277,8 @@ def step_breakdown(engine, label):
         dev_ms = sum(by.values())
         if not by:
             print(f"  {name}: host {host_ms:.3f} ms per call; device time "
-                  f"not measured (the profiler saw none)")
+                  f"not measured (the profiler saw none, or lost or "
+                  f"misdated a bracket)")
             continue
         top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
         print(f"  {name} (b={b}, {label} model): wall {host_ms:.3f} ms, device "
@@ -3951,10 +4438,11 @@ def prefill_tc_bound(ins, outs, chunk):
     term and the chunk state, three bf16 products each (the fp32 operand's
     three terms).  Returns (ms, by, bytes ms, operations ms, GFLOP)."""
     b, l, _ = ins["z"].shape
+    _, h, p, n = ins["ssm_state"].shape
     L, c = chunk, l // chunk
     tri = L * (L + 1) // 2
-    ops = b * c * (N_GROUPS * 2 * D_STATE * tri + N_HEADS * 3 * (
-        2 * HEAD_DIM * tri + 4 * L * D_STATE * HEAD_DIM))
+    ops = b * c * (N_GROUPS * 2 * n * tri + h * 3 * (
+        2 * p * tri + 4 * L * n * p))
     t_bytes = _bytes(*ins.values(), *outs) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_TC_FLOP_PER_S * 1e3
     ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -3970,7 +4458,8 @@ def decode_bound(ins, outs):
     once over HBM, vs ~5 fp32 operations per state element (decay, x*dt,
     *B, +, *C and its sum) plus the conv and the norm, over fp32 peak."""
     b, h, p, n = ins["ssm_state"].shape
-    ops = 5 * b * h * p * n + 10 * b * D_XBC + 10 * b * D_INNER
+    ops = 5 * b * h * p * n + 10 * b * ins["xbc"].shape[-1] + \
+        10 * b * ins["z"].shape[-1]
     return _bound(_bytes(*ins.values(), *outs), ops)
 
 
@@ -4044,7 +4533,7 @@ def qmatmul_times(dev, kernels, paths, worst, gated_launches):
             qc = q.to(x.dtype)
             lib = lambda: torch.matmul(x, qc)          # noqa: E731
             lib_ms = time_call(lib)
-            lib_dev = sum(device_profile(lib).values())
+            lib_dev = _total(device_profile(lib))
             us, lib_us = host_us(call), host_us(lib)
             bound_ms, bound_by = _bound(_bytes(x, q, scale, out),
                                         2 * m * k * n, BF16_TC_FLOP_PER_S)
@@ -4383,7 +4872,7 @@ def times_phase(dev, kernels, launches, steps, waves, worst, tables):
             print(f"    host: the wrapper {host_us(lambda: kernels[name](*args)):.1f}"
                   f" us a call, torch.cumsum {host_us(library):.1f} us; "
                   f"library device time "
-                  f"{sum(device_profile(library).values()):.4f} ms",
+                  f"{_total(device_profile(library)):.4f} ms",
                   flush=True)
         elif name == "ssd_chunk":
             ssd_times(dev, kernels, args, outs, launches, dev_ms, rate)
@@ -4391,6 +4880,61 @@ def times_phase(dev, kernels, launches, steps, waves, worst, tables):
             pwl_times(dev, kernels, launches, tables)
     return rows + qmatmul_times(dev, kernels, launches["qmatmul_paths"],
                                 worst, launches["qmatmul_gated_gemma"])
+
+
+def mamba2_2p7b_times(dev, kernels, launches, worst, steps, calls):
+    """Phase 7's rows for kernels 1 and 2 at mamba2-2.7b's width (80 heads
+    of 64, d_state 128), bf16, at the shapes phase 4j's continuous engine
+    gives them: the decode step at b = 4 and one chunk of 64 at b = 4;
+    launches from that run, bounds as :func:`times_phase`'s."""
+    import torch
+    kw = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM)
+    rows = []
+    ins = decode_inputs(4, dev, torch.bfloat16, seed=35, heads=M27_HEADS)
+    step = lambda: kernels["mamba2_step"](**ins, **kw)          # noqa: E731
+    outs = step()
+    ms = time_call(step)
+    plain_ms = time_call(lambda: kernels["mamba2_step_plain"](**ins, **kw))
+    dev_ms = _ours(device_profile(step))
+    bound_ms, bound_by = decode_bound(ins, outs)
+    rows.append(dict(
+        name="mamba2_step_2p7b", route="cuda",
+        source="src/repro_torch/csrc/decode_step.cu",
+        replaces="src/repro/kernels/decode_step.py:155",
+        launches=launches["mamba2_step_2p7b"],
+        max_abs_err=worst["mamba2_step"], ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    print(f"  mamba2_step mamba2-2.7b b=4 bf16 ({M27_HEADS} heads): kernel "
+          f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}); "
+          f"{launches['mamba2_step_2p7b'] / max(steps, 1):.0f} launches a "
+          f"decode step in phase 4j", flush=True)
+    ins = prefill_inputs(4, 64, dev, torch.bfloat16, seed=36,
+                         heads=M27_HEADS)
+    call = lambda: kernels["mamba2_prefill"](             # noqa: E731
+        **ins, chunk=64, **kw)
+    outs = call()
+    ms = time_call(call)
+    plain_ms = time_call(lambda: kernels["mamba2_prefill_plain"](
+        **ins, chunk=64, **kw))
+    dev_ms = _ours(device_profile(call))
+    bound_ms, bound_by, t_bytes, t_ops, gflop = prefill_tc_bound(ins, outs,
+                                                                 64)
+    rows.append(dict(
+        name="mamba2_prefill_2p7b", route="cuda",
+        source="src/repro_torch/csrc/prefill_chunk.cu",
+        replaces="src/repro/kernels/prefill_chunk.py:294",
+        launches=launches["mamba2_prefill_2p7b"],
+        max_abs_err=worst["mamba2_prefill"], ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    print(f"  mamba2_prefill mamba2-2.7b b=4 l=64 chunk 64 bf16: kernel "
+          f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {t_bytes:.4f} ms of bytes, "
+          f"{t_ops:.4f} ms for {gflop:.3f} GFLOP); "
+          f"{launches['mamba2_prefill_2p7b'] / max(calls, 1):.0f} launches "
+          f"a chunk call in phase 4j; library: no single PyTorch call",
+          flush=True)
+    return rows
 
 
 def mamba1_times(dev, kernels, launches, steps, worst, tables):
@@ -4561,7 +5105,10 @@ def main() -> int:
     secs = {}
 
     def phase(title):
-        """Print a phase's heading and the seconds the last one took."""
+        """Print a phase's heading and the seconds the last one took (and
+        call ``PHASE_HOOK`` with the heading first, when one is set)."""
+        if PHASE_HOOK is not None:
+            PHASE_HOOK(title)
         now = time.perf_counter()
         if secs:
             last = next(reversed(secs))
@@ -4630,6 +5177,18 @@ def main() -> int:
     tracing_phase(serve.main, counters, dev)
     phase("4i. robustness (mamba2-130m, continuous engine, chunk 64)")
     robustness_phase(serve.main, counters, dev)
+    phase(f"4j. transformer variants and mamba2-2.7b at full width "
+          f"(qwen3-moe-30b-a3b depth {MOE_DEPTH}: continuous, W8, wave, "
+          f"card; fp32 parity depth {MOE_PARITY_DEPTH}; grok-1-314b depth "
+          f"{GROK_DEPTH}; llava-next-mistral-7b depth {LLAVA_DEPTH}; "
+          f"deepseek-7b, internlm2-20b depth {DENSE_DEPTH}; mamba2-2.7b full "
+          f"depth)")
+    moe_cont, moe_w8, moe_launches = moe_phase(dev, counters)
+    launches.update(moe_launches)
+    moe_parity_phase(dev, 1, counters)
+    var_launches, m27_engine, m27_steps, m27_calls = variants_phase(
+        dev, counters, serve.main)
+    launches.update(var_launches)
 
     phase("5. path parity (fp32, kernel path vs plain path)")
     parity_phase(dev, 1, get_config("mamba2-130m"), counters)
@@ -4669,6 +5228,8 @@ def main() -> int:
         rows += mamba1_times(dev, kernels, launches, m1_steps, worst, tables)
         rows += rgemma_times(dev, kernels, launches, worst, tables)
         rows += transformer_times(dev, kernels, launches, worst)
+        rows += mamba2_2p7b_times(dev, kernels, launches, worst, m27_steps,
+                                  m27_calls)
         step_breakdown(engine, "mamba2-130m bf16")
         step_breakdown(w8_engine, "mamba2-130m W8")
         step_breakdown(m1_engine, "mamba-130m bf16")
@@ -4676,6 +5237,10 @@ def main() -> int:
         step_breakdown(rg_engine, "recurrentgemma-2b bf16")
         step_breakdown(rg_pallas, "recurrentgemma-2b bf16 pallas()")
         step_breakdown(gemma_wave, "gemma-2b bf16 use_flash")
+        step_breakdown(moe_cont, f"qwen3-moe-30b-a3b depth {MOE_DEPTH} bf16 "
+                       f"(seeded prompt ids)", seed=4)
+        step_breakdown(m27_engine, "mamba2-2.7b bf16")
+        profile_summary(t_start)
     engines_summary((("mamba2 wave, bf16 (8 requests)", engine),
                      ("mamba2 continuous 64, bf16 (12)", cont_engine),
                      ("mamba2 continuous 64, W8 (12)", w8_engine),
@@ -4691,7 +5256,12 @@ def main() -> int:
                      ("gemma wave, bf16 flash (4)", gemma_wave),
                      ("gemma continuous 64, bf16 (4)", gemma_cont),
                      (f"qwen wave, depth {QWEN_DEPTH}, flash (4)",
-                      qwen_wave)))
+                      qwen_wave),
+                     (f"qwen3-moe continuous 64, depth {MOE_DEPTH} (8)",
+                      moe_cont),
+                     (f"qwen3-moe continuous 64, W8, depth {MOE_DEPTH} (8)",
+                      moe_w8),
+                     ("mamba2-2.7b continuous 64, bf16 (4)", m27_engine)))
     phase(None)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -1,9 +1,12 @@
 """Architecture config registry: ``--arch <id>`` resolution.
 
-The Mamba-2 (mamba2-130m), Mamba-1 (mamba-130m), RecurrentGemma
-(recurrentgemma-2b) and dense transformer (gemma-2b, qwen1.5-4b) paths
-are ported; every other architecture of the JAX package's registry
-raises ``NotImplementedError`` here.
+Every architecture of the JAX package's registry is ported but
+whisper-tiny (its encoder, ``layernorm`` and cross-attention), which
+raises ``NotImplementedError`` here: Mamba-2 (mamba2-130m, mamba2-2.7b),
+Mamba-1 (mamba-130m), RecurrentGemma (recurrentgemma-2b), the dense
+transformer (gemma-2b, qwen1.5-4b, deepseek-7b, internlm2-20b), its MoE
+variants (qwen3-moe-30b-a3b, grok-1-314b) and its vision stub
+(llava-next-mistral-7b).
 """
 from __future__ import annotations
 
@@ -18,6 +21,12 @@ _ARCHS: Dict[str, str] = {
     "recurrentgemma-2b": "recurrentgemma_2b",
     "gemma-2b": "gemma_2b",
     "qwen1.5-4b": "qwen15_4b",
+    "deepseek-7b": "deepseek_7b",
+    "internlm2-20b": "internlm2_20b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "grok-1-314b": "grok1_314b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "mamba2-2.7b": "mamba2_2p7b",
 }
 
 

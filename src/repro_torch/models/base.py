@@ -1,5 +1,6 @@
 """Model configuration: the ``repro.models.base.ModelConfig`` fields that
-the Mamba-1, Mamba-2, RecurrentGemma and dense transformer families use,
+the Mamba-1, Mamba-2, RecurrentGemma and transformer (dense, MoE and the
+vision stub) families use,
 with ``dtype`` as a ``torch.dtype``; the shared helpers
 ``chunk_positions`` and ``cross_entropy_loss``; and :class:`DecodeAPI`,
 the serving surface's shared part (``prefill_chunk`` and
@@ -199,9 +200,22 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ()   # e.g. ("recurrent", "recurrent",
     #                                       "attention")
 
-    # -- transformer variants that are not ported (the model refuses them) ----
+    # -- MoE (the transformer's mixture-of-experts layers, nn/moe.py) --------
     moe: bool = False
+    n_experts: int = 0
+    n_experts_per_token: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    moe_renormalize: bool = True
+    moe_aux_weight: float = 0.01
+    # The JAX package's sharding hint for the dispatch buffers, kept as a
+    # name only: one card has no mesh to pin them to.
+    moe_cap_batch_sharding: bool = False
+
+    # -- multimodal stubs -----------------------------------------------------
+    # vision_stub (llava) is ported; audio_stub (whisper) is refused.
     frontend: Optional[str] = None        # vision_stub | audio_stub
+    num_patches: int = 0                  # llava: image token count
 
     # -- execution policies ---------------------------------------------------
     param_dtype: str = "bfloat16"

@@ -2,8 +2,11 @@
 ``family="mamba2"`` (SSD) and ``family="mamba"`` (Mamba-1, selective
 scan).
 
-Block = RMSNorm -> mixer -> residual; final RMSNorm; tied logits in
-fp32.  Params are plain dicts of tensors with the layer trunk as a
+Block = RMSNorm -> mixer -> residual; final RMSNorm; logits in fp32:
+tied, ``x @ table^T`` accumulated in fp32 (``nn/layers.py: unembed``);
+untied (``tie_embeddings=False``), ``x @ lm_head`` rounded to the stream
+dtype and then widened, as the JAX package rounds them (under W8 the
+``lm_head`` is quantized, as JAX's ``quantize_params`` does).  Params are plain dicts of tensors with the layer trunk as a
 per-layer list, walked by a Python loop.  :meth:`MambaLM.decode_view`
 adds each mixer's kernel operands in fp32, once per weight set (the
 engine serves from it).  The serving cache is the JAX package's stacked
@@ -44,8 +47,6 @@ class MambaLM(DecodeAPI):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet; have "
                 f"{sorted(_MIXERS)}")
-        if not cfg.tie_embeddings:
-            raise NotImplementedError("untied embeddings are not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._prefix = _MIXERS[cfg.family]
@@ -60,11 +61,15 @@ class MambaLM(DecodeAPI):
         cfg = self.cfg
         block = {"ln": layers.norm_specs(cfg.d_model),
                  "mixer": self._fn("specs")(cfg)}
-        return {
+        specs = {
             "embed": layers.embed_specs(cfg.vocab_size, cfg.d_model),
             "final_norm": layers.norm_specs(cfg.d_model),
             "layers": stack_specs(block, cfg.n_layers),
         }
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = layers.linear_specs(cfg.d_model,
+                                                   cfg.vocab_size)
+        return specs
 
     def decode_view(self, params) -> dict:
         """``params`` with each layer's mixer carrying its kernel operands
@@ -90,8 +95,10 @@ class MambaLM(DecodeAPI):
         return x, new
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
-        return layers.unembed(params["embed"],
-                              layers.norm(params["final_norm"], x))
+        x = layers.norm(params["final_norm"], x)
+        if self.cfg.tie_embeddings:
+            return layers.unembed(params["embed"], x)
+        return layers.linear(params["lm_head"], x).float()
 
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """Full-sequence logits (b, l, V) fp32, no cache: every layer runs

@@ -4,7 +4,8 @@
 Each layer is RMSNorm -> temporal block (RG-LRU or local MQA attention)
 -> residual, then RMSNorm -> GeGLU MLP -> residual; the blocks follow
 ``block_pattern`` (recurrent, recurrent, attention) over ``n_layers``.
-Embeddings are tied and scaled by sqrt(d_model), cast to the stream
+Embeddings are tied (with ``tie_embeddings`` off too, as in the JAX
+package) and scaled by sqrt(d_model), cast to the stream
 dtype first (in bf16 that is 50.5, not 50.596); the logits are fp32 and
 soft-capped, ``tanh(l / c) * c``.
 
@@ -53,8 +54,9 @@ class RecurrentGemma(base.DecodeAPI):
     (:meth:`decode_view`)."""
 
     def __init__(self, cfg: base.ModelConfig, device: DeviceLike = None):
-        if not cfg.tie_embeddings:
-            raise NotImplementedError("untied embeddings are not ported yet")
+        # The logits are always tied: the JAX RecurrentGemma has no
+        # ``lm_head`` and reads no ``tie_embeddings``, so a config with the
+        # flag off runs as one with it on.
         self.cfg = cfg
         self.device = resolve_device(device)
         self.pattern = tuple(cfg.block_pattern or

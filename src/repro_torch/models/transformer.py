@@ -1,10 +1,15 @@
-"""Decoder-only dense transformer LM (port of
-``repro.models.transformer.TransformerLM``): gemma-2b (MQA, GeGLU, tied
-and scaled embeddings) and qwen1.5-4b (QKV biases, SwiGLU, an untied
-``lm_head``) through config alone.
+"""Decoder-only transformer LM (port of
+``repro.models.transformer.TransformerLM``): dense GQA / MQA, MoE and the
+vision stub through config alone: gemma-2b (MQA, GeGLU, tied and scaled
+embeddings), qwen1.5-4b (QKV biases, SwiGLU, an untied ``lm_head``),
+deepseek-7b, internlm2-20b, qwen3-moe-30b-a3b and grok-1-314b (MoE
+layers; grok with an attention soft-cap) and llava-next-mistral-7b (the
+vision stub).
 
 Each layer is norm -> attention (GQA / MQA, RoPE, causal, the config's
-sliding window) -> residual, then norm -> gated MLP -> residual; then the
+sliding window) -> residual, then norm -> gated MLP or MoE
+(``nn/moe.py``, which also returns its load-balancing loss) ->
+residual; then the
 final norm and the logits in fp32: tied, ``x @ table^T`` accumulated in
 fp32 (``nn/layers.py: unembed``); untied, ``x @ lm_head`` rounded to the
 stream dtype and then widened, as the JAX package rounds them.  With
@@ -14,6 +19,19 @@ Under ``use_flash`` (a config override, as in the JAX package) the
 whole-sequence attention of ``prefill`` and ``loss`` runs the flash
 attention kernel (TPU kernel 9); chunked prefill and decode attend to the
 cache with tensor code, as the JAX package does.
+
+MoE: ``loss`` adds ``moe_aux_weight * aux / n_layers`` (``aux`` summed
+over the layers) and reports ``metrics["moe_aux"]``; the serving calls
+drop ``aux``.  An MoE row's output depends on every token of the call
+(capacity and drops, ``nn/moe.py``), so a chunked prefill is not one
+whole prefill and a verify window is not its steps: the engines call the
+model on the JAX engines' own row sets.
+
+The vision stub (``frontend="vision_stub"``): ``prefill`` and ``loss``
+take ``batch["image_embeds"]`` (b, P, d), cast to the stream dtype and
+put ahead of the token embeddings (``embed_scale`` scales the tokens
+only); positions run over P + l and ``loss`` drops the first P logits.
+The engines pass tokens only, so llava serves as text through them.
 
 Params mirror the JAX tree (``embed``, ``final_norm``, the stacked
 ``layers``, ``lm_head`` when untied) so that a seed draws each leaf with
@@ -38,22 +56,21 @@ import torch
 
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import base
-from repro_torch.nn import attention, layers, mlp as mlp_mod
+from repro_torch.nn import attention, layers, mlp as mlp_mod, moe as moe_mod
 from repro_torch.nn.params import stack_specs
 
 
 class TransformerLM(base.DecodeAPI):
-    """Dense GQA / MQA transformer; runs on ``device`` (default ``cuda``).
-    MoE layers and the vision frontend are not ported.  W8 weights
-    (``nn/quant.py``) go through ``layers.linear``'s ``qdot`` (kernel 10
-    on the card), the ActiBA gated MLP under ``pallas()`` through kernel
-    10's gated PWL form."""
+    """GQA / MQA transformer, dense or MoE; runs on ``device`` (default
+    ``cuda``).  The ``audio_stub`` frontend (whisper) is not ported.  W8
+    weights (``nn/quant.py``) go through ``layers.linear``'s ``qdot``
+    (kernel 10 on the card), the ActiBA gated MLP under ``pallas()``
+    through kernel 10's gated PWL form; the router and the bare expert
+    tensors stay as they are, as the JAX package's ``quantize_params``
+    leaves them."""
 
     def __init__(self, cfg: base.ModelConfig, device: DeviceLike = None):
-        if cfg.moe:
-            raise NotImplementedError("MoE transformer layers are not "
-                                      "ported yet")
-        if cfg.frontend is not None:
+        if cfg.frontend not in (None, "vision_stub"):
             raise NotImplementedError(f"the {cfg.frontend!r} frontend is not "
                                       f"ported yet")
         self.cfg = cfg
@@ -66,8 +83,11 @@ class TransformerLM(base.DecodeAPI):
             "ln_attn": layers.norm_specs(cfg.d_model, norm_type=cfg.norm_type),
             "attn": attention.attention_specs(cfg),
             "ln_mlp": layers.norm_specs(cfg.d_model, norm_type=cfg.norm_type),
-            "mlp": mlp_mod.mlp_specs(cfg),
         }
+        if cfg.moe:
+            block["moe"] = moe_mod.moe_specs(cfg)
+        else:
+            block["mlp"] = mlp_mod.mlp_specs(cfg)
         specs = {
             "embed": layers.embed_specs(cfg.vocab_size, cfg.d_model),
             "final_norm": layers.norm_specs(cfg.d_model,
@@ -92,6 +112,19 @@ class TransformerLM(base.DecodeAPI):
             x = x * torch.tensor(np.sqrt(self.cfg.d_model), dtype=x.dtype)
         return x
 
+    def _embed_inputs(self, params, batch) -> Tuple[torch.Tensor,
+                                                    torch.Tensor, int]:
+        """A whole-sequence call's (x, positions, P): the vision stub's
+        ``image_embeds`` (b, P, d) ahead of the token embeddings, P = 0
+        without them."""
+        x = self._embed(params, batch["tokens"])
+        prefix = 0
+        if self.cfg.frontend == "vision_stub" and "image_embeds" in batch:
+            img = batch["image_embeds"].to(x.device, x.dtype)
+            x = torch.cat([img, x], dim=1)
+            prefix = img.shape[1]
+        return x, self._positions(np.arange(x.shape[1])[None, :]), prefix
+
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = layers.norm(params["final_norm"], x, norm_type=cfg.norm_type)
@@ -100,12 +133,16 @@ class TransformerLM(base.DecodeAPI):
         return layers.linear(params["lm_head"], x).float()
 
     def _trunk(self, params, x: torch.Tensor, positions: torch.Tensor,
-               cache=None, cache_index=None) -> Tuple[torch.Tensor, Any]:
-        """The layers in order; with a cache, each layer writes its new k
-        and v into its slice of one freshly allocated cache."""
+               cache=None, cache_index=None
+               ) -> Tuple[torch.Tensor, Any, Any]:
+        """The layers in order -> (x, cache, the MoE aux loss summed over
+        the layers: fp32, 0.0 for a dense model); with a cache, each layer
+        writes its new k and v into its slice of one freshly allocated
+        cache."""
         cfg = self.cfg
         new = None if cache is None else attention.KVCache(
             torch.empty_like(cache.k), torch.empty_like(cache.v))
+        aux = 0.0                   # a tensor once an MoE layer adds to it
         for i, p in enumerate(params["layers"]):
             h, _ = attention.apply(
                 p["attn"], cfg,
@@ -118,9 +155,14 @@ class TransformerLM(base.DecodeAPI):
                 out=None if cache is None else
                 attention.KVCache(new.k[i], new.v[i]))
             x = x + h
-            x = x + mlp_mod.apply(p["mlp"], cfg, layers.norm(
-                p["ln_mlp"], x, norm_type=cfg.norm_type))
-        return x, new
+            hin = layers.norm(p["ln_mlp"], x, norm_type=cfg.norm_type)
+            if cfg.moe:
+                h, a = moe_mod.apply(p["moe"], cfg, hin)
+                aux = aux + a
+            else:
+                h = mlp_mod.apply(p["mlp"], cfg, hin)
+            x = x + h
+        return x, new, aux
 
     def _positions(self, pos: np.ndarray) -> torch.Tensor:
         return torch.tensor(pos, dtype=torch.long, device=self.device)
@@ -129,14 +171,20 @@ class TransformerLM(base.DecodeAPI):
     def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
         """The training loss's forward (value and metrics, no backward):
         the cache-less trunk (kernel 9 once a layer under ``use_flash``),
-        next-token cross entropy with the z-loss."""
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
-        positions = self._positions(np.arange(tokens.shape[1])[None, :])
-        x, _ = self._trunk(params, x, positions)
+        next-token cross entropy with the z-loss over the token positions
+        (the vision stub's P image positions dropped), plus the MoE
+        load-balancing term."""
+        cfg = self.cfg
+        x, positions, prefix = self._embed_inputs(params, batch)
+        x, _, aux = self._trunk(params, x, positions)
         logits = self._logits(params, x)
+        if prefix:
+            logits = logits[:, prefix:]
         loss, metrics = base.cross_entropy_loss(logits[:, :-1],
                                                 batch["labels"][:, 1:])
+        if cfg.moe:
+            loss = loss + cfg.moe_aux_weight * aux / cfg.n_layers
+            metrics["moe_aux"] = aux / cfg.n_layers
         metrics["loss_total"] = loss
         return loss, metrics
 
@@ -159,12 +207,11 @@ class TransformerLM(base.DecodeAPI):
 
     def prefill(self, params, batch, cache) -> Tuple[torch.Tensor, Any]:
         """Whole prompt ``batch["tokens"]`` (b, l), every row from
-        position 0 -> (last logits (b, V) fp32, cache after the prompt)."""
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
-        x, new = self._trunk(
-            params, x, self._positions(np.arange(tokens.shape[1])[None, :]),
-            cache)
+        position 0, behind ``batch["image_embeds"]`` (b, P, d) under the
+        vision stub -> (last logits (b, V) fp32, cache after the P + l
+        positions)."""
+        x, positions, _ = self._embed_inputs(params, batch)
+        x, new, _ = self._trunk(params, x, positions, cache)
         return self._logits(params, x[:, -1]), new
 
     def _chunk_hidden(self, params, tokens, cache, index):
@@ -174,8 +221,9 @@ class TransformerLM(base.DecodeAPI):
         chunk_attention``)."""
         idx = np.asarray(index, np.int64)
         pos = base.chunk_positions(idx, *tokens.shape)
-        return self._trunk(params, self._embed(params, tokens),
-                           self._positions(pos), cache, idx)
+        x, new, _ = self._trunk(params, self._embed(params, tokens),
+                                self._positions(pos), cache, idx)
+        return x, new
 
     def decode_step(self, params, token, cache, index
                     ) -> Tuple[torch.Tensor, Any]:
@@ -185,7 +233,8 @@ class TransformerLM(base.DecodeAPI):
         b = token.shape[0]
         pos = np.broadcast_to(idx.reshape(-1, 1), (b, 1))
         x = self._embed(params, token)
-        x, new = self._trunk(params, x, self._positions(pos), cache, idx)
+        x, new, _ = self._trunk(params, x, self._positions(pos), cache,
+                                idx)
         return self._logits(params, x[:, 0]), new
 
     def export_state(self, cache, index, rows):

@@ -7,7 +7,9 @@ the same init scale as ``repro.nn.params._init_one`` (the fan-in of a
 stacked weight is its leading axis):
 
 * the Mamba models' and the transformer's ``layers`` (``stack_specs``: a
-  leading ``n_layers`` axis);
+  leading ``n_layers`` axis; an MoE layer's expert tensors (e, d, f)
+  stack to (n_layers, e, d, f) and take their fan-in from that layer
+  axis too);
 * RecurrentGemma's ``groups`` (a leading ``n_groups`` axis on each
   pattern position ``"0"``, ``"1"``, ...) and its unstacked ``tail``
   (``"0"``, ``"1"``, ... of the layers past the last whole group).

@@ -15,7 +15,9 @@ On demand, never on the serve path, :func:`build_card` builds a
 It allocates fresh zero buffers of the registered shapes (the weights are
 the engine's own, by reference; no live pool or cache is touched, as JAX
 lowers from ``ShapeDtypeStruct``s), runs one warm call and then one
-measured call under ``torch.profiler``, and reads:
+measured call under ``torch.profiler`` (on the card between two spin
+kernels, and again, up to twice, when the profiler lost or misdated one:
+:func:`profile_bracketed`), and reads:
 
 * ``ops``: the device operations the measured call launched, by name and
   count (on the CPU: the profiler's top-level CPU ops, those the program
@@ -33,7 +35,8 @@ measured call under ``torch.profiler``, and reads:
   outputs (``torch.cuda.reset_peak_memory_stats`` /
   ``max_memory_allocated``);
 * ``device_ms``: the summed device time of the measured call's
-  operations;
+  operations, ``None`` when the profiler lost or misdated events (see
+  :func:`profile_bracketed`);
 * ``roofline``: ``memory_s``, argument plus output bytes at the H100's
   3.35 TB/s.
 
@@ -64,6 +67,19 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 MB = 2 ** 20
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate (roofline model)
+# torch.profiler on the card was seen to drop the first events of a
+# session (more of them as the process ages) and, in some sessions, to
+# misdate device events (durations off by 0.5-1.4x): a session starts with
+# PROFILE_ABSORB empty spin kernels for the profiler to drop, brackets its
+# work with two spin kernels of SPIN_CYCLES, and stands only when both
+# brackets are kept at their duration by CUDA events, within
+# PROFILE_SPIN_TOL; else it is taken again, up to PROFILE_TRIES times
+# (profile_bracketed).
+PROFILE_ABSORB = 1000
+PROFILE_TRIES = 3
+PROFILE_SPIN_TOL = 0.1
+SPIN_CYCLES = 1_000_000
+SPIN = "spin_kernel"            # torch.cuda._sleep's kernel
 
 # Budgets for the full-width decode programs, keyed on the FULL d_model so
 # that reduced test configs never inherit them.  Ceilings sit above the
@@ -297,6 +313,53 @@ class ProgramCard:
         return out
 
 
+def _spin_ms() -> float:
+    """One bracket's milliseconds on the card by CUDA events (median of
+    five)."""
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[2]
+
+
+def profile_bracketed(run: Callable, activities) -> tuple:
+    """Profile ``run()`` on the card between ``PROFILE_ABSORB`` empty spin
+    kernels and two brackets, up to ``PROFILE_TRIES`` times, until a
+    session keeps both brackets at their CUDA-event duration (every device
+    event between them is then kept and dated at the right rate).
+    Returns (profile, whether that session stood, how many of its
+    absorbers the profiler dropped, the last ``run()``'s output).  Spin
+    kernels are ``SPIN`` events in the profile."""
+    from torch.profiler import profile
+
+    spin_ms = _spin_ms()
+    for _ in range(PROFILE_TRIES):
+        out = None      # a retry must not hold the last try's output
+        with profile(activities=activities) as prof:
+            for _ in range(PROFILE_ABSORB):
+                torch.cuda._sleep(0)
+            torch.cuda._sleep(SPIN_CYCLES)
+            out = run()
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        spins = [e.duration_ns() / 1e6
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA
+                 and SPIN in e.name()]
+        brackets = [ms for ms in spins if ms > spin_ms / 2]
+        dropped = PROFILE_ABSORB - (len(spins) - len(brackets))
+        if len(brackets) == 2 and all(
+                abs(ms / spin_ms - 1) <= PROFILE_SPIN_TOL for ms in brackets):
+            return prof, True, dropped, out
+    return prof, False, dropped, out
+
+
 def build_card(name: str, program_id: str, fn: Callable, example_args,
                budget: Optional[ProgramBudget] = None,
                weights: Any = None) -> ProgramCard:
@@ -324,14 +387,14 @@ def build_card(name: str, program_id: str, fn: Callable, example_args,
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
                 before = torch.cuda.memory_allocated()
-            activities = [ProfilerActivity.CPU] + (
-                [ProfilerActivity.CUDA] if cuda else [])
-            with profile(activities=activities) as prof:
-                out = fn(*call_args)
-                if cuda:
-                    torch.cuda.synchronize()
             if cuda:
+                prof, stood, _, out = profile_bracketed(
+                    lambda: fn(*call_args),
+                    [ProfilerActivity.CPU, ProfilerActivity.CUDA])
                 peak = torch.cuda.max_memory_allocated()
+            else:
+                with profile(activities=[ProfilerActivity.CPU]) as prof:
+                    out = fn(*call_args)
     finally:
         _restore(saved)
 
@@ -340,9 +403,11 @@ def build_card(name: str, program_id: str, fn: Callable, example_args,
     new_out = sum(b for p, b in out_stor.items() if p not in arg_stor)
     events = prof.events()
     if cuda:
-        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        dev = [e for e in events if e.device_type == DeviceType.CUDA
+               and SPIN not in e.name]
         ops = Counter(e.name for e in dev)
-        device_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        device_ms = (sum(e.time_range.elapsed_us() for e in dev) / 1e3
+                     if stood else None)
         temp = max(0, peak - before - new_out)
         roofline = {"memory_s": (sum(arg_stor.values()) +
                                  sum(out_stor.values())) / HBM_BYTES_PER_S}

@@ -197,13 +197,16 @@ def test_matmul_pwl_body_on_mixed_dtypes_and_misaligned_bases():
 
 def _attn_shapes():
     """(b, hq, hkv, L, d) of kernel 9's calls: chip_smoke.py's cases and
-    the prefills of gemma-2b and qwen1.5-4b (and their reduced configs)
-    at the wave engine's buckets and the 4096-token prompt."""
+    the prefills of every transformer that takes it (and their reduced
+    configs; grok-1's soft-cap never does) at the wave engine's buckets,
+    the 4096-token prompt and llava's 576 image positions ahead of 64
+    tokens."""
     out = [(b, hq, hkv, L, d) for _, b, hq, hkv, L, d, _, _ in FLASH_CASES]
-    for arch in ("gemma-2b", "qwen1.5-4b"):
+    for arch in ("gemma-2b", "qwen1.5-4b", "deepseek-7b", "internlm2-20b",
+                 "qwen3-moe-30b-a3b", "llava-next-mistral-7b"):
         for reduced in (False, True):
             cfg = get_config(arch, reduced=reduced)
-            for b, L in ((4, 32), (4, 128), (1, 4096), (1, 512)):
+            for b, L in ((4, 32), (4, 128), (1, 4096), (1, 512), (1, 640)):
                 out.append((b, cfg.n_heads, cfg.n_kv_heads, L,
                             cfg.head_dim))
     return out
