@@ -189,6 +189,33 @@ internlm2-20b, and of mamba2-2.7b:
    mamba2-2.7b at full depth through the CLI's continuous engine (chunk
    64, 4 requests: kernels 1 and 2 64 times a decode step and a chunk
    call);
+   4k: training (``launch/train.py``, ``train/step.py``; kernels 2, 9
+   and 12 through their ``torch.autograd.Function``): (a) each Function
+   in fp32 and bf16 — kernel 2 at b = 8, l = 512, chunk 256 (two chunks,
+   the state carried inside the launch) exact and with the ActiBA tables,
+   kernel 9 at gemma-2b's prefill (b = 4, L = 128), kernel 12 on the
+   chain's xBC, dt and gate streams — its forward bit for bit the direct
+   kernel call with one launch counted, its gradients bit for bit
+   ``torch.autograd.grad`` of the plain version on the same inputs; kernel
+   2's train row (the direct call, the Function, its backward, plain,
+   bound); (b) kernel 13 under grad with an input that requires grad
+   raises ``NotImplementedError``, launching nothing; (c) fp32
+   mamba2-130m at full width, depth 2: every gradient leaf on the card
+   within ``TRAIN_GRAD_TOL`` of the CPU's plain path, then one train step
+   on each side, every element within AdamW's bound on the two sides'
+   gradients; (d) the main path: ``launch.train.main`` at full width in
+   bf16, 20 steps of b = 8, l = 512 with checkpoints at 10 and 20 — every
+   leaf's step-1 gradient finite and not all zeros, 48 kernel-2 launches
+   a step (24, and 24 more recomputed under ``remat="full"``), the last
+   five losses below the first five, both checkpoints written, and a run
+   resumed from step 10 within ``TRAIN_RESUME_TOL`` of steps 10-19 (bit
+   for bit is printed when it holds); (e) gemma-2b with ``use_flash`` at
+   full width, depth 2, 3 steps of b = 2, l = 256: every leaf's gradient
+   finite, kernel 9 twice a layer a step; (f) the step's median ms,
+   tokens/s and model TFLOP/s (``launch/flops.py``), peak memory, and one
+   step split into forward, backward and the AdamW update (CUDA events and
+   ``profile_bracketed`` device time), kernel 2's forward device ms beside
+   its backward's;
 5. parity  — the same model in fp32, kernel path on the card against the
    plain path on the CPU, teacher-forced over 16 greedy tokens of 4
    prompts, with fp32 weights and with W8 weights: tokens agree
@@ -5025,6 +5052,582 @@ def engines_summary(engines):
             for k in keys), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 4k: training (kernels 2, 9 and 12 under autograd)
+# ---------------------------------------------------------------------------
+
+TRAIN_BUDGET_S = 90.0       # phase 4k's seconds
+TRAIN_B, TRAIN_L = 8, 512   # the train step's batch: two chunks of 256
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 20, 10
+# 4k-c: fp32 mamba2-130m at full width, depth 2, card (kernel 2) against
+# the CPU (plain path), per gradient leaf: max |card - CPU| / max |CPU|.
+# The card's fp32 kernel 2 sits within TOL[fp32] (1e-4 of each element
+# and its rms) of the plain version; the worst leaf, a norm scale whose
+# gradient sums b l = 1024 products, read 1.903e-3 on an H100 80GB HBM3
+# at 700 W (PERF.md, Findings), and the limit is set above that reading.
+TRAIN_GRAD_TOL = 5e-3
+# The train step on each side from the same state (constant lr, AdamW's
+# moments zero).  AdamW's first step moves an element by lr u(g) with
+# u(g) = g / (|g| + eps) (bias-corrected, the moments zero), plus the
+# same weight decay on both sides; |u(g1) - u(g2)| <= 2 |g1 - g2| /
+# (max(|g1|, |g2|) + eps), so an element whose gradient the two sides
+# round apart (a sign near zero) may move up to 2 lr.  Each element is
+# held to lr times that bound on the two sides' gradients, plus 1e-5 of
+# its leaf's largest value and TRAIN_STEP_SLACK lr for the rounding of
+# the update itself.
+TRAIN_STEP_SLACK = 1e-3
+TRAIN_PARITY_LR = 1e-3
+# 4k-d: a run resumed from step 10 against the uninterrupted run's steps
+# 10-19, absolute on the loss: the tied embedding's backward on the card
+# sums its rows with atomics, in an order that changes from run to run,
+# and bf16 params round that apart.
+TRAIN_RESUME_TOL = 0.02
+GEMMA_TRAIN_DEPTH, GEMMA_TRAIN_B, GEMMA_TRAIN_L, GEMMA_TRAIN_STEPS = \
+    2, 2, 256, 3
+
+
+def _leaf_grads(model, params, batch):
+    """(loss, metrics, grads as a list in ``tree_leaves`` order) of
+    ``model.loss`` on fresh leaves of ``params``."""
+    import torch
+    from repro_torch.nn.params import tree_leaves, tree_map
+    with torch.enable_grad():
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, metrics = model.loss(p, batch)
+        leaves = tree_leaves(p)
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss, metrics, [torch.zeros_like(t) if g is None else g
+                           for t, g in zip(leaves, got)]
+
+
+def _seeded_like(outs, seed):
+    """Incoming gradients for ``outs``: seeded normals on their device, in
+    their dtype."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(o.shape, generator=g).to(o.device, o.dtype)
+            for o in outs]
+
+
+def _function_case(label, fn_apply, direct, plain, leaves, counter, seed):
+    """One 4k-a case: the Function's forward against the direct kernel
+    call (bit for bit, one launch counted) and its gradients against
+    ``torch.autograd.grad`` of the plain version on the same inputs and
+    incoming gradients (bit for bit: the backward is that same code).
+    Returns the Function's outputs and gradients."""
+    import torch
+    with torch.no_grad():
+        want = direct()
+    want = want if isinstance(want, tuple) else (want,)
+    n0 = counter.launches
+    outs = fn_apply()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert counter.launches == n0 + 1, f"{label}: launch not counted"
+    same_fwd = all(torch.equal(a, b) for a, b in zip(outs, want))
+    gouts = _seeded_like(outs, seed)
+    got = torch.autograd.grad(outs, leaves, gouts)
+    p_outs = plain()
+    p_outs = p_outs if isinstance(p_outs, tuple) else (p_outs,)
+    ref = torch.autograd.grad(p_outs, leaves, gouts)
+    diffs = [float((a.float() - b.float()).abs().max()) for a, b in
+             zip(got, ref)]
+    same_bwd = all(torch.equal(a, b) for a, b in zip(got, ref))
+    print(f"  {label}: forward {'equals' if same_fwd else 'DIFFERS from'} "
+          f"the direct kernel call; {len(got)} gradients "
+          f"{'equal' if same_bwd else 'DIFFER from'} autograd of the plain "
+          f"version (max |diff| {max(diffs):.3e})", flush=True)
+    assert same_fwd, f"{label}: Function forward != direct kernel call"
+    assert same_bwd, f"{label}: Function backward != plain autograd"
+    return outs, got
+
+
+def train_functions_phase(dev, tables):
+    """4k-a: kernels 2, 9 and 12 through their autograd Functions in fp32
+    and bf16 (kernel 2 at the train shape, b = 8, l = 512, chunk 256, and
+    with the ActiBA tables; kernel 9 at gemma-2b's prefill, b = 4, L =
+    128, MQA 8 x 256; kernel 12 on the chain's xBC, dt and gate streams);
+    then kernel 2's bf16 train-shape times (forward through the Function,
+    its backward, the direct kernel's device time, plain, bound).  4k-b:
+    the guard.  Returns the train row's measurements."""
+    import functools
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.pwl import eval_pwl
+    from repro_torch.kernels import actiba, cumba, flash_attention, ops, \
+        prefill_chunk as pc
+
+    def act(table, exact):
+        return exact if table is None else functools.partial(eval_pwl,
+                                                             table)
+    names = ("z", "xbc", "dt", "conv_state", "ssm_state", "conv_w", "conv_b",
+             "dt_bias", "A", "D", "norm_scale")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for actiba_on in (False, True):
+            tabs = dict(silu_table=tables["silu"],
+                        softplus_table=tables["softplus"]) if actiba_on \
+                else dict(silu_table=None, softplus_table=None)
+            spec = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM, chunk=256,
+                        **tabs)
+            ins = prefill_inputs(TRAIN_B, TRAIN_L, dev, dtype, seed=41)
+            leaves = [ins[k].detach().requires_grad_() for k in names]
+            outs, _ = _function_case(
+                f"kernel 2 {dn} b={TRAIN_B} l={TRAIN_L}"
+                f"{' ActiBA' if actiba_on else ''}",
+                lambda: pc.Mamba2Prefill.apply(spec, *leaves),
+                lambda: pc.mamba2_prefill(*leaves, **spec),
+                lambda: pc.mamba2_prefill_plain(
+                    *leaves, ngroups=N_GROUPS, head_dim=HEAD_DIM, chunk=256,
+                    silu=act(tabs["silu_table"], F.silu),
+                    softplus=act(tabs["softplus_table"], F.softplus)),
+                leaves, pc.mamba2_prefill, seed=42)
+            if dtype == torch.bfloat16 and not actiba_on:
+                spec_b, leaves_b, outs_b = spec, leaves, outs
+        q, k, v = (t.detach().requires_grad_() for t in
+                   flash_inputs(4, 8, 1, 128, 256, dev, dtype, seed=43))
+        fspec = dict(causal=True, window=None, scale=None)
+        _function_case(
+            f"kernel 9 {dn} gemma-2b prefill b=4 L=128",
+            lambda: flash_attention.FlashAttention.apply(fspec, q, k, v),
+            lambda: flash_attention.flash_attention(q, k, v, **fspec),
+            lambda: flash_attention.flash_attention_plain(q, k, v, **fspec),
+            [q, k, v], flash_attention.flash_attention, seed=44)
+        g = torch.Generator().manual_seed(45)
+        for name, shape, scale in (("xBC", (4, 300, 1792), 2.0),
+                                   ("dt", (4, 300, N_HEADS), 2.0),
+                                   ("gate", (4, 300, 1536), 2.0)):
+            table = tables["softplus" if name == "dt" else "silu"]
+            x = (torch.randn(shape, generator=g) * scale).to(dev, dtype) \
+                .requires_grad_()
+            _function_case(
+                f"kernel 12 {dn} {name} {shape}",
+                lambda: actiba.PwlActivate.apply(table, x),
+                lambda: actiba.pwl_activate(x, table),
+                lambda: actiba.pwl_activate_plain(x, table),
+                [x], actiba.pwl_activate, seed=46)
+
+    # Kernel 2's train row: bf16, b = 8, l = 512, exact activations.
+    gouts = _seeded_like(outs_b, 47)
+
+    def fwd():
+        return pc.Mamba2Prefill.apply(spec_b, *leaves_b)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), leaves_b, gouts)
+
+    direct = lambda: pc.mamba2_prefill(*leaves_b, **spec_b)  # noqa: E731
+    with torch.no_grad():
+        out["ms"] = time_call(direct)
+        out["dev_ms"] = _ours(device_profile(direct))
+        plain_kw = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM, chunk=256)
+        out["plain_ms"] = time_call(lambda: pc.mamba2_prefill_plain(
+            *leaves_b, **plain_kw))
+        out["max_abs_err"] = max(float((a.float() - b.float()).abs().max())
+                                 for a, b in zip(direct(), pc.
+                                                 mamba2_prefill_plain(
+                                                     *leaves_b, **plain_kw)))
+    n0 = pc.mamba2_prefill.launches
+    out["fn_ms"] = time_call(fwd)
+    out["fwd_bwd_ms"] = time_call(fwd_bwd, n=10)
+    out["bwd_ms"] = out["fwd_bwd_ms"] - out["fn_ms"]
+    by = device_profile(fwd_bwd, n=3)
+    out["fwd_bwd_dev_ms"] = sum(by.values())
+    pc.mamba2_prefill.launches = n0          # timing launches not counted
+    with torch.no_grad():
+        b_ins = {k: t.detach() for k, t in zip(names, leaves_b)}
+        out["bound_ms"], out["bound_by"], *_ = prefill_tc_bound(
+            b_ins, direct(), 256)
+    print(f"  kernel 2 train row (bf16, b={TRAIN_B}, l={TRAIN_L}, chunk 256): "
+          f"direct call {out['ms']:.4f} ms (device {out['dev_ms']:.4f} ms), "
+          f"through the Function {out['fn_ms']:.4f} ms; its backward (the "
+          f"plain version's autograd) {out['bwd_ms']:.4f} ms, forward + "
+          f"backward device {out['fwd_bwd_dev_ms']:.4f} ms; plain "
+          f"{out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}); max |kernel - plain| "
+          f"{out['max_abs_err']:.3e}", flush=True)
+
+    # 4k-b: the guard.
+    x = torch.randn(4, 24, 2, 256, device=dev, requires_grad=True)
+    n0 = cumba.cumsum_last.launches
+    try:
+        ops.cumba_cumsum(x)
+    except NotImplementedError as e:
+        print(f"  guard: kernel 13 under grad raised NotImplementedError "
+              f"({str(e)[:60]}...)", flush=True)
+    else:
+        raise AssertionError("kernel 13 under grad returned an output")
+    assert cumba.cumsum_last.launches == n0, "the guard launched kernel 13"
+    with torch.no_grad():
+        ops.cumba_cumsum(x)
+    assert cumba.cumsum_last.launches == n0 + 1
+    cumba.cumsum_last.launches = n0
+    return out
+
+
+def train_parity_phase(dev):
+    """4k-c: fp32 mamba2-130m at full width, depth 2: the loss's
+    gradients on the card (kernel 2's forward) against the CPU (the plain
+    path) on the same params and batch, leaf by leaf; then one train step
+    on each side from the same state."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, to_device_batch
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import init_params, tree_leaves, tree_map, \
+        to_numpy
+    from repro_torch.optim import ScheduleConfig, adamw
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.kernels import prefill_chunk as pc
+    cfg = get_config("mamba2-130m").replace(n_layers=2,
+                                            param_dtype="float32")
+    models = {d: build_model(cfg, d) for d in (dev, "cpu")}
+    cpu_params = init_params(models["cpu"].param_specs(), 7, torch.float32,
+                             "cpu")
+    params = {"cpu": cpu_params,
+              dev: tree_map(lambda t: t.to(dev), cpu_params)}
+    host = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=512,
+                                  global_batch=2, seed=7)).next()
+    batch = {d: to_device_batch(host, d) for d in (dev, "cpu")}
+    n0 = pc.mamba2_prefill.launches
+    got = {dev: _leaf_grads(models[dev], params[dev], batch[dev])}
+    # Each layer once, and once more in the recompute (remat full).
+    assert pc.mamba2_prefill.launches - n0 == 2 * cfg.n_layers, \
+        "kernel 2 not on the path"
+    got["cpu"] = _leaf_grads(models["cpu"], params["cpu"], batch["cpu"])
+    names = _leaf_names(cpu_params)
+    worst, wname = 0.0, None
+    for name, a, b in zip(names, got[dev][2], got["cpu"][2]):
+        a, b = to_numpy(a).astype("float64"), to_numpy(b).astype("float64")
+        r = float(abs(a - b).max() / max(abs(b).max(), 1e-30))
+        if r > worst:
+            worst, wname = r, name
+    losses = [float(got[d][0].detach()) for d in (dev, "cpu")]
+    print(f"  fp32 depth 2 gradients, card vs CPU: loss {losses[0]:.6f} / "
+          f"{losses[1]:.6f}; worst leaf {wname} at "
+          f"{worst:.3e} of its largest value (limit {TRAIN_GRAD_TOL:g})",
+          flush=True)
+    assert worst <= TRAIN_GRAD_TOL, f"4k-c gradients: {wname} {worst}"
+
+    tc = TrainConfig(schedule=ScheduleConfig(
+        kind="constant", base_lr=TRAIN_PARITY_LR, warmup_steps=1))
+    new = {}
+    for d in (dev, "cpu"):
+        opt = adamw.init(params[d], tc.optimizer)
+        opt["step"] = torch.full_like(opt["step"], 10)
+        new[d], _ = make_train_step(models[d], tc)(
+            {"params": params[d], "opt": opt}, batch[d])
+    worst_lr, wname, over, n_5pct = 0.0, None, 0, 0
+    eps, lr = tc.optimizer.eps, TRAIN_PARITY_LR
+    for name, a, b, ga, gb in zip(names, tree_leaves(new[dev]["params"]),
+                                  tree_leaves(new["cpu"]["params"]),
+                                  got[dev][2], got["cpu"][2]):
+        a, b = to_numpy(a).astype("float64"), to_numpy(b).astype("float64")
+        ga, gb = to_numpy(ga).astype("float64"), \
+            to_numpy(gb).astype("float64")
+        step_bound = (2 * abs(ga - gb) / (abs(ga).clip(abs(gb)) + eps)) \
+            .clip(max=2.0)
+        lim = 1e-5 * abs(b).max() + lr * (step_bound + TRAIN_STEP_SLACK)
+        err = abs(a - b)
+        over += int((err > lim).sum())
+        n_5pct += int((err > 1e-5 * abs(b).max() + 0.05 * lr).sum())
+        if float(err.max()) / lr > worst_lr:
+            worst_lr, wname = float(err.max()) / lr, name
+    print(f"  one train step each side (lr {lr:g}): worst leaf {wname} moved "
+          f"{worst_lr:.3e} lr apart; {n_5pct} elements past 1e-5 of their "
+          f"leaf + 0.05 lr; {over} past AdamW's bound on the two sides' "
+          f"gradients", flush=True)
+    assert over == 0, f"4k-c train step: {over} elements, worst {wname}"
+
+
+def _leaf_names(params):
+    """Names of ``tree_leaves(params)``, in its order."""
+    def walk(t, pre):
+        if isinstance(t, dict):
+            return [n for k in sorted(t) for n in walk(t[k], f"{pre}/{k}")]
+        if isinstance(t, (list, tuple)):
+            return [n for i, x in enumerate(t) for n in walk(x, f"{pre}/{i}")]
+        return [pre]
+    return walk(params, "")
+
+
+def _recording_train(train_mod, adamw_mod, losses, grad_checks):
+    """``make_train_step`` for ``launch/train.py`` that records each step's
+    loss, and an ``adamw.update`` that checks the first step's gradients:
+    every leaf finite and not all zeros."""
+    import torch
+    from repro_torch.nn.params import tree_leaves
+    real_make, real_update = train_mod.make_train_step, adamw_mod.update
+
+    def update(grads, *a, **kw):
+        if not grad_checks:
+            leaves = tree_leaves(grads)
+            ok = torch.stack([torch.isfinite(g).all() & (g != 0).any()
+                              for g in leaves]).cpu()
+            grad_checks.append((len(leaves), int(ok.sum())))
+        return real_update(grads, *a, **kw)
+
+    def make(model, tc):
+        step = real_make(model, tc)
+
+        def run(state, batch):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            return state, metrics
+        return run
+    return make, update, real_make, real_update
+
+
+def train_main_phase(dev, counters):
+    """4k-d: the main path, ``launch.train.main`` at mamba2-130m's full
+    width (bf16, remat full): 20 steps of b = 8, l = 512 with checkpoints
+    at 10 and 20, then a run resumed from step 10.  Returns the
+    measurements for 4k-f and the kernels record."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import all_steps
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import flops, train as train_cli
+    from repro_torch.nn.params import tree_leaves
+    from repro_torch.optim import adamw as adamw_mod
+    from repro_torch.kernels import prefill_chunk as pc
+    root = ROOT / "build" / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", "mamba2-130m", "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_L), "--ckpt-every",
+            str(TRAIN_CKPT_EVERY), "--log-every", "5"]
+    runs = {}
+    try:
+        for label, ckdir in (("full", root / "a"), ("resumed", root / "b")):
+            losses, checks = [], []
+            make, update, real_make, real_update = _recording_train(
+                train_cli, adamw_mod, losses, checks)
+            train_cli.make_train_step, adamw_mod.update = make, update
+            if label == "resumed":
+                shutil.copytree(root / "a" / f"step_{TRAIN_CKPT_EVERY:08d}",
+                                ckdir / f"step_{TRAIN_CKPT_EVERY:08d}")
+            reset_counts(counters)
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            try:
+                state, monitor = train_cli.main(argv + ["--ckpt-dir",
+                                                        str(ckdir)])
+            finally:
+                train_cli.make_train_step = real_make
+                adamw_mod.update = real_update
+            runs[label] = dict(
+                losses=losses, checks=checks, counts=read_counts(counters),
+                paths=dict(pc.mamba2_prefill.path_launches),
+                secs=[r.seconds for r in monitor.records],
+                peak=torch.cuda.max_memory_allocated() - held, held=held,
+                wall=time.perf_counter() - t0, steps=all_steps(ckdir),
+                params=sum(t.numel() for t in tree_leaves(state["params"])))
+        full, res = runs["full"], runs["resumed"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_leaves, n_ok = full["checks"][0]
+    print(f"  step 1 gradients: {n_ok} of {n_leaves} leaves finite and not "
+          f"all zeros", flush=True)
+    assert n_ok == n_leaves, "4k-d: a detached or non-finite gradient"
+    cfg = get_config("mamba2-130m")
+    k2 = full["counts"]["mamba2_prefill"]
+    per_step = k2 / TRAIN_STEPS
+    want = cfg.n_layers * (1 if cfg.remat == "none" else 2)
+    print(f"  kernel 2: {k2} launches in {TRAIN_STEPS} steps, {per_step:g} a "
+          f"step ({want} predicted: {cfg.n_layers} forward, "
+          f"{want - cfg.n_layers} recomputed under remat {cfg.remat}; bodies "
+          f"{full['paths']}); other kernels "
+          f"{ {k: v for k, v in full['counts'].items()
+               if v and k != 'mamba2_prefill'} }",
+          flush=True)
+    assert k2 == TRAIN_STEPS * want, f"4k-d launches: {k2}"
+    first, last = statistics.mean(full["losses"][:5]), \
+        statistics.mean(full["losses"][-5:])
+    print(f"  losses {[round(x, 4) for x in full['losses']]}: first five "
+          f"{first:.4f}, last five {last:.4f}", flush=True)
+    assert last < first, "4k-d: the loss did not fall"
+    print(f"  checkpoints written: {full['steps']}; the resumed run wrote "
+          f"{res['steps']}", flush=True)
+    assert full["steps"] == [TRAIN_CKPT_EVERY, TRAIN_STEPS]
+    want = full["losses"][TRAIN_CKPT_EVERY:]
+    diffs = [abs(a - b) for a, b in zip(res["losses"], want)]
+    bitwise = res["losses"] == want
+    print(f"  resumed from step {TRAIN_CKPT_EVERY}: losses "
+          f"{'equal bit for bit' if bitwise else 'within'} the uninterrupted"
+          f" run's steps {TRAIN_CKPT_EVERY}-{TRAIN_STEPS - 1} (max |diff| "
+          f"{max(diffs):.3e}, limit {TRAIN_RESUME_TOL:g})", flush=True)
+    assert len(res["losses"]) == TRAIN_STEPS - TRAIN_CKPT_EVERY
+    assert max(diffs) <= TRAIN_RESUME_TOL, "4k-d: the resumed run departs"
+    med = statistics.median(full["secs"][1:])
+    tokens = TRAIN_B * TRAIN_L
+    mf = flops.model_flops(cfg, ShapeSpec("train", "train", TRAIN_L,
+                                          TRAIN_B), full["params"])
+    print(f"  train step: median {med * 1e3:.3f} ms after step 1 (first "
+          f"{full['secs'][0] * 1e3:.1f} ms), {tokens / med:.1f} tokens/s, "
+          f"{mf / med / 1e12:.3f} model TFLOP/s ({mf / 1e12:.3f} TFLOP a "
+          f"step, launch/flops.py, {full['params']} params); peak memory "
+          f"{full['peak'] / 2 ** 30:.3f} GiB above the "
+          f"{full['held'] / 2 ** 30:.3f} GiB earlier phases hold; the run "
+          f"{full['wall']:.1f} s, "
+          f"the resumed run {res['wall']:.1f} s", flush=True)
+    return dict(launches=k2, step_ms=med * 1e3)
+
+
+def train_flash_phase(dev, counters):
+    """4k-e: gemma-2b with ``use_flash`` at full width, depth 2 (bf16): 3
+    train steps of b = 2, l = 256; every leaf's gradient finite, kernel 9
+    once a layer a forward and once more in the recompute."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, to_device_batch
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import tree_leaves
+    from repro_torch.optim import adamw as adamw_mod
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    from repro_torch.kernels import flash_attention as fa
+    cfg = get_config("gemma-2b", use_flash=True).replace(
+        n_layers=GEMMA_TRAIN_DEPTH)
+    model = build_model(cfg, dev)
+    state = init_state(model, 0, TrainConfig())
+    step = make_train_step(model, TrainConfig())
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=GEMMA_TRAIN_L,
+                                  global_batch=GEMMA_TRAIN_B, seed=2))
+    finite = []
+    real = adamw_mod.update
+
+    def update(grads, *a, **kw):
+        finite.append(bool(torch.stack([torch.isfinite(g).all() for g in
+                                        tree_leaves(grads)]).all()))
+        return real(grads, *a, **kw)
+    reset_counts(counters)
+    adamw_mod.update = update
+    try:
+        losses = []
+        for _ in range(GEMMA_TRAIN_STEPS):
+            state, metrics = step(state, to_device_batch(data.next(), dev))
+            losses.append(float(metrics["loss"]))
+    finally:
+        adamw_mod.update = real
+    n9 = fa.flash_attention.launches
+    print(f"  gemma-2b use_flash depth {GEMMA_TRAIN_DEPTH}, "
+          f"{GEMMA_TRAIN_STEPS} steps of b={GEMMA_TRAIN_B} l={GEMMA_TRAIN_L}: losses "
+          f"{[round(x, 4) for x in losses]}; every leaf's gradient finite "
+          f"in {sum(finite)} of {len(finite)} steps; kernel 9 {n9} launches "
+          f"({dict(fa.flash_attention.path_launches)})", flush=True)
+    assert all(finite) and len(finite) == GEMMA_TRAIN_STEPS
+    # Once a layer a forward, once more in the recompute under remat.
+    assert n9 == GEMMA_TRAIN_STEPS * GEMMA_TRAIN_DEPTH * (
+        1 if cfg.remat == "none" else 2), n9
+    assert all(math.isfinite(x) for x in losses)
+    del state, model
+    torch.cuda.empty_cache()
+    return n9
+
+
+def train_split_phase(dev, k2_bwd_ms):
+    """4k-f: one full-width mamba2-130m train step (bf16, b = 8, l = 512)
+    split into the loss's forward, its backward and the AdamW update
+    (CUDA events, and device time through ``profile_bracketed``), kernel
+    2's forward device ms in the forward beside its backward's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, to_device_batch
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import TrainConfig, init_state
+    from repro_torch.kernels import prefill_chunk as pc
+    cfg = get_config("mamba2-130m")
+    model = build_model(cfg, dev)
+    state = init_state(model, 0, TrainConfig())
+    params = state["params"]
+    batch = to_device_batch(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_L,
+        global_batch=TRAIN_B)).next(), dev)
+    n0 = pc.mamba2_prefill.launches
+
+    def forward():
+        with torch.enable_grad():
+            p = tree_map(lambda t: t.detach().requires_grad_(), params)
+            return model.loss(p, batch)[0], tree_leaves(p)
+
+    def fwd_bwd():
+        loss, leaves = forward()
+        return torch.autograd.grad(loss, leaves)
+
+    grads = fwd_bwd()
+    it = iter(grads)
+    gtree = tree_map(lambda _: next(it), params)
+    lr = torch.tensor(1e-4, device=dev)
+
+    def optimizer():
+        return adamw.update(gtree, state["opt"], params, lr, AdamWConfig())
+
+    ms = {"forward": time_call(forward, n=5, warmup=1),
+          "forward+backward": time_call(fwd_bwd, n=5, warmup=1),
+          "optimizer": time_call(optimizer, n=5, warmup=1)}
+    by = {k: device_profile(fn, n=2) for k, fn in
+          (("forward", forward), ("forward+backward", fwd_bwd),
+           ("optimizer", optimizer))}
+    pc.mamba2_prefill.launches = n0          # timing launches not counted
+    dev_ms = {k: sum(v.values()) if v else float("nan") for k, v in
+              by.items()}
+    k2_fwd = sum(v for k, v in by["forward"].items()
+                 if any(o in k for o in OUR_KERNELS))
+    bwd_ms = ms["forward+backward"] - ms["forward"]
+    bwd_dev = dev_ms["forward+backward"] - dev_ms["forward"]
+    print(f"  one train step (bf16, b={TRAIN_B}, l={TRAIN_L}), CUDA events "
+          f"(device ms, profile_bracketed): forward {ms['forward']:.3f} "
+          f"({dev_ms['forward']:.3f}), backward {bwd_ms:.3f} "
+          f"({bwd_dev:.3f}, the recompute under remat full in it), "
+          f"optimizer {ms['optimizer']:.3f} ({dev_ms['optimizer']:.3f})",
+          flush=True)
+    print(f"  kernel 2 in the forward: {k2_fwd:.4f} ms device "
+          f"({cfg.n_layers} launches, "
+          f"{k2_fwd / max(dev_ms['forward'], 1e-9):.1%} of the forward); "
+          f"its backward, the plain version's autograd: ~{k2_bwd_ms:.4f} ms "
+          f"a layer (4k-a), ~{cfg.n_layers * k2_bwd_ms:.3f} ms a step",
+          flush=True)
+    for k, v in sorted(by["forward+backward"].items(),
+                       key=lambda kv: -kv[1])[:8]:
+        print(f"    {v:.4f} ms  {k[:90]}")
+    del state, params, grads, gtree
+    torch.cuda.empty_cache()
+    return ms, dev_ms, k2_fwd
+
+
+def training_phase(dev, counters, tables):
+    """Phase 4k: 4k-a to 4k-f under ``TRAIN_BUDGET_S``; returns the
+    kernels record's train row (its launches: the main path's run, 4k-d).
+    The launch counters are left as the phase found them."""
+    t0 = time.perf_counter()
+    saved = {n: (fn.launches, dict(getattr(fn, "path_launches", {})),
+                 dict(getattr(fn, "gated_launches", {})))
+             for n, fn in counters.items()}
+    k2 = train_functions_phase(dev, tables)
+    train_parity_phase(dev)
+    main = train_main_phase(dev, counters)
+    train_flash_phase(dev, counters)
+    train_split_phase(dev, k2["bwd_ms"])
+    for n, (count, paths, gated) in saved.items():
+        counters[n].launches = count
+        getattr(counters[n], "path_launches", {}).update(paths)
+        getattr(counters[n], "gated_launches", {}).update(gated)
+    secs = time.perf_counter() - t0
+    print(f"  phase 4k: {secs:.1f} s (budget {TRAIN_BUDGET_S:.0f} s)",
+          flush=True)
+    return dict(
+        name="mamba2_prefill train (b=8, l=512, bf16)", route="cuda",
+        source="src/repro_torch/csrc/prefill_chunk.cu",
+        replaces="src/repro/kernels/prefill_chunk.py:294",
+        launches=main["launches"], max_abs_err=k2["max_abs_err"],
+        ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+        bound_by=k2["bound_by"], library_ms=None)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5189,6 +5792,11 @@ def main() -> int:
     var_launches, m27_engine, m27_steps, m27_calls = variants_phase(
         dev, counters, serve.main)
     launches.update(var_launches)
+    phase(f"4k. training (mamba2-130m at full width: the Functions, the "
+          f"guard, fp32 gradients at depth 2, launch/train {TRAIN_STEPS} "
+          f"steps of b={TRAIN_B} l={TRAIN_L} and a resume; gemma-2b "
+          f"use_flash depth {GEMMA_TRAIN_DEPTH}; the step's split)")
+    train_row = training_phase(dev, counters, tables)
 
     phase("5. path parity (fp32, kernel path vs plain path)")
     parity_phase(dev, 1, get_config("mamba2-130m"), counters)
@@ -5230,6 +5838,7 @@ def main() -> int:
         rows += transformer_times(dev, kernels, launches, worst)
         rows += mamba2_2p7b_times(dev, kernels, launches, worst, m27_steps,
                                   m27_calls)
+        rows.append(train_row)
         step_breakdown(engine, "mamba2-130m bf16")
         step_breakdown(w8_engine, "mamba2-130m W8")
         step_breakdown(m1_engine, "mamba-130m bf16")

@@ -11,7 +11,7 @@ CONFIG = ModelConfig(
     name="mamba-130m", family="mamba",
     vocab_size=50280, d_model=768, n_layers=24,
     d_state=16, d_conv=4, expand=2, dt_rank=48,
-    tie_embeddings=True,
+    tie_embeddings=True, scan_layers=True, remat="full",
     xamba=XambaConfig.optimized(),
 )
 

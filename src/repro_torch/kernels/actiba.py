@@ -16,6 +16,9 @@ oracle ``repro.kernels.ref.pwl_activate_ref``:
 * :func:`pwl_activate_plain` — ``core/pwl.py: eval_pwl``, the same sum in
   the same order; the CPU path, and what the kernel is held to on the card
   (fp32 bit for bit).
+* :class:`PwlActivate` — the ``torch.autograd.Function`` an ActiBA
+  activation reaches on the card under grad (``kernels/ops.py``): the
+  kernel forward, the backward the autograd of :func:`pwl_activate_plain`.
 * :func:`table_tensor` — a table as the fused kernels' PWL epilogues read
   it: one small fp32 device tensor ``[b_0..b_{K-2}, dm_0..dm_{K-2}, m0,
   c0]``, built once per (table, device) and cached, so no call copies it
@@ -140,3 +143,29 @@ def pwl_activate(x: torch.Tensor, table: PWLTable) -> torch.Tensor:
 pwl_activate.launches = 0
 # The same calls by the body they took (16-byte vectors, scalars).
 pwl_activate.path_launches = {"vector": 0, "scalar": 0}
+
+
+class PwlActivate(torch.autograd.Function):
+    """Kernel 12 under autograd: ``apply(table, x)``.
+
+    The forward is the hand-written kernel, unchanged, and counts its
+    launch.  The backward recomputes :func:`pwl_activate_plain`
+    (``eval_pwl``, the PWL function XLA runs in the JAX package's ActiBA
+    training) from the saved x and returns ``torch.autograd.grad`` of it,
+    as the JAX package's ``flash_attention`` ``_bwd`` differentiates
+    ``attention_ref``.  This backward is the one place where the plain
+    version runs on the card outside a comparison; no backward kernel
+    exists (``jax.grad`` of the Pallas kernel fails)."""
+
+    @staticmethod
+    def forward(ctx, table, x):
+        ctx.table = table
+        ctx.save_for_backward(x)
+        return pwl_activate(x, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def plain(x):
+            return pwl_activate_plain(x, ctx.table)
+        return (None,) + common.plain_vjp(plain, ctx.saved_tensors,
+                                          ctx.needs_input_grad[1:], (grad,))

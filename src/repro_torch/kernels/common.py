@@ -124,3 +124,29 @@ def ptr(t: torch.Tensor) -> int:
 def stream(device: torch.device) -> int:
     """The raw ``cudaStream_t`` of ``device``'s current stream."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def plain_vjp(plain, inputs: Sequence[torch.Tensor], needs: Sequence[bool],
+              grads: Sequence) -> Tuple:
+    """The backward of a kernel's ``torch.autograd.Function``: ``plain``
+    (the kernel's plain PyTorch version, a function of ``inputs``)
+    recomputed from the saved inputs under ``torch.enable_grad()`` and
+    differentiated by ``torch.autograd.grad``, as the JAX package's
+    ``flash_attention`` ``_bwd`` differentiates ``attention_ref``.  Returns
+    one gradient (or ``None``) per input; ``grads`` holds the outputs'
+    incoming gradients, ``None`` for an output nothing used."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need) if need else t.detach()
+                  for t, need in zip(inputs, needs)]
+        outs = plain(*leaves)
+        if isinstance(outs, torch.Tensor):
+            outs = (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        want = [t for t in leaves if t.requires_grad]
+        if not pairs or not want:
+            return (None,) * len(leaves)
+        got = iter(torch.autograd.grad([o for o, _ in pairs], want,
+                                       [g for _, g in pairs],
+                                       allow_unused=True))
+    return tuple(next(got) if t.requires_grad else None for t in leaves)

@@ -33,6 +33,10 @@ Masks are left-aligned: query i and key j are both positions from 0.
   body, in ``flash_attention.path_launches``.
 * :func:`flash_attention_plain` — ``attention_ref`` in PyTorch: the CPU
   path, and what the kernel is held to on the card.
+* :class:`FlashAttention` — the ``torch.autograd.Function`` the training
+  forward reaches on the card under ``use_flash`` (``kernels/ops.py``):
+  the kernel forward, the backward the autograd of
+  :func:`flash_attention_plain`, as the JAX package's ``custom_vjp``.
 
 Keys past Lk are always masked, so both equal ``attention_ref`` in every
 case.  The TPU kernel does not mask its zero-padded keys when attention
@@ -180,3 +184,30 @@ flash_attention.launches = 0
 # The same calls by the body they took (bf16 tensor cores, fp32 tensor
 # cores, SIMT).
 flash_attention.path_launches = {"wgmma": 0, "wgmma_fp32": 0, "simt": 0}
+
+
+class FlashAttention(torch.autograd.Function):
+    """Kernel 9 under autograd: ``apply(spec, q, k, v)`` with ``spec`` the
+    keyword arguments of :func:`flash_attention` (``causal``, ``window``,
+    ``scale``).
+
+    The forward is the hand-written kernel, unchanged, and counts its
+    launch.  The backward recomputes :func:`flash_attention_plain` (the
+    port of ``attention_ref``) from the saved q, k and v and returns
+    ``torch.autograd.grad`` of it: exactly the JAX package's
+    ``custom_vjp`` backward (``flash_attention.py:131-160``).  This
+    backward is the one place where the plain version runs on the card
+    outside a comparison; no backward kernel exists (in JAX either)."""
+
+    @staticmethod
+    def forward(ctx, spec, q, k, v):
+        ctx.spec = spec
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v, **spec)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def plain(q, k, v):
+            return flash_attention_plain(q, k, v, **ctx.spec)
+        return (None,) + common.plain_vjp(plain, ctx.saved_tensors,
+                                          ctx.needs_input_grad[1:], (grad,))

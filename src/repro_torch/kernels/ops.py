@@ -3,6 +3,16 @@ kernel (which launches or raises), a CPU tensor to its plain PyTorch
 version.  There is no fallback from the one to the other and no mode
 string that picks the plain version on the card.
 
+Gradients.  Under grad mode, with an input that requires grad, kernels
+2 (``mamba2_prefill``), 9 (``flash_attention``) and 12
+(``actiba_activate``) run through their ``torch.autograd.Function``
+(the kernel forward, the plain version's autograd backward, as the JAX
+package's ``flash_attention`` ``custom_vjp``); every other kernel raises
+``NotImplementedError`` naming itself (:func:`_no_grad`), as ``jax.grad``
+of its Pallas kernel fails: none returns a detached output.  Under
+``torch.inference_mode()`` or ``no_grad``, or when no input requires
+grad, every kernel is called directly.
+
 ``xamba`` (an ``XambaConfig``) carries ActiBA into the fused kernels: the
 kernel takes the PWL tables of its activations (SiLU and softplus; the
 RG-LRU step sigmoid, softplus and GeLU), the plain version the
@@ -18,6 +28,24 @@ from repro_torch.kernels import actiba as _act, cumba as _cumba, \
     decode_step as _ds, flash_attention as _fa, matmul_pwl as _mpwl, \
     prefill_chunk as _pc, qmatmul as _qm, reduba as _red, rg_lru as _rg, \
     ssd_chunk as _ssd
+
+
+def _grad_wanted(*ts) -> bool:
+    """Whether a call must be differentiable: grad mode on and an input
+    that requires grad (``is_grad_enabled`` first: under
+    ``inference_mode`` the serve path reads nothing else)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _no_grad(kernel: str, *ts) -> None:
+    """Raise when a kernel without a gradient is called under grad with an
+    input that requires grad (its output would come back detached)."""
+    if _grad_wanted(*ts):
+        raise NotImplementedError(
+            f"{kernel} has no gradient: its CUDA kernel is forward-only (as "
+            f"the JAX package's Pallas kernel); call it under no_grad, or "
+            f"train in a mode that does not reach it")
 
 
 def _plain_into(out, res):
@@ -51,6 +79,7 @@ def mamba2_decode_step(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
     kw = dict(ngroups=ngroups, head_dim=head_dim,
               **_activations(xamba, z.is_cuda))
     if z.is_cuda:
+        _no_grad("kernel 1 (mamba2_step)", *args)
         return _ds.mamba2_step(*args, **kw, out=out)
     return _plain_into(out, _ds.mamba2_step_plain(*args, **kw))
 
@@ -66,6 +95,7 @@ def mamba1_decode_step(xs_raw, z, conv_state, ssm_state, conv_w, conv_b,
             dtproj_w, dtproj_b, A, D)
     kw = dict(dt_rank=dt_rank, **_activations(xamba, z.is_cuda))
     if z.is_cuda:
+        _no_grad("kernel 5 (mamba1_step)", *args)
         return _ds.mamba1_step(*args, **kw, out=out)
     return _plain_into(out, _ds.mamba1_step_plain(*args, **kw))
 
@@ -73,6 +103,7 @@ def mamba1_decode_step(xs_raw, z, conv_state, ssm_state, conv_w, conv_b,
 def ssd_step(state, x_t, dt_t, A, B_t, C_t):
     """The bare SSD update (kernel 3) -> (new_state fp32, y)."""
     if state.is_cuda:
+        _no_grad("kernel 3 (ssd_step)", state, x_t, dt_t, A, B_t, C_t)
         return _ds.ssd_step(state, x_t, dt_t, A, B_t, C_t)
     return _ds.ssd_step_plain(state, x_t, dt_t, A, B_t, C_t)
 
@@ -80,6 +111,8 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t):
 def sscan_step(state, u_t, delta_t, A, B_t, C_t, D=None):
     """The bare selective-scan update (kernel 4) -> (new_state fp32, y)."""
     if state.is_cuda:
+        _no_grad("kernel 4 (sscan_step)", state, u_t, delta_t, A, B_t, C_t,
+                 D)
         return _ds.sscan_step(state, u_t, delta_t, A, B_t, C_t, D)
     return _ds.sscan_step_plain(state, u_t, delta_t, A, B_t, C_t, D)
 
@@ -99,6 +132,8 @@ def mamba2_prefill(x, in_w, conv_state, ssm_state, conv_w, conv_b, dt_bias,
     kw = dict(ngroups=ngroups, head_dim=head_dim, chunk=chunk,
               **_activations(xamba, x.is_cuda))
     if x.is_cuda:
+        if _grad_wanted(*args):
+            return _plain_into(out, _pc.Mamba2Prefill.apply(kw, *args))
         return _pc.mamba2_prefill(*args, **kw, out=out)
     return _plain_into(out, _pc.mamba2_prefill_plain(*args, **kw))
 
@@ -112,6 +147,7 @@ def rglru_decode_step(u, gate, conv_state, h_state, conv_w, conv_b, rg_w,
             ig_b, lam)
     names = ("sigmoid", "softplus", "gelu")
     if u.is_cuda:
+        _no_grad("kernel 6 (rglru_step)", *args)
         return _ds.rglru_step(*args, out=out, **{
             f"{k}_table": pwl.table_for(k, xamba) for k in names})
     return _plain_into(out, _ds.rglru_step_plain(*args, **{
@@ -122,6 +158,7 @@ def rg_lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The RG-LRU recurrence h_t = a_t h_{t-1} + b_t from zero over axis 1
     (kernel 8)."""
     if a.is_cuda:
+        _no_grad("kernel 8 (rg_lru_scan)", a, b)
         return _rg.rg_lru_scan(a, b)
     return _rg.rg_lru_scan_plain(a, b)
 
@@ -131,6 +168,7 @@ def matmul_pwl(x: torch.Tensor, w: torch.Tensor, table: PWLTable,
     """ActiBA's drain-fused product ``pwl(x @ w) [* (x @ v)]`` in ``x``'s
     dtype (kernel 11); x (m, k), w / v (k, n)."""
     if x.is_cuda:
+        _no_grad("kernel 11 (matmul_pwl)", x, w, v)
         return _mpwl.matmul_pwl(x.contiguous(), w, table, v)
     return _mpwl.matmul_pwl_plain(x, w, table, v)
 
@@ -138,6 +176,8 @@ def matmul_pwl(x: torch.Tensor, w: torch.Tensor, table: PWLTable,
 def actiba_activate(x: torch.Tensor, table: PWLTable) -> torch.Tensor:
     """ActiBA: the elementwise PWL activation (kernel 12)."""
     if x.is_cuda:
+        if _grad_wanted(x):
+            return _act.PwlActivate.apply(table, x.contiguous())
         return _act.pwl_activate(x.contiguous(), table)
     return _act.pwl_activate_plain(x, table)
 
@@ -145,6 +185,7 @@ def actiba_activate(x: torch.Tensor, table: PWLTable) -> torch.Tensor:
 def cumba_cumsum(x: torch.Tensor) -> torch.Tensor:
     """CumBA: the cumulative sum along the trailing axis (kernel 13)."""
     if x.is_cuda:
+        _no_grad("kernel 13 (cumsum_last)", x)
         return _cumba.cumsum_last(x.contiguous())
     return _cumba.cumsum_last_plain(x)
 
@@ -153,6 +194,8 @@ def reduba_sum(x: torch.Tensor) -> torch.Tensor:
     """ReduBA: the sum over the trailing axis, as ``reduce_rows`` (kernel
     14) of the (last, rest) transpose."""
     x2 = x.reshape(-1, x.shape[-1]).t()
+    if x.is_cuda:
+        _no_grad("kernel 14 (reduce_rows)", x)
     out = _red.reduce_rows(x2) if x.is_cuda else _red.reduce_rows_plain(x2)
     return out.reshape(x.shape[:-1])
 
@@ -164,6 +207,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     -> (b, hq, Lq, d) in q's dtype; masks left-aligned."""
     kw = dict(causal=causal, window=window, scale=scale)
     if q.is_cuda:
+        if _grad_wanted(q, k, v):
+            return _fa.FlashAttention.apply(kw, q, k, v)
         return _fa.flash_attention(q, k, v, **kw)
     return _fa.flash_attention_plain(q, k, v, **kw)
 
@@ -172,6 +217,7 @@ def ssd_chunk(x_c, A_cum, B_c, C_c):
     """The fused SSD intra-chunk pass (kernel 7) -> (y_diag, chunk
     states), from the per-chunk prefix sums ``A_cum`` of the log decays."""
     if x_c.is_cuda:
+        _no_grad("kernel 7 (ssd_chunk)", x_c, A_cum, B_c, C_c)
         return _ssd.ssd_chunk(x_c, A_cum, B_c, C_c)
     return _ssd.ssd_chunk_plain(x_c, A_cum, B_c, C_c)
 
@@ -182,5 +228,6 @@ def qmatmul(x, q, scale, *, table=None, qv=None, vscale=None):
     vscale (n,) fp32."""
     kw = dict(table=table, qv=qv, vscale=vscale)
     if x.is_cuda:
+        _no_grad("kernel 10 (qmatmul)", x, scale, vscale)
         return _qm.qmatmul(x.contiguous(), q, scale, **kw)
     return _qm.qmatmul_plain(x, q, scale, **kw)

@@ -23,6 +23,11 @@ Port of ``repro.kernels.prefill_chunk``:
   state, and the same stream-dtype rounding points
   (``prefill_chunk.py:176-186`` and ``:278-283``).
 
+* :class:`Mamba2Prefill` — the ``torch.autograd.Function`` the training
+  forward reaches on the card (``kernels/ops.py``): its forward is
+  :func:`mamba2_prefill` unchanged (counted), its backward the autograd of
+  :func:`mamba2_prefill_plain` recomputed from the saved inputs.
+
 ActiBA: the plain version takes SiLU and softplus as callables (as the
 TPU kernel does, ``prefill_chunk.py:178,182,283``), the kernel takes
 their PWL tables (``None`` = exact).
@@ -42,7 +47,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.pwl import PWLTable
+from repro_torch.core.pwl import PWLTable, eval_pwl
 from repro_torch.kernels import common
 from repro_torch.kernels.actiba import table_args
 from repro_torch.kernels.gated_norm import gated_norm_cuda, gated_norm_plain
@@ -312,3 +317,45 @@ def mamba2_prefill(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
 mamba2_prefill.launches = 0
 # The same calls by the body they took (tensor-core, SIMT).
 mamba2_prefill.path_launches = {"wgmma": 0, "simt": 0}
+
+
+def _act(table: Optional[PWLTable], exact: Callable) -> Callable:
+    """The plain activation of a kernel's table: ``eval_pwl`` on the same
+    table, or the exact function for ``None``."""
+    if table is None:
+        return exact
+    return lambda x: eval_pwl(table, x)
+
+
+class Mamba2Prefill(torch.autograd.Function):
+    """Kernel 2 under autograd: ``apply(spec, z, xbc, dt, conv_state,
+    ssm_state, conv_w, conv_b, dt_bias, A, D, norm_scale)`` with ``spec``
+    the keyword arguments of :func:`mamba2_prefill` (``ngroups``,
+    ``head_dim``, ``chunk`` and the ActiBA tables; no ``out``).
+
+    The forward is the hand-written kernel, unchanged, and counts its
+    launch.  The backward recomputes the plain version,
+    :func:`mamba2_prefill_plain` (the port of ``mamba2_prefill_xla``, the
+    function the JAX package differentiates) with the same activations
+    (exact, or ``eval_pwl`` on the kernel's tables), from the saved inputs
+    and returns ``torch.autograd.grad`` of it for all 11 tensor inputs:
+    what JAX's ``flash_attention`` ``_bwd`` does with ``attention_ref``.
+    This backward is the one place where a plain version runs on the
+    card outside a comparison; no backward kernel exists (in JAX either,
+    where ``jax.grad`` of the Pallas prefill fails)."""
+
+    @staticmethod
+    def forward(ctx, spec, *ins):
+        ctx.spec = spec
+        ctx.save_for_backward(*ins)
+        ctx.set_materialize_grads(False)
+        return mamba2_prefill(*ins, **spec)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        spec = dict(ctx.spec)
+        spec["silu"] = _act(spec.pop("silu_table", None), F.silu)
+        spec["softplus"] = _act(spec.pop("softplus_table", None), F.softplus)
+        return (None,) + common.plain_vjp(
+            functools.partial(mamba2_prefill_plain, **spec),
+            ctx.saved_tensors, ctx.needs_input_grad[1:], grads)

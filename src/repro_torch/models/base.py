@@ -2,7 +2,8 @@
 the Mamba-1, Mamba-2, RecurrentGemma and transformer (dense, MoE and the
 vision stub) families use,
 with ``dtype`` as a ``torch.dtype``; the shared helpers
-``chunk_positions`` and ``cross_entropy_loss``; and :class:`DecodeAPI`,
+``chunk_positions``, ``cross_entropy_loss`` and ``remat`` (the
+training trunk's per-layer rematerialization); and :class:`DecodeAPI`,
 the serving surface's shared part (``prefill_chunk`` and
 ``verify_chunk`` over each family's chunk trunk, and the reference
 ``speculative_step``) that the three model classes inherit."""
@@ -13,6 +14,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.xamba import XambaConfig
 
@@ -30,11 +32,15 @@ def chunk_positions(index, batch: int, seq: int) -> np.ndarray:
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
                        z_loss: float = 1e-4) -> Tuple[torch.Tensor, dict]:
-    """Token-level CE with the z-loss; labels < 0 are ignored (the JAX
-    package's ``cross_entropy_loss``)."""
+    """Token-level CE with the z-loss; labels < 0, and positions where
+    ``mask`` is not > 0, are ignored (the JAX package's
+    ``cross_entropy_loss``)."""
     logits = logits.float()
     valid = labels >= 0
+    if mask is not None:
+        valid = valid & (mask > 0)
     labels_safe = labels.clamp_min(0)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
@@ -47,6 +53,44 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     hit = (logits.argmax(-1) == labels_safe).to(logits.dtype)
     acc = torch.where(valid, hit, zero).sum() / denom
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+
+# The matrix products without batch dims whose outputs ``remat="dots"``
+# keeps (JAX's ``dots_with_no_batch_dims_saveable``); everything else in
+# a layer is recomputed in the backward.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if func in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat(fn, mode: str):
+    """``fn`` (one layer of a training trunk) under ``ModelConfig.remat``:
+    ``"none"`` as it is; ``"full"`` keeps only its inputs and recomputes
+    the layer in the backward (``jax.checkpoint`` with no policy);
+    ``"dots"`` keeps the outputs of its matrix products without batch
+    dims and recomputes the rest.  With grad disabled it runs ``fn`` as
+    it is: nothing is kept then."""
+    if mode == "none":
+        return fn
+    if mode not in ("full", "dots"):
+        raise ValueError(f"remat {mode!r} not in ('none', 'full', 'dots')")
+    kw = {} if mode == "full" else {"context_fn": _dots_context}
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False, **kw)
+    return run
 
 
 def _host_tokens(tokens) -> np.ndarray:
@@ -219,8 +263,10 @@ class ModelConfig:
 
     # -- execution policies ---------------------------------------------------
     param_dtype: str = "bfloat16"
-    # The JAX package's training / layout knobs, kept for parity: the port
-    # never rematerializes and always walks its layers in a Python loop.
+    # Rematerialization of the training trunk's layers (``remat``: none |
+    # full | dots).  The port always walks its layers in a Python loop;
+    # ``scan_layers`` names the JAX package's layout of the stacked trunk,
+    # which its checkpoints keep (``nn/params.py: to_jax_params``).
     remat: str = "none"
     scan_layers: bool = True
     # Whole-sequence attention without a logit soft-cap runs the flash

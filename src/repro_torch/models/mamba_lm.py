@@ -9,7 +9,9 @@ dtype and then widened, as the JAX package rounds them (under W8 the
 ``lm_head`` is quantized, as JAX's ``quantize_params`` does).  Params are plain dicts of tensors with the layer trunk as a
 per-layer list, walked by a Python loop.  :meth:`MambaLM.decode_view`
 adds each mixer's kernel operands in fp32, once per weight set (the
-engine serves from it).  The serving cache is the JAX package's stacked
+engine serves from it); :meth:`MambaLM.loss` trains on the raw params
+through ``_trunk_train`` (the cache-less trunk under ``cfg.remat``).
+The serving cache is the JAX package's stacked
 layout, the family's state with a leading ``n_layers`` axis: mamba2's
 ``Mamba2State`` conv (L, b, w-1, dxbc) in the model dtype and ssm
 (L, b, h, p, n) fp32; mamba1's ``Mamba1State`` conv (L, b, w-1, d_inner)
@@ -27,7 +29,8 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.core.device import DeviceLike, resolve_device
-from repro_torch.models.base import DecodeAPI, ModelConfig
+from repro_torch.models.base import DecodeAPI, ModelConfig, \
+    cross_entropy_loss, remat
 from repro_torch.nn import layers, ssm
 from repro_torch.nn.params import stack_specs
 
@@ -100,16 +103,45 @@ class MambaLM(DecodeAPI):
             return layers.unembed(params["embed"], x)
         return layers.linear(params["lm_head"], x).float()
 
+    def _trunk_train(self, params, x: torch.Tensor) -> torch.Tensor:
+        """The cache-less trunk: every layer's prefill path without a
+        carried state, each layer under ``cfg.remat`` (``models/base.py:
+        remat``).  Takes the raw params: a ``decode_view``'s kernel
+        operands are built once per weight set, detached from them."""
+        apply = self._fn("apply")
+
+        def block(p, x):
+            h, _ = apply(p["mixer"], self.cfg, layers.norm(p["ln"], x))
+            return x + h
+
+        block = remat(block, self.cfg.remat)
+        for p in params["layers"]:
+            x = block(p, x)
+        return x
+
+    # ---------------- training ----------------
+    def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
+        """Next-token cross entropy with the z-loss over ``batch["tokens"]``
+        / ``batch["labels"]`` (b, l) -> (loss, metrics: ``loss``,
+        ``accuracy``, ``tokens``, ``loss_total``).  Differentiable: on the
+        card every Mamba-2 layer's fused prefill runs kernel 2 through its
+        ``torch.autograd.Function`` (``kernels/ops.py``)."""
+        if any("kernel" in p["mixer"] for p in params["layers"]):
+            raise ValueError("MambaLM.loss takes the raw params, not a "
+                             "decode_view (its operands are detached)")
+        x = layers.embed(params["embed"], batch["tokens"])
+        logits = self._logits(params, self._trunk_train(params, x))
+        loss, metrics = cross_entropy_loss(logits[:, :-1],
+                                           batch["labels"][:, 1:])
+        metrics["loss_total"] = loss
+        return loss, metrics
+
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """Full-sequence logits (b, l, V) fp32, no cache: every layer runs
         its prefill path without a carried state (the ablation's and the
         quality benchmark's entry point)."""
         x = layers.embed(params["embed"], tokens)
-        for p in params["layers"]:
-            h, _ = self._fn("apply")(p["mixer"], self.cfg,
-                                     layers.norm(p["ln"], x))
-            x = x + h
-        return self._logits(params, x)
+        return self._logits(params, self._trunk_train(params, x))
 
     # ---------------- serving ----------------
     def init_cache(self, batch: int, max_seq: int = 0,

@@ -136,44 +136,51 @@ class RecurrentGemma(base.DecodeAPI):
     def _trunk(self, params, x: torch.Tensor, positions: torch.Tensor,
                cache=None, cache_index=None) -> Tuple[torch.Tensor, Any]:
         """The layers in order; with a cache, each layer writes its new
-        state into its slice of one freshly allocated cache."""
-        cfg = self.cfg
+        state into its slice of one freshly allocated cache.  Without one
+        (the training trunk) each layer runs under ``cfg.remat``."""
         new = None if cache is None else RGemmaCache(
             *(torch.empty_like(leaf) for leaf in cache))
-        for i, (p, kind) in enumerate(zip(params["layers"],
-                                          self.layer_kinds)):
-            s = self.slot[i]
-            hin = layers.norm(p["ln_mix"], x, norm_type=cfg.norm_type)
-            if kind == "recurrent":
-                h, _ = ssm.rglru_apply(
-                    p["rglru"], cfg, hin,
-                    None if cache is None else
-                    ssm.RGLRUState(cache.conv[s], cache.h[s]),
-                    out=None if cache is None else
-                    ssm.RGLRUState(new.conv[s], new.h[s]))
-            else:
-                h, _ = attention.apply(
-                    p["attn"], cfg, hin, positions=positions,
-                    cache=None if cache is None else
-                    attention.KVCache(cache.k[s], cache.v[s]),
-                    cache_index=cache_index, causal=True,
-                    window=cfg.sliding_window,
-                    out=None if cache is None else
-                    attention.KVCache(new.k[s], new.v[s]))
-            x = x + h
-            x = x + mlp_mod.apply(p["mlp"], cfg, layers.norm(
-                p["ln_mlp"], x, norm_type=cfg.norm_type))
+        layer = self._layer if cache is not None else \
+            base.remat(self._layer, self.cfg.remat)
+        for i, p in enumerate(params["layers"]):
+            x = layer(i, p, x, positions, cache, new, cache_index)
         return x, new
+
+    def _layer(self, i: int, p, x: torch.Tensor, positions: torch.Tensor,
+               cache, new, cache_index) -> torch.Tensor:
+        """Layer ``i``: its mixer (RG-LRU or local attention) and MLP."""
+        cfg = self.cfg
+        s = self.slot[i]
+        hin = layers.norm(p["ln_mix"], x, norm_type=cfg.norm_type)
+        if self.layer_kinds[i] == "recurrent":
+            h, _ = ssm.rglru_apply(
+                p["rglru"], cfg, hin,
+                None if cache is None else
+                ssm.RGLRUState(cache.conv[s], cache.h[s]),
+                out=None if cache is None else
+                ssm.RGLRUState(new.conv[s], new.h[s]))
+        else:
+            h, _ = attention.apply(
+                p["attn"], cfg, hin, positions=positions,
+                cache=None if cache is None else
+                attention.KVCache(cache.k[s], cache.v[s]),
+                cache_index=cache_index, causal=True,
+                window=cfg.sliding_window,
+                out=None if cache is None else
+                attention.KVCache(new.k[s], new.v[s]))
+        x = x + h
+        return x + mlp_mod.apply(p["mlp"], cfg, layers.norm(
+            p["ln_mlp"], x, norm_type=cfg.norm_type))
 
     def _positions(self, pos: np.ndarray) -> torch.Tensor:
         return torch.tensor(pos, dtype=torch.long, device=self.device)
 
     # ---------------- training ----------------
     def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
-        """The training loss's forward (value and metrics, no backward):
-        the cache-less trunk (kernel 8 in the RG-LRU layers under a
-        ``pallas`` CumBA mode), next-token cross entropy with the
-        z-loss."""
+        """The training loss (value and metrics): the cache-less trunk,
+        each layer under ``cfg.remat`` (kernel 8 in the RG-LRU layers under
+        a ``pallas`` CumBA mode, which has no gradient: ``kernels/ops.py``
+        raises under grad), next-token cross entropy with the z-loss."""
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         positions = self._positions(np.arange(tokens.shape[1])[None, :])

@@ -138,39 +138,49 @@ class TransformerLM(base.DecodeAPI):
         """The layers in order -> (x, cache, the MoE aux loss summed over
         the layers: fp32, 0.0 for a dense model); with a cache, each layer
         writes its new k and v into its slice of one freshly allocated
-        cache."""
-        cfg = self.cfg
+        cache.  Without one (the training trunk) each layer runs under
+        ``cfg.remat``."""
         new = None if cache is None else attention.KVCache(
             torch.empty_like(cache.k), torch.empty_like(cache.v))
+        layer = self._layer if cache is not None else \
+            base.remat(self._layer, self.cfg.remat)
         aux = 0.0                   # a tensor once an MoE layer adds to it
         for i, p in enumerate(params["layers"]):
-            h, _ = attention.apply(
-                p["attn"], cfg,
-                layers.norm(p["ln_attn"], x, norm_type=cfg.norm_type),
-                positions=positions,
-                cache=None if cache is None else
-                attention.KVCache(cache.k[i], cache.v[i]),
-                cache_index=cache_index, causal=True,
-                window=cfg.sliding_window,
-                out=None if cache is None else
-                attention.KVCache(new.k[i], new.v[i]))
-            x = x + h
-            hin = layers.norm(p["ln_mlp"], x, norm_type=cfg.norm_type)
-            if cfg.moe:
-                h, a = moe_mod.apply(p["moe"], cfg, hin)
+            x, a = layer(i, p, x, positions, cache, new, cache_index)
+            if a is not None:
                 aux = aux + a
-            else:
-                h = mlp_mod.apply(p["mlp"], cfg, hin)
-            x = x + h
         return x, new, aux
+
+    def _layer(self, i: int, p, x: torch.Tensor, positions: torch.Tensor,
+               cache, new, cache_index):
+        """Layer ``i``: attention and the MLP or MoE block -> (x, the MoE
+        aux loss or ``None``)."""
+        cfg = self.cfg
+        h, _ = attention.apply(
+            p["attn"], cfg,
+            layers.norm(p["ln_attn"], x, norm_type=cfg.norm_type),
+            positions=positions,
+            cache=None if cache is None else
+            attention.KVCache(cache.k[i], cache.v[i]),
+            cache_index=cache_index, causal=True,
+            window=cfg.sliding_window,
+            out=None if cache is None else
+            attention.KVCache(new.k[i], new.v[i]))
+        x = x + h
+        hin = layers.norm(p["ln_mlp"], x, norm_type=cfg.norm_type)
+        if cfg.moe:
+            h, a = moe_mod.apply(p["moe"], cfg, hin)
+            return x + h, a
+        return x + mlp_mod.apply(p["mlp"], cfg, hin), None
 
     def _positions(self, pos: np.ndarray) -> torch.Tensor:
         return torch.tensor(pos, dtype=torch.long, device=self.device)
 
     # ---------------- training ----------------
     def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
-        """The training loss's forward (value and metrics, no backward):
-        the cache-less trunk (kernel 9 once a layer under ``use_flash``),
+        """The training loss (value and metrics): the cache-less trunk,
+        each layer under ``cfg.remat`` (kernel 9 once a layer under
+        ``use_flash``, through its ``torch.autograd.Function`` under grad),
         next-token cross entropy with the z-loss over the token positions
         (the vision stub's P image positions dropped), plus the MoE
         load-balancing term."""

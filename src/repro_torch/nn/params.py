@@ -59,20 +59,6 @@ def _init_one(spec: ParamSpec, gen: torch.Generator,
             * std).to(dtype)
 
 
-def _map_specs(specs: Any, fn) -> Any:
-    if isinstance(specs, ParamSpec):
-        return fn(specs)
-    return {k: _map_specs(specs[k], fn) for k in sorted(specs)}
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    else:
-        yield tree
-
-
 def split_layers(stacked: Any) -> List[Any]:
     """Cut every leaf's leading layer axis into per-layer trees (both
     leaves of a ``QuantTensor``)."""
@@ -82,7 +68,7 @@ def split_layers(stacked: Any) -> List[Any]:
         if isinstance(tree, QuantTensor):
             return tree.apply(lambda a: a[i].contiguous())
         return tree[i].contiguous()
-    n = next(_leaves(stacked)).shape[0]
+    n = tree_leaves(stacked)[0].shape[0]
     return [one(stacked, i) for i in range(n)]
 
 
@@ -90,12 +76,20 @@ def _by_int(tree: Dict[str, Any]) -> List[Any]:
     return [tree[k] for k in sorted(tree, key=int)]
 
 
+def _is_unstacked(layers: Dict[str, Any]) -> bool:
+    """Whether a ``layers`` dict is the JAX package's ``scan_layers=False``
+    layout (``"0"``, ``"1"``, ...) rather than one stacked block."""
+    return bool(layers) and all(k.isdigit() for k in layers)
+
+
 def per_layer(tree: Dict[str, Any]) -> Dict[str, Any]:
     """``tree`` with its layer trunk as ``layers``, a per-layer list: the
-    stacked ``layers`` split, or RecurrentGemma's ``groups`` (layer
-    ``g * P + j`` is group ``g`` of position ``j``) followed by its
-    ``tail``."""
+    stacked ``layers`` split (or the ``scan_layers=False`` dict ``"0"``,
+    ``"1"``, ... in order), or RecurrentGemma's ``groups`` (layer ``g * P
+    + j`` is group ``g`` of position ``j``) followed by its ``tail``."""
     if "layers" in tree:
+        if _is_unstacked(tree["layers"]):
+            return dict(tree, layers=_by_int(tree["layers"]))
         return dict(tree, layers=split_layers(tree["layers"]))
     groups = _by_int(tree["groups"]) if "groups" in tree else []
     stacked = [split_layers(g) for g in groups]
@@ -122,8 +116,8 @@ def init_params(specs: Dict[str, Any], seed: int,
     """
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
-    return per_layer(_map_specs(
-        specs, lambda s: _init_one(s, gen, dtype).to(dev)))
+    return per_layer(tree_map(lambda s: _init_one(s, gen, dtype).to(dev),
+                              specs))
 
 
 def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -161,3 +155,72 @@ def from_jax_params(tree: Dict[str, Any], cfg, device: DeviceLike = None
         raise ValueError(f"params hold {len(out['layers'])} layers, the "
                          f"config {cfg.n_layers}")
     return out
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves of a tree of dicts, lists and tuples, dict keys in
+    sorted order (the JAX package's flatten order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same positions of
+    ``rest``), keeping its structure; dict keys are visited in sorted
+    order, as :func:`tree_leaves` visits them."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def to_numpy(t) -> np.ndarray:
+    """A tensor (any device) or array as numpy; bf16 widens to fp32
+    (exactly: numpy has no bf16 of its own)."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+    return np.asarray(t)
+
+
+def to_jax_params(tree: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """The inverse of :func:`from_jax_params`: the port's params (or a
+    tree shaped like them, as AdamW's ``m`` and ``v``) as the JAX
+    package's params, nested dicts of numpy arrays: the per-layer list
+    stacked into ``layers`` (``cfg.scan_layers``; else ``"0"``, ``"1"``,
+    ...), or for RecurrentGemma into ``groups`` (one stack per pattern
+    position over the whole groups) and ``tail``.  bf16 leaves come back
+    as fp32 (exact), as the JAX package's checkpoints store them."""
+    host = tree_map(to_numpy, {k: v for k, v in tree.items()
+                               if k != "layers"})
+    layers = [tree_map(to_numpy, p) for p in tree["layers"]]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"params hold {len(layers)} layers, the config "
+                         f"{cfg.n_layers}")
+
+    def stack(ps):
+        return tree_map(lambda *xs: np.stack(xs), *ps)
+
+    if cfg.family == "recurrentgemma":
+        pattern = cfg.block_pattern or ("recurrent", "recurrent",
+                                        "attention")
+        P = len(pattern)
+        n_groups = cfg.n_layers // P
+        if n_groups:
+            host["groups"] = {str(j): stack(layers[j:n_groups * P:P])
+                              for j in range(P)}
+        host["tail"] = {str(i): p for i, p in
+                        enumerate(layers[n_groups * P:])}
+    elif cfg.scan_layers:
+        host["layers"] = stack(layers)
+    else:
+        host["layers"] = {str(i): p for i, p in enumerate(layers)}
+    return host
