@@ -5,7 +5,7 @@ Drives ``src/repro_torch`` (never JAX) at the full width of mamba2-130m,
 of mamba-130m (Mamba-1), of recurrentgemma-2b, of gemma-2b, of
 qwen1.5-4b, of the MoE transformers qwen3-moe-30b-a3b and grok-1-314b,
 of llava-next-mistral-7b (the vision stub), of deepseek-7b and
-internlm2-20b, and of mamba2-2.7b:
+internlm2-20b, of mamba2-2.7b and of whisper-tiny (the encoder-decoder):
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — ``nvcc`` builds every kernel from ``src/repro_torch/csrc``;
@@ -55,8 +55,13 @@ internlm2-20b, and of mamba2-2.7b:
    128, L = 512), at b = 1, L = 4096, at the prefills of qwen3-moe (32
    query heads to 4 KV heads of 128), internlm2-20b (48 to 8) and
    deepseek-7b (32 to 32) at b = 4, L = 128 and llava's 576 + 64
-   positions, and with q an offset view (the SIMT body); ``reduce_rows``
-   at (2048, 2048) and (1000, 300); each twice.
+   positions, at whisper-tiny's encoder (b = 4, 6 heads of 64, L = 1500,
+   not causal), its decoder's 448-token context (causal) and its
+   cross-attention (Lq = 4 and 448 against Lk = 1500, not causal:
+   ``FLASH_CROSS_CASES``), and with q an offset view (the SIMT body);
+   ``pwl_activate`` also with the GeLU table on whisper's MLP (6000,
+   1536); ``qmatmul`` also at whisper-tiny's three W8 shapes at m = 4 and
+   6000; ``reduce_rows`` at (2048, 2048) and (1000, 300); each twice.
    Kernels 9, 10 and 11 print the body each case took by their path
    counts (kernel 9: bf16 the ``wgmma`` body, fp32 the ``wgmma_fp32``
    body, views TMA cannot read the SIMT body; 10 and 11: the tensor-core
@@ -216,6 +221,22 @@ internlm2-20b, and of mamba2-2.7b:
    step split into forward, backward and the AdamW update (CUDA events and
    ``profile_bracketed`` device time), kernel 2's forward device ms beside
    its backward's;
+   4l: whisper-tiny at full width and depth (4 + 4 layers, d_model 384,
+   1500 frames; ``use_flash``): (a) bf16, b = 4 rows of seeded frames, a
+   4-token prompt, ``prefill`` then 32 greedy decode steps: 12
+   ``flash_attention`` launches (``wgmma``) for the prefill (4 encoder, 4
+   self, 4 cross), none a step; (b) the same with ``prefill_chunk`` in
+   chunks of 2: 8 a chunk call (self-attention takes ``chunk_attention``);
+   (c) W8: 64 ``qmatmul`` on its ``wgmma`` body a prefill, 32 GEMV a step;
+   (d) ``pallas()``: 8 ``pwl_activate`` a prefill and 4 a step, no
+   ``matmul_pwl``; every logit finite, every other kernel idle, prefill
+   and step wall and device times; (e) fp32, the card (kernel 9's
+   ``wgmma_fp32`` body) against the CPU's plain path on the same
+   weights: 16 greedy tokens identical, logits within ``LOGIT_TOL``;
+   (f) ``make_train_step`` in bf16, 5 steps of b = 8, 1500 frames and 448
+   tokens on one batch: the loss finite and falling, 12 kernel-9 launches
+   a step, the step's ms and peak memory; (g) fp32 at depth 2, every
+   gradient leaf on the card within ``TRAIN_GRAD_TOL`` of the CPU's;
 5. parity  — the same model in fp32, kernel path on the card against the
    plain path on the CPU, teacher-forced over 16 greedy tokens of 4
    prompts, with fp32 weights and with W8 weights: tokens agree
@@ -287,7 +308,11 @@ internlm2-20b, and of mamba2-2.7b:
    beside it (``simt_flash``, not counted), its shared memory and ptxas;
    kernels 1 and 2 at mamba2-2.7b's width (phase 4j's decode step and
    chunk shapes), a row each, and the decode step and prefill of
-   qwen3-moe (depth ``MOE_DEPTH``, seeded prompt ids) and mamba2-2.7b.
+   qwen3-moe (depth ``MOE_DEPTH``, seeded prompt ids) and mamba2-2.7b;
+   kernels 9 (bf16 and fp32, whisper's encoder and cross-attention), 10
+   (whisper's three shapes, GEMV and ``wgmma``) and 12 (the GeLU table
+   on whisper's MLP), a row each, with the launches phase 4l made at
+   that shape (``kernel_shapes``).
    Device times are the profiler's, each session bracketed by two spin
    kernels and held to their CUDA-event duration
    (``serve/program_registry.py: profile_bracketed``); a reading none of
@@ -410,15 +435,23 @@ QMM_MLP = (512, 768, 2048)
 # Kernel 10 at the W8 widths of gemma-2b (src/repro/configs/gemma_2b.py:
 # d_model 2048, 8 query heads and 1 KV head of 256, GeGLU d_ff 16384),
 # recurrentgemma-2b (d_model = lru_width 2560, 10 heads and 1 KV head of
-# 256, GeGLU d_ff 7680; the RG-LRU's in_x, in_gate, out and gates at 2560)
-# and qwen3-moe-30b-a3b (src/repro/configs/qwen3_moe_30b_a3b.py: d_model
+# 256, GeGLU d_ff 7680; the RG-LRU's in_x, in_gate, out and gates at 2560),
+# qwen3-moe-30b-a3b (src/repro/configs/qwen3_moe_30b_a3b.py: d_model
 # 2048, 32 query heads and 4 KV heads of 128, the untied lm_head to vocab
 # 151936; its experts stay bf16 under W8): (label, k, n, gated, m values),
 # the gated MLP with the GeLU table, at the decode and draft steps' m = 4
 # (the GEMV) and a chunk's m = 256 (``wgmma``); qwen3-moe's lm_head only
 # at m = 4, as phase 4j's chunk calls give it the last position of each
-# of the 4 rows.
+# of the 4 rows; and whisper-tiny's (``WHISPER_PROJ``).
 W8_MS = (4, 256)
+# whisper-tiny (src/repro/configs/whisper_tiny.py): d_model 384, 6 heads of
+# 64, d_ff 1536 (the plain GeLU MLP), 4 encoder and 4 decoder layers, 1500
+# frames.  Its W8 projections (name, k, n) at the decode step's m = 4 (the
+# GEMV) and the encoder's m = 4 x 1500 (``wgmma``).
+WHISPER_PROJ = (("q, k, v, o", 384, 384), ("wi", 384, 1536),
+                ("wo", 1536, 384))
+WHISPER_FRAMES = 1500
+WHISPER_W8_MS = (4, 4 * WHISPER_FRAMES)
 W8_CASES = (("gemma-2b q, o", 2048, 2048, False, W8_MS),
             ("gemma-2b k, v", 2048, 256, False, W8_MS),
             ("gemma-2b wi/wg gated", 2048, 16384, True, W8_MS),
@@ -431,7 +464,9 @@ W8_CASES = (("gemma-2b q, o", 2048, 2048, False, W8_MS),
             ("qwen3-moe-30b-a3b q", 2048, 4096, False, W8_MS),
             ("qwen3-moe-30b-a3b k, v", 2048, 512, False, W8_MS),
             ("qwen3-moe-30b-a3b o", 4096, 2048, False, W8_MS),
-            ("qwen3-moe-30b-a3b lm_head", 2048, 151936, False, (4,)))
+            ("qwen3-moe-30b-a3b lm_head", 2048, 151936, False, (4,))) + \
+    tuple((f"whisper-tiny {name}", k, n, False, WHISPER_W8_MS)
+          for name, k, n in WHISPER_PROJ)
 # Speculative decoding's window (serve/continuous.py): k draft tokens a
 # burst, verified in one chunk of k tokens (kernel 2's SIMT body: a chunk
 # below 64) at b = 4 slots with a carried state.
@@ -465,8 +500,9 @@ RG_RING_PROMPT, RG_RING_CHUNK = 2304, 256
 # causal (held to attention_ref's plain version); qwen1.5-4b's MHA (20
 # heads of 128); gemma's 4096-token prompt; the prefills of qwen3-moe (32
 # query heads to 4 KV heads of 128), internlm2-20b (48 to 8) and
-# deepseek-7b (32 to 32) at b = 4, L = 128, and llava's 576 image
-# positions ahead of 64 tokens.
+# deepseek-7b (32 to 32) at b = 4, L = 128, llava's 576 image positions
+# ahead of 64 tokens, whisper's encoder (6 heads of 64 over 1500 frames, not
+# causal) and its decoder's 448-token context (causal).
 FLASH_CASES = (("gemma prefill", 4, 8, 1, 128, 256, True, None),
                ("ragged", 4, 8, 1, 300, 256, True, None),
                ("qwen MHA", 4, 20, 20, 512, 128, True, None),
@@ -476,7 +512,19 @@ FLASH_CASES = (("gemma prefill", 4, 8, 1, 128, 256, True, None),
                ("qwen3-moe prefill", 4, 32, 4, 128, 128, True, None),
                ("internlm2-20b prefill", 4, 48, 8, 128, 128, True, None),
                ("deepseek-7b prefill", 4, 32, 32, 128, 128, True, None),
-               ("llava 576+64", 1, 32, 8, 640, 128, True, None))
+               ("llava 576+64", 1, 32, 8, 640, 128, True, None),
+               ("whisper encoder", 4, 6, 6, WHISPER_FRAMES, 64, False, None),
+               ("whisper decoder", 4, 6, 6, 448, 64, True, None))
+# Kernel 9 with fewer queries than keys (label, b, hq, hkv, Lq, Lk, d):
+# whisper's cross-attention, not causal, of the 4-token prompt and of its
+# 448-token context against the 1500 frames.
+FLASH_CROSS_CASES = (("whisper cross, the prompt", 4, 6, 6, 4,
+                      WHISPER_FRAMES, 64),
+                     ("whisper cross, 448 tokens", 4, 6, 6, 448,
+                      WHISPER_FRAMES, 64))
+# Kernel 12 on whisper's MLP: the GeLU table on the encoder's (b x 1500,
+# d_ff) hidden states at b = 4.
+WHISPER_PWL = (4 * WHISPER_FRAMES, 1536)
 # Kernel 14's cases: paper Fig. 1's ReduceSum
 # (benchmarks/bench_fig1_op_breakdown.py) and a ragged one, (m, n).
 REDUCE_CASES = ((2048, 2048), (1000, 300))
@@ -677,13 +725,14 @@ def mpwl_inputs(m, dev, dtype, seed, gated):
     return x, w, v
 
 
-def flash_inputs(b, hq, hkv, l, d, dev, dtype, seed):
+def flash_inputs(b, hq, hkv, l, d, dev, dtype, seed, lk=None):
     """Kernel 9's q, k, v as the model hands them over: (b, l, h, d)
-    projections seen as (b, h, l, d), no copy."""
+    projections seen as (b, h, l, d), no copy; k and v of ``lk`` positions
+    where given (cross-attention), else ``l``."""
     import torch
     g = torch.Generator().manual_seed(seed)
-    return tuple(_rand(g, (b, l, h, d), 1.0, dev, dtype).transpose(1, 2)
-                 for h in (hq, hkv, hkv))
+    return tuple(_rand(g, (b, n, h, d), 1.0, dev, dtype).transpose(1, 2)
+                 for h, n in ((hq, l), (hkv, lk or l), (hkv, lk or l)))
 
 
 def _bf16_steps(diff, r):
@@ -1018,6 +1067,9 @@ def kernel_cases(dev, kernels, tables):
                        ch["xbc"]) for k in (12, 100)]
         pwl_cases.append(("silu", "silu table, offset view", tables["silu"],
                           offset_view(ch["xbc"])))
+        pwl_cases.append(("gelu", "gelu table, whisper's MLP",
+                          tables["gelu"], _rand(torch.Generator().manual_seed(
+                              36), WHISPER_PWL, 2.0, dev, dtype)))
         for name, label, table, x in pwl_cases:
             routed("pwl_activate", f"{dn} {label} {tuple(x.shape)}",
                    actiba_path(x),
@@ -1114,6 +1166,17 @@ def kernel_cases(dev, kernels, tables):
                    lambda: (kernels["flash_attention"](q, k, v, **fkw),),
                    lambda: (kernels["flash_attention_plain"](q, k, v,
                                                              **fkw),),
+                   dn, (("out", "stream"),))
+        for label, b, hq, hkv, lq, lk, d in FLASH_CROSS_CASES:
+            q, k, v = flash_inputs(b, hq, hkv, lq, d, dev, dtype,
+                                   seed=lq + lk + d, lk=lk)
+            routed("flash_attention", f"{dn} {label}: b={b} hq={hq} "
+                   f"hkv={hkv} Lq={lq} Lk={lk} d={d} not causal",
+                   flash_path(q, k, v),
+                   lambda: (kernels["flash_attention"](q, k, v,
+                                                       causal=False),),
+                   lambda: (kernels["flash_attention_plain"](
+                       q, k, v, causal=False),),
                    dn, (("out", "stream"),))
         # The SIMT body: gemma's prefill shape with q one element into its
         # buffer (TMA cannot read it).
@@ -5628,6 +5691,535 @@ def training_phase(dev, counters, tables):
         bound_by=k2["bound_by"], library_ms=None)
 
 
+# ---------------------------------------------------------------------------
+# Phase 4l: whisper-tiny (kernels 9, 10 and 12 at its shapes)
+# ---------------------------------------------------------------------------
+
+# The serve-shaped runs: b = 4 rows of seeded frames, a 4-token prompt,
+# then 32 greedy decode steps; the chunked run takes the prompt in chunks
+# of 2.
+WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS, WHISPER_CHUNK = 4, 4, 32, 2
+# fp32 parity: greedy tokens, card against the CPU's plain path.
+WHISPER_PARITY_TOKENS = 16
+# Training: Whisper's decoder context of 448 tokens behind the 1500
+# frames, 5 steps on one batch at a constant learning rate (lr 0 at step
+# 0: the schedule's one warmup step).
+WHISPER_TRAIN_B, WHISPER_TRAIN_L, WHISPER_TRAIN_STEPS = 8, 448, 5
+WHISPER_TRAIN_LR = 1e-3
+# The fp32 gradient check (phase 4k-c's rule and ``TRAIN_GRAD_TOL``):
+# depth 2 of each trunk, b = 2, 128 tokens.
+WHISPER_GRAD_DEPTH, WHISPER_GRAD_B, WHISPER_GRAD_L = 2, 2, 128
+
+
+@contextlib.contextmanager
+def kernel_shapes(log):
+    """While open, each call of the ``kernels/ops.py`` dispatches of
+    kernels 9, 10 and 12 appends (kernel, shape) to ``log``: kernel 9
+    (Lq, Lk, causal), kernel 10 (m, k, n), kernel 12 its operand's shape.
+    The model looks them up at call time; the wrappers' counts are
+    untouched."""
+    from repro_torch.kernels import ops
+    keys = {"flash_attention": lambda q, k, v, causal=True, **kw:
+            (q.shape[2], k.shape[2], causal),
+            "qmatmul": lambda x, q, *a, **kw: (x.shape[0],) + tuple(q.shape),
+            "actiba_activate": lambda x, table: tuple(x.shape)}
+    saved = {n: getattr(ops, n) for n in keys}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            log.append((name, keys[name](*args, **kw)))
+            return fn(*args, **kw)
+        return call
+    for name, fn in saved.items():
+        setattr(ops, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def _whisper(dev, seed=0, **overrides):
+    """(model, params) of whisper-tiny at full width and depth with
+    ``use_flash=True`` (``overrides`` on top), weights from ``seed`` in
+    the config's dtype on ``dev``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import init_params
+    cfg = get_config("whisper-tiny", use_flash=True, **overrides)
+    model = build_model(cfg, dev)
+    return model, init_params(model.param_specs(), seed, cfg.dtype, dev)
+
+
+def _whisper_batch(cfg, b, l, seed, dev):
+    """Seeded normal frames (b, 1500, 384) in the model's dtype and token
+    ids (b, l), on ``dev``."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g)
+    tokens = torch.randint(1, cfg.vocab_size, (b, l), generator=g)
+    return {"frames": frames.to(dev, cfg.dtype), "tokens": tokens.to(dev)}
+
+
+def _paths(counters):
+    return {n: {k: v for k, v in counters[n].path_launches.items() if v}
+            for n in ("flash_attention", "qmatmul", "pwl_activate")}
+
+
+def whisper_generate(model, params, batch, steps, chunk=None,
+                     after_prefill=None):
+    """The prompt ``batch["tokens"]`` behind ``batch["frames"]`` (one
+    ``prefill``, or ``prefill_chunk`` calls of ``chunk`` tokens; then
+    ``after_prefill()`` when given), then ``steps`` greedy decode steps
+    -> (prefill logits, the steps' logits stacked (b, steps, V), greedy
+    tokens (b, steps + 1))."""
+    import torch
+    b, P = batch["tokens"].shape
+    cache = model.init_cache(b, P + steps, model.cfg.dtype)
+    if chunk is None:
+        first, cache = model.prefill(params, batch, cache)
+    else:
+        for off in range(0, P, chunk):
+            first, cache = model.prefill_chunk(
+                params, {"frames": batch["frames"],
+                         "tokens": batch["tokens"][:, off:off + chunk]},
+                cache, off)
+    if after_prefill is not None:
+        after_prefill()
+    outs, toks = [], [first.argmax(-1, keepdim=True)]
+    for i in range(steps):
+        logits, cache = model.decode_step(params, toks[-1], cache, P + i)
+        outs.append(logits)
+        toks.append(logits.argmax(-1, keepdim=True))
+    return first, torch.stack(outs, 1), torch.cat(toks, 1)
+
+
+def whisper_run(model, params, batch, counters, label, want_prefill,
+                want_step, chunk=None):
+    """One bf16 run (``whisper_generate``, ``WHISPER_STEPS`` steps), the
+    launches of its prefill calls and of its decode steps held to
+    ``want_prefill`` and ``want_step`` a step ({kernel: {body: count}};
+    every other kernel 0), every logit finite.  Returns (greedy tokens,
+    the run's shape log, prefill logits)."""
+    import torch
+    log, seen = [], []
+
+    def after_prefill():
+        torch.cuda.synchronize()
+        seen.append((read_counts(counters), _paths(counters)))
+        reset_counts(counters)
+    reset_counts(counters)
+    with torch.inference_mode(), kernel_shapes(log):
+        first, steps, toks = whisper_generate(
+            model, params, batch, WHISPER_STEPS, chunk, after_prefill)
+        torch.cuda.synchronize()
+    seen.append((read_counts(counters), _paths(counters)))
+    ok = True
+    for what, (counts, paths), want, n in (
+            ("prefill", seen[0], want_prefill, 1),
+            (f"{WHISPER_STEPS} decode steps", seen[1], want_step,
+             WHISPER_STEPS)):
+        exp_paths = {k: {body: c * n for body, c in v.items()}
+                     for k, v in want.items()}
+        exp = dict({k: 0 for k in counts},
+                   **{k: sum(v.values()) for k, v in exp_paths.items()})
+        good = counts == exp and all(paths[k] == exp_paths.get(k, {})
+                                     for k in paths)
+        ok = ok and good
+        print(f"  {label}, {what}: launches "
+              f"{({k: v for k, v in counts.items() if v})} by body "
+              f"{({k: v for k, v in paths.items() if v})} (expected "
+              f"{exp_paths})" + ("" if good else " FAIL"), flush=True)
+    finite = bool(torch.isfinite(first).all() and
+                  torch.isfinite(steps).all())
+    print(f"  {label}: every logit finite: {finite}", flush=True)
+    assert ok, f"{label}: launch counts"
+    assert finite, f"{label}: non-finite logits"
+    return toks.cpu(), log, first
+
+
+def whisper_times_of(model, params, batch, label):
+    """Wall (CUDA-synchronised host clock, the median of 5 calls) and
+    device time (the profiler) of one ``prefill`` of ``batch`` and one
+    decode step after it; prints the largest kernels of each."""
+    import torch
+    b, P = batch["tokens"].shape
+
+    def prefill():
+        return model.prefill(params, batch,
+                             model.init_cache(b, P + 1, model.cfg.dtype))
+    _, cache = prefill()
+    tok = batch["tokens"][:, :1]
+
+    def decode():
+        return model.decode_step(params, tok, cache, P)
+    out = {}
+    for name, fn in (("prefill", prefill), ("decode step", decode)):
+        fn()
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls)
+        by = device_profile(fn)
+        dev_ms = _total(by)
+        out[name] = (wall, dev_ms)
+        top = sorted(by.items(), key=lambda kv: -kv[1])[:5]
+        print(f"  {label} {name} (b={b}, prompt {P}, {model.cfg.encoder_seq} "
+              f"frames): wall {wall:.3f} ms, device {dev_ms:.3f} ms "
+              f"({100 * dev_ms / wall:.1f}% busy), ported kernels "
+              f"{_ours(by):.3f} ms; largest: "
+              + "; ".join(f"{k[:60]} {v:.4f} ms" for k, v in top),
+              flush=True)
+    return out
+
+
+def whisper_serve_phase(dev, counters):
+    """4l (a)-(d): bf16 at full width and depth, ``use_flash``: whole
+    prefill, chunks of ``WHISPER_CHUNK``, W8 and ``pallas()``, each with
+    its launches by kernel and body; prefill and step times.  Returns the
+    shape logs of the bf16, W8 and ``pallas()`` runs."""
+    import torch
+    from repro_torch.core.xamba import XambaConfig
+    from repro_torch.models import build_model
+    from repro_torch.nn import quant
+    model, params = _whisper(dev)
+    cfg = model.cfg
+    print(f"  whisper-tiny: {model.n_enc} encoder and {model.n_dec} decoder "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.encoder_seq} frames, "
+          f"{_count_params(params) / 1e6:.2f} M parameters in bf16",
+          flush=True)
+    batch = _whisper_batch(cfg, WHISPER_B, WHISPER_PROMPT, 11, dev)
+    L = model.n_enc + 2 * model.n_dec
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    toks, log, first = whisper_run(
+        model, params, batch, counters, "bf16 prefill",
+        {"flash_attention": {"wgmma": L}}, {})
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    ctoks, _, cfirst = whisper_run(
+        model, params, batch, counters,
+        f"bf16 prefill_chunk x{WHISPER_PROMPT // WHISPER_CHUNK}",
+        {"flash_attention": {"wgmma": WHISPER_PROMPT // WHISPER_CHUNK *
+                             (model.n_enc + model.n_dec)}}, {},
+        chunk=WHISPER_CHUNK)
+    same = int((ctoks == toks).all(1).sum())
+    print(f"  chunks against the whole prefill (bf16): last logits "
+          f"{float((cfirst - first).abs().max()):.3e} apart; {same}/"
+          f"{WHISPER_B} rows token-identical over {WHISPER_STEPS + 1} "
+          f"tokens; peak memory of the bf16 run {peak:.1f} MiB above the "
+          f"{held / 2 ** 30:.3f} GiB held before it", flush=True)
+    with torch.inference_mode():
+        times = whisper_times_of(model, params, batch, "bf16")
+    logs = {"bf16": log}
+
+    w8 = build_model(cfg.with_quant("w8"), dev)
+    qparams = quant.quantize_params_for_mode(params, "w8")
+    n_proj = 6 * model.n_enc + 10 * model.n_dec
+    _, logs["w8"], wfirst = whisper_run(
+        w8, qparams, batch, counters, "W8 prefill",
+        {"flash_attention": {"wgmma": L}, "qmatmul": {"wgmma": n_proj}},
+        {"qmatmul": {"gemv": 8 * model.n_dec}})
+    with torch.inference_mode():
+        times.update({f"W8 {k}": v for k, v in whisper_times_of(
+            w8, qparams, batch, "W8").items()})
+    pal = build_model(cfg.replace(xamba=XambaConfig.pallas()), dev)
+    _, logs["pallas"], pfirst = whisper_run(
+        pal, params, batch, counters, "pallas() prefill",
+        {"flash_attention": {"wgmma": L},
+         "pwl_activate": {"vector": model.n_enc + model.n_dec}},
+        {"pwl_activate": {"vector": model.n_dec}})
+    print(f"  prefill logits against bf16: W8 "
+          f"{float((wfirst - first).abs().max()):.3e}, pallas() "
+          f"{float((pfirst - first).abs().max()):.3e} apart (logits up to "
+          f"{float(first.abs().max()):.3f})", flush=True)
+    del model, params, w8, qparams, pal
+    torch.cuda.empty_cache()
+    return logs, times
+
+
+def whisper_parity_phase(dev, counters):
+    """4l (e): fp32 at full width and depth, ``use_flash``: the card
+    (kernel 9's ``wgmma_fp32`` body, once an encoder layer and twice a
+    decoder layer in the prefill) against the CPU's plain path on the
+    same weights, ``WHISPER_PARITY_TOKENS`` greedy tokens each on its
+    own: the tokens identical, the logits within ``LOGIT_TOL``.  Returns
+    the card run's kernel-9 shape log."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import init_params
+    cfg = get_config("whisper-tiny", use_flash=True, param_dtype="float32")
+    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+    params = init_params(gpu.param_specs(), 1, torch.float32, "cpu")
+    gparams = _move(params, dev)
+    batch = _whisper_batch(cfg, WHISPER_B, WHISPER_PROMPT, 12, "cpu")
+    steps = WHISPER_PARITY_TOKENS - 1
+    log = []
+    reset_counts(counters)
+    with torch.inference_mode():
+        with kernel_shapes(log):
+            gfirst, glog, gtok = whisper_generate(gpu, gparams,
+                                                  _move(batch, dev), steps)
+        torch.cuda.synchronize()
+        counts, paths = read_counts(counters), _paths(counters)
+        t0 = time.perf_counter()
+        cfirst, clog, ctok = whisper_generate(cpu, params, batch, steps)
+    cpu_s = time.perf_counter() - t0
+    L = gpu.n_enc + 2 * gpu.n_dec
+    err = max(float((gfirst.cpu() - cfirst).abs().max()),
+              float((glog.cpu() - clog).abs().max()))
+    same = bool(torch.equal(gtok.cpu(), ctok))
+    top2 = torch.cat([cfirst[:, None], clog], 1).topk(2, -1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    print(f"  fp32 whisper-tiny, card vs CPU ({cpu_s:.1f} s on the CPU): "
+          f"logits up to {float(cfirst.abs().max()):.3f}, {err:.3e} apart "
+          f"(limit {LOGIT_TOL:g}); {WHISPER_PARITY_TOKENS} greedy tokens x "
+          f"{WHISPER_B} rows identical: {same} (smallest top-2 margin on "
+          f"the CPU {margin:.3e}); launches on the card "
+          f"{({k: v for k, v in counts.items() if v})} by body "
+          f"{({k: v for k, v in paths.items() if v})}", flush=True)
+    assert counts == dict({k: 0 for k in counts}, flash_attention=L), \
+        "whisper parity: launches"
+    assert paths["flash_attention"] == {"wgmma_fp32": L}, \
+        "whisper parity: kernel 9's body"
+    assert err <= LOGIT_TOL, f"whisper parity: logits {err}"
+    assert same, "whisper parity: greedy tokens differ"
+    del gpu, gparams
+    torch.cuda.empty_cache()
+    return log
+
+
+def whisper_train_phase(dev, counters):
+    """4l (f) and (g): ``make_train_step`` (AdamW) at full width in bf16
+    with ``use_flash``, ``WHISPER_TRAIN_STEPS`` steps of one batch of
+    ``WHISPER_TRAIN_B`` x 1500 frames and ``WHISPER_TRAIN_L`` tokens: the
+    loss finite and falling, kernel 9's forward once an encoder layer and
+    twice a decoder layer a step (no other kernel), the step's median ms
+    and peak memory; then fp32 at depth ``WHISPER_GRAD_DEPTH``, every
+    gradient leaf on the card within ``TRAIN_GRAD_TOL`` of the CPU's."""
+    import torch
+    from repro_torch.nn.params import init_params, to_numpy, tree_leaves, \
+        tree_map
+    from repro_torch.optim import ScheduleConfig
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    model, _ = _whisper(dev)
+    cfg = model.cfg
+    tc = TrainConfig(schedule=ScheduleConfig(
+        kind="constant", base_lr=WHISPER_TRAIN_LR, warmup_steps=1))
+    state = init_state(model, 0, tc)
+    step = make_train_step(model, tc)
+    batch = _whisper_batch(cfg, WHISPER_TRAIN_B, WHISPER_TRAIN_L, 13, dev)
+    batch["labels"] = batch["tokens"]
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    losses, norms, walls = [], [], []
+    for _ in range(WHISPER_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts, paths = read_counts(counters), _paths(counters)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    L = model.n_enc + 2 * model.n_dec
+    n9 = WHISPER_TRAIN_STEPS * L
+    ms = statistics.median(walls[1:])
+    print(f"  bf16 train, {WHISPER_TRAIN_STEPS} steps of b={WHISPER_TRAIN_B}"
+          f", {cfg.encoder_seq} frames, {WHISPER_TRAIN_L} tokens (lr "
+          f"{WHISPER_TRAIN_LR:g}, constant after one warmup step): losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 3) for x in norms]}; step median {ms:.1f} ms "
+          f"({WHISPER_TRAIN_B * WHISPER_TRAIN_L / ms * 1e3:.0f} decoder "
+          f"tokens/s), peak memory {peak:.3f} GiB above the "
+          f"{held / 2 ** 30:.3f} GiB held before it (params and AdamW's "
+          f"state among them); launches "
+          f"{({k: v for k, v in counts.items() if v})} by body "
+          f"{({k: v for k, v in paths.items() if v})} (expected "
+          f"{n9} flash_attention)", flush=True)
+    assert counts == dict({k: 0 for k in counts}, flash_attention=n9), \
+        "whisper train: launches"
+    assert paths["flash_attention"] == {"wgmma": n9}
+    assert all(math.isfinite(x) for x in losses + norms), \
+        "whisper train: non-finite loss or gradient"
+    assert losses[-1] < losses[0], "whisper train: the loss did not fall"
+    del state, model, step
+    torch.cuda.empty_cache()
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.kernels import flash_attention as fa
+    cfg = get_config("whisper-tiny", use_flash=True,
+                     param_dtype="float32").replace(
+        n_layers=WHISPER_GRAD_DEPTH, encoder_layers=WHISPER_GRAD_DEPTH)
+    models = {d: build_model(cfg, d) for d in (dev, "cpu")}
+    params = {"cpu": init_params(models["cpu"].param_specs(), 7,
+                                 torch.float32, "cpu")}
+    params[dev] = tree_map(lambda t: t.to(dev), params["cpu"])
+    host = _whisper_batch(cfg, WHISPER_GRAD_B, WHISPER_GRAD_L, 14, "cpu")
+    host["labels"] = host["tokens"]
+    batch = {"cpu": host, dev: _move(host, dev)}
+    n0 = fa.flash_attention.launches
+    got = {dev: _leaf_grads(models[dev], params[dev], batch[dev])}
+    n9 = fa.flash_attention.launches - n0
+    got["cpu"] = _leaf_grads(models["cpu"], params["cpu"], batch["cpu"])
+    worst, wname = 0.0, None
+    for name, a, b in zip(_leaf_names(params["cpu"]), got[dev][2],
+                          got["cpu"][2]):
+        a, b = to_numpy(a).astype("float64"), to_numpy(b).astype("float64")
+        r = float(abs(a - b).max() / max(abs(b).max(), 1e-30))
+        if r > worst:
+            worst, wname = r, name
+    losses = [float(got[d][0].detach()) for d in (dev, "cpu")]
+    n_leaves = len(tree_leaves(params["cpu"]))
+    print(f"  fp32 depth {WHISPER_GRAD_DEPTH} gradients (b="
+          f"{WHISPER_GRAD_B}, {WHISPER_GRAD_L} tokens), card vs CPU: loss "
+          f"{losses[0]:.6f} / {losses[1]:.6f}; {n_leaves} leaves, worst "
+          f"{wname} at {worst:.3e} of its largest value "
+          f"(limit {TRAIN_GRAD_TOL:g}); kernel 9 {n9} launches", flush=True)
+    assert n9 == 3 * WHISPER_GRAD_DEPTH, "whisper grads: kernel 9"
+    assert worst <= TRAIN_GRAD_TOL, f"whisper grads: {wname} {worst}"
+    return ms, peak
+
+
+def whisper_phase(dev, counters):
+    """Phase 4l (see the module docstring).  Returns the shape logs of
+    its runs (phase 7's launches) and its prefill and step times.  The
+    launch counters are left as the phase found them."""
+    t0 = time.perf_counter()
+    saved = {n: (fn.launches, dict(getattr(fn, "path_launches", {})),
+                 dict(getattr(fn, "gated_launches", {})))
+             for n, fn in counters.items()}
+    logs, times = whisper_serve_phase(dev, counters)
+    logs["fp32"] = whisper_parity_phase(dev, counters)
+    times["train step"] = whisper_train_phase(dev, counters)
+    for n, (count, paths, gated) in saved.items():
+        counters[n].launches = count
+        getattr(counters[n], "path_launches", {}).update(paths)
+        getattr(counters[n], "gated_launches", {}).update(gated)
+    print(f"  phase 4l: {time.perf_counter() - t0:.1f} s", flush=True)
+    return logs, times
+
+
+def whisper_times(dev, kernels, logs, worst, tables):
+    """Phase 7's rows for kernels 9, 10 and 12 at whisper-tiny's shapes,
+    each with the launches phase 4l's runs made at that shape: kernel 9
+    in bf16 (the bf16 run) and fp32 (the parity run) at the encoder's
+    (b = 4, 6 heads of 64, 1500 frames, not causal) and the
+    cross-attention's (the 4-token prompt against the 1500 frames) shapes,
+    bound by q, k, v and out once or 4 d operations a (query, key) pair
+    at the bf16 tensor-core rate (fp32: the CUDA cores'), library
+    ``scaled_dot_product_attention``; kernel 10 at its three (k, n) shapes
+    at the decode step's m = 4 (the GEMV) and the encoder's m = 6000
+    (``wgmma``), bound and library as ``qmatmul_times``, its launches the
+    W8 run's calls of that body at that (k, n); kernel 12 with the GeLU
+    table on the encoder's MLP hidden states (6000, 1536) in bf16, bound
+    by its bytes or its instructions (``pwl_ops``), no library call, its
+    launches the ``pallas()`` run's at that size."""
+    import torch
+    import torch.nn.functional as F
+    rows = []
+    for dn, dtype, run, rate in (
+            ("bf16", torch.bfloat16, "bf16", BF16_TC_FLOP_PER_S),
+            ("fp32", torch.float32, "fp32", FP32_FLOP_PER_S)):
+        for part, lq in (("encoder", WHISPER_FRAMES), ("cross", 4)):
+            b, h, d, lk = 4, 6, 64, WHISPER_FRAMES
+            q, k, v = flash_inputs(b, h, h, lq, d, dev, dtype, seed=210 + lq,
+                                   lk=lk)
+            call = lambda: kernels["flash_attention"](  # noqa: E731
+                q, k, v, causal=False)
+            out = call()
+            ms = time_call(call)
+            plain_ms = time_call(lambda: kernels["flash_attention_plain"](
+                q, k, v, causal=False), n=10)
+            dev_ms = _ours(device_profile(call))
+            lib_ms = time_call(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=False))
+            ops = 4 * d * lq * lk * b * h
+            bound_ms, bound_by = _bound(_bytes(q, k, v, out), ops, rate)
+            n = sum(1 for name, key in logs[run] if name == "flash_attention"
+                    and key == (lq, lk, False))
+            name = f"flash_attention_whisper_{part}" + (
+                "_fp32" if dtype == torch.float32 else "")
+            rows.append(dict(
+                name=name, route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:92",
+                launches=n, max_abs_err=worst["flash_attention"], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms))
+            print(f"  {name} {dn} b={b} hq=hkv={h} Lq={lq} Lk={lk} d={d} "
+                  f"not causal: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {_bytes(q, k, v, out) / 1e6:.2f} MB, "
+                  f"{ops / 1e9:.3f} GFLOP), library {lib_ms:.4f} ms "
+                  f"(scaled_dot_product_attention); {n} launches at this "
+                  f"shape in phase 4l's {run} run", flush=True)
+    for body, m in (("gemv", 4), ("wgmma", 4 * WHISPER_FRAMES)):
+        for proj, k, n in WHISPER_PROJ:
+            args, _ = qmatmul_inputs(m, k, n, dev, torch.bfloat16,
+                                     seed=220 + m + k + n)
+            x, q, scale = args
+            call = lambda: kernels["qmatmul"](*args)   # noqa: E731
+            out = call()
+            ms = time_call(call)
+            plain_ms = time_call(lambda: kernels["qmatmul_plain"](*args))
+            dev_ms = _ours(device_profile(call))
+            qc = q.to(x.dtype)
+            lib_ms = time_call(lambda: torch.matmul(x, qc))
+            bound_ms, bound_by = _bound(_bytes(x, q, scale, out),
+                                        2 * m * k * n, BF16_TC_FLOP_PER_S)
+            launches = sum(1 for name, key in logs["w8"] if name == "qmatmul"
+                           and key[1:] == (k, n)
+                           and (key[0] <= 8) == (body == "gemv"))
+            label = {"q, k, v, o": "qkvo"}.get(proj, proj)
+            rows.append(dict(
+                name=f"qmatmul_{body}_whisper_{label}", route="cuda",
+                source="src/repro_torch/csrc/qmatmul.cu",
+                replaces="src/repro/kernels/qmatmul.py:85",
+                launches=launches, max_abs_err=worst["qmatmul"], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms))
+            print(f"  qmatmul {body} whisper-tiny {proj} bf16 x ({m}, {k}) q "
+                  f"({k}, {n}): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), library {lib_ms:.4f} ms (torch.matmul on "
+                  f"the bf16 cast); {launches} launches of this body at "
+                  f"({k}, {n}) in phase 4l's W8 run", flush=True)
+    x = _rand(torch.Generator().manual_seed(230), WHISPER_PWL, 2.0, dev,
+              torch.bfloat16)
+    call = lambda: kernels["pwl_activate"](x, tables["gelu"])  # noqa: E731
+    out = call()
+    ms = time_call(call)
+    plain_ms = time_call(lambda: kernels["pwl_activate_plain"](
+        x, tables["gelu"]))
+    dev_ms = _ours(device_profile(call))
+    bound_ms, bound_by = _bound(_bytes(x, out),
+                                pwl_ops(x.numel(), tables["gelu"]))
+    launches = sum(1 for name, key in logs["pallas"]
+                   if name == "actiba_activate"
+                   and math.prod(key) == x.numel())
+    rows.append(dict(
+        name="pwl_activate_whisper_gelu", route="cuda",
+        source="src/repro_torch/csrc/actiba.cu",
+        replaces="src/repro/kernels/actiba.py:52", launches=launches,
+        max_abs_err=worst["pwl_activate"], ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    print(f"  pwl_activate bf16 gelu table {WHISPER_PWL}: kernel {ms:.4f} ms "
+          f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; instruction floor "
+          f"{pwl_floor_ms(x.numel(), tables['gelu']):.4f} ms), library none "
+          f"(no PyTorch call evaluates the table); {launches} launches at "
+          f"this size in phase 4l's pallas() run", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5797,6 +6389,11 @@ def main() -> int:
           f"steps of b={TRAIN_B} l={TRAIN_L} and a resume; gemma-2b "
           f"use_flash depth {GEMMA_TRAIN_DEPTH}; the step's split)")
     train_row = training_phase(dev, counters, tables)
+    phase(f"4l. whisper-tiny at full width and depth (bf16 use_flash: "
+          f"prefill, chunks of {WHISPER_CHUNK}, W8, pallas(); fp32 card vs "
+          f"CPU; {WHISPER_TRAIN_STEPS} train steps of b={WHISPER_TRAIN_B}; "
+          f"fp32 gradients at depth {WHISPER_GRAD_DEPTH})")
+    whisper_logs, _ = whisper_phase(dev, counters)
 
     phase("5. path parity (fp32, kernel path vs plain path)")
     parity_phase(dev, 1, get_config("mamba2-130m"), counters)
@@ -5839,6 +6436,7 @@ def main() -> int:
         rows += mamba2_2p7b_times(dev, kernels, launches, worst, m27_steps,
                                   m27_calls)
         rows.append(train_row)
+        rows += whisper_times(dev, kernels, whisper_logs, worst, tables)
         step_breakdown(engine, "mamba2-130m bf16")
         step_breakdown(w8_engine, "mamba2-130m W8")
         step_breakdown(m1_engine, "mamba-130m bf16")

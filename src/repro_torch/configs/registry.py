@@ -1,12 +1,11 @@
 """Architecture config registry: ``--arch <id>`` resolution.
 
-Every architecture of the JAX package's registry is ported but
-whisper-tiny (its encoder, ``layernorm`` and cross-attention), which
-raises ``NotImplementedError`` here: Mamba-2 (mamba2-130m, mamba2-2.7b),
-Mamba-1 (mamba-130m), RecurrentGemma (recurrentgemma-2b), the dense
-transformer (gemma-2b, qwen1.5-4b, deepseek-7b, internlm2-20b), its MoE
-variants (qwen3-moe-30b-a3b, grok-1-314b) and its vision stub
-(llava-next-mistral-7b).
+Every architecture of the JAX package's registry is ported: Mamba-2
+(mamba2-130m, mamba2-2.7b), Mamba-1 (mamba-130m), RecurrentGemma
+(recurrentgemma-2b), the dense transformer (gemma-2b, qwen1.5-4b,
+deepseek-7b, internlm2-20b), its MoE variants (qwen3-moe-30b-a3b,
+grok-1-314b), its vision stub (llava-next-mistral-7b) and the
+encoder-decoder whisper-tiny.
 """
 from __future__ import annotations
 
@@ -27,6 +26,7 @@ _ARCHS: Dict[str, str] = {
     "grok-1-314b": "grok1_314b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "mamba2-2.7b": "mamba2_2p7b",
+    "whisper-tiny": "whisper_tiny",
 }
 
 

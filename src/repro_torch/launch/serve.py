@@ -45,6 +45,7 @@ from repro_torch.models import build_model
 from repro_torch.nn import quant
 from repro_torch.nn.params import init_params
 from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
+from repro_torch.serve.engine import require_servable
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -184,6 +185,7 @@ def main(argv=None):
         log.warning("--prefix-cache-mb only applies to --engine continuous")
 
     cfg = get_config(args.arch, reduced=args.reduced)
+    require_servable(cfg)
     if args.decode_mode:
         cfg = cfg.with_decode_mode(args.decode_mode)
     if args.prefill_mode:

@@ -58,6 +58,9 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     cfg = get_config(args.arch, reduced=args.reduced)
+    if cfg.family == "whisper":
+        ap.exit(2, f"--arch {args.arch}: the data pipeline yields tokens "
+                   f"only, and whisper's loss needs frames\n")
     model = build_model(cfg, args.device)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch, seed=args.seed)

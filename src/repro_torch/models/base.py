@@ -1,12 +1,12 @@
 """Model configuration: the ``repro.models.base.ModelConfig`` fields that
-the Mamba-1, Mamba-2, RecurrentGemma and transformer (dense, MoE and the
-vision stub) families use,
+the Mamba-1, Mamba-2, RecurrentGemma, transformer (dense, MoE and the
+vision stub) and Whisper families use,
 with ``dtype`` as a ``torch.dtype``; the shared helpers
 ``chunk_positions``, ``cross_entropy_loss`` and ``remat`` (the
 training trunk's per-layer rematerialization); and :class:`DecodeAPI`,
 the serving surface's shared part (``prefill_chunk`` and
 ``verify_chunk`` over each family's chunk trunk, and the reference
-``speculative_step``) that the three model classes inherit."""
+``speculative_step``) that the model classes inherit."""
 from __future__ import annotations
 
 import dataclasses
@@ -220,10 +220,10 @@ class ModelConfig:
 
     # -- mlp ------------------------------------------------------------------
     d_ff: int = 2048
-    mlp_type: str = "swiglu"      # swiglu | geglu
+    mlp_type: str = "swiglu"      # swiglu | geglu | mlp
 
     # -- norms / embeddings ---------------------------------------------------
-    norm_type: str = "rmsnorm"    # rmsnorm | gemma_rmsnorm
+    norm_type: str = "rmsnorm"    # rmsnorm | gemma_rmsnorm | layernorm
     embed_scale: bool = False     # gemma: x *= sqrt(d_model)
 
     # -- SSM (mamba / mamba2) -------------------------------------------------
@@ -257,9 +257,13 @@ class ModelConfig:
     moe_cap_batch_sharding: bool = False
 
     # -- multimodal stubs -----------------------------------------------------
-    # vision_stub (llava) is ported; audio_stub (whisper) is refused.
+    # vision_stub (llava) puts image embeddings ahead of the tokens; the
+    # transformer reads nothing else.  Whisper's config sets no frontend:
+    # its stub is the precomputed frames its batches carry.
     frontend: Optional[str] = None        # vision_stub | audio_stub
     num_patches: int = 0                  # llava: image token count
+    encoder_layers: int = 0               # whisper (0: n_layers)
+    encoder_seq: int = 1500               # whisper frame count
 
     # -- execution policies ---------------------------------------------------
     param_dtype: str = "bfloat16"

@@ -6,9 +6,11 @@ from repro_torch.models.base import ModelConfig
 from repro_torch.models.mamba_lm import MambaLM
 from repro_torch.models.recurrentgemma import RecurrentGemma
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.whisper import Whisper
 
 _FAMILIES = {"mamba": MambaLM, "mamba2": MambaLM,
-             "recurrentgemma": RecurrentGemma, "transformer": TransformerLM}
+             "recurrentgemma": RecurrentGemma, "transformer": TransformerLM,
+             "whisper": Whisper}
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None):

@@ -62,7 +62,8 @@ from repro_torch.nn.params import stack_specs
 
 class TransformerLM(base.DecodeAPI):
     """GQA / MQA transformer, dense or MoE; runs on ``device`` (default
-    ``cuda``).  The ``audio_stub`` frontend (whisper) is not ported.  W8
+    ``cuda``).  Of the frontends it reads only ``vision_stub``, as the JAX
+    package's: under ``audio_stub`` it is a plain LM.  W8
     weights (``nn/quant.py``) go through ``layers.linear``'s ``qdot``
     (kernel 10 on the card), the ActiBA gated MLP under ``pallas()``
     through kernel 10's gated PWL form; the router and the bare expert
@@ -70,9 +71,6 @@ class TransformerLM(base.DecodeAPI):
     leaves them."""
 
     def __init__(self, cfg: base.ModelConfig, device: DeviceLike = None):
-        if cfg.frontend not in (None, "vision_stub"):
-            raise NotImplementedError(f"the {cfg.frontend!r} frontend is not "
-                                      f"ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
 

@@ -9,7 +9,9 @@ the flash-attention kernel (TPU kernel 9, ``kernels/ops.py:
 flash_attention``; its plain version on a CPU tensor), ahead of the
 blocked form, as the JAX package orders them.  The kernel's masks are
 left-aligned, the tensor path's right-aligned: they agree for
-self-attention (as many queries as keys), the only caller.
+self-attention (as many queries as keys) and for every call without a
+causal mask or a window (whisper's encoder and its cross-attention, where
+the decoder's queries meet the encoder's keys).
 
 Layouts are the JAX package's: q (b, s, nq, hd), k / v (b, t, nkv, hd),
 caches (b, T, nkv, hd).  Two cache layouts: **linear** (position p in
@@ -313,7 +315,8 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def apply(params: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
           cache: Optional[KVCache] = None, cache_index=None,
           causal: bool = True, window: Optional[int] = None,
-          out: Optional[KVCache] = None
+          out: Optional[KVCache] = None,
+          kv_source: Optional[torch.Tensor] = None, is_cross: bool = False
           ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """The attention block body (no residual, no norm).
 
@@ -326,41 +329,62 @@ def apply(params: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
       prefill (:func:`chunk_attention`);
     * one token: the decode step, writing slot ``index`` (``index % T``
       in a ring) of each row.
+
+    Cross-attention (``is_cross``, or a ``kv_source``: whisper's decoder)
+    projects k and v from ``kv_source`` and takes no RoPE and no causal
+    mask.  With a cache and a ``kv_source`` it rewrites the cache from
+    position 0 with them and attends to them (every prefill and chunk
+    call); with a cache and no ``kv_source`` (the decode step) only ``wq``
+    and ``wo`` run, against the whole cache.
     """
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, s, _ = x.shape
-    q = layers.rope(_split_heads(layers.linear(params["wq"], x), nq, hd),
-                    positions, theta=cfg.rope_theta)
-    k = layers.rope(_split_heads(layers.linear(params["wk"], x), nkv, hd),
-                    positions, theta=cfg.rope_theta)
-    v = _split_heads(layers.linear(params["wv"], x), nkv, hd)
+    is_cross = is_cross or kv_source is not None
+    q = _split_heads(layers.linear(params["wq"], x), nq, hd)
+    if is_cross and kv_source is None:
+        if cache is None:
+            raise ValueError("cross-attention without kv_source needs a "
+                             "cache")
+        k = v = None
+    else:
+        src = kv_source if is_cross else x
+        k = _split_heads(layers.linear(params["wk"], src), nkv, hd)
+        v = _split_heads(layers.linear(params["wv"], src), nkv, hd)
+    if not is_cross:
+        q = layers.rope(q, positions, theta=cfg.rope_theta)
+        k = layers.rope(k, positions, theta=cfg.rope_theta)
+    causal = causal and not is_cross
     softcap = cfg.attn_logit_softcap
     new_cache = None
     if cache is None:
         o = full_attention(q, k, v, causal=causal, window=window,
                            use_flash=cfg.use_flash, logit_softcap=softcap,
                            probs_bf16=cfg.attn_probs_bf16)
-    elif s > 1 and cache_index is not None:
+    elif s > 1 and cache_index is not None and not is_cross:
         o, new_cache = chunk_attention(
             q, k, v, cache, cache_index, window=window,
             logit_softcap=softcap, probs_bf16=cfg.attn_probs_bf16, out=out,
             q_pos=positions)
-    elif s > 1:
-        T = cache.k.shape[1]
+    elif s > 1 or (is_cross and k is not None):
+        T, sk = cache.k.shape[1], k.shape[1]
         ck, cv = _targets(cache, out)
-        if window is not None and T == window and s >= T:
-            ck.copy_(torch.roll(k[:, -T:], s % T, dims=1))
-            cv.copy_(torch.roll(v[:, -T:], s % T, dims=1))
+        if window is not None and T == window and sk >= T:
+            ck.copy_(torch.roll(k[:, -T:], sk % T, dims=1))
+            cv.copy_(torch.roll(v[:, -T:], sk % T, dims=1))
         else:
-            if s > T:
-                raise ValueError(f"prefill of {s} tokens into a linear "
+            if sk > T:
+                raise ValueError(f"prefill of {sk} positions into a linear "
                                  f"cache of {T}")
-            ck[:, :s] = k
-            cv[:, :s] = v
+            ck[:, :sk] = k
+            cv[:, :sk] = v
         new_cache = KVCache(ck, cv)
         o = full_attention(q, k, v, causal=causal, window=window,
                            use_flash=cfg.use_flash, logit_softcap=softcap,
                            probs_bf16=cfg.attn_probs_bf16)
+    elif is_cross:
+        new_cache = cache if out is None else KVCache(*_targets(cache, out))
+        o = decode_attention(q, new_cache, cache.k.shape[1],
+                             logit_softcap=softcap)
     else:
         T = cache.k.shape[1]
         ring = window is not None and T == window

@@ -1,6 +1,6 @@
-"""Functional layers: linear (with an optional bias), RMSNorm and the
-Gemma RMSNorm, RoPE, embeddings and the causal depthwise conv1d (ports of
-``repro.nn.layers``).
+"""Functional layers: linear (with an optional bias), RMSNorm, the Gemma
+RMSNorm and LayerNorm, RoPE, sinusoidal positions, embeddings and the
+causal depthwise conv1d (ports of ``repro.nn.layers``).
 
 Params are plain dicts of tensors; every function keeps the JAX
 package's rounding points (fp32 interiors, output cast back to the
@@ -43,18 +43,29 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def norm_specs(d: int, *, norm_type: str = "rmsnorm") -> dict:
-    """The Gemma RMSNorm stores ``scale - 1``, so it starts at zeros."""
-    return {"scale": ParamSpec((d,), init="zeros"
-                               if norm_type == "gemma_rmsnorm" else "ones")}
+    """The Gemma RMSNorm stores ``scale - 1``, so it starts at zeros;
+    LayerNorm adds a ``bias`` (zeros)."""
+    specs = {"scale": ParamSpec((d,), init="zeros"
+                                if norm_type == "gemma_rmsnorm" else "ones")}
+    if norm_type == "layernorm":
+        specs["bias"] = ParamSpec((d,), init="zeros")
+    return specs
 
 
 def norm(p: dict, x: torch.Tensor, *, norm_type: str = "rmsnorm",
          eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm (``gemma_rmsnorm``: scale + 1) with an fp32 interior; the
+    """RMSNorm (``gemma_rmsnorm``: scale + 1) or LayerNorm (the mean and
+    the biased variance, then scale and bias) with an fp32 interior; the
     output is cast back."""
-    if norm_type not in ("rmsnorm", "gemma_rmsnorm"):
+    if norm_type not in ("rmsnorm", "gemma_rmsnorm", "layernorm"):
         raise NotImplementedError(f"norm_type {norm_type!r} is not ported")
     xf = x.float()
+    if norm_type == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        xc = xf - mu
+        var = torch.mean(xc * xc, dim=-1, keepdim=True)
+        return (xc * torch.rsqrt(var + eps) * p["scale"].float()
+                + p["bias"].float()).to(x.dtype)
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     scale = p["scale"].float()
     if norm_type == "gemma_rmsnorm":
@@ -90,6 +101,52 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+_SIN_INV: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
+
+
+def _sin_inv(d: int, base: float, device) -> torch.Tensor:
+    """The sinusoids' (d/2,) inverse frequencies, computed in numpy fp32
+    as the JAX package computes them, moved to ``device`` once (as
+    :func:`_rope_freqs`)."""
+    key = (d, float(base), torch.device(device))
+    inv = _SIN_INV.get(key)
+    if inv is None:
+        inv = _SIN_INV[key] = torch.from_numpy(
+            1.0 / (base ** (np.arange(0, d, 2, dtype=np.float32) / d))
+        ).to(device)
+    return inv
+
+
+def _sin_cos(ang: torch.Tensor) -> torch.Tensor:
+    """(..., d/2) angles -> (..., d): sin and cos interleaved per pair."""
+    return torch.stack([torch.sin(ang), torch.cos(ang)],
+                       dim=-1).reshape(ang.shape[:-1] + (-1,))
+
+
+def sinusoidal_positions(seq: int, d: int, base: float = 1e4,
+                         device=None) -> torch.Tensor:
+    """(seq, d) fp32 sinusoidal table: position p's angles p * inv in
+    fp32, ``[sin, cos]`` interleaved per pair."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    return _sin_cos(pos * _sin_inv(d, base, pos.device)[None, :])
+
+
+def sinusoidal_position_at(index, d: int, base: float = 1e4
+                           ) -> torch.Tensor:
+    """(d,) fp32 sinusoidal embedding of one position ``index`` (an int,
+    or a 0-d tensor, whose device it takes)."""
+    idx = torch.as_tensor(index).float()
+    return _sin_cos(idx * _sin_inv(d, base, idx.device))
+
+
+def sinusoidal_positions_at(positions: torch.Tensor, d: int,
+                            base: float = 1e4) -> torch.Tensor:
+    """(..., d) fp32 sinusoidal embeddings of a tensor of positions (a
+    prefill chunk's absolute positions), on its device."""
+    ang = positions.float()[..., None] * _sin_inv(d, base, positions.device)
+    return _sin_cos(ang)
 
 
 def embed_specs(vocab: int, d: int) -> dict:

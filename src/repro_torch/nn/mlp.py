@@ -1,7 +1,10 @@
-"""Gated MLPs (SwiGLU / GeGLU), ActiBA-aware: a port of ``repro.nn.mlp``
-(its plain, ungated ``mlp`` type is not ported).
+"""MLPs, gated (SwiGLU / GeGLU) and plain (``mlp``: whisper's GeLU MLP),
+ActiBA-aware: a port of ``repro.nn.mlp``.
 
-The gated form is ``act(x @ wg) * (x @ wi)`` then ``wo``.  Under
+The plain form is ``act(x @ wi)`` then ``wo``; its activation goes
+through ``core/pwl.py: activation`` under every mode (kernel 12 under
+ActiBA on the card), never through ``matmul_pwl``, as in the JAX
+package.  The gated form is ``act(x @ wg) * (x @ wi)`` then ``wo``.  Under
 ActiBA with a ``pallas`` CumBA mode (``XambaConfig.pallas()``) the gated
 unit runs as one ``matmul_pwl`` call (TPU kernel 11: the activation's PWL
 table in the product's drain, ``kernels/ops.py``), or with W8 weights as
@@ -19,21 +22,25 @@ from repro_torch.core import pwl
 from repro_torch.kernels import ops
 from repro_torch.nn import layers, quant
 
-_ACT_FOR_MLP = {"swiglu": "silu", "geglu": "gelu"}
+_ACT_FOR_MLP = {"swiglu": "silu", "geglu": "gelu", "mlp": "gelu"}
 
 
 def mlp_specs(cfg) -> dict:
     if cfg.mlp_type not in _ACT_FOR_MLP:
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported")
     d, f = cfg.d_model, cfg.d_ff
-    return {"wi": layers.linear_specs(d, f), "wg": layers.linear_specs(d, f),
-            "wo": layers.linear_specs(f, d)}
+    specs = {"wi": layers.linear_specs(d, f), "wo": layers.linear_specs(f, d)}
+    if cfg.mlp_type != "mlp":
+        specs["wg"] = layers.linear_specs(d, f)
+    return specs
 
 
 def apply(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     act_name = _ACT_FOR_MLP[cfg.mlp_type]
     xamba = cfg.xamba
-    if xamba.actiba and xamba.cumba in ("pallas", "pallas_interpret"):
+    if cfg.mlp_type == "mlp":
+        h = pwl.activation(act_name, xamba)(layers.linear(params["wi"], x))
+    elif xamba.actiba and xamba.cumba in ("pallas", "pallas_interpret"):
         wg, wi = params["wg"]["w"], params["wi"]["w"]
         x2 = x.reshape(-1, x.shape[-1])
         table = pwl.table_for(act_name, xamba)

@@ -14,8 +14,12 @@ stacked weight is its leading axis):
   pattern position ``"0"``, ``"1"``, ...) and its unstacked ``tail``
   (``"0"``, ``"1"``, ... of the layers past the last whole group).
 
-:func:`per_layer` then turns either into ``layers``: the list of
-per-layer dicts the port's Python layer loop reads.
+Whisper declares its two trunks unstacked, as the JAX package does:
+``encoder`` and ``decoder``, each ``"0"``, ``"1"``, ...
+
+:func:`per_layer` then turns each trunk into a list of per-layer dicts
+(``layers``; whisper's ``encoder`` and ``decoder``), which the port's
+Python layer loops read.
 """
 from __future__ import annotations
 
@@ -82,11 +86,19 @@ def _is_unstacked(layers: Dict[str, Any]) -> bool:
     return bool(layers) and all(k.isdigit() for k in layers)
 
 
+# Whisper's two trunks, each ``"0"``, ``"1"``, ... (never stacked).
+_ENC_DEC = ("encoder", "decoder")
+
+
 def per_layer(tree: Dict[str, Any]) -> Dict[str, Any]:
     """``tree`` with its layer trunk as ``layers``, a per-layer list: the
     stacked ``layers`` split (or the ``scan_layers=False`` dict ``"0"``,
     ``"1"``, ... in order), or RecurrentGemma's ``groups`` (layer ``g * P
-    + j`` is group ``g`` of position ``j``) followed by its ``tail``."""
+    + j`` is group ``g`` of position ``j``) followed by its ``tail``;
+    whisper's ``encoder`` and ``decoder`` each as their own list."""
+    if any(k in tree for k in _ENC_DEC):
+        return dict(tree, **{k: _by_int(tree[k]) for k in _ENC_DEC
+                             if k in tree})
     if "layers" in tree:
         if _is_unstacked(tree["layers"]):
             return dict(tree, layers=_by_int(tree["layers"]))
@@ -151,10 +163,23 @@ def from_jax_params(tree: Dict[str, Any], cfg, device: DeviceLike = None
         return _tensor_from_numpy(t).to(dev)
 
     out = per_layer(conv(tree))
-    if len(out["layers"]) != cfg.n_layers:
-        raise ValueError(f"params hold {len(out['layers'])} layers, the "
-                         f"config {cfg.n_layers}")
+    _check_depths(out, cfg)
     return out
+
+
+def _depths(cfg) -> Dict[str, int]:
+    """Each per-layer trunk's name and the layers the config gives it."""
+    if cfg.family == "whisper":
+        return {"encoder": cfg.encoder_layers or cfg.n_layers,
+                "decoder": cfg.n_layers}
+    return {"layers": cfg.n_layers}
+
+
+def _check_depths(tree: Dict[str, Any], cfg) -> None:
+    for name, n in _depths(cfg).items():
+        if len(tree[name]) != n:
+            raise ValueError(f"params hold {len(tree[name])} {name} "
+                             f"layers, the config {n}")
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -197,14 +222,20 @@ def to_jax_params(tree: Dict[str, Any], cfg) -> Dict[str, Any]:
     package's params, nested dicts of numpy arrays: the per-layer list
     stacked into ``layers`` (``cfg.scan_layers``; else ``"0"``, ``"1"``,
     ...), or for RecurrentGemma into ``groups`` (one stack per pattern
-    position over the whole groups) and ``tail``.  bf16 leaves come back
-    as fp32 (exact), as the JAX package's checkpoints store them."""
+    position over the whole groups) and ``tail``, and whisper's
+    ``encoder`` and ``decoder`` as ``"0"``, ``"1"``, ... each.  bf16
+    leaves come back as fp32 (exact), as the JAX package's checkpoints
+    store them."""
+    _check_depths(tree, cfg)
+    trunks = _depths(cfg)
     host = tree_map(to_numpy, {k: v for k, v in tree.items()
-                               if k != "layers"})
+                               if k not in trunks})
+    if cfg.family == "whisper":
+        for name in trunks:
+            host[name] = {str(i): tree_map(to_numpy, p)
+                          for i, p in enumerate(tree[name])}
+        return host
     layers = [tree_map(to_numpy, p) for p in tree["layers"]]
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"params hold {len(layers)} layers, the config "
-                         f"{cfg.n_layers}")
 
     def stack(ps):
         return tree_map(lambda *xs: np.stack(xs), *ps)

@@ -31,6 +31,11 @@ monitors, the watchdog and its recovery with retries, overload and
 in-flight shedding and the flight recorder act in the continuous engine
 (``serve/continuous.py``).  The one difference kept: there is no
 ``backend_fallback``; a failed kernel launch raises out of the engine.
+
+Whisper (an encoder-decoder whose calls take frames beside the tokens)
+is not served by these token-only engines, in the JAX package either:
+both engines, and ``launch/serve``, refuse it before any work
+(:func:`require_servable`).
 """
 from __future__ import annotations
 
@@ -159,6 +164,16 @@ class ServeConfig:
     flight_path: Optional[str] = None
 
 
+def require_servable(cfg) -> None:
+    """Raise ``NotImplementedError`` for a family the token-only engines
+    cannot serve: whisper, whose calls need its ``frames``."""
+    if cfg.family == "whisper":
+        raise NotImplementedError(
+            f"{cfg.name}: the whisper family is not served by the "
+            f"token-only engines (its prefill takes frames beside the "
+            f"tokens); call its prefill / prefill_chunk / decode_step")
+
+
 class EngineBase:
     """Plumbing the engines share: the model and params, the traced model
     programs, uid and sampling-step counters, submit-time bookkeeping,
@@ -166,6 +181,7 @@ class EngineBase:
     sentinels."""
 
     def __init__(self, model, params, cfg: ServeConfig):
+        require_servable(model.cfg)
         self.model = model
         # Built once: every layer's kernel operands in fp32.
         self.params = model.decode_view(params)

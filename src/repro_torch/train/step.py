@@ -3,14 +3,16 @@ accumulation (the port of ``repro.train.step``).
 
 ``make_train_step(model, cfg)`` returns ``train_step(state, batch) ->
 (new_state, metrics)``, the JAX package's contract: ``state`` is
-``{"params", "opt"}``, ``batch`` a dict of (b, l) tensors on the
-model's device, and the metrics the model's (``loss``, ``accuracy``,
+``{"params", "opt"}``, ``batch`` the model's dict of tensors on its
+device, batch first ((b, l) ``tokens`` and ``labels``; whisper's also
+(b, 1500, d) ``frames``), and the metrics the model's (``loss``, ``accuracy``,
 ``tokens``, ``loss_total``, ``moe_aux`` for MoE) plus ``grad_norm`` and
 ``lr``, as 0-d tensors.  With ``microbatches`` k > 1 the batch splits
 into k equal rows, the gradients sum in fp32 and divide by k, and the
 metrics are the microbatches' means.  The gradients come from
 ``torch.autograd.grad`` of ``model.loss`` on the raw params; on the card
-kernels 2, 9 and 12 run through their ``torch.autograd.Function``
+kernels 2, 9 (whisper's encoder, decoder and cross-attention too) and 12
+run through their ``torch.autograd.Function``
 (``kernels/ops.py``).  One card has no pod axis: ``compressed_cross_pod``
 raises; ``abstract_state`` (the dry-run's) is not ported.
 """

@@ -124,8 +124,9 @@ def test_default_device_raises_without_gpu():
 def test_unported_modes_raise(cfg):
     """Untied embeddings were refused before they were ported; now the
     model builds and its prefill and decode logits match the JAX model's
-    (fp32, within 1e-5 of the largest magnitude, at least 1), and the
-    one family mode still unported, whisper's encoder, raises."""
+    (fp32, within 1e-5 of the largest magnitude, at least 1).  Whisper's
+    encoder, the last family mode refused, is ported too: its config
+    resolves with the JAX package's fields (``_assert_whisper_config``)."""
     dims = dict(DIMS, param_dtype="float32")
     jm = jbuild(JModelConfig(**dims, tie_embeddings=False))
     jp = jinit(jm.param_specs(), jax.random.PRNGKey(2), jnp.float32)
@@ -145,8 +146,24 @@ def test_unported_modes_raise(cfg):
         want = np.asarray(want)
         err = float(np.abs(got.numpy() - want).max())
         assert err <= 1e-5 * max(1.0, float(np.abs(want).max()))
-    with pytest.raises(NotImplementedError):
-        get_config("whisper-tiny")
+    _assert_whisper_config()
+
+
+def _assert_whisper_config():
+    """``get_config("whisper-tiny")`` resolves, every field the JAX
+    config has (but its sharding rules) equal, the XAMBA flags too."""
+    import dataclasses
+    from repro.configs import get_config as jget_config
+    t, j = get_config("whisper-tiny"), jget_config("whisper-tiny")
+    fields = {f.name for f in dataclasses.fields(t)} - {"xamba"}
+    assert {f.name for f in dataclasses.fields(j)} - fields == {
+        "logical_rules", "xamba"}
+    for f in sorted(fields):
+        assert getattr(t, f) == getattr(j, f), f
+    assert dataclasses.asdict(t.xamba) == dataclasses.asdict(j.xamba)
+    assert (t.family, t.encoder_layers, t.n_layers, t.d_model, t.n_heads,
+            t.head_dim, t.d_ff, t.vocab_size, t.encoder_seq) == (
+        "whisper", 4, 4, 384, 6, 64, 1536, 51865, 1500)
 
 
 @pytest.mark.parametrize("xamba", [
@@ -235,8 +252,9 @@ def test_registry():
             cfg.vocab_size, cfg.sliding_window, cfg.attn_logit_softcap) == (
         "recurrentgemma", 26, 2560, 2560, 10, 1, 256, 7680, 256000, 2048,
         30.0)
+    _assert_whisper_config()
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("whisper-tiny")
+        get_config("whisper-base")
 
 
 def test_cli_serves_on_cpu():

@@ -173,8 +173,9 @@ def test_init_params_follows_the_jax_rule_per_leaf():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_linear_with_bias_norm_and_rope_match_jax(dtype):
     """The bias is added in fp32 before the one cast; the Gemma norm
-    scales by ``scale + 1``; RoPE rotates half-split pairs at fp32
-    angles (per-row positions)."""
+    scales by ``scale + 1``; LayerNorm (whisper's) adds its bias after the
+    scale; RoPE rotates half-split pairs at fp32 angles (per-row
+    positions); a norm type the JAX package lacks raises."""
     rng = np.random.default_rng(0)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     x = rng.normal(size=(3, 5, 16)).astype(np.float32)
@@ -197,8 +198,12 @@ def test_linear_with_bias_norm_and_rope_match_jax(dtype):
     jq, tq = pair(q)
     got = tlayers.rope(tq, torch.from_numpy(pos), theta=1e4)
     assert _rel(got, jlayers.rope(jq, jnp.asarray(pos), theta=1e4)) <= tol
+    jlb, tlb = pair(scale[::-1].copy())
+    got = tlayers.norm({"scale": ts, "bias": tlb}, tx, norm_type="layernorm")
+    assert _rel(got, jlayers.norm({"scale": js, "bias": jlb}, jx,
+                                  norm_type="layernorm")) <= tol
     with pytest.raises(NotImplementedError):
-        tlayers.norm({"scale": ts}, tx, norm_type="layernorm")
+        tlayers.norm({"scale": ts}, tx, norm_type="batchnorm")
 
 
 # ---------------------------------------------------------------------------

@@ -151,12 +151,22 @@ def test_init_params_draws_lm_head_after_the_trunk():
 
 
 def test_unported_transformer_modes_raise():
-    """Only whisper's ``audio_stub`` frontend is refused; MoE layers and
-    the vision stub are served (``tests/test_torch_moe.py``,
+    """No transformer mode is refused any more.  The ``audio_stub``
+    frontend builds and is a plain LM, as the JAX package's
+    ``TransformerLM`` (it reads only ``vision_stub``): the logits of the
+    same config without a frontend, bit for bit.  MoE layers and the
+    vision stub are served (``tests/test_torch_moe.py``,
     ``tests/test_torch_variants.py``)."""
-    cfg = get_config("gemma-2b", reduced=True)
-    with pytest.raises(NotImplementedError, match="frontend"):
-        build_model(cfg.replace(frontend="audio_stub"), device="cpu")
+    cfg = get_config("gemma-2b", reduced=True, param_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(8).integers(1, 64, (2, 8)))
+    logits = []
+    for c in (cfg, cfg.replace(frontend="audio_stub")):
+        m = build_model(c, device="cpu")
+        p = init_params(m.param_specs(), 0, torch.float32, "cpu")
+        with torch.inference_mode():
+            logits.append(m.prefill(p, {"tokens": toks},
+                                    m.init_cache(2, 8, torch.float32))[0])
+    assert torch.equal(logits[0], logits[1])
     for ok in (dict(moe=True, n_experts=4, n_experts_per_token=2,
                     moe_d_ff=64), dict(frontend="vision_stub")):
         assert build_model(cfg.replace(**ok), device="cpu").cfg == \

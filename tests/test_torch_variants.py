@@ -1,6 +1,6 @@
 """The port's configs of deepseek-7b, internlm2-20b, qwen3-moe-30b-a3b,
-grok-1-314b, llava-next-mistral-7b and mamba2-2.7b against the JAX
-package's, field for field; llava's vision stub (``image_embeds`` ahead
+grok-1-314b, llava-next-mistral-7b, mamba2-2.7b and whisper-tiny against
+the JAX package's, field for field; llava's vision stub (``image_embeds`` ahead
 of the tokens) through ``prefill``, decode and ``loss``; the dense
 deepseek-7b and internlm2-20b through prefill and decode; untied
 ``MambaLM`` (mamba2 and mamba1) in fp32, bf16 and W8; and RecurrentGemma
@@ -43,33 +43,31 @@ from test_torch_rgemma import BF16_STEP, RTOL, _rel
 from test_torch_transformer import MODEL_TOL, _bf16_close
 
 NEW_ARCHS = ("deepseek-7b", "internlm2-20b", "qwen3-moe-30b-a3b",
-             "grok-1-314b", "llava-next-mistral-7b", "mamba2-2.7b")
+             "grok-1-314b", "llava-next-mistral-7b", "mamba2-2.7b",
+             "whisper-tiny")
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_config_equals_jax_field_for_field(arch, reduced):
     """Every field the two ``ModelConfig``s share is equal, the XAMBA
-    flags too; the port lacks only whisper's encoder fields and the
-    sharding rules."""
+    flags too; the port lacks only the sharding rules."""
     t = get_config(arch, reduced=reduced)
     j = jget_config(arch, reduced=reduced)
     tf = {f.name for f in dataclasses.fields(t)}
     jf = {f.name for f in dataclasses.fields(j)}
-    assert jf - tf == {"encoder_layers", "encoder_seq", "logical_rules"}
+    assert jf - tf == {"logical_rules"}
     for f in sorted(tf & jf - {"xamba"}):
         assert getattr(t, f) == getattr(j, f), (arch, f)
     assert dataclasses.asdict(t.xamba) == dataclasses.asdict(j.xamba)
 
 
 def test_registry_resolves_every_arch_but_whisper():
+    """Every arch of the JAX registry resolves, whisper-tiny too since it
+    was ported (the name is the test's from before)."""
     from repro.configs.registry import list_archs
     for arch in list_archs():
-        if arch == "whisper-tiny":
-            with pytest.raises(NotImplementedError, match="not ported"):
-                get_config(arch)
-        else:
-            assert get_config(arch).name == arch
+        assert get_config(arch).name == arch
     m = get_config("mamba2-2.7b")
     assert (m.n_layers, m.d_model, m.d_state, m.vocab_size,
             m.expand * m.d_model // m.ssm_head_dim) == (64, 2560, 128, 50280,
