@@ -62,6 +62,15 @@ internlm2-20b, of mamba2-2.7b and of whisper-tiny (the encoder-decoder):
    ``pwl_activate`` also with the GeLU table on whisper's MLP (6000,
    1536); ``qmatmul`` also at whisper-tiny's three W8 shapes at m = 4 and
    6000; ``reduce_rows`` at (2048, 2048) and (1000, 300); each twice.
+   At the dry run's cells (phase 4m): ``mamba2_step`` at decode_32k's
+   b = 128 with 24 and 80 heads (fp32 and bf16, twice), and
+   ``mamba2_prefill`` at prefill_32k (bf16, b = 32, l = 32768, 128 chunks
+   of 256, on its ``wgmma`` body; z, xbc and dt views of one projection of
+   3.5e9 elements, its bits those of the call on contiguous copies) held
+   on its first two rows and on its last two (offsets past 2^31) to the
+   plain version run alone on them: the new states by the element-wise
+   rule, y by its accuracy against the fp64 witness beside the plain
+   version's (``PREFILL_32K_X``); each with its time and bound.
    Kernels 9, 10 and 11 print the body each case took by their path
    counts (kernel 9: bf16 the ``wgmma`` body, fp32 the ``wgmma_fp32``
    body, views TMA cannot read the SIMT body; 10 and 11: the tensor-core
@@ -237,6 +246,23 @@ internlm2-20b, of mamba2-2.7b and of whisper-tiny (the encoder-decoder):
    tokens on one batch: the loss finite and falling, 12 kernel-9 launches
    a step, the step's ms and peak memory; (g) fp32 at depth 2, every
    gradient leaf on the card within ``TRAIN_GRAD_TOL`` of the CPU's;
+   4m (run last, after phase 7, once the earlier phases' engines are
+   released: its cells take up to 46 GiB): the dry run
+   (``launch/dryrun.py``) checked on the card under
+   ``DRYRUN_BUDGET_S`` (120 s): the records of every mamba2-130m shape
+   and of mamba2-2.7b's decode_32k (``python -m
+   repro_torch.launch.dryrun`` processes started together when the phase
+   starts, on the CPU, beside this process's count of 4k's train step: b =
+   8, l = 512, not one of the dry run's shapes) printed (fit,
+   microbatches, GiB, FLOPs, bytes, bottleneck);
+   each cell that fits materialised from a seed on the card and run once
+   through the kernels: its argument storages equal ``argument_bytes`` to
+   the byte, its allocated arguments and peak within ``PEAK_X`` of the
+   record, its launches the record's, its output finite, and a second
+   call timed beside the roofline bound; 4k's last checkpoint restored on
+   the CPU and resharded onto the card's mesh (``reshard_state``) bit for
+   bit; ``hlo_analysis --arch mamba2-130m --check-budgets`` within its
+   budget;
 5. parity  — the same model in fp32, kernel path on the card against the
    plain path on the CPU, teacher-forced over 16 greedy tokens of 4
    prompts, with fp32 weights and with W8 weights: tokens agree
@@ -328,6 +354,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -338,21 +365,24 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 CUDA-core FLOP/s
-# and bf16 tensor-core FLOP/s (dense).  The fused kernels compute in fp32
-# on the CUDA cores; qmatmul's bound takes the rate its stream dtype
-# allows (bf16 in the serve path: the int8 weights widen exactly to bf16).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+# The kernels' bounds, one source with the dry run's counts: H100 SXM peaks
+# (NVIDIA data sheet): HBM3 bytes/s, fp32 CUDA-core FLOP/s, bf16
+# tensor-core FLOP/s (dense) and the split tensor-core rate of kernel 7's
+# ``wgmma`` body, and each kernel's bytes and operations.  The fused
+# kernels compute in fp32 on the CUDA cores; qmatmul's bound takes the
+# rate its stream dtype allows (bf16 in the serve path: the int8 weights
+# widen exactly to bf16).  Run alone, without the repository, the import
+# fails and the script exits 1.
+from repro_torch.kernels.cost import (  # noqa: E402
+    BF16_TC_FLOP_PER_S, FP32_FLOP_PER_S, HBM_BYTES_PER_S,
+    SPLIT_TC_FLOP_PER_S, _bound, _bytes, decode_bound, mamba1_bound,
+    prefill_tc_bound, pwl_ops, ssd_chunk_ops)
 # fp32 instructions that are not fused multiply-adds (a subtraction, a max,
 # a product, a sum), one a lane a cycle: 132 SMs x 4 schedulers x 32 lanes
 # at the 1.98 GHz boost clock.  Kernel 12's instruction floor.
 FP32_ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
-BF16_TC_FLOP_PER_S = 989e12
-# fp32-accurate products on the bf16 tensor cores: six bf16 products of
-# three-term splits each (csrc/ssd_tc.cuh), kernel 7's ``wgmma`` body.
-SPLIT_TC_FLOP_PER_S = BF16_TC_FLOP_PER_S / 6
 
 # Kernel vs plain version on the same inputs, element by element:
 #     |kernel - plain| <= rtol * (|plain| + ATOL_RMS * rms(plain))
@@ -1201,9 +1231,166 @@ def kernel_cases(dev, kernels, tables):
                    lambda: (kernels["qmatmul"](*args, **qkw),),
                    lambda: (kernels["qmatmul_plain"](*args, **qkw),), dn,
                    (("out", "stream"),))
+    dryrun_shape_cases(dev, kernels, twice, check, fails, worst)
     if fails:
         raise AssertionError(f"kernels vs plain: {fails}")
     return worst
+
+
+# The dry run's cells on the card (phase 4m) at their kernels' shapes:
+# kernel 1 at decode_32k's b = 128 (mamba2-130m's 24 heads, mamba2-2.7b's
+# 80), kernel 2 at prefill_32k (b = 32, l = 32768: 128 chunks of 256, an
+# in_proj output of 3.5e9 elements, past 2^31: z, xbc and dt are the
+# three views of one (b, l, 3352) tensor, as ``ops.mamba2_prefill`` splits
+# the projection).  The call on those views must give the bits of the
+# call on contiguous copies.  The plain version's (b, c, L, L, h) fp32
+# temporaries at prefill_32k (25.8 GB each) do not fit beside the call, so
+# it runs alone on the call's first two rows and on its last two, whose
+# offsets into the projection pass 2^31 elements.  Its new states are held
+# to the kernel's by the phase's element-wise rule.  Its y is not: over
+# 32768 tokens the plain version itself sits 1.25-1.50 of that rule's
+# limit from the fp64 witness (``witness_prefill``), as the kernel does,
+# so y is held by accuracy instead: against the witness, the kernel's
+# worst element (in units of the limit) and its share of elements off at
+# most PREFILL_32K_X times the plain version's.  An H100 80GB HBM3 (700 W)
+# read 1.000x on the worst element and 1.009-1.017x on the share off, on
+# this draw and on an earlier one of three separate tensors (PERF.md).
+DECODE_32K_B = 128
+PREFILL_32K = (32, 32768, 256)     # b, l, chunk
+PREFILL_32K_ROWS = ((0, 2), (30, 32))
+PREFILL_32K_X = 1.05
+
+
+def witness_accuracy(y, want):
+    """(worst element in units of phase 3's bf16 limit, share of elements
+    off) of ``y`` against the fp64 witness output ``want`` (fp32)."""
+    diff = (y.float() - want).abs()
+    rms = float(want.square().mean().sqrt())
+    used = float((diff / (TOL["bfloat16", "stream"] * (
+        want.abs() + ATOL_RMS * rms))).max())
+    return used, int((diff > 0).sum()) / diff.numel()
+
+
+def prefill_inputs_card(b, l, dev, dtype, seed, heads=N_HEADS):
+    """:func:`prefill_inputs`' operands (widths and scales) drawn on the
+    card from ``seed``: at prefill_32k the host would draw 3.5e9 values.
+    z, xbc and dt are views of one (b, l, di + dxbc + h) projection."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = torch.float32
+    di = heads * HEAD_DIM
+    dx = di + 2 * N_GROUPS * D_STATE
+
+    def rnd(shape, scale, dt):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+    z, xbc, dt = torch.split(rnd((b, l, di + dx + heads), 1.0, dtype),
+                             [di, dx, heads], dim=-1)
+    return dict(
+        z=z, xbc=xbc, dt=dt,
+        conv_state=rnd((b, WIDTH - 1, dx), 1.0, dtype),
+        ssm_state=rnd((b, heads, HEAD_DIM, D_STATE), 0.1, f32),
+        conv_w=rnd((WIDTH, dx), 0.3, f32), conv_b=rnd((dx,), 0.1, f32),
+        dt_bias=rnd((heads,), 0.1, f32),
+        A=-torch.exp(rnd((heads,), 0.3, f32)), D=rnd((heads,), 0.2, f32),
+        norm_scale=rnd((di,), 1.0, f32).abs() + 0.5)
+
+
+def dryrun_shape_cases(dev, kernels, twice, check, fails, worst):
+    """Phase 3's cases at the dry run's shapes (kernel 1 in fp32 and bf16,
+    twice for the same bits; kernel 2 in bf16, the model's dtype), each
+    with its time and bound."""
+    import torch
+    kw = dict(ngroups=N_GROUPS, head_dim=HEAD_DIM)
+    b = DECODE_32K_B
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for heads in (N_HEADS, M27_HEADS):
+            ins = decode_inputs(b, dev, dtype, seed=17 + heads, heads=heads)
+            twice("mamba2_step", f"{dn} decode_32k b={b} h={heads}",
+                  lambda: kernels["mamba2_step"](**ins, **kw),
+                  lambda: kernels["mamba2_step_plain"](**ins, **kw), dn)
+            outs = kernels["mamba2_step"](**ins, **kw)
+            ms = time_call(lambda: kernels["mamba2_step"](**ins, **kw))
+            plain_ms = time_call(
+                lambda: kernels["mamba2_step_plain"](**ins, **kw), n=10)
+            bound_ms, by = decode_bound(ins, outs)
+            print(f"  mamba2_step {dn} decode_32k b={b} h={heads}: "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({by}), {bound_ms / ms:.1%} of it",
+                  flush=True)
+            del ins, outs
+    bb, l, chunk = PREFILL_32K
+    rows = PREFILL_32K_ROWS
+    ins = prefill_inputs_card(bb, l, dev, torch.bfloat16, seed=29)
+    body = kernels["mamba2_prefill"].path_launches
+    before = dict(body)
+    got = kernels["mamba2_prefill"](**ins, chunk=chunk, **kw)
+    took = {k: v - before[k] for k, v in body.items() if v != before[k]}
+    print(f"    body: {took} (the shape rule names wgmma)",
+          flush=True)
+    if took != {"wgmma": 1}:
+        fails.append("mamba2_prefill prefill_32k body")
+    batch = ("z", "xbc", "dt", "conv_state", "ssm_state")
+    proj = ins["z"].untyped_storage().nbytes() // ins["z"].element_size()
+    assert proj > 2 ** 31 and ins["dt"].untyped_storage().data_ptr() == \
+        ins["z"].untyped_storage().data_ptr()
+    cont = {k: v.contiguous() for k, v in ins.items()}
+    same = [bool(torch.equal(a, c)) for a, c in zip(
+        got, kernels["mamba2_prefill"](**cont, chunk=chunk, **kw))]
+    del cont
+    print(f"    z, xbc, dt: views of one {tuple(ins['z'].shape[:2])} x "
+          f"{ins['z'].stride(1)} projection of {proj} elements (2^31 = "
+          f"{2 ** 31}); the call on contiguous copies gives the same bits "
+          f"(y, conv, ssm): {same}" + ("" if all(same) else " FAIL"),
+          flush=True)
+    if not all(same):
+        fails.append("mamba2_prefill prefill_32k views vs copies")
+    for r0, r1 in rows:
+        head = {k: v[r0:r1] if k in batch else v for k, v in ins.items()}
+        want = kernels["mamba2_prefill_plain"](**head, chunk=chunk, **kw)
+        case = (f"bf16 prefill_32k b={bb} l={l} chunk={chunk}, rows "
+                f"{r0}-{r1 - 1} against the plain version on them alone")
+        check("mamba2_prefill", case, tuple(o[r0:r1] for o in got)[1:],
+              want[1:], "bfloat16", FUSED_OUTS[1:])
+        t0 = time.perf_counter()
+        wit = witness_prefill(head, **kw)[0].float()
+        k_used, k_off = witness_accuracy(got[0][r0:r1], wit)
+        p_used, p_off = witness_accuracy(want[0], wit)
+        ok = k_used <= PREFILL_32K_X * p_used and \
+            k_off <= PREFILL_32K_X * p_off
+        diff = (got[0][r0:r1].float() - want[0].float()).abs()
+        over = int((_bf16_steps(diff, want[0].float()) > 1).sum())
+        secs = time.perf_counter() - t0
+        print(f"  mamba2_prefill {case} y: max_abs_err {float(diff.max()):.3e}"
+              f", {int((diff > 0).sum())} of {diff.numel()} elements differ, "
+              f"{over} by more than one bf16 step; against the fp64 witness "
+              f"({secs:.1f} s) the kernel's worst element {k_used:.4f} of "
+              f"the limit, "
+              f"{k_off:.4%} off; the plain version's {p_used:.4f}, "
+              f"{p_off:.4%} ({k_used / max(p_used, 1e-30):.4f}x, "
+              f"{k_off / max(p_off, 1e-30):.4f}x; "
+              f"limit {PREFILL_32K_X}x)" + (" ok" if ok else " FAIL"),
+              flush=True)
+        if not ok:
+            fails.append(f"mamba2_prefill {case} y vs witness")
+        worst["mamba2_prefill"] = max(worst["mamba2_prefill"],
+                                      float(diff.max()))
+        del want, wit, diff
+    torch.cuda.synchronize(dev)
+    head_ms = time_call(lambda: kernels["mamba2_prefill_plain"](
+        **head, chunk=chunk, **kw), n=3, warmup=1)
+    del head
+    ms = time_call(lambda: kernels["mamba2_prefill"](**ins, chunk=chunk,
+                                                     **kw), n=5, warmup=1)
+    bound_ms, by, t_bytes, t_ops, gflop = prefill_tc_bound(ins, got, chunk)
+    print(f"  mamba2_prefill bf16 prefill_32k b={bb} l={l}: {ms:.3f} ms, "
+          f"bound {bound_ms:.3f} ms ({by}: bytes {t_bytes:.3f} ms, "
+          f"operations {t_ops:.3f} ms, {gflop:.1f} GFLOP), "
+          f"{bound_ms / ms:.1%} of it; plain {head_ms:.3f} ms on rows "
+          f"{r0}-{r1 - 1} alone (its temporaries at all {bb} rows exceed "
+          f"the card)", flush=True)
+    del ins, got
+    torch.cuda.empty_cache()
 
 
 def qmatmul_inputs(m, k, n, dev, dtype, seed, gated=False):
@@ -4519,74 +4706,6 @@ def simt_prefill(ins, chunk):
     return out, new_conv, new_ssm
 
 
-def prefill_tc_bound(ins, outs, chunk):
-    """Kernel 2's bound for the tensor-core design, from the run's tensors:
-    the bytes (inputs read once, outputs written once) at 3.35 TB/s beside
-    the bf16 tensor-core products it needs at 989 TFLOP/s: per chunk the
-    lower triangle of C B^T once per group (one bf16 product: bf16-exact
-    streams), and per head the folded scores times x, the carried-state
-    term and the chunk state, three bf16 products each (the fp32 operand's
-    three terms).  Returns (ms, by, bytes ms, operations ms, GFLOP)."""
-    b, l, _ = ins["z"].shape
-    _, h, p, n = ins["ssm_state"].shape
-    L, c = chunk, l // chunk
-    tri = L * (L + 1) // 2
-    ops = b * c * (N_GROUPS * 2 * n * tri + h * 3 * (
-        2 * p * tri + 4 * L * n * p))
-    t_bytes = _bytes(*ins.values(), *outs) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_TC_FLOP_PER_S * 1e3
-    ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    return ms, by, t_bytes, t_ops, ops / 1e9
-
-
-def _bytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def decode_bound(ins, outs):
-    """(ms, 'bytes'|'operations'): inputs read once and outputs written
-    once over HBM, vs ~5 fp32 operations per state element (decay, x*dt,
-    *B, +, *C and its sum) plus the conv and the norm, over fp32 peak."""
-    b, h, p, n = ins["ssm_state"].shape
-    ops = 5 * b * h * p * n + 10 * b * ins["xbc"].shape[-1] + \
-        10 * b * ins["z"].shape[-1]
-    return _bound(_bytes(*ins.values(), *outs), ops)
-
-
-def ssd_chunk_ops(b, c, L, h, g, p, n):
-    """The least work of the intra-chunk pass: the lower triangle (with
-    its diagonal) of C B^T once per group, its decay (a difference and an
-    exp per pair) and its product with x per head, and the state product
-    (2 operations per multiply-add)."""
-    tri = L * (L + 1) // 2
-    return b * c * (g * 2 * n * tri + h * (2 * p * tri + 2 * tri +
-                                           2 * L * p * n + L * p))
-
-
-def pwl_ops(numel, table):
-    """m0*x + c0, then a subtraction, max, product and sum per breakpoint."""
-    return numel * (2 + 4 * (table.num_segments - 1))
-
-
-def mamba1_bound(ins, outs):
-    """Kernel 5's bound: inputs once and outputs once over HBM, vs its
-    fp32 operations: per row the conv (2 w di), x_proj (2 di (r+2n)),
-    dt_proj (2 r di), ~7 per state element (dt*A, exp, the decay, dt*u*B
-    and the sum, *C and its sum) and ~20 per channel for the
-    activations, the D skip and the gate."""
-    b = ins["z"].shape[0]
-    di, n, r = M1_D_INNER, M1_D_STATE, M1_DT_RANK
-    ops = b * (2 * WIDTH * di + 2 * di * (r + 2 * n) + 2 * r * di
-               + 7 * di * n + 20 * di)
-    return _bound(_bytes(*ins.values(), *outs), ops)
-
-
-def _bound(nbytes, ops, flop_per_s=FP32_FLOP_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / flop_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def qmatmul_times(dev, kernels, paths, worst, gated_launches):
     """Phase 7's qmatmul rows: the serve path's shapes in bf16, decode (m =
     4 slots, the GEMV) and chunked prefill (m = 4 x 64, the ``wgmma``
@@ -5488,6 +5607,10 @@ def train_main_phase(dev, counters):
                 wall=time.perf_counter() - t0, steps=all_steps(ckdir),
                 params=sum(t.numel() for t in tree_leaves(state["params"])))
         full, res = runs["full"], runs["resumed"]
+        # Phase 4m restores the run's last checkpoint on the CPU.
+        shutil.rmtree(RESHARD_CKPT, ignore_errors=True)
+        shutil.copytree(root / "a" / f"step_{TRAIN_STEPS:08d}",
+                        RESHARD_CKPT / f"step_{TRAIN_STEPS:08d}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     n_leaves, n_ok = full["checks"][0]
@@ -5689,6 +5812,259 @@ def training_phase(dev, counters, tables):
         launches=main["launches"], max_abs_err=k2["max_abs_err"],
         ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
         bound_by=k2["bound_by"], library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4m: the dry run (launch/dryrun.py) checked on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_BUDGET_S = 120.0     # phase 4m's seconds
+# The cells: every mamba2-130m shape and mamba2-2.7b's decode_32k, each a
+# ``python -m repro_torch.launch.dryrun`` process (the CPU's meta dispatch;
+# no card visible to it), all started when 4m starts; and, in 4m's own
+# process meanwhile, mamba2-130m's train step at phase 4k's b = 8, l =
+# 512, which is not one of the dry run's SHAPES.
+DRYRUN_CELLS = (("mamba2-130m", "train_4k"), ("mamba2-130m", "prefill_32k"),
+                ("mamba2-130m", "decode_32k"), ("mamba2-130m", "long_500k"),
+                ("mamba2-2.7b", "decode_32k"))
+DRYRUN_OUT = ROOT / "build" / "dryrun_smoke"
+RESHARD_CKPT = ROOT / "build" / "reshard_ckpt"
+# The card's allocator peak (and the arguments' allocated bytes) against
+# the dry run's ``total_bytes`` (``argument_alloc_bytes``), either way.
+# Known gaps: the caching allocator rounds every block up to 512 bytes and
+# hands out a whole cached block when the rest would be under 1 MB (it is
+# not split); cuBLAS's workspace and the kernels' per-device scratch
+# (kernel 1's norm scratch, the PWL tables) persist from earlier phases or
+# are new here; the meta dispatch frees a tensor when its last Python
+# reference goes, the allocator when its stream is done with it.  An
+# H100 80GB HBM3 (700 W) read 1.0000-1.0023x for the peaks and
+# 1.0000-1.0019x for the arguments (PERF.md).
+PEAK_X = 1.05
+
+
+def start_dryruns():
+    """The dry run of each of ``DRYRUN_CELLS`` in its own process (the
+    CLI, one thread, no card visible: its budget is the dry run's
+    constant); returns the processes (stopped at exit if still
+    running)."""
+    import atexit
+    import os
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        with (DRYRUN_OUT / f"{arch}__{shape}.log").open("w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--out", str(DRYRUN_OUT)],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+
+    def stop():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    atexit.register(stop)
+    return procs
+
+
+def card_params(specs, gen, dtype, dev):
+    """``init_params``' tree (its init rule, the trunk a per-layer list of
+    views of one stacked tensor a leaf) drawn on the card by ``gen``."""
+    import torch
+    from repro_torch.nn.params import per_layer, tree_map
+
+    def one(s):
+        if s.init in ("zeros", "ones"):
+            fill = torch.zeros if s.init == "zeros" else torch.ones
+            return fill(s.shape, dtype=dtype, device=dev)
+        fan_in = s.shape[0] if len(s.shape) >= 2 else max(s.shape[-1], 1)
+        std = 0.02 if s.init == "small_normal" else (
+            s.scale if s.scale is not None else fan_in ** -0.5)
+        return (torch.randn(s.shape, generator=gen, device=dev)
+                * std).to(dtype)
+    return per_layer(tree_map(one, specs))
+
+
+def card_args(model, cfg, shape, train_cfg, seed, dev):
+    """The arguments of ``dryrun.step_fn`` on the card, from ``seed``:
+    what ``dryrun.abstract_args`` describes on meta."""
+    import torch
+    from repro_torch.optim import adamw
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = card_params(model.param_specs(), gen, cfg.dtype, dev)
+    b, l = shape.global_batch, shape.seq_len
+
+    def ids(*size):
+        return torch.randint(1, cfg.vocab_size, size, generator=gen,
+                             device=dev)
+    if shape.kind == "train":
+        return ({"params": params,
+                 "opt": adamw.init(params, train_cfg.optimizer)},
+                {"tokens": ids(b, l), "labels": ids(b, l)})
+    cache = model.init_cache(b, l, cfg.dtype)
+    if shape.kind == "prefill":
+        return params, {"tokens": ids(b, l)}, cache
+    return params, ids(b, 1), cache
+
+
+def card_cell(dev, counters, arch, shape, rec, seed):
+    """One fitting cell on the card: its arguments from ``seed``, one
+    step through the kernels after ``reset_peak_memory_stats``, and a
+    second, timed.  Checks the arguments' storage bytes against
+    ``argument_bytes`` (exactly) and the allocator's figures against the
+    record (``PEAK_X``), and the launches against the record's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig
+    cfg = get_config(arch)
+    model = build_model(cfg, dev)
+    mem = rec["memory"]
+    train_cfg = TrainConfig(optimizer=dryrun.opt_config(rec["params"]),
+                            microbatches=mem["microbatches"])
+    fn = dryrun.step_fn(model, shape, train_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    assert free >= mem["total_bytes"], (
+        f"4m: {arch} {shape.name} needs {mem['total_bytes'] / 2 ** 30:.3f} "
+        f"GiB, {free / 2 ** 30:.3f} GiB free")
+    base = torch.cuda.memory_allocated()
+    args = card_args(model, cfg, shape, train_cfg, seed, dev)
+    torch.cuda.synchronize()
+    arg_alloc = torch.cuda.memory_allocated() - base
+    arg_bytes = sum(dryrun.storages(args).values())
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {k: v for k, v in read_counts(counters).items() if v}
+    first = out[0] if shape.kind != "train" else out[1]["loss"]
+    finite = bool(torch.isfinite(first).all())
+    del out
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    del args
+    torch.cuda.empty_cache()
+    terms = rec["roofline"]
+    pred_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    ratio = peak / mem["total_bytes"]
+    print(f"  {arch} {shape.name} on the card: argument storages "
+          f"{arg_bytes} B (dry run {mem['argument_bytes']} B), allocated "
+          f"{arg_alloc} B (dry run rounded to 512 B: "
+          f"{mem['argument_alloc_bytes']} B); peak {peak / 2 ** 30:.3f} GiB "
+          f"against total {mem['total_bytes'] / 2 ** 30:.3f} GiB "
+          f"({ratio:.4f}x, limit {PEAK_X}x either way); step "
+          f"{step_ms:.3f} ms (second call), roofline bound {pred_ms:.3f} ms "
+          f"({terms['bottleneck']}); launches {launches} (dry run "
+          f"{rec['cost']['kernel_launches']}); output finite {finite}",
+          flush=True)
+    assert arg_bytes == mem["argument_bytes"], (arch, shape.name, "args")
+    assert 1 / PEAK_X <= arg_alloc / mem["argument_alloc_bytes"] <= PEAK_X
+    assert 1 / PEAK_X <= ratio <= PEAK_X, (arch, shape.name, ratio)
+    assert launches == rec["cost"]["kernel_launches"], (arch, shape.name)
+    assert finite, (arch, shape.name, "non-finite output")
+    return dict(peak=peak, ratio=ratio, step_ms=step_ms, pred_ms=pred_ms)
+
+
+def reshard_check(dev):
+    """4k's last checkpoint restored on the CPU, then resharded onto the
+    card's mesh (``runtime/elastic.py: reshard_state``): every leaf on the
+    card, bit for bit the CPU's."""
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import describe, make_production_mesh
+    from repro_torch.models import build_model
+    from repro_torch.nn.params import tree_leaves, tree_map
+    from repro_torch.runtime import reshard_state
+    from repro_torch.train import TrainConfig, abstract_state
+    cfg = get_config("mamba2-130m")
+    meta = build_model(cfg, "meta")
+    target = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype),
+                      abstract_state(meta, TrainConfig()))
+    cpu, step, _ = ckpt.restore(RESHARD_CKPT, target, cfg=cfg)
+    mesh = make_production_mesh(device=dev)
+    card = reshard_state(cpu, meta.param_specs(), mesh)
+    pairs = list(zip(tree_leaves(cpu), tree_leaves(card)))
+    same = sum(b.device == dev and torch.equal(a, b.cpu()) for a, b in pairs)
+    print(f"  reshard: step {step}'s checkpoint restored on the CPU onto "
+          f"mesh {describe(mesh)}: {same} of {len(pairs)} leaves on the "
+          f"card and bit for bit", flush=True)
+    assert same == len(pairs), "4m: reshard_state changed a leaf"
+
+
+def dryrun_phase(dev, counters):
+    """Phase 4m under ``DRYRUN_BUDGET_S``: the dry runs (each of
+    ``DRYRUN_CELLS`` in its own process, all at once, and 4k's train
+    shape in this one meanwhile); each record (fit, microbatches, GB,
+    FLOPs, bytes, bottleneck); each fitting cell on the card
+    (:func:`card_cell`); the 4k reshard; ``hlo_analysis
+    --check-budgets``.  Returns the cells' card readings."""
+    import torch
+    from repro_torch.configs.shapes import SHAPES, ShapeSpec
+    from repro_torch.launch import dryrun, hlo_analysis
+    t0 = time.perf_counter()
+    procs = start_dryruns()
+    recs, shapes = {}, {}
+    train = ShapeSpec(f"train_b{TRAIN_B}_l{TRAIN_L}", "train", TRAIN_L,
+                      TRAIN_B)
+    train_rec = dryrun.run_cell("mamba2-130m", train.name, shape=train)
+    for (arch, name), p in zip(DRYRUN_CELLS, procs):
+        rc = p.wait(timeout=DRYRUN_BUDGET_S)
+        rec = json.loads(dryrun.cell_path(DRYRUN_OUT, arch, name,
+                                          "single").read_text())
+        assert rc == 0 and rec["ok"], (arch, name, rec.get("traceback"))
+        recs[arch, name], shapes[arch, name] = rec, SHAPES[name]
+        print(f"  dry run {arch} {name}: {rec['total_s']:.1f} s in its "
+              f"process", flush=True)
+    key = ("mamba2-130m", train.name)
+    recs[key], shapes[key] = train_rec, train
+    print(f"  the dry runs done after {time.perf_counter() - t0:.1f} s "
+          f"(the train shape's in this process {train_rec['total_s']:.1f} "
+          f"s)", flush=True)
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"  card total_memory {total} B; the dry run's constant "
+          f"(H100_HBM_BYTES, the processes' budget) "
+          f"{dryrun.H100_HBM_BYTES} B", flush=True)
+    for (arch, name), rec in recs.items():
+        mem, cost, terms = rec["memory"], rec["cost"], rec["roofline"]
+        peak = (f"total {mem['total_gb']:.3f} GiB" if mem["complete"] else
+                f"stopped past the budget at {mem['total_gb']:.3f} GiB")
+        print(f"  dry run {arch} {name}: fits {mem['fits_hbm']} "
+              f"({mem['microbatches']} microbatches), {peak} (arguments "
+              f"{mem['argument_bytes'] / 2 ** 30:.3f}, temporaries "
+              f"{mem['temp_bytes'] / 2 ** 30:.3f}), "
+              f"{cost['flops_per_device']:.4e} FLOP, "
+              f"{cost['bytes_per_device']:.4e} bytes, bottleneck "
+              f"{terms['bottleneck']}, useful {terms['useful_ratio']:.4f}, "
+              f"kernels {cost['kernel_launches']} ({cost['acct_mode']} "
+              f"count)", flush=True)
+    readings = {}
+    for seed, ((arch, name), rec) in enumerate(recs.items()):
+        if not rec["memory"]["fits_hbm"]:
+            print(f"  {arch} {name}: does not fit one card at 8 "
+                  f"microbatches; not run", flush=True)
+            continue
+        readings[arch, name] = card_cell(dev, counters, arch,
+                                         shapes[arch, name], rec, 400 + seed)
+    reshard_check(dev)
+    try:
+        hlo_analysis.main(["--arch", "mamba2-130m", "--check-budgets"])
+    except SystemExit as e:
+        raise AssertionError(f"4m: hlo_analysis --check-budgets exit "
+                             f"{e.code}")
+    secs = time.perf_counter() - t0
+    print(f"  phase 4m: {secs:.1f} s (budget {DRYRUN_BUDGET_S:.0f} s)",
+          flush=True)
+    assert secs <= DRYRUN_BUDGET_S, f"4m took {secs:.1f} s"
+    return readings
 
 
 # ---------------------------------------------------------------------------
@@ -6469,6 +6845,19 @@ def main() -> int:
                      (f"qwen3-moe continuous 64, W8, depth {MOE_DEPTH} (8)",
                       moe_w8),
                      ("mamba2-2.7b continuous 64, bf16 (4)", m27_engine)))
+    # Phase 4m runs last: its cells take up to 46 GiB of the card, so the
+    # engines and weight sets the earlier phases hold go first.
+    del (engine, w8_engine, cont_engine, m1_engine, m1_w8_engine, m1_wave,
+         rg_wave, rg_engine, rg_pallas, gemma_wave, gemma_cont, qwen_wave,
+         spec_out, moe_cont, moe_w8, m27_engine)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("4m. the dry run on the card (mamba2-130m every shape, "
+          "mamba2-2.7b decode_32k, the 4k train shape; reshard; "
+          "hlo_analysis --check-budgets; run last)")
+    print(f"  the earlier phases still hold "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
+    dryrun_phase(dev, counters)
     phase(None)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 

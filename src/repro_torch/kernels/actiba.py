@@ -10,7 +10,7 @@ oracle ``repro.kernels.ref.pwl_activate_ref``:
   per table), the term loop unrolled for the next instantiated count.  One
   packed-argument launch (``PWL_FIELDS``) on one of two bodies that
   :func:`path` names: 16-byte vectors where the base is 16-byte aligned,
-  else scalars.  CUDA tensors only; launches are counted in
+  else scalars.  CUDA (or meta) tensors only; launches are counted in
   ``pwl_activate.launches`` and, by body, in
   ``pwl_activate.path_launches``.
 * :func:`pwl_activate_plain` — ``core/pwl.py: eval_pwl``, the same sum in
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.pwl import PWLTable, eval_pwl
-from repro_torch.kernels import common
+from repro_torch.kernels import common, cost
 
 # The launcher takes one pointer to its arguments packed as 64-bit fields
 # in this order (csrc/actiba.cu: PwlLaunch).
@@ -118,7 +118,7 @@ def pwl_activate(x: torch.Tensor, table: PWLTable) -> torch.Tensor:
     """The CUDA kernel (contract as :func:`pwl_activate_plain`); ``x``
     contiguous.  The checks format their messages only when they fail: the
     ``pallas()`` forward calls this three times a layer."""
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         raise ValueError("pwl_activate takes CUDA tensors; the CPU path is "
                          "pwl_activate_plain")
     if not x.is_contiguous():
@@ -128,6 +128,10 @@ def pwl_activate(x: torch.Tensor, table: PWLTable) -> torch.Tensor:
         common.stream_code(x)                   # raises with the message
     tab, nk = host_table(table)
     out = torch.empty_like(x)
+    if x.is_meta:
+        cost.record("pwl_activate", cost.pwl_ops(x.numel(), table),
+                    cost._bytes(x, out))
+        return out
     xp, op = x.data_ptr(), out.data_ptr()
     vec = (xp | op) % 16 == 0
     err = _LAUNCH(_PWL_ARGS.pack(

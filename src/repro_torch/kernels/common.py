@@ -105,12 +105,14 @@ def outputs(out, conv_state: torch.Tensor, ssm_state: torch.Tensor, what: str
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The (new_conv, new_ssm) buffers a kernel writes: ``out`` when the
     caller passes its own (contiguous, shaped and typed like the incoming
-    states, and not the same memory), else fresh ``torch.empty`` ones."""
+    states, and not the same memory; on ``meta``, not the same tensor),
+    else fresh ``torch.empty`` ones."""
     if out is None:
         return torch.empty_like(conv_state), torch.empty_like(ssm_state)
     for o, s, name in zip(out, (conv_state, ssm_state), ("conv", "ssm")):
         if o.shape != s.shape or o.dtype != s.dtype or o.device != s.device \
-                or not o.is_contiguous() or o.data_ptr() == s.data_ptr():
+                or not o.is_contiguous() or o is s \
+                or (not o.is_meta and o.data_ptr() == s.data_ptr()):
             raise ValueError(f"{what}: out {name} must be a contiguous "
                              f"{s.dtype} {tuple(s.shape)} buffer on "
                              f"{s.device} apart from the incoming state")

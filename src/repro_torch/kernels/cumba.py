@@ -19,7 +19,7 @@ import struct
 
 import torch
 
-from repro_torch.kernels import common
+from repro_torch.kernels import common, cost
 
 # The launcher takes one pointer to its arguments packed as 64-bit fields
 # (csrc/cumba.cu: CumsumArgs): dtype, x, out, rows, t, strip, vec, stream.
@@ -49,7 +49,7 @@ def cumsum_last(x: torch.Tensor) -> torch.Tensor:
     contiguous.  The strips go by 16-byte loads where both bases and the
     rows are 16-byte aligned.  The checks format their messages only when
     they fail: the ``pallas()`` forward calls this once a layer."""
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         raise ValueError("cumsum_last takes CUDA tensors; the CPU path is "
                          "cumsum_last_plain")
     if not x.ndim or not x.is_contiguous():
@@ -61,6 +61,9 @@ def cumsum_last(x: torch.Tensor) -> torch.Tensor:
     t = x.shape[-1]
     rows = x.numel() // t if t else 0
     out = torch.empty_like(x)
+    if x.is_meta:
+        cost.record("cumsum_last", x.numel(), cost._bytes(x, out))
+        return out
     xp, op = x.data_ptr(), out.data_ptr()
     err = _LAUNCH(_ARGS.pack(code, xp, op, rows, t, strip(t),
                              (xp | op | t * x.element_size()) % 16 == 0,

@@ -12,10 +12,11 @@ oracles in ``repro.kernels.ref``:
   ssd_decode_step`` and ``core/selective_scan.py:
   selective_scan_decode_step`` in ``pallas`` modes.
 
-Each wrapper takes CUDA tensors only and counts its calls in
-``.launches``; each ``*_plain`` version is the same function in plain
-PyTorch with an fp32 interior, the CPU path and what the kernel is held
-to on the card.
+Each wrapper takes CUDA tensors and counts its calls in ``.launches``;
+on ``meta`` tensors (the dry run's) it allocates what it allocates on
+the card, records its cost (``kernels/cost.py``) and launches nothing.
+Each ``*_plain`` version is the same function in plain PyTorch with an
+fp32 interior, the CPU path and what the kernel is held to on the card.
 
 The Mamba-2 step (``mamba2_step`` / ``mamba2_step_ref``):
 
@@ -23,8 +24,8 @@ The Mamba-2 step (``mamba2_step`` / ``mamba2_step_ref``):
   launch (conv shift + SiLU + softplus(dt) + SSD update + D skip + the
   gated RMSNorm over whole rows), grid (p / :func:`step_rows`, head,
   batch), its arguments packed into one buffer (``STEP_FIELDS``) through
-  a cached launcher.  It takes CUDA tensors only and counts its calls in
-  ``mamba2_step.launches``.
+  a cached launcher.  It takes CUDA (or meta) tensors only and counts
+  its calls in ``mamba2_step.launches``.
 * :func:`mamba2_step_plain` — the same function in plain PyTorch, fp32
   throughout; the CPU path, and what the kernel is held to on the card.
 
@@ -64,7 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.pwl import PWLTable
-from repro_torch.kernels import common
+from repro_torch.kernels import common, cost
 from repro_torch.kernels.actiba import table_args
 from repro_torch.kernels.gated_norm import gated_norm_plain
 from repro_torch.kernels.qmatmul import SMS
@@ -96,10 +97,10 @@ def step_rows(p: int) -> int:
     return max(r for r in range(1, min(p, MAX_ROWS) + 1) if p % r == 0)
 
 
-# The fused norm's scratch per device: (row counters, int32, zero between
-# calls; per batch row its pre-norm y and its blocks' sums of squares,
-# fp32), grown to the largest call so far.  Calls on one stream share it
-# in turn.
+# The fused norm's scratch per device (-1: meta): (row counters, int32,
+# zero between calls; per batch row its pre-norm y and its blocks' sums
+# of squares, fp32), grown to the largest call so far.  Calls on one
+# stream share it in turn.
 _SCRATCH: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -109,9 +110,10 @@ def _step_scratch(dev: int, b: int, row: int
     if got is None or got[0].numel() < b or got[1].numel() < b * row:
         nb = max(b, got[0].numel() if got else 0)
         ny = max(b * row, got[1].numel() if got else 0)
+        where = dev if dev >= 0 else "meta"
         got = _SCRATCH[dev] = (
-            torch.zeros(nb, dtype=torch.int32, device=dev),
-            torch.empty(ny, dtype=_F32, device=dev))
+            torch.zeros(nb, dtype=torch.int32, device=where),
+            torch.empty(ny, dtype=_F32, device=where))
     return got
 
 
@@ -239,7 +241,7 @@ def mamba2_step(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b, dt_bias,
     inputs are checked at once (the parameters once per weight set) and a
     message is formatted only when a check fails: the decode step calls
     this once a layer."""
-    if not z.is_cuda:
+    if not (z.is_cuda or z.is_meta):
         raise ValueError("mamba2_step takes CUDA tensors; the CPU path is "
                          "mamba2_step_plain")
     b, di = z.shape
@@ -269,9 +271,15 @@ def mamba2_step(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b, dt_bias,
                       dt_bias, A, D, norm_scale, g, p)
     new_conv, new_ssm = _outputs(out, conv_state, ssm_state, idx,
                                  "mamba2_step")
-    y = torch.empty((b, di), dtype=sd, device=idx)
+    y = torch.empty_like(z, memory_format=torch.contiguous_format)
     rows = step_rows(p)
     counts, ypre = _step_scratch(idx, b, di + di // rows)
+    if idx < 0:
+        cost.record("mamba2_step", cost.decode_ops(b, h, p, n, dxbc, di),
+                    cost._bytes(z, xbc, dt, conv_state, ssm_state, conv_w,
+                                conv_b, dt_bias, A, D, norm_scale, y,
+                                new_conv, new_ssm))
+        return y, new_conv, new_ssm
     sp, snp = ssm_state.data_ptr(), new_ssm.data_ptr()
     silu_p, silu_nk = table_args(silu_table, z.device)
     sp_p, sp_nk = table_args(softplus_table, z.device)
@@ -335,8 +343,8 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t):
     packed into one buffer (``SSD_FIELDS``).  dt, A, B and C are read as
     fp32 (cast here if they are not)."""
     dev = state.device
-    common.require(dev.type == "cuda", "ssd_step takes CUDA tensors; the "
-                   "CPU path is ssd_step_plain")
+    common.require(dev.type in ("cuda", "meta"), "ssd_step takes CUDA "
+                   "tensors; the CPU path is ssd_step_plain")
     b, h, p, n = state.shape
     g = B_t.shape[1]
     common.check_cuda(dev, x_t=x_t, dt_t=dt_t, A=A, B_t=B_t, C_t=C_t)
@@ -351,6 +359,10 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t):
     new = torch.empty_like(state)
     y = torch.empty_like(x_t)
     dt_t, A, B_t, C_t = _f32(dt_t), _f32(A), _f32(B_t), _f32(C_t)
+    if dev.type == "meta":
+        cost.record("ssd_step", cost.ssd_step_ops(b, h, p, n), cost._bytes(
+            state, x_t, dt_t, A, B_t, C_t, new, y))
+        return new, y
     sp, snp = state.data_ptr(), new.data_ptr()
     err = _SSD(_SSD_ARGS.pack(
         code, sp, x_t.data_ptr(), dt_t.data_ptr(), A.data_ptr(),
@@ -387,8 +399,8 @@ def sscan_step(state, u_t, delta_t, A, B_t, C_t, D=None):
     fp32 (cast here if they are not); ``D=None`` is passed as a null
     pointer, no skip."""
     dev = state.device
-    common.require(dev.type == "cuda", "sscan_step takes CUDA tensors; the "
-                   "CPU path is sscan_step_plain")
+    common.require(dev.type in ("cuda", "meta"), "sscan_step takes CUDA "
+                   "tensors; the CPU path is sscan_step_plain")
     b, d, n = state.shape
     common.check_cuda(dev, u_t=u_t, delta_t=delta_t, A=A, B_t=B_t, C_t=C_t,
                       **({} if D is None else {"D": D}))
@@ -406,6 +418,10 @@ def sscan_step(state, u_t, delta_t, A, B_t, C_t, D=None):
     y = torch.empty_like(u_t)
     delta_t, A, B_t, C_t = _f32(delta_t), _f32(A), _f32(B_t), _f32(C_t)
     D = None if D is None else _f32(D)
+    if dev.type == "meta":
+        cost.record("sscan_step", cost.sscan_step_ops(b, d, n), cost._bytes(
+            state, u_t, delta_t, A, B_t, C_t, D, new, y))
+        return new, y
     sp, snp, ap = state.data_ptr(), new.data_ptr(), A.data_ptr()
     err = _SSCAN(_SSCAN_ARGS.pack(
         code, sp, u_t.data_ptr(), delta_t.data_ptr(), ap, B_t.data_ptr(),
@@ -510,7 +526,7 @@ def mamba1_step(xs_raw, z, conv_state, ssm_state, conv_w, conv_b, xproj_w,
     The inputs are checked at once (the parameters once per weight set)
     and a message is formatted only when a check fails; only the outputs
     are allocated."""
-    if not z.is_cuda:
+    if not (z.is_cuda or z.is_meta):
         raise ValueError("mamba1_step takes CUDA tensors; the CPU path is "
                          "mamba1_step_plain")
     b, di = z.shape
@@ -540,6 +556,12 @@ def mamba1_step(xs_raw, z, conv_state, ssm_state, conv_w, conv_b, xproj_w,
     new_conv, new_ssm = _outputs(out, conv_state, ssm_state, idx,
                                  "mamba1_step")
     y = torch.empty_like(z, memory_format=torch.contiguous_format)
+    if idx < 0:
+        cost.record("mamba1_step", cost.mamba1_ops(b, di, n, r, width),
+                    cost._bytes(xs_raw, z, conv_state, ssm_state, conv_w,
+                                conv_b, xproj_w, dtproj_w, dtproj_b, A, D,
+                                y, new_conv, new_ssm))
+        return y, new_conv, new_ssm
     sp, snp = ssm_state.data_ptr(), new_ssm.data_ptr()
     dev = z.device
     silu_p, silu_nk = table_args(silu_table, dev)
@@ -673,7 +695,7 @@ def rglru_step(u, gate, conv_state, h_state, conv_w, conv_b, rg_w, rg_b,
     into instead of fresh ones.  The inputs are checked at once (the
     parameters once per weight set) and a message is formatted only when a
     check fails; only the outputs are allocated."""
-    if not u.is_cuda:
+    if not (u.is_cuda or u.is_meta):
         raise ValueError("rglru_step takes CUDA tensors; the CPU path is "
                          "rglru_step_plain")
     b, w = u.shape
@@ -698,6 +720,11 @@ def rglru_step(u, gate, conv_state, h_state, conv_w, conv_b, rg_w, rg_b,
                     ig_w, ig_b, lam)
     new_conv, new_h = _outputs(out, conv_state, h_state, idx, "rglru_step")
     y = torch.empty_like(u)
+    if idx < 0:
+        cost.record("rglru_step", cost.rglru_step_ops(b, w), cost._bytes(
+            u, gate, conv_state, h_state, conv_w, conv_b, rg_w, rg_b, ig_w,
+            ig_b, lam, y, new_conv, new_h))
+        return y, new_conv, new_h
     esize = rg_w.element_size()
     lanes, splits = rglru_plan(w, esize)
     base, row = params[2] | params[4], w * esize

@@ -25,7 +25,7 @@ Masks are left-aligned: query i and key j are both positions from 0.
   - ``"simt"``: the rest (fp32 at head_dim 32, views TMA cannot read),
     fp32 FMAs on the CUDA cores.
 
-  CUDA tensors only; any strides whose last axis is contiguous, so
+  CUDA (or meta) tensors only; any strides whose last axis is contiguous, so
   ``nn/attention.py`` hands it the (b, s, h, d) projections moved to (b,
   h, s, d) without a copy, and the output keeps q's layout.  Its
   arguments go packed into one buffer (``FLASH_FIELDS``) through cached
@@ -50,7 +50,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import common
+from repro_torch.kernels import common, cost
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
@@ -136,8 +136,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """The CUDA kernel (contract as :func:`flash_attention_plain`)."""
     dev = q.device
-    common.require(dev.type == "cuda", "flash_attention takes CUDA tensors; "
-                   "the CPU path is flash_attention_plain")
+    common.require(dev.type in ("cuda", "meta"), "flash_attention takes "
+                   "CUDA tensors; the CPU path is flash_attention_plain")
     common.check_cuda(dev, k=k, v=v)
     common.require(q.ndim == 4 and k.ndim == 4 and k.shape == v.shape,
                    f"flash_attention: q (b, hq, Lq, d), k and v (b, hkv, Lk, "
@@ -163,6 +163,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # empty_like keeps a dense q's layout: a (b, s, h, d) buffer seen as
     # (b, h, s, d) comes back the same way.
     out = torch.empty_like(q)
+    if dev.type == "meta":
+        cost.record("flash_attention", cost.flash_ops(
+            b, hq, lq, lk, d, causal, window), cost._bytes(q, k, v, out),
+            cost.rate_of(q.dtype))
+        return out
     body = path(q, k, v)
     ins = [t.stride()[:3] if body == "simt" else _tma_strides(t)
            for t in (q, k, v)]

@@ -17,8 +17,9 @@ the GeGLU / SwiGLU MLPs.
   all bf16 and TMA can read them, else the SIMT tiled product of
   ``gemm.cuh`` (fp32 operands, and shapes TMA cannot read).
   :func:`path` names the body from dtypes, shapes and alignment alone.
-  CUDA tensors only; calls are counted in ``matmul_pwl.launches`` and, by
-  the body they took, in ``matmul_pwl.path_launches``.
+  CUDA (or meta) tensors only; calls are counted in
+  ``matmul_pwl.launches`` and, by the body they took, in
+  ``matmul_pwl.path_launches``.
 * :func:`matmul_pwl_plain` — the same arithmetic in PyTorch: fp32 sums,
   the PWL table in ``eval_pwl``'s order, the gate multiplied once; the
   CPU path, and what the kernel is held to on the card.
@@ -32,7 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.pwl import PWLTable, eval_pwl
-from repro_torch.kernels import common
+from repro_torch.kernels import common, cost
 from repro_torch.kernels.actiba import table_args
 from repro_torch.kernels.qmatmul import GEMV_M, gemv_plan, load_bytes
 
@@ -79,8 +80,8 @@ def matmul_pwl(x: torch.Tensor, w: torch.Tensor, table: PWLTable,
     """The CUDA kernel (contract as :func:`matmul_pwl_plain`); ``x``,
     ``w`` and ``v`` contiguous."""
     dev = x.device
-    common.require(dev.type == "cuda", "matmul_pwl takes CUDA tensors; the "
-                   "CPU path is matmul_pwl_plain")
+    common.require(dev.type in ("cuda", "meta"), "matmul_pwl takes CUDA "
+                   "tensors; the CPU path is matmul_pwl_plain")
     common.require(x.ndim == 2 and x.is_contiguous(),
                    f"matmul_pwl: x must be contiguous (m, k), got "
                    f"{tuple(x.shape)}")
@@ -96,6 +97,10 @@ def matmul_pwl(x: torch.Tensor, w: torch.Tensor, table: PWLTable,
     common.check_cuda(dev, **weights)
     body = path(x, w, v)
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
+    if dev.type == "meta":
+        cost.record("matmul_pwl", 2 * m * k * n * len(weights),
+                    cost._bytes(x, w, v, out), cost.rate_of(x.dtype))
+        return out
     vp = common.ptr(v) if v is not None else None
     if body == "wgmma":
         err = _WGMMA(common.ptr(x), common.ptr(w), vp, common.ptr(out), m, k,

@@ -13,7 +13,7 @@ Port of ``repro.kernels.prefill_chunk``:
   head) walking the chunks in order with the state in shared memory)
   followed by ``csrc/gated_norm.cu`` over the ``b*l`` rows.  Its
   arguments go packed into one buffer (``PREFILL_FIELDS``) through a
-  cached launcher.  CUDA tensors only; calls are counted in
+  cached launcher.  CUDA (or meta) tensors only; calls are counted in
   ``mamba2_prefill.launches`` and, by body, in
   ``mamba2_prefill.path_launches``.  Replaces the TPU kernel
   ``mamba2_prefill_pallas``;
@@ -48,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.pwl import PWLTable, eval_pwl
-from repro_torch.kernels import common
+from repro_torch.kernels import common, cost
 from repro_torch.kernels.actiba import table_args
 from repro_torch.kernels.gated_norm import gated_norm_cuda, gated_norm_plain
 from repro_torch.nn import layers
@@ -246,7 +246,7 @@ def mamba2_prefill(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
     buffers to write the new state into instead of fresh ones.  The
     inputs are checked at once and a message is formatted only when that
     check fails."""
-    if not z.is_cuda:
+    if not (z.is_cuda or z.is_meta):
         raise ValueError("mamba2_prefill takes CUDA tensors; the CPU path "
                          "is mamba2_prefill_plain")
     b, l, di = z.shape
@@ -294,6 +294,13 @@ def mamba2_prefill(z, xbc, dt, conv_state, ssm_state, conv_w, conv_b,
             states = torch.empty((b, c, h, p, n), dtype=_F32, device=dev)
             states_p = states.data_ptr()
         hs = heads_per_set(b, c, chunk, h, g)
+    if idx < 0:
+        out = gated_norm_cuda(y, z, norm_scale, eps=eps)
+        cost.record("mamba2_prefill", cost.prefill_tc_ops(
+            b, l, chunk, h, p, n, g), cost._bytes(
+            z, xbc, dt, conv_state, ssm_state, conv_w, conv_b, dt_bias, A, D,
+            norm_scale, out, new_conv, new_ssm), cost.BF16_TC_FLOP_PER_S)
+        return out, new_conv, new_ssm
     silu_p, silu_nk = table_args(silu_table, dev)
     sp_p, sp_nk = table_args(softplus_table, dev)
     err = _LAUNCH(_PREFILL_ARGS.pack(

@@ -14,8 +14,8 @@ identity; ``qv`` / ``vscale`` give the gated two-weight form of the MLPs.
   and alignment alone: the cluster GEMV for m <= 8 (decode; its column
   group and k split from :func:`gemv_plan`), the bf16 tensor-core body
   (``wgmma``; its k split from :func:`wgmma_splits`) for bf16 x above,
-  else the SIMT tiled product.  CUDA tensors only; calls are counted in
-  ``qmatmul.launches``, by body in ``qmatmul.path_launches``, and the
+  else the SIMT tiled product.  CUDA (or meta) tensors only; calls are
+  counted in ``qmatmul.launches``, by body in ``qmatmul.path_launches``, and the
   gated form's by body in ``qmatmul.gated_launches``.
 * :func:`qmatmul_plain` — the same arithmetic in PyTorch: fp32 sums, the
   scale multiplied once into them, the PWL table in ``eval_pwl``'s order;
@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.pwl import PWLTable, eval_pwl
-from repro_torch.kernels import common
+from repro_torch.kernels import common, cost
 from repro_torch.kernels.actiba import table_args
 
 # The launchers take one pointer to their arguments packed as 64-bit
@@ -141,7 +141,7 @@ def qmatmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     elements.  The checks format their messages only when they fail: this
     runs twice a layer in every decode step."""
     dev = x.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and dev.type != "meta":
         raise ValueError("qmatmul takes CUDA tensors; the CPU path is "
                          "qmatmul_plain")
     if x.ndim != 2 or not x.is_contiguous():
@@ -166,6 +166,11 @@ def qmatmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     common.check_cuda(dev, q=q, **scales, **(dict(qv=qv) if gated else {}))
     body = path(x, q, qv)
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
+    if dev.type == "meta":
+        cost.record("qmatmul", 2 * m * k * n * (2 if gated else 1),
+                    cost._bytes(x, q, scale, qv, vscale, out),
+                    cost.rate_of(x.dtype))
+        return out
     qvp, vsp = (qv.data_ptr(), vscale.data_ptr()) if gated else (0, 0)
     tab, nk = table_args(table, dev)
     if body == "wgmma":

@@ -9,8 +9,8 @@ reduces a last axis through it (``core/reduce.py: reduce_sum`` and
 
 * :func:`reduce_rows` — the wrapper around ``csrc/reduba.cu`` (a column
   per thread, rows in order; a tall x in row ranges whose fp32 partials a
-  second pass sums in order).  CUDA tensors only; a non-contiguous x is
-  copied first.  Calls are counted in ``reduce_rows.launches``.
+  second pass sums in order).  CUDA (or meta) tensors only; a
+  non-contiguous x is copied first.  Calls are counted in ``reduce_rows.launches``.
 * :func:`reduce_rows_plain` — ``torch.sum`` in fp32: the CPU path, and
   what the kernel is held to on the card.
 """
@@ -21,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import common
+from repro_torch.kernels import common, cost
 
 _LAUNCH = ("reduba", "reduce_rows_launch",
            [common.I, common.P, common.P, common.P, common.I, common.I,
@@ -48,8 +48,8 @@ def reduce_rows_plain(x: torch.Tensor) -> torch.Tensor:
 def reduce_rows(x: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel (contract as :func:`reduce_rows_plain`)."""
     dev = x.device
-    common.require(dev.type == "cuda", "reduce_rows takes CUDA tensors; the "
-                   "CPU path is reduce_rows_plain")
+    common.require(dev.type in ("cuda", "meta"), "reduce_rows takes CUDA "
+                   "tensors; the CPU path is reduce_rows_plain")
     common.require(x.ndim == 2 and x.shape[0] >= 1,
                    f"reduce_rows: x must be (m, n) with m >= 1, got "
                    f"{tuple(x.shape)}")
@@ -59,6 +59,9 @@ def reduce_rows(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n,), dtype=x.dtype, device=dev)
     partial = torch.empty((splits if splits > 1 else 0, n),
                           dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        cost.record("reduce_rows", m * n, cost._bytes(x, out))
+        return out
     err = common.launcher(*_LAUNCH)(
         common.stream_code(x), common.ptr(x), common.ptr(partial),
         common.ptr(out), m, n, rows, splits, common.stream(dev))

@@ -11,7 +11,7 @@ carry in fp32.  The JAX package runs it on recurrentgemma's cache-less
 trunk (``RecurrentGemma.loss``) under a ``pallas`` CumBA mode.
 
 * :func:`rg_lru_scan` — the wrapper around ``csrc/rg_lru.cu`` (one thread
-  per (batch, channel), the time steps in order).  CUDA tensors only;
+  per (batch, channel), the time steps in order).  CUDA (or meta) tensors only;
   calls are counted in ``rg_lru_scan.launches``.
 * :func:`rg_lru_scan_plain` — the sequential oracle in PyTorch, each
   multiply and add rounded as the kernel rounds them; the CPU path, and
@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import common
+from repro_torch.kernels import common, cost
 
 _LAUNCH = ("rg_lru", "rg_lru_scan_launch",
            [common.I, common.P, common.P, common.P, common.I, common.I,
@@ -42,8 +42,8 @@ def rg_lru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rg_lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel (contract as :func:`rg_lru_scan_plain`)."""
     dev = a.device
-    common.require(dev.type == "cuda", "rg_lru_scan takes CUDA tensors; the "
-                   "CPU path is rg_lru_scan_plain")
+    common.require(dev.type in ("cuda", "meta"), "rg_lru_scan takes CUDA "
+                   "tensors; the CPU path is rg_lru_scan_plain")
     common.require(a.ndim == 3 and a.shape == b.shape and a.dtype == b.dtype,
                    f"rg_lru_scan: a and b must be (B, L, D) of one dtype, got "
                    f"{tuple(a.shape)} {a.dtype} and {tuple(b.shape)} "
@@ -52,6 +52,9 @@ def rg_lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = a.contiguous(), b.contiguous()
     B, L, D = a.shape
     h = torch.empty_like(a)
+    if dev.type == "meta":
+        cost.record("rg_lru_scan", 2 * a.numel(), cost._bytes(a, b, h))
+        return h
     err = common.launcher(*_LAUNCH)(
         common.stream_code(a), common.ptr(a), common.ptr(b), common.ptr(h),
         B, L, D, common.stream(dev))

@@ -9,8 +9,8 @@ oracle ``repro.kernels.ref.ssd_chunk_ref``:
   products, each group's C B^T once per set of :func:`heads_per_set`
   heads) or the SIMT body (one block per (batch, chunk, head), fp32 on the
   CUDA cores).  Inputs are cast to fp32 as the JAX wrapper casts them.
-  CUDA tensors only; launches are counted in ``ssd_chunk.launches`` and,
-  by body, in ``ssd_chunk.path_launches``.
+  CUDA (or meta) tensors only; launches are counted in
+  ``ssd_chunk.launches`` and, by body, in ``ssd_chunk.path_launches``.
 * :func:`ssd_chunk_plain` — ``ssd_chunk_ref`` in PyTorch; the CPU path,
   and what the kernel is held to on the card.
 
@@ -28,7 +28,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import common
+from repro_torch.kernels import common, cost
 
 _LAUNCH = common.Launcher("ssd_chunk", "ssd_chunk_launch",
                           [common.P] * 6 + [common.I] * 7 + [common.P])
@@ -104,7 +104,7 @@ def ssd_chunk(x_c: torch.Tensor, A_cum: torch.Tensor, B_c: torch.Tensor,
     format their messages only when they fail: the ``pallas()`` forward
     calls this once a layer."""
     dev = x_c.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and dev.type != "meta":
         raise ValueError("ssd_chunk takes CUDA tensors; the CPU path is "
                          "ssd_chunk_plain")
     b, c, L, h, p = x_c.shape
@@ -125,6 +125,12 @@ def ssd_chunk(x_c: torch.Tensor, A_cum: torch.Tensor, B_c: torch.Tensor,
     xf, af, bf, cf = (t.float().contiguous() for t in (x_c, A_cum, B_c, C_c))
     y = torch.empty((b, c, L, h, p), dtype=torch.float32, device=dev)
     states = torch.empty((b, c, h, p, n), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        cost.record("ssd_chunk", cost.ssd_chunk_ops(b, c, L, h, g, p, n),
+                    cost._bytes(xf, af, bf, cf, y, states),
+                    cost.SPLIT_TC_FLOP_PER_S if body == "wgmma"
+                    else cost.FP32_FLOP_PER_S)
+        return y, states
     args = (xf.data_ptr(), af.data_ptr(), bf.data_ptr(), cf.data_ptr(),
             y.data_ptr(), states.data_ptr(), b, c, L, h, p, g, n)
     if body == "wgmma":

@@ -7,7 +7,11 @@ behind a prefetch thread -> train step -> step monitor -> async atomic
 checkpoints in the JAX package's layout -> resume from the latest
 checkpoint with its data step.  Takes the JAX CLI's flags plus
 ``--device`` (default ``cuda``; ``--device cpu --reduced`` on a machine
-without a card).  ``--mesh`` exits: the port trains on one device.
+without a card).  ``--mesh SHAPE:AXES`` (JAX's syntax, e.g.
+``1x1:data,model``) takes the mesh the devices hold: the state is placed
+by the logical rules (``runtime/elastic.py: reshard_state``) and the
+mesh passed to ``make_train_step``; a mesh wider than the devices exits
+with its reason.
 
 The checkpoint's ``data_step`` is the step of the next batch the loop
 would consume, so a resumed run sees the batches the uninterrupted run
@@ -18,15 +22,18 @@ from __future__ import annotations
 
 import argparse
 import logging
+import math
 import time
 
 from repro_torch.checkpoint import AsyncCheckpointer, ckpt
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, PrefetchIterator, SyntheticLM, \
     to_device_batch
+from repro_torch.distributed.sharding import make_shardings
+from repro_torch.launch.mesh import describe, make_mesh
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig, ScheduleConfig
-from repro_torch.runtime import StepMonitor
+from repro_torch.runtime import StepMonitor, reshard_state
 from repro_torch.train import TrainConfig, init_state, make_train_step
 
 log = logging.getLogger("repro_torch.train")
@@ -45,16 +52,23 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--mesh", default="", help="refused: one device")
+    ap.add_argument("--mesh", default="",
+                    help="SHAPE:AXES, e.g. 1x1:data,model (one device)")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; 'cpu' "
                          "runs the kernels' plain versions)")
     args = ap.parse_args(argv)
+    mesh = None
     if args.mesh:
-        ap.exit(2, f"--mesh {args.mesh}: the port trains on one device "
-                   f"({args.device}); there is no mesh to shard over\n")
+        try:
+            shape_s, axes_s = args.mesh.split(":")
+            shape = [int(x) for x in shape_s.split("x")]
+            mesh = make_mesh(shape, axes_s.split(","),
+                             devices=[args.device] * math.prod(shape))
+        except (NotImplementedError, ValueError) as e:
+            ap.exit(2, f"--mesh {args.mesh}: {e}\n")
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -70,7 +84,8 @@ def main(argv=None):
                                 total_steps=max(args.steps, 2)),
         microbatches=args.microbatches)
     state = init_state(model, args.seed, train_cfg)
-    step_fn = make_train_step(model, train_cfg)
+    step_fn = make_train_step(model, train_cfg) if mesh is None else \
+        make_train_step(model, train_cfg, mesh)
 
     start_step, data_start = 0, 0
     ckptr = None
@@ -81,6 +96,10 @@ def main(argv=None):
                                                     cfg=cfg)
             data_start = extra.get("data_step", start_step)
             log.info("resumed from step %d", start_step)
+    if mesh is not None:
+        _, report = make_shardings(model.param_specs(), mesh)
+        log.info("mesh %s; sharding: %s", describe(mesh), report.summary())
+        state = reshard_state(state, model.param_specs(), mesh)
     it = PrefetchIterator(iter(SyntheticLM(dcfg, start_step=data_start)))
 
     def data_step(step):

@@ -70,8 +70,8 @@ class MambaLM(DecodeAPI):
             "layers": stack_specs(block, cfg.n_layers),
         }
         if not cfg.tie_embeddings:
-            specs["lm_head"] = layers.linear_specs(cfg.d_model,
-                                                   cfg.vocab_size)
+            specs["lm_head"] = layers.linear_specs(
+                cfg.d_model, cfg.vocab_size, axes=("embed", "vocab"))
         return specs
 
     def decode_view(self, params) -> dict:

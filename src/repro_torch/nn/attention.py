@@ -54,10 +54,13 @@ def attention_specs(cfg) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     return {
-        "wq": layers.linear_specs(d, nq * hd, bias=cfg.qkv_bias),
-        "wk": layers.linear_specs(d, nkv * hd, bias=cfg.qkv_bias),
-        "wv": layers.linear_specs(d, nkv * hd, bias=cfg.qkv_bias),
-        "wo": layers.linear_specs(nq * hd, d),
+        "wq": layers.linear_specs(d, nq * hd, axes=("embed", "qkv"),
+                                  bias=cfg.qkv_bias),
+        "wk": layers.linear_specs(d, nkv * hd, axes=("embed", "qkv"),
+                                  bias=cfg.qkv_bias),
+        "wv": layers.linear_specs(d, nkv * hd, axes=("embed", "qkv"),
+                                  bias=cfg.qkv_bias),
+        "wo": layers.linear_specs(nq * hd, d, axes=("qkv", "embed")),
     }
 
 
@@ -112,7 +115,9 @@ def _targets(cache: KVCache, out: Optional[KVCache]
     if out is None:
         return cache.k.clone(), cache.v.clone()
     for o, c in zip(out, cache):
-        if o.data_ptr() == c.data_ptr():
+        # Meta tensors (the dry run's) have no data pointer: compare the
+        # objects.
+        if o is c or (not o.is_meta and o.data_ptr() == c.data_ptr()):
             raise ValueError("attention: out must not be the input cache")
         o.copy_(c)
     return out.k, out.v

@@ -17,10 +17,11 @@ from repro_torch.nn import quant
 from repro_torch.nn.params import ParamSpec
 
 
-def linear_specs(d_in: int, d_out: int, *, bias: bool = False) -> dict:
-    specs = {"w": ParamSpec((d_in, d_out))}
+def linear_specs(d_in: int, d_out: int, *, axes=("embed", "mlp"),
+                 bias: bool = False) -> dict:
+    specs = {"w": ParamSpec((d_in, d_out), axes)}
     if bias:
-        specs["b"] = ParamSpec((d_out,), init="zeros")
+        specs["b"] = ParamSpec((d_out,), (axes[1],), init="zeros")
     return specs
 
 
@@ -45,10 +46,10 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 def norm_specs(d: int, *, norm_type: str = "rmsnorm") -> dict:
     """The Gemma RMSNorm stores ``scale - 1``, so it starts at zeros;
     LayerNorm adds a ``bias`` (zeros)."""
-    specs = {"scale": ParamSpec((d,), init="zeros"
+    specs = {"scale": ParamSpec((d,), ("embed",), init="zeros"
                                 if norm_type == "gemma_rmsnorm" else "ones")}
     if norm_type == "layernorm":
-        specs["bias"] = ParamSpec((d,), init="zeros")
+        specs["bias"] = ParamSpec((d,), ("embed",), init="zeros")
     return specs
 
 
@@ -150,7 +151,7 @@ def sinusoidal_positions_at(positions: torch.Tensor, d: int,
 
 
 def embed_specs(vocab: int, d: int) -> dict:
-    return {"table": ParamSpec((vocab, d), scale=0.02)}
+    return {"table": ParamSpec((vocab, d), ("vocab", "embed"), scale=0.02)}
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -164,8 +165,8 @@ def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def conv1d_specs(d: int, width: int) -> dict:
-    return {"w": ParamSpec((width, d), scale=0.5),
-            "b": ParamSpec((d,), init="zeros")}
+    return {"w": ParamSpec((width, d), (None, "mlp"), scale=0.5),
+            "b": ParamSpec((d,), ("mlp",), init="zeros")}
 
 
 def causal_conv1d(p: dict, x: torch.Tensor,

@@ -29,7 +29,8 @@ def mlp_specs(cfg) -> dict:
     if cfg.mlp_type not in _ACT_FOR_MLP:
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported")
     d, f = cfg.d_model, cfg.d_ff
-    specs = {"wi": layers.linear_specs(d, f), "wo": layers.linear_specs(f, d)}
+    specs = {"wi": layers.linear_specs(d, f),
+             "wo": layers.linear_specs(f, d, axes=("mlp", "embed"))}
     if cfg.mlp_type != "mlp":
         specs["wg"] = layers.linear_specs(d, f)
     return specs

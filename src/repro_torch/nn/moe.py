@@ -46,10 +46,10 @@ def moe_specs(cfg) -> dict:
                                   f"for MoE experts")
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
     return {
-        "router": {"w": ParamSpec((d, e), scale=0.02)},
-        "wi": ParamSpec((e, d, f)),
-        "wg": ParamSpec((e, d, f)),
-        "wo": ParamSpec((e, f, d)),
+        "router": {"w": ParamSpec((d, e), ("embed", None), scale=0.02)},
+        "wi": ParamSpec((e, d, f), ("expert", "embed", "mlp")),
+        "wg": ParamSpec((e, d, f), ("expert", "embed", "mlp")),
+        "wo": ParamSpec((e, f, d), ("expert", "mlp", "embed")),
     }
 
 

@@ -1,7 +1,9 @@
 """Parameter specs, random init, and the bridge from the JAX package's params.
 
 A model's parameters are a nested dict of :class:`ParamSpec`, declared
-once (``models/*.py: param_specs``).  As in the JAX package the layer
+once (``models/*.py: param_specs``): shape, init and the *logical* axis
+names the JAX package declares for the same leaf ("vocab", "embed",
+"mlp", ...; ``distributed/sharding.py`` maps them onto a mesh).  As in the JAX package the layer
 trunk is declared stacked, so one draw covers every layer of a leaf with
 the same init scale as ``repro.nn.params._init_one`` (the fan-in of a
 stacked weight is its leading axis):
@@ -19,7 +21,10 @@ Whisper declares its two trunks unstacked, as the JAX package does:
 
 :func:`per_layer` then turns each trunk into a list of per-layer dicts
 (``layers``; whisper's ``encoder`` and ``decoder``), which the port's
-Python layer loops read.
+Python layer loops read.  :func:`abstract_params` builds the same tree
+on ``meta`` (shapes and dtypes, nothing allocated: the dry run's);
+:func:`logical_axes`, :func:`count_params` and :func:`param_bytes` read
+the spec tree.
 """
 from __future__ import annotations
 
@@ -37,14 +42,24 @@ from repro_torch.nn.quant import QuantTensor
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    # Logical axis names, one a dim (``None``: never sharded); left out,
+    # every dim is ``None``.
+    axes: Optional[Tuple[Optional[str], ...]] = None
     init: str = "normal"           # normal | zeros | ones | small_normal
     scale: Optional[float] = None  # stddev; default 1/sqrt(fan-in)
 
+    def __post_init__(self):
+        if self.axes is None:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
 
 def stack_specs(specs: Any, n: int) -> Any:
-    """Prepend a stacked-layers dimension to every spec."""
+    """Prepend a stacked-layers dimension (logical axis ``"layers"``) to
+    every spec."""
     if isinstance(specs, ParamSpec):
-        return dataclasses.replace(specs, shape=(n,) + specs.shape)
+        return dataclasses.replace(specs, shape=(n,) + specs.shape,
+                                   axes=("layers",) + specs.axes)
     return {k: stack_specs(v, n) for k, v in specs.items()}
 
 
@@ -90,21 +105,24 @@ def _is_unstacked(layers: Dict[str, Any]) -> bool:
 _ENC_DEC = ("encoder", "decoder")
 
 
-def per_layer(tree: Dict[str, Any]) -> Dict[str, Any]:
+def per_layer(tree: Dict[str, Any], split=None) -> Dict[str, Any]:
     """``tree`` with its layer trunk as ``layers``, a per-layer list: the
     stacked ``layers`` split (or the ``scan_layers=False`` dict ``"0"``,
     ``"1"``, ... in order), or RecurrentGemma's ``groups`` (layer ``g * P
     + j`` is group ``g`` of position ``j``) followed by its ``tail``;
-    whisper's ``encoder`` and ``decoder`` each as their own list."""
+    whisper's ``encoder`` and ``decoder`` each as their own list.
+    ``split`` cuts one stacked tree into its layers (default
+    :func:`split_layers`)."""
+    split = split or split_layers
     if any(k in tree for k in _ENC_DEC):
         return dict(tree, **{k: _by_int(tree[k]) for k in _ENC_DEC
                              if k in tree})
     if "layers" in tree:
         if _is_unstacked(tree["layers"]):
             return dict(tree, layers=_by_int(tree["layers"]))
-        return dict(tree, layers=split_layers(tree["layers"]))
+        return dict(tree, layers=split(tree["layers"]))
     groups = _by_int(tree["groups"]) if "groups" in tree else []
-    stacked = [split_layers(g) for g in groups]
+    stacked = [split(g) for g in groups]
     layers = [stacked[j][g] for g in range(len(stacked[0]) if stacked
                                            else 0)
               for j in range(len(stacked))]
@@ -130,6 +148,31 @@ def init_params(specs: Dict[str, Any], seed: int,
     gen = torch.Generator().manual_seed(int(seed))
     return per_layer(tree_map(lambda s: _init_one(s, gen, dtype).to(dev),
                               specs))
+
+
+def abstract_params(specs: Dict[str, Any],
+                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+    """:func:`init_params`' tree (the trunk a per-layer list) as tensors
+    on ``meta``: each leaf's shape and dtype, nothing allocated (the JAX
+    package's ``ShapeDtypeStruct`` stand-ins)."""
+    return per_layer(tree_map(
+        lambda s: torch.empty(s.shape, dtype=dtype,
+                              device="meta"), specs))
+
+
+def logical_axes(specs: Dict[str, Any]) -> Dict[str, Any]:
+    """The spec tree with each leaf's logical axis names."""
+    return tree_map(lambda s: s.axes, specs)
+
+
+def count_params(specs: Dict[str, Any]) -> int:
+    return sum(math.prod(s.shape) for s in tree_leaves(specs))
+
+
+def param_bytes(specs: Dict[str, Any],
+                dtype: torch.dtype = torch.bfloat16) -> int:
+    return sum(math.prod(s.shape) * dtype.itemsize
+               for s in tree_leaves(specs))
 
 
 def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -216,29 +259,27 @@ def to_numpy(t) -> np.ndarray:
     return np.asarray(t)
 
 
-def to_jax_params(tree: Dict[str, Any], cfg) -> Dict[str, Any]:
-    """The inverse of :func:`from_jax_params`: the port's params (or a
-    tree shaped like them, as AdamW's ``m`` and ``v``) as the JAX
-    package's params, nested dicts of numpy arrays: the per-layer list
-    stacked into ``layers`` (``cfg.scan_layers``; else ``"0"``, ``"1"``,
-    ...), or for RecurrentGemma into ``groups`` (one stack per pattern
-    position over the whole groups) and ``tail``, and whisper's
-    ``encoder`` and ``decoder`` as ``"0"``, ``"1"``, ... each.  bf16
-    leaves come back as fp32 (exact), as the JAX package's checkpoints
-    store them."""
+def jax_layout(tree: Dict[str, Any], cfg, leaf=lambda t: t,
+               stack=torch.stack) -> Dict[str, Any]:
+    """The JAX package's layout of a tree shaped like the port's params:
+    the per-layer list stacked into ``layers`` (``cfg.scan_layers``; else
+    ``"0"``, ``"1"``, ...), or for RecurrentGemma into ``groups`` (one
+    stack per pattern position over the whole groups) and ``tail``, and
+    whisper's ``encoder`` and ``decoder`` as ``"0"``, ``"1"``, ... each;
+    ``leaf`` maps every leaf first and ``stack`` stacks a list of them.
+    :func:`per_layer` is its inverse."""
     _check_depths(tree, cfg)
     trunks = _depths(cfg)
-    host = tree_map(to_numpy, {k: v for k, v in tree.items()
-                               if k not in trunks})
+    host = tree_map(leaf, {k: v for k, v in tree.items() if k not in trunks})
     if cfg.family == "whisper":
         for name in trunks:
-            host[name] = {str(i): tree_map(to_numpy, p)
+            host[name] = {str(i): tree_map(leaf, p)
                           for i, p in enumerate(tree[name])}
         return host
-    layers = [tree_map(to_numpy, p) for p in tree["layers"]]
+    layers = [tree_map(leaf, p) for p in tree["layers"]]
 
-    def stack(ps):
-        return tree_map(lambda *xs: np.stack(xs), *ps)
+    def stacked(ps):
+        return tree_map(lambda *xs: stack(xs), *ps)
 
     if cfg.family == "recurrentgemma":
         pattern = cfg.block_pattern or ("recurrent", "recurrent",
@@ -246,12 +287,21 @@ def to_jax_params(tree: Dict[str, Any], cfg) -> Dict[str, Any]:
         P = len(pattern)
         n_groups = cfg.n_layers // P
         if n_groups:
-            host["groups"] = {str(j): stack(layers[j:n_groups * P:P])
+            host["groups"] = {str(j): stacked(layers[j:n_groups * P:P])
                               for j in range(P)}
         host["tail"] = {str(i): p for i, p in
                         enumerate(layers[n_groups * P:])}
     elif cfg.scan_layers:
-        host["layers"] = stack(layers)
+        host["layers"] = stacked(layers)
     else:
         host["layers"] = {str(i): p for i, p in enumerate(layers)}
     return host
+
+
+def to_jax_params(tree: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """The inverse of :func:`from_jax_params`: the port's params (or a
+    tree shaped like them, as AdamW's ``m`` and ``v``) as the JAX
+    package's params, nested dicts of numpy arrays in its layout
+    (:func:`jax_layout`).  bf16 leaves come back as fp32 (exact), as the
+    JAX package's checkpoints store them."""
+    return jax_layout(tree, cfg, to_numpy, np.stack)

@@ -83,11 +83,11 @@ def mamba2_specs(cfg) -> dict:
     return {
         "in_proj": layers.linear_specs(d, d_in_proj),
         "conv": layers.conv1d_specs(d_xbc, cfg.d_conv),
-        "dt_bias": ParamSpec((nheads,), init="zeros"),
-        "A_log": ParamSpec((nheads,), init="ones"),
-        "D": ParamSpec((nheads,), init="ones"),
+        "dt_bias": ParamSpec((nheads,), (None,), init="zeros"),
+        "A_log": ParamSpec((nheads,), (None,), init="ones"),
+        "D": ParamSpec((nheads,), (None,), init="ones"),
         "norm": layers.norm_specs(d_inner),
-        "out_proj": layers.linear_specs(d_inner, d),
+        "out_proj": layers.linear_specs(d_inner, d, axes=("mlp", "embed")),
     }
 
 
@@ -282,12 +282,14 @@ def mamba1_specs(cfg) -> dict:
     return {
         "in_proj": layers.linear_specs(d, 2 * d_inner),
         "conv": layers.conv1d_specs(d_inner, cfg.d_conv),
-        "x_proj": layers.linear_specs(d_inner, r + 2 * n),
-        "dt_proj": {"w": ParamSpec((r, d_inner), scale=0.1),
-                    "b": ParamSpec((d_inner,), init="small_normal")},
-        "A_log": ParamSpec((d_inner, n), init="ones"),
-        "D": ParamSpec((d_inner,), init="ones"),
-        "out_proj": layers.linear_specs(d_inner, d),
+        "x_proj": layers.linear_specs(d_inner, r + 2 * n,
+                                      axes=("mlp", None)),
+        "dt_proj": {"w": ParamSpec((r, d_inner), (None, "mlp"), scale=0.1),
+                    "b": ParamSpec((d_inner,), ("mlp",),
+                                   init="small_normal")},
+        "A_log": ParamSpec((d_inner, n), ("mlp", None), init="ones"),
+        "D": ParamSpec((d_inner,), ("mlp",), init="ones"),
+        "out_proj": layers.linear_specs(d_inner, d, axes=("mlp", "embed")),
     }
 
 
@@ -414,10 +416,10 @@ def rglru_specs(cfg) -> dict:
         "in_x": layers.linear_specs(d, w),
         "in_gate": layers.linear_specs(d, w),
         "conv": layers.conv1d_specs(w, cfg.d_conv),
-        "rg": layers.linear_specs(w, w, bias=True),
-        "ig": layers.linear_specs(w, w, bias=True),
-        "lam": ParamSpec((w,), init="ones", scale=1.0),
-        "out": layers.linear_specs(w, d),
+        "rg": layers.linear_specs(w, w, axes=("mlp", "mlp2"), bias=True),
+        "ig": layers.linear_specs(w, w, axes=("mlp", "mlp2"), bias=True),
+        "lam": ParamSpec((w,), ("mlp",), init="ones", scale=1.0),
+        "out": layers.linear_specs(w, d, axes=("mlp", "embed")),
     }
 
 

@@ -8,8 +8,11 @@ to ``max_restarts``, with exponential backoff between restarts
 ``serve/continuous.py`` use).  A step that fails twice in a row is
 *crash-loop* territory — deterministic poison, not a transient fault —
 and gets a distinct log line plus an entry in the returned
-``crash_loop_steps``.  The JAX package's ``reshard_state`` (a restart on
-another mesh) is not ported: one card has no mesh.
+``crash_loop_steps``.  Combined with :func:`reshard_state` a restart may
+come back on another mesh: the state is placed onto the new mesh's
+shardings.  On one card that mesh spans the card (or the CPU), so
+resharding moves the state whole onto its device; a mesh wider than the
+devices raises where it is made (``launch/mesh.py: make_mesh``).
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import time
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 from repro_torch.checkpoint import ckpt
+from repro_torch.distributed.sharding import Sharding, make_shardings, \
+    per_layer_specs, place, shard_like
 
 log = logging.getLogger(__name__)
 
@@ -57,6 +62,22 @@ class RestartOutcome(NamedTuple):
     step: int
     restarts: int
     crash_loop_steps: List[int]
+
+
+def reshard_state(state: Any, specs: Any, new_mesh) -> Any:
+    """Place a train state (``{"params", "opt"}``, and any other entry
+    as it is) onto ``new_mesh``: params and AdamW's ``m`` and ``v`` by
+    the logical rules of ``specs`` (the model's ``param_specs()``), the
+    step replicated (the elastic re-shard)."""
+    param_sh, _ = make_shardings(per_layer_specs(specs), new_mesh)
+    out = dict(state)
+    out["params"] = shard_like(state["params"], param_sh)
+    out["opt"] = {
+        "step": place(state["opt"]["step"], Sharding(new_mesh, ())),
+        "m": shard_like(state["opt"]["m"], param_sh),
+        "v": shard_like(state["opt"]["v"], param_sh),
+    }
+    return out
 
 
 def run_with_restarts(train_some_steps: Callable[[Any, int], Tuple[Any, int]],
