@@ -263,6 +263,20 @@ internlm2-20b, of mamba2-2.7b and of whisper-tiny (the encoder-decoder):
    the CPU and resharded onto the card's mesh (``reshard_state``) bit for
    bit; ``hlo_analysis --arch mamba2-130m --check-budgets`` within its
    budget;
+   4n (after 4m) four ranks (``distributed/launch.py``: gloo processes,
+   all on this card; the kernels built beforehand by phase 2) train
+   mamba2-130m at full width (bf16, remat full, b = 8, l = 512, 3 steps
+   of ``launch/train.py``'s schedule): on (data, model) = (2, 2) bit for
+   bit with rank 0's one-process emulation of the ranks' arithmetic and
+   near the whole-batch step (losses within ``MULTIRANK_LOSS_TOL``, grad
+   norms, AdamW's fp32 moments and the update within
+   ``MULTIRANK_NORM_RTOL`` / ``_MOMENT_TOL`` / ``_UPDATE_TOL``; the step on
+   half the batch, as a control, past those three), then resharded to (1, 2) and back bit for bit; on
+   (pod, data) = (2, 2) with the compressed cross-pod sync bit for bit
+   with its emulation (params, moments, both pods' residuals); kernel 2
+   48 times a step on every rank; each rank's peak memory, the
+   collectives a step and the step seconds printed, within
+   ``MULTIRANK_BUDGET_S``;
 5. parity  — the same model in fp32, kernel path on the card against the
    plain path on the CPU, teacher-forced over 16 greedy tokens of 4
    prompts, with fp32 weights and with W8 weights: tokens agree
@@ -6068,6 +6082,163 @@ def dryrun_phase(dev, counters):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4n: training on four ranks that share the card
+# ---------------------------------------------------------------------------
+
+MULTIRANK_BUDGET_S = 120.0  # phase 4n's seconds
+MULTIRANK_STEPS = 3
+# launch/train.py's schedule for phase 4k's 20 steps (lr 0, 3e-5, 6e-5).
+MULTIRANK_SCHEDULE = dict(base_lr=3e-4, warmup_steps=10,
+                          total_steps=TRAIN_STEPS)
+# 4n (a) against the one-process step on the whole batch: the losses
+# within the JAX suite's bound for multi against single device
+# (tests/test_distributed.py:88).
+MULTIRANK_LOSS_TOL = 1e-3
+# ... and the gradients they step on: the grad norms within
+# MULTIRANK_NORM_RTOL; AdamW's fp32 moments, which keep the gradients that
+# bf16 params round away, within MULTIRANK_MOMENT_TOL, |ranks - whole| /
+# |whole| in the L2 norm over every leaf of m (and of v); the update
+# (params - start) so within MULTIRANK_UPDATE_TOL.  The two sum the same
+# gradient in another order, through bf16 products of other shapes (b = 4
+# a rank against 8).  The control, the one-process step on half the
+# batch, must sit past all three: a step on the wrong rows fails.  Read on
+# an H100 80GB HBM3 at 700 W, the same in two runs: grad norms 9.560e-3
+# (control 0.4867), moments 0.2263 (0.7620; the worst leaf, a layer's
+# dt_bias, 0.4417 and 1.358), the update 0.1187 (0.3652).
+MULTIRANK_NORM_RTOL = 5e-2
+MULTIRANK_MOMENT_TOL = 0.4
+MULTIRANK_UPDATE_TOL = 0.2
+
+
+def multirank_phase(dev, arch="mamba2-130m", overrides=None):
+    """Phase 4n: four ranks (``distributed/launch.py: spawn``, ``gloo``,
+    all on card 0) train ``arch`` at full width (bf16, ``remat`` full,
+    b = ``TRAIN_B``, l = ``TRAIN_L``, ``MULTIRANK_STEPS`` steps; each rank
+    inits the params from one seed): (a) on (data, model) = (2, 2), held
+    bit for bit to rank 0's one-process emulation (rows 0-3 and 4-7 apart,
+    summed in rank order, halved, clipped, AdamW), and to the whole-batch
+    step (losses within ``MULTIRANK_LOSS_TOL``, grad norms within
+    ``MULTIRANK_NORM_RTOL``, AdamW's moments within
+    ``MULTIRANK_MOMENT_TOL``, the update within ``MULTIRANK_UPDATE_TOL``;
+    the one-process step on half the batch past those three); (c) (a)'s state resharded onto a (1, 2)
+    sub-mesh and back, every leaf bit for bit; (b) on (pod, data) = (2, 2)
+    with ``compressed_cross_pod``, params, moments and both pods'
+    residuals bit for bit with the emulation.  Kernel 2 must launch on
+    every rank as often as in the one-process step.  Returns the
+    launches a rank made in (a)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import launch, programs
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_L, global_batch=TRAIN_B,
+                                  seed=5))
+    batches = [data.next() for _ in range(MULTIRANK_STEPS)]
+    base = dict(arch=arch, overrides=overrides, seed=0,
+                schedule=MULTIRANK_SCHEDULE)
+    runs = [dict(base, shape=(2, 2), axes=("data", "model"), emulate=True,
+                 whole_batch=True, reshard=[((1, 2), ("data", "model"))]),
+            dict(base, shape=(2, 2), axes=("pod", "data"), compressed=True,
+                 emulate=True)]
+    print(f"  the parent holds {torch.cuda.memory_allocated() / 2 ** 30:.3f}"
+          f" GiB of the card; spawning 4 ranks", flush=True)
+    res = launch.spawn(programs.train_rank, 4, (
+        {"device": dev.type, "batches": batches, "runs": runs},),
+        device=dev.type, timeout_s=MULTIRANK_BUDGET_S)
+    t_ranks = time.perf_counter() - t0
+    want_k2 = MULTIRANK_STEPS * cfg.n_layers * (
+        1 if cfg.remat == "none" else 2)
+    for label, i in (("(a) data 2 x model 2", 0),
+                     ("(b) pod 2 x data 2, compressed", 1)):
+        ranks = [r[i] for r in res]
+        k2 = [r["launches"]["mamba2_prefill"] for r in ranks]
+        print(f"  {label}: kernel 2 launches a rank {k2} in "
+              f"{MULTIRANK_STEPS} steps ({want_k2} predicted, "
+              f"{want_k2 // MULTIRANK_STEPS} a step as the one-process "
+              f"step); peak memory a rank "
+              f"{[round(r.get('peak_bytes', 0) / 2 ** 30, 3) for r in ranks]}"
+              f" GiB",
+              flush=True)
+        assert k2 == [want_k2] * 4, f"4n {label}: kernel 2 launches {k2}"
+        col = ranks[0]["collectives"][-1]
+        print(f"  {label}: a step's collectives on rank 0 " + "; ".join(
+            f"{op} x{c['count']} operand {c['operand_bytes'] / 2 ** 20:.2f}"
+            f" MiB wire {c['wire_bytes'] / 2 ** 20:.2f} MiB"
+            for op, c in sorted(col.items())), flush=True)
+        print(f"  {label}: step seconds a rank "
+              f"{[[round(x, 3) for x in r['secs']] for r in ranks]}; "
+              f"losses {[round(m['loss'], 5) for m in ranks[0]['metrics']]}"
+              f"; rank 0's seconds from the run's start: " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in
+                  ranks[0]["timeline"].items() if k != "start"),
+              flush=True)
+        emu = ranks[0]["emulation"]
+        bad = list(emu["state"]) + [x for _, d in emu.get("err", [])
+                                    for x in d]
+        print(f"  {label}: against the one-process emulation: "
+              + ("every leaf bit for bit" if not bad else
+                 f"{len(bad)} leaves differ: " + "; ".join(
+                     f"{n} max |diff| {d:.3e} in {c} elements"
+                     for n, d, c in bad[:8])), flush=True)
+        assert not bad, f"4n {label}: differs from its emulation"
+        assert ranks[0]["metrics"] == emu["metrics"], \
+            f"4n {label}: metrics differ from the emulation's"
+    a = res[0][0]
+    whole = res[1][0]["whole_batch"]
+    got, ctl = whole["got"], whole["control"]
+
+    def apart(metrics, key, rel):
+        d = [abs(m[key] - w[key]) / (abs(w[key]) if rel else 1.0)
+             for m, w in zip(metrics, whole["metrics"])]
+        return max(d)
+    dl, dn = apart(a["metrics"], "loss", False), \
+        apart(a["metrics"], "grad_norm", True)
+    cl, cn = apart(ctl["metrics"], "loss", False), \
+        apart(ctl["metrics"], "grad_norm", True)
+    print(f"  (a) against the whole-batch step: losses "
+          f"{[round(w['loss'], 5) for w in whole['metrics']]}, max |diff| "
+          f"{dl:.3e} (limit {MULTIRANK_LOSS_TOL:g}); grad norms "
+          f"{[round(w['grad_norm'], 5) for w in whole['metrics']]}, max "
+          f"rel diff {dn:.3e} (limit {MULTIRANK_NORM_RTOL:g}); moments "
+          f"{got['moments']:.3e} of their norm (limit "
+          f"{MULTIRANK_MOMENT_TOL:g}; the worst leaf {got['leaf'][1]} "
+          f"{got['leaf'][0]:.3e}); the update {got['update']:.3e} of its "
+          f"norm (limit {MULTIRANK_UPDATE_TOL:g}); step seconds "
+          f"{[round(x, 3) for x in whole['secs']]} in one process against "
+          f"{[round(x, 3) for x in a['secs']]} on rank 0 (four ranks "
+          f"time-share one card: no reading of scaling)", flush=True)
+    print(f"  (a) control, the one-process step on half the batch, against "
+          f"the whole batch: losses max |diff| {cl:.3e}; grad norms max rel "
+          f"diff {cn:.3e}; moments {ctl['moments']:.3e} of their norm (the "
+          f"worst leaf {ctl['leaf'][1]} {ctl['leaf'][0]:.3e}); the update "
+          f"{ctl['update']:.3e} of its norm", flush=True)
+    assert dl <= MULTIRANK_LOSS_TOL, "4n (a): losses depart"
+    assert dn <= MULTIRANK_NORM_RTOL, "4n (a): grad norms depart"
+    assert got["moments"] <= MULTIRANK_MOMENT_TOL, "4n (a): moments depart"
+    assert got["update"] <= MULTIRANK_UPDATE_TOL, "4n (a): the update departs"
+    assert cn > MULTIRANK_NORM_RTOL and \
+        ctl["moments"] > MULTIRANK_MOMENT_TOL and \
+        ctl["update"] > MULTIRANK_UPDATE_TOL, \
+        "4n (a): the half-batch control passes a limit"
+    changed = [r[0]["reshard"]["changed"] for r in res]
+    print(f"  (c) (a)'s state (2, 2) -> (1, 2) -> (2, 2): "
+          + ("every leaf bit for bit on every rank" if not any(changed)
+             else f"changed {changed}"), flush=True)
+    assert not any(changed), "4n (c): reshard changed a leaf"
+    secs = time.perf_counter() - t0
+    print(f"  phase 4n: {secs:.1f} s, the ranks {t_ranks:.1f} s of it "
+          f"(budget {MULTIRANK_BUDGET_S:.0f} s)", flush=True)
+    assert secs <= MULTIRANK_BUDGET_S, f"4n took {secs:.1f} s"
+    return want_k2 // MULTIRANK_STEPS
+
+
+# ---------------------------------------------------------------------------
 # Phase 4l: whisper-tiny (kernels 9, 10 and 12 at its shapes)
 # ---------------------------------------------------------------------------
 
@@ -6858,6 +7029,11 @@ def main() -> int:
     print(f"  the earlier phases still hold "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
     dryrun_phase(dev, counters)
+    phase(f"4n. training on 4 ranks sharing the card (mamba2-130m full "
+          f"width, bf16, b={TRAIN_B} l={TRAIN_L}, {MULTIRANK_STEPS} steps: "
+          f"data 2 x model 2 and pod 2 x data 2 compressed against their "
+          f"one-process emulations; reshard to (1, 2) and back)")
+    multirank_phase(dev)
     phase(None)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 

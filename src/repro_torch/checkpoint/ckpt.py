@@ -16,6 +16,14 @@ With ``cfg`` (the model's ``ModelConfig``) the state's param trees —
 lays it out, RecurrentGemma's ``groups`` and ``tail``), so a checkpoint
 written by either package restores in the other.  Without it the tree
 is stored as it is (lists keyed ``[i]``).
+
+With ``shardings`` (the params' :class:`~repro_torch.distributed.sharding.
+Sharding` tree on a mesh of ranks, also ``m``'s and ``v``'s) the state
+holds this rank's shards: ``save`` gathers each param tree whole (every
+rank of the mesh takes part), world rank 0 writes the JAX layout, and
+every rank waits at a barrier over the mesh until it is published;
+``restore`` reads the whole checkpoint on every rank and keeps the
+rank's slices on whatever mesh its ``shardings`` name.
 """
 from __future__ import annotations
 
@@ -29,8 +37,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import gather_like, shard_like
 from repro_torch.nn.params import from_jax_params, to_jax_params, \
-    to_numpy, tree_map
+    to_numpy, tree_leaves, tree_map
 
 PyTree = Any
 _PARAM_TREES = (("params",), ("opt", "m"), ("opt", "v"))
@@ -95,10 +105,48 @@ def _unflatten(arrays: dict) -> PyTree:
     return lists(root)
 
 
+def _ranked(shardings) -> bool:
+    if shardings is None:
+        return False
+    return getattr(tree_leaves(shardings)[0].mesh, "ranked", False)
+
+
+def _map_param_trees(state: PyTree, fn) -> PyTree:
+    """``state`` with ``fn`` applied to ``params`` and AdamW's ``m`` and
+    ``v``."""
+    out = dict(state)
+    if "params" in out:
+        out["params"] = fn(out["params"])
+    if "opt" in out:
+        out["opt"] = dict(out["opt"], **{k: fn(out["opt"][k])
+                                         for k in ("m", "v")
+                                         if k in out["opt"]})
+    return out
+
+
+def gathered(state: PyTree, shardings) -> PyTree:
+    """``state`` with its param trees gathered whole from this rank's
+    shards (every rank of the shardings' mesh calls it)."""
+    if not _ranked(shardings):
+        return state
+    return _map_param_trees(state, lambda t: gather_like(t, shardings))
+
+
 def save(ckpt_dir: str | Path, step: int, state: PyTree,
-         extra: Optional[dict] = None, keep: int = 3, cfg=None) -> Path:
+         extra: Optional[dict] = None, keep: int = 3, cfg=None,
+         shardings=None) -> Optional[Path]:
     """Write ``state`` (tensors or numpy) as ``step_<N>`` atomically and
-    keep the newest ``keep`` checkpoints."""
+    keep the newest ``keep`` checkpoints.  With ``shardings`` on a mesh
+    of ranks every rank of the mesh calls this; rank 0 writes (the others
+    get ``None``)."""
+    if _ranked(shardings):
+        mesh = tree_leaves(shardings)[0].mesh
+        state = gathered(state, shardings)
+        path = None
+        if torch.distributed.get_rank() == 0:
+            path = save(ckpt_dir, step, state, extra, keep, cfg)
+        collectives.barrier(mesh)
+        return path
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
@@ -179,10 +227,15 @@ def _restore_like(target: PyTree, tree: PyTree, key: str = "") -> PyTree:
 
 
 def restore(ckpt_dir: str | Path, target: PyTree,
-            step: Optional[int] = None, cfg=None):
+            step: Optional[int] = None, cfg=None, shardings=None):
     """Restore into the structure, dtypes and devices of ``target`` ->
     ``(state, step, extra)``; ``step`` None takes the latest.  ``cfg`` as
-    for :func:`save`."""
+    for :func:`save`; with ``shardings`` each param tree comes back as
+    this rank's slices of it."""
+    if _ranked(shardings):
+        state, step, extra = restore(ckpt_dir, target, step, cfg)
+        return (_map_param_trees(state, lambda t: shard_like(t, shardings)),
+                step, extra)
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)

@@ -1,8 +1,9 @@
 """Sharded, prefetching data pipeline (the port of ``repro.data.pipeline``).
 
 Each process materializes only its slice of the global batch
-(``host_local_slice``: the whole batch unless ``torch.distributed`` is
-initialised); a background thread keeps ``prefetch`` batches ready so
+(``host_local_slice``: on a mesh of ranks its rows along the batch axes,
+``pod`` and ``data``, the same rows on every rank along ``model``); a
+background thread keeps ``prefetch`` batches ready so
 input never blocks the step.  ``to_device_batch`` takes the place of the
 JAX package's ``device_put_batch``.
 """
@@ -16,14 +17,31 @@ import numpy as np
 import torch
 
 
-def host_local_slice(global_batch: int) -> slice:
-    """This process's rows of the global batch: all of them in one
-    process, else rank r of a world of n takes the r-th of n equal parts."""
-    n, idx = 1, 0
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized():
-        n, idx = torch.distributed.get_world_size(), \
-            torch.distributed.get_rank()
+BATCH_AXES = ("pod", "data")
+
+
+def host_local_slice(global_batch: int, mesh=None) -> slice:
+    """This process's rows of the global batch.  On ``mesh`` (a mesh of
+    ranks, ``launch/mesh.py``) the batch splits over its batch axes only,
+    as the JAX package shards it (``launch/dryrun.py: batch_axes_for``):
+    the row-major index of the rank's ``pod`` and ``data`` coordinates
+    picks its part, so ranks that differ only along ``model`` take the
+    same rows.  Without a mesh: all rows in one process, else rank r of a
+    world of n takes the r-th of n equal parts."""
+    if mesh is not None:
+        axes = [a for a in BATCH_AXES if a in mesh.shape]
+        n, idx, c = 1, 0, mesh.coords
+        for a in axes:
+            n, idx = n * mesh.shape[a], idx * mesh.shape[a] + c[a]
+    else:
+        n, idx = 1, 0
+        if torch.distributed.is_available() and \
+                torch.distributed.is_initialized():
+            n, idx = torch.distributed.get_world_size(), \
+                torch.distributed.get_rank()
+    if global_batch % n:
+        raise ValueError(f"a global batch of {global_batch} does not split "
+                         f"over {n} ranks")
     per = global_batch // n
     return slice(idx * per, (idx + 1) * per)
 

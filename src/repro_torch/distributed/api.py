@@ -4,15 +4,20 @@ models constrain activations without knowing the mesh.
 ``activation_layout`` installs a (batch_axes, seq_axes) policy, and with
 it the mesh the axes name; ``shard_tokens2d`` / ``shard_tokens3d`` /
 ``constrain_dims`` pin a tensor's batch and sequence dims to those axes.
-Outside a policy they are no-ops, as in the JAX package.  The port runs on
-one card: on a mesh whose layout axes have size 1 (or with no mesh) each
-call returns its input object, and a layout that would split a dim over
-more than one device raises.
+Outside a policy they are no-ops, as in the JAX package.  On a mesh whose
+layout axes have size 1 (or with no mesh) each call returns its input
+object.  On a mesh of ranks (``launch/mesh.py``) every rank's model code
+holds its own rows of the batch already (``data/pipeline.py:
+host_local_slice``), which is what GSPMD's batch sharding gives each
+device: a batch-axis constraint moves nothing.  A split over
+``seq`` axes raises: it needs compute split over the mesh's other axes,
+the slice after this one.
 
 The port's models do not call these.  The JAX package calls them at 26
-sites (its models, ``core/ssd.py`` and ``nn/moe.py``); on one card each
-call would be the identity, and the decode step is bound by the host's
-launches, not by its ops (PERF.md §5), so the port leaves them out.
+sites (its models, ``core/ssd.py`` and ``nn/moe.py``); with the batch
+rows already local each call is the identity, and the decode step is
+bound by the host's launches, not by its ops (PERF.md §5), so the port
+leaves them out.
 """
 from __future__ import annotations
 
@@ -47,16 +52,28 @@ def _names(axes) -> tuple:
 
 
 def _constrain(x, spec: tuple):
-    """``x`` pinned to ``spec`` on the layout's mesh: ``x`` itself when
-    the axes it names have one device between them."""
-    mesh = _LAYOUT.get()["mesh"]
+    """``x`` pinned to ``spec`` on the layout's mesh: ``x`` itself.  On a
+    mesh of ranks the dims split over the batch axes hold this rank's
+    rows already."""
+    lay = _LAYOUT.get()
+    mesh = lay["mesh"]
     if mesh is None:
         return x
-    n = math.prod(mesh.shape.get(a, 1) for e in spec for a in _names(e))
-    if n > 1:
-        raise NotImplementedError(
-            f"activation spec {spec} splits over {n} devices; the port "
-            f"runs on one card")
+    batch = set(_names(lay["batch"]))
+    for d, entry in enumerate(spec):
+        names = _names(entry)
+        n = math.prod(mesh.shape.get(a, 1) for a in names)
+        if n == 1:
+            continue
+        if not getattr(mesh, "ranked", False):
+            raise ValueError(
+                f"activation spec {spec} splits dim {d} over {n} devices "
+                f"of a mesh without ranks")
+        if not set(names) <= batch:
+            raise NotImplementedError(
+                f"activation spec {spec} splits dim {d} over {names}: "
+                f"compute split over the mesh's model and sequence axes "
+                f"comes in the next slice")
     return x
 
 

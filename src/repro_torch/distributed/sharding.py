@@ -13,9 +13,10 @@ and falling back to replication otherwise, recording every fallback.  A
 spec is a plain tuple, one entry a dim (an axis name, a tuple of them, or
 ``None``), standing for JAX's ``PartitionSpec``.  :func:`resolve_spec`
 reads only ``mesh.shape``, so abstract meshes of any size resolve.
-Placement (:func:`shard_like`) happens on one card only: on a mesh whose
-axes all have size 1 every dim "shards" over size-1 axes, so each leaf
-moves whole to the mesh's device; a spec that would split a dim raises.
+Placement (:func:`place`, :func:`shard_like`) moves each leaf whole to a
+one-device mesh's device; on a mesh of ranks (``launch/mesh.py``) it
+gives each rank its slice of every split dim, and :func:`gather` puts the
+whole leaf back together over the spec's axes.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.launch.mesh import coords_of
 from repro_torch.nn.params import ParamSpec, per_layer, tree_leaves, \
     tree_map
 
@@ -66,6 +69,12 @@ class Sharding:
     ``NamedSharding``)."""
     mesh: Any
     spec: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class _Sizes:
+    """A mesh's sizes alone, all :func:`resolve_spec` reads."""
+    shape: Dict[str, int]
 
 
 def _axis_size(mesh, axes) -> int:
@@ -145,11 +154,16 @@ def make_pspecs(specs, mesh):
     return tree_map(lambda s: resolve_spec(s, mesh, rules), specs)
 
 
-def make_shardings(specs, mesh) -> Tuple[Any, ShardingReport]:
+def make_shardings(specs, mesh, replicated: Sequence[str] = ()
+                   ) -> Tuple[Any, ShardingReport]:
     """specs tree -> :class:`Sharding` tree (+ fallback report), by
-    :data:`DEFAULT_RULES`."""
+    :data:`DEFAULT_RULES`; ``replicated`` axes are left out of the rules
+    (the compressed sync's params replicate over ``"pod"``: JAX's "FSDP
+    restricted to data")."""
     rules, report = dict(DEFAULT_RULES), ShardingReport()
-    it = iter([Sharding(mesh, resolve_spec(spec, mesh, rules, path, report))
+    sizes = _Sizes({a: s for a, s in mesh.shape.items()
+                    if a not in replicated})
+    it = iter([Sharding(mesh, resolve_spec(spec, sizes, rules, path, report))
                for path, spec in _with_paths(specs)])
     return tree_map(lambda _: next(it), specs), report
 
@@ -174,16 +188,99 @@ def _split_axes(spec: tuple) -> List[str]:
     return names
 
 
-def place(x: torch.Tensor, sharding: Sharding) -> torch.Tensor:
-    """``x`` on ``sharding``'s mesh: whole on its one device.  A spec
-    whose axes have more than one device between them raises."""
+def _entry_axes(entry) -> Tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _index(shape: Dict[str, int], coords: Dict[str, int],
+           axes: Sequence[str]) -> int:
+    """The shard of a dim split over ``axes`` that a rank at ``coords``
+    holds: the row-major index of its coordinates along them, as JAX
+    numbers the shards of a ``PartitionSpec`` entry."""
+    i = 0
+    for a in axes:
+        i = i * shape[a] + coords[a]
+    return i
+
+
+def place(x: torch.Tensor, sharding: Sharding) -> Optional[torch.Tensor]:
+    """``x`` (the whole leaf) on ``sharding``'s mesh: whole on a
+    one-device mesh; on a mesh of ranks this rank's slice of every split
+    dim (``None`` on a rank outside the mesh)."""
     mesh = sharding.mesh
-    n = math.prod(mesh.shape[a] for a in _split_axes(sharding.spec))
-    if n > 1:
-        raise NotImplementedError(
-            f"spec {sharding.spec} splits a dim over {n} devices; the port "
-            f"places tensors on one card")
-    return x.to(mesh.device)
+    if not getattr(mesh, "ranked", False):
+        n = math.prod(mesh.shape[a] for a in _split_axes(sharding.spec))
+        if n > 1:
+            raise ValueError(
+                f"spec {sharding.spec} splits a dim over {n} devices of a "
+                f"mesh without ranks")
+        return x.to(mesh.device)
+    if not mesh.member:
+        return None
+    for d, entry in enumerate(sharding.spec):
+        if entry is None:
+            continue
+        axes = _entry_axes(entry)
+        n = math.prod(mesh.shape[a] for a in axes)
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split "
+                             f"over {axes} = {n}")
+        x = x.chunk(n, dim=d)[_index(mesh.shape, mesh.coords, axes)]
+    return x.contiguous().to(mesh.device)
+
+
+def _split_over(sharding: Sharding) -> Tuple[str, ...]:
+    """The mesh axes of more than one rank that ``sharding`` splits
+    over, in mesh order."""
+    mesh, names = sharding.mesh, set(_split_axes(sharding.spec))
+    return tuple(a for a in mesh.shape if a in names and mesh.shape[a] > 1)
+
+
+def gather_like(tree, shardings):
+    """The whole tree from this rank's slices (:func:`place`'s inverse),
+    on every rank of each leaf's axes.  The leaves split over the same
+    axes travel as one flat all-gather of their bytes; each rank's piece
+    of a leaf then lands at its shard's offsets."""
+    leaves, shs = tree_leaves(tree), tree_leaves(shardings)
+    if not leaves or not getattr(shs[0].mesh, "ranked", False):
+        return tree
+    mesh = shs[0].mesh
+    out = list(leaves)
+    by_axes: Dict[Tuple[str, ...], List[int]] = {}
+    for i, sh in enumerate(shs):
+        axes = _split_over(sh)
+        if axes:
+            by_axes.setdefault(axes, []).append(i)
+    for axes, idx in by_axes.items():
+        # Each leaf's bytes padded to 8, so that every piece views as its
+        # dtype.
+        raw = [leaves[i].detach().contiguous().reshape(-1).view(torch.uint8)
+               for i in idx]
+        sizes = [-(-r.numel() // 8) * 8 for r in raw]
+        flat = torch.cat([torch.nn.functional.pad(r, (0, n - r.numel()))
+                          for r, n in zip(raw, sizes)])
+        parts = collectives.all_gather(flat, mesh, axes)
+        peers = [coords_of(mesh.shape, r) for r in mesh.line(axes)]
+        for i, pieces in zip(idx, zip(*(p.split(sizes) for p in parts))):
+            local, spec = leaves[i], shs[i].spec
+            whole = local.new_empty(tuple(
+                n * math.prod(mesh.shape[a] for a in _entry_axes(e))
+                if e else n for n, e in zip(local.shape, spec)))
+            for c, piece in zip(peers, pieces):
+                at = tuple(slice(None) if e is None else slice(
+                    _index(mesh.shape, c, _entry_axes(e)) * n,
+                    (_index(mesh.shape, c, _entry_axes(e)) + 1) * n)
+                    for n, e in zip(local.shape, spec))
+                whole[at] = piece[:local.numel() * local.element_size()] \
+                    .view(local.dtype).view(local.shape)
+            out[i] = whole
+    it = iter(out)
+    return tree_map(lambda _: next(it), tree)
+
+
+def gather(x: torch.Tensor, sharding: Sharding) -> torch.Tensor:
+    """One leaf whole from this rank's slice (:func:`gather_like`)."""
+    return gather_like([x], [sharding])[0]
 
 
 def shard_like(tree, shardings):

@@ -6,7 +6,10 @@ shared library under ``<repo>/build/kernels/`` (listed in
 ``.gitignore``) and loaded with ``ctypes``.  The build runs at first use,
 one ``nvcc`` per source, all started together; a library whose name
 carries the hash of its source and of the shared headers (``*.cuh``) is
-reused until one of them changes.
+reused until one of them changes.  Processes that start together (the
+ranks of a mesh) build once: :func:`build_all` holds an exclusive
+``flock`` on ``BUILD_DIR/.lock``, so one process compiles and the others
+wait for it, then find the libraries and load them.
 
 Nothing here runs at import time: this module imports on a machine
 without ``nvcc`` or a GPU, and only :func:`library` needs them.
@@ -14,6 +17,7 @@ without ``nvcc`` or a GPU, and only :func:`library` needs them.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -53,12 +57,24 @@ def _target(name: str) -> pathlib.Path:
 
 
 def build_all() -> float:
-    """Compile every source whose library is missing, in parallel.
-    Returns the seconds spent; raises with nvcc's output on failure."""
+    """Compile every source whose library is missing, in parallel, under
+    the build directory's lock.  Returns the seconds spent; raises with
+    nvcc's output on failure."""
+    if all(_target(n).exists() for n in SOURCES):
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_missing()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_missing() -> float:
     missing = [n for n in SOURCES if not _target(n).exists()]
     if not missing:
         return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = {}

@@ -30,7 +30,8 @@ Train cells retry with 1, 2, 4 and 8 microbatches until the step fits
 past the budget.  A cell that never fits is costed as the JAX dry run
 costs every cell, at one and two layers extrapolated over the stack
 (``acct_mode`` ``"marginal"``).
-``--mesh multi`` is recorded as skipped: one card has no pod axis.
+``--mesh multi`` is recorded as skipped (:data:`MULTI_SKIP`): its cells
+wait for a per-device count of compute split over ``model``.
 
 Run one cell:   python -m repro_torch.launch.dryrun --arch mamba2-130m \\
                     --shape decode_32k
@@ -73,8 +74,11 @@ H100_HBM_BYTES = 85_017_493_504
 # The CUDA caching allocator hands out blocks in multiples of 512 bytes.
 ALLOC_GRANULE = 512
 MICROBATCHES = (1, 2, 4, 8)
-MULTI_SKIP = ("--mesh multi: the (pod, data, model) mesh spans two pods "
-              "of chips; the port runs on one card, which has no pod axis")
+MULTI_SKIP = ("--mesh multi: a cell of the (pod, data, model) mesh is "
+              "counted per device, which needs the per-device count of "
+              "compute split over the model axis (the next slice); the "
+              "ranks of a mesh run today, and compute the same rows "
+              "along model")
 # Ops that allocate or re-view a storage and move no bytes.
 _NO_BYTES = {torch.ops.aten.empty.memory_format,
              torch.ops.aten.empty_strided.default,

@@ -11,7 +11,9 @@ that stream by a ``TorchDispatchMode`` over one call of the program on
 themselves on meta), each entry ``(op, output_bytes)``.  The JAX package's
 fingerprints and diffs then read it as they read HLO instructions.
 
-One card issues no collective: :func:`parse_collectives` returns zeros.
+The collectives are the ones a mesh of ranks issued:
+:func:`parse_collectives` reads the record ``distributed/collectives.py``
+keeps of them (none on one card, so zeros without a record).
 ``buffer_assignment_stats`` reads the allocator figures of a program card
 (``serve/program_registry.py: build_card``).
 
@@ -37,6 +39,8 @@ PEAK_FLOPS = cost.BF16_TC_FLOP_PER_S     # 989e12
 HBM_BW = cost.HBM_BYTES_PER_S            # 3.35e12 bytes/s
 # NVLink 4, one direction of one GPU's 18 links (900 GB/s both ways; the
 # same data sheet).  One card issues no collective, so its term is zero.
+# (The ranks of a mesh that share one card talk through the host over
+# gloo; this rate is the one a card a rank would give.)
 LINK_BW = 450e9
 
 
@@ -57,9 +61,22 @@ class CollectiveStats:
 
 
 def parse_collectives(trace=None) -> CollectiveStats:
-    """The collectives of an op stream: none on one card."""
-    del trace
-    return CollectiveStats({}, {}, {}, [])
+    """The collectives of a ``distributed/collectives.py`` record (the
+    list ``collectives.recording()`` yields): per op its count, operand
+    bytes and wire bytes, and one detail row a call.  No record (one
+    card's op stream): none."""
+    counts: Dict[str, int] = {}
+    op_bytes: Dict[str, int] = {}
+    wire: Dict[str, int] = {}
+    details: List[dict] = []
+    for rec in trace or ():
+        counts[rec.op] = counts.get(rec.op, 0) + 1
+        op_bytes[rec.op] = op_bytes.get(rec.op, 0) + rec.operand_bytes
+        wire[rec.op] = wire.get(rec.op, 0) + rec.wire_bytes
+        details.append({"op": rec.op, "axes": list(rec.axes),
+                        "operand_bytes": rec.operand_bytes,
+                        "wire_bytes": rec.wire_bytes})
+    return CollectiveStats(counts, op_bytes, wire, details)
 
 
 # ----------------------------------------------------------------------------

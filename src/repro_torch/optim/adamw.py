@@ -51,10 +51,14 @@ def global_norm(tree: PyTree) -> torch.Tensor:
 
 @torch.no_grad()
 def update(grads: PyTree, state: dict, params: PyTree, lr,
-           cfg: AdamWConfig) -> Tuple[PyTree, dict, dict]:
+           cfg: AdamWConfig, gnorm: Optional[torch.Tensor] = None
+           ) -> Tuple[PyTree, dict, dict]:
     """One AdamW step -> (new_params, new_state, stats ``grad_norm``,
-    ``lr``); ``lr`` a float or a 0-d fp32 tensor."""
-    gnorm = global_norm(grads)
+    ``lr``); ``lr`` a float or a 0-d fp32 tensor.  ``gnorm``: the clip's
+    global norm when ``grads`` are one rank's shards of the gradient
+    (the whole gradient's norm); default ``global_norm(grads)``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) \
         if cfg.grad_clip else torch.ones((), device=gnorm.device)
     step = state["step"] + 1

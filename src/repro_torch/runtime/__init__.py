@@ -1,7 +1,7 @@
 """Runtime helpers (the port of ``repro.runtime``): the shared retry
 backoff and the training restart loop, step-time monitors and the hang
 watchdog, the fault injector, and the elastic re-shard of a train state
-onto a mesh (one card's)."""
+onto a mesh (one device's, or a mesh of ranks)."""
 from repro_torch.runtime.elastic import RestartOutcome, RestartPolicy, \
     backoff_delay_s, reshard_state, run_with_restarts
 from repro_torch.runtime.faults import (FAULT_KINDS, FaultEvent,

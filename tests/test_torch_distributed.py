@@ -304,8 +304,10 @@ def test_compressed_pod_psum_bit_for_bit_over_three_steps():
             for t, w in zip(tree_leaves(got), jax.tree.leaves(want)):
                 assert t.dtype == torch.float32
                 np.testing.assert_array_equal(t.numpy(), np.asarray(w))
+    # A pod axis above 1 reduces over ranks (tests/test_torch_multirank.py);
+    # an abstract mesh has none.
     wide = mesh_mod.make_mesh((2, 1, 1), ("pod", "data", "model"))
-    with pytest.raises(NotImplementedError, match="pod"):
+    with pytest.raises(ValueError, match="without ranks"):
         collectives.compressed_pod_psum(tred, terr, "pod", wide)
 
 
@@ -402,7 +404,7 @@ def test_compressed_train_step_matches_jax_over_three_steps():
     n = sum(f.size for f in flips.values())
     assert sum(f.sum() for f in flips.values()) < 0.02 * n
     assert all(t.dtype == torch.float32 for t in tree_leaves(tstate["err"]))
-    with pytest.raises(NotImplementedError, match="pod"):
+    with pytest.raises(ValueError, match="without ranks"):
         make_train_step(tm, tc, mesh_mod.make_mesh(
             (2, 1, 1), ("pod", "data", "model")))
     state = init_state(tm, 0, tc)
@@ -461,12 +463,15 @@ def test_reshard_state_round_trips_and_wide_meshes_raise():
     back = reshard_state(out, model.param_specs(), mesh)
     assert all(torch.equal(a, b) for a, b in zip(
         tree_leaves(state), tree_leaves(back)))
-    with pytest.raises(NotImplementedError, match="one card"):
+    # Wider meshes span ranks (tests/test_torch_multirank.py): a world of
+    # one process refuses them, and the 512-rank production mesh names
+    # what it waits for.
+    with pytest.raises(RuntimeError, match="spans 4 ranks"):
         mesh_mod.make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="pod axis"):
+    with pytest.raises(NotImplementedError, match="512 ranks"):
         mesh_mod.make_production_mesh(multi_pod=True, device="cpu")
     two = mesh_mod.make_mesh((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="2 devices"):
+    with pytest.raises(ValueError, match="without ranks"):
         sharding.place(torch.zeros(4), sharding.Sharding(two, ("model",)))
     prod = mesh_mod.make_production_mesh(device="cpu")
     assert dict(prod.shape) == {"data": 1, "model": 1}
@@ -485,7 +490,17 @@ def test_activation_layout_is_the_identity_on_one_card():
         assert api.batch_pspec(3) == (("data",), "model", None)
     wide = mesh_mod.make_mesh((4, 1), ("data", "model"))
     with api.activation_layout(("data",), None, mesh=wide):
-        with pytest.raises(NotImplementedError, match="4 devices"):
+        with pytest.raises(ValueError, match="4 devices of a mesh without"):
+            api.shard_tokens3d(x)
+    # On a mesh of ranks a rank holds its own rows: a batch constraint
+    # moves nothing; a split over a sequence axis waits for the next slice.
+    ranked = mesh_mod.Mesh({"data": 4, "model": 2}, (torch.device("cpu"),)
+                           * 8, rank=3)
+    with api.activation_layout(("data",), None, mesh=ranked):
+        assert api.shard_tokens3d(x) is x
+        assert api.constrain_dims(x, {0: "batch"}) is x
+    with api.activation_layout(("data",), "model", mesh=ranked):
+        with pytest.raises(NotImplementedError, match="next slice"):
             api.shard_tokens3d(x)
     assert api.batch_pspec(1) == (None,)
 
@@ -537,9 +552,12 @@ def test_train_cli_takes_a_one_device_mesh_and_refuses_wider(capsys):
         "--device", "cpu", "--reduced", "--steps", "1", "--batch", "2",
         "--seq", "16", "--mesh", "1x1:data,model"])
     assert monitor.summary()["steps"] == 1
-    for bad in ("2x2:data,model", "1x1x2:pod,data,model"):
+    # A wider mesh trains on ranks (tests/test_torch_multirank.py); these
+    # are refused before any rank starts.
+    for bad, why in (("3x1:data,model", "does not split"),
+                     ("1x2:data,expert", "at most once")):
         with pytest.raises(SystemExit) as exc:
             train_cli.main(["--device", "cpu", "--reduced", "--steps", "1",
                             "--mesh", bad])
         assert exc.value.code == 2
-        assert "one card" in capsys.readouterr().err
+        assert why in capsys.readouterr().err

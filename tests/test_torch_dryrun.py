@@ -83,7 +83,9 @@ def test_run_cell_reduced_mamba2_matches_jax_arguments(shape_name):
     assert rec["cost"]["kernel_flops"] > 0
     multi = dryrun.run_cell("mamba2-130m", shape_name, "multi",
                             overrides=OVERRIDES)
-    assert multi["skipped"] and "pod" in multi["skip_reason"]
+    assert multi["skipped"] and multi["skip_reason"] == dryrun.MULTI_SKIP
+    assert "split over the model axis" in multi["skip_reason"]
+    assert "one card" not in multi["skip_reason"]
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "mamba2-2.7b"])

@@ -6,6 +6,9 @@ The ``wgmma`` bodies run only on the card (``tests/test_torch_cuda.py``,
 * kernel 9's P V arithmetic, emulated in plain PyTorch: S = q k^T in fp32
   (the bf16 products are exact), scaled and masked, the online softmax
   over 64-key tiles, and P V with P split into bf16 terms, summed in fp32.
+  Every dot product of the emulation is an fp32 sum in index order
+  (``_ordered_dot``): its bits do not depend on the thread count or on
+  which BLAS kernel a shape or an alignment picks.
   With two terms (P_hi = bf16(P), P_lo = bf16(P - P_hi)) the bf16 outputs
   that differ from ``flash_attention_plain`` stay under ``chip_smoke.py``'s
   ``MAX_OFF_SHARE``; with one bf16 P they do not, which pins the split;
@@ -38,9 +41,29 @@ def _mask(lq, lk, causal, window):
     return ok
 
 
+def _ordered_dot(a, b):
+    """``a @ b`` over the last dim of ``a`` and the second-to-last of
+    ``b`` (broadcast over the rest), each output an fp32 sum of the
+    products taken in index order, one term after another.  The operands
+    here are bf16 values, so each product is exact in fp32 and
+    ``addcmul`` (fused or not) adds it with one rounding.  One thread:
+    the loop's many small ops would otherwise wait on the thread pool's
+    every barrier."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        acc = a[..., :, 0:1] * b[..., 0:1, :]
+        for j in range(1, a.shape[-1]):
+            acc.addcmul_(a[..., :, j:j + 1], b[..., j:j + 1, :])
+        return acc
+    finally:
+        torch.set_num_threads(threads)
+
+
 def tensorcore_flash(q, k, v, *, causal, window, terms):
-    """Kernel 9's bf16 body in plain PyTorch: per 64-key tile, scores in
-    fp32 times ``scale``, masked at -1e30, m_new = max(m, rowmax), p =
+    """Kernel 9's bf16 body in plain PyTorch (every product sum in index
+    order, :func:`_ordered_dot`): per 64-key tile, scores in fp32 times
+    ``scale``, masked at -1e30, m_new = max(m, rowmax), p =
     exp(s - m_new), alpha = exp(m - m_new), l = l alpha + rowsum(p), acc =
     acc alpha + sum over ``terms`` bf16 terms t of t v; the drain divides
     by l (1 where l == 0)."""
@@ -53,7 +76,7 @@ def tensorcore_flash(q, k, v, *, causal, window, terms):
     l = torch.zeros_like(m)
     acc = torch.zeros(b, hkv, hq // hkv, lq, d)
     for k0 in range(0, lk, BK):
-        s = torch.einsum("bgqld,bgkd->bgqlk", qg, kf[:, :, k0:k0 + BK])
+        s = _ordered_dot(qg, kf[:, :, None, k0:k0 + BK].transpose(-1, -2))
         s = torch.where(ok[:, k0:k0 + BK], s * d ** -0.5, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
@@ -62,8 +85,7 @@ def tensorcore_flash(q, k, v, *, causal, window, terms):
         acc = acc * alpha[..., None]
         for _ in range(terms):
             t = p.bfloat16().float()
-            acc = acc + torch.einsum("bgqlk,bgkd->bgqld", t,
-                                     vf[:, :, k0:k0 + BK])
+            acc = acc + _ordered_dot(t, vf[:, :, None, k0:k0 + BK])
             p = p - t
         m = m_new
     out = acc / torch.where(l == 0, 1.0, l)[..., None]

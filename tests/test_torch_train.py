@@ -489,6 +489,9 @@ def test_cli_resume_reproduces_the_uninterrupted_run(monkeypatch, tmp_path):
 
 
 def test_cli_refuses_a_mesh():
+    """A mesh the batch does not split over is refused before any rank
+    starts (``--mesh 2x2:data,model`` itself trains: see
+    tests/test_torch_multirank.py)."""
     with pytest.raises(SystemExit) as err:
-        train_cli.main(["--mesh", "2x2:data,model", "--device", "cpu"])
+        train_cli.main(["--mesh", "3x2:data,model", "--device", "cpu"])
     assert err.value.code == 2
