@@ -9,9 +9,11 @@ layout axes have size 1 (or with no mesh) each call returns its input
 object.  On a mesh of ranks (``launch/mesh.py``) every rank's model code
 holds its own rows of the batch already (``data/pipeline.py:
 host_local_slice``), which is what GSPMD's batch sharding gives each
-device: a batch-axis constraint moves nothing.  A split over
-``seq`` axes raises: it needs compute split over the mesh's other axes,
-the slice after this one.
+device: a batch-axis constraint moves nothing.  Compute split over
+``model`` is the train step's (``train/step.py``: the split layers take
+the rank's slices of the params; the activations they exchange go
+through ``collectives.py``'s model group, not through these calls).  A
+split over ``seq`` axes raises: it is not ported yet (ROADMAP, queue 2).
 
 The port's models do not call these.  The JAX package calls them at 26
 sites (its models, ``core/ssd.py`` and ``nn/moe.py``); with the batch
@@ -72,8 +74,8 @@ def _constrain(x, spec: tuple):
         if not set(names) <= batch:
             raise NotImplementedError(
                 f"activation spec {spec} splits dim {d} over {names}: "
-                f"compute split over the mesh's model and sequence axes "
-                f"comes in the next slice")
+                f"compute split over sequence axes is not ported yet (the "
+                f"train step splits over model itself)")
     return x
 
 

@@ -24,19 +24,21 @@ Results come back on the CPU.  ``job`` is a plain dict (it pickles).
 """
 from __future__ import annotations
 
+import gc
 import math
 import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_config
 from repro_torch.data import host_local_slice, to_device_batch
 from repro_torch.distributed import collectives, pipeline
 from repro_torch.distributed.sharding import Sharding, gather_like, \
-    shard_like
+    model_split, per_layer_specs, shard_like
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_model
 from repro_torch.nn.params import jax_layout, per_layer, tree_leaves, \
@@ -44,8 +46,8 @@ from repro_torch.nn.params import jax_layout, per_layer, tree_leaves, \
 from repro_torch.optim import AdamWConfig, ScheduleConfig, adamw, \
     schedule as sched
 from repro_torch.train import TrainConfig, init_state, make_train_step
-from repro_torch.train.step import compute_grads, param_shardings, \
-    shard_state
+from repro_torch.train.step import MEAN_CHUNK, compute_grads, \
+    param_shardings, shard_state, split_global_norm
 
 BATCH_AXES = ("pod", "data")
 
@@ -140,15 +142,23 @@ def differences(got, want) -> List[tuple]:
 def emulate_steps(model, tc: TrainConfig, state: dict, batches: list,
                   shape: Dict[str, int], errs: Optional[list] = None):
     """What the ranks of a mesh of ``shape`` compute, in one process:
-    each rank's rows' gradients (``compute_grads``, its microbatches)
-    apart; their fp32 sum in rank order over the batch axes, divided by
-    their count; under the compressed sync that over ``data`` only, then
-    each pod's int8 round trip with its own residual (``errs``, one tree
-    a pod), the pods' ``sent`` summed in pod order and divided by the pod
-    count; the clip's norm of that gradient; AdamW.  Returns the state,
-    the per-pod residuals and each step's metrics."""
+    each data rank's rows' gradients (``compute_grads``, its
+    microbatches) apart, where the step splits compute over ``model``
+    inside ``collectives.model_split`` of an ``EmulatedGroup`` (every
+    model rank's pieces at its shapes, summed in rank order); their fp32
+    sum in rank order over the batch axes, divided by their count; under
+    the compressed sync that over ``data`` only, then each pod's int8
+    round trip with its own residual (``errs``, one tree a pod), the
+    pods' ``sent`` summed in pod order and divided by the pod count; the
+    clip's norm of that gradient (split as the ranks take it,
+    ``split_global_norm``); AdamW.  Returns the state, the per-pod
+    residuals and each step's metrics."""
     dev = model.device
     podwise = tc.compressed_cross_pod and "pod" in shape
+    plan = model_split(per_layer_specs(model.param_specs()), param_shardings(
+        model, tc, make_mesh(tuple(shape.values()), tuple(shape))),
+        model.cfg)
+    group = collectives.EmulatedGroup(plan.size) if plan.split else None
     axes = [a for a in BATCH_AXES if a in shape]
     n_batch = math.prod(shape[a] for a in axes)
     n_pod = shape.get("pod", 1) if podwise else 1
@@ -165,9 +175,10 @@ def emulate_steps(model, tc: TrainConfig, state: dict, batches: list,
             parts = []
             for d in range(n_mean):
                 i = p * n_mean + d
-                g, m = compute_grads(model, params, _rows(
-                    batch, slice(i * rows, (i + 1) * rows), dev),
-                    tc.microbatches)
+                with collectives.model_split(group):
+                    g, m = compute_grads(model, params, _rows(
+                        batch, slice(i * rows, (i + 1) * rows), dev),
+                        tc.microbatches)
                 parts.append(g)
                 mets.append(m)
             if n_mean > 1:
@@ -190,9 +201,11 @@ def emulate_steps(model, tc: TrainConfig, state: dict, batches: list,
             for s in sent[1:]:
                 total = tree_map(lambda a, b: a + b, total, s)
             grads = tree_map(lambda g: g / n_pod, per_layer(total))
+        gnorm = split_global_norm(grads, plan.dims, group) \
+            if plan.kept and not podwise else None
         lr = sched.lr_at(state["opt"]["step"], tc.schedule)
         new_params, new_opt, stats = adamw.update(
-            grads, state["opt"], params, lr, tc.optimizer)
+            grads, state["opt"], params, lr, tc.optimizer, gnorm=gnorm)
         state = dict(state, params=new_params, opt=new_opt)
         metrics.update(stats)
         history.append({k: float(v) for k, v in metrics.items()})
@@ -201,14 +214,19 @@ def emulate_steps(model, tc: TrainConfig, state: dict, batches: list,
     return state, errs, history
 
 
-def _kernel_launches() -> Dict[str, int]:
-    from repro_torch.kernels import prefill_chunk
-    return {"mamba2_prefill": prefill_chunk.mamba2_prefill.launches}
+def _kernel_launches() -> Dict[str, Any]:
+    from repro_torch.kernels import flash_attention, prefill_chunk
+    return {"mamba2_prefill": prefill_chunk.mamba2_prefill.launches,
+            "flash_attention": flash_attention.flash_attention.launches,
+            "flash_heads": dict(
+                flash_attention.flash_attention.head_launches)}
 
 
 def _reset_launches() -> None:
-    from repro_torch.kernels import prefill_chunk
+    from repro_torch.kernels import flash_attention, prefill_chunk
     prefill_chunk.mamba2_prefill.launches = 0
+    flash_attention.flash_attention.launches = 0
+    flash_attention.flash_attention.head_launches.clear()
 
 
 def train_rank(rank: int, world: int, job: dict) -> dict:
@@ -220,14 +238,30 @@ def train_rank(rank: int, world: int, job: dict) -> dict:
     :func:`emulate_steps`'s bits), ``whole_batch`` (rank 1 runs the
     one-process step on the whole batches beside it), ``reshard`` (a chain
     of ``(shape, axes)`` meshes the state moves over and back) and
-    ``return_state`` (rank 0 returns the gathered state).  Returns, per
-    run, the metrics of every step, the step seconds, kernel 2's launches,
-    the peak memory and the collectives a step, and the checks' reports."""
+    ``return_state`` (rank 0 returns the gathered state), and
+    ``count_flops`` (a step on the first batch under ``FlopCounterMode``,
+    its result dropped).  Returns, per run, the metrics of every step,
+    the step seconds, the kernels' launches, the peak memory and the
+    collectives a step, the step's ``model_split`` (the leaves kept split
+    over ``model`` and those gathered over it), that step's FLOPs as
+    ``FlopCounterMode`` counts them, the checks' reports, and the
+    ``timeline`` of the run's stages (seconds from its start) with, on a
+    card, the ``memory`` at each (bytes allocated, the peak since the
+    stage before)."""
     dev = _device(job)
     cuda = dev.type == "cuda"
     out, drawn = [], {}
     for run in job["runs"]:
-        t = {"start": time.time()}
+        t, mem = {"start": time.time()}, {}
+
+        def mark(name):
+            """The time at ``name``; on a card the bytes allocated there
+            and the peak since the last mark."""
+            t[name] = time.time()
+            if cuda:
+                mem[name] = (torch.cuda.memory_allocated(),
+                             torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
         model = model_of(run, dev)
         tc = train_config(run, run.get("compressed", False))
         mesh = make_mesh(run["shape"], run["axes"],
@@ -238,22 +272,39 @@ def train_rank(rank: int, world: int, job: dict) -> dict:
             start = initial_state(model, dict(run, params=drawn[key]), tc)
         else:
             start = initial_state(model, run, tc)
-            drawn[key] = start["params"]
-        t["state"] = time.time()
+            drawn[key] = _cpu(start["params"])
+        mark("state")
         state = shard_state(start, model, tc, mesh)
+        # The ranks that check against one process keep the whole initial
+        # state, on the host while the steps run: four ranks share a card.
+        emulates = run.get("emulate") and rank == 0
+        steps_whole = run.get("whole_batch") and rank == min(1, world - 1)
+        start = _cpu(start) if emulates or steps_whole else None
         step = make_train_step(model, tc, mesh)
         rows = host_local_slice(len(job["batches"][0]["tokens"]), mesh)
         rec: Dict[str, Any] = {"metrics": [], "secs": [], "collectives": []}
         _reset_launches()
         if cuda:
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
         sh = param_shardings(model, tc, mesh)
         # Every group's first collective connects its ranks: done here, so
         # that the step seconds hold none of it.
         gather_like(state["params"], sh)
-        t["connected"] = time.time()
+        mark("connected")
+        plan = step.model_split
+        rec["model_split"] = {"split": plan.split, "why": plan.why,
+                              "kept": [p for p, _ in plan.kept],
+                              "gathered": [p for p, _ in plan.gathered]}
         snaps = []
+        if run.get("count_flops"):
+            # A step of its own, its result dropped: the counter's dispatch
+            # changes which CPU kernels some ops take, and so their bits.
+            with FlopCounterMode(display=False) as counter:
+                step(state, _rows(job["batches"][0], rows, dev))
+            rec["flops"] = counter.get_total_flops()
+            _reset_launches()
         for batch in job["batches"]:
             b = _rows(batch, rows, dev)
             with collectives.recording() as log:
@@ -274,11 +325,24 @@ def train_rank(rank: int, world: int, job: dict) -> dict:
             rec["peak_bytes"] = torch.cuda.max_memory_allocated() - held
         if rank == 0 and snaps:
             rec["snapshots"] = snaps
-        t["steps"] = time.time()
+        mark("steps")
+        if cuda:
+            torch.cuda.empty_cache()
         whole = ckpt.gathered(state, sh)
+        if not (emulates or steps_whole or
+                (run.get("return_state") and rank == 0)):
+            whole = None
+        else:
+            # Held on the host: rank 0's emulation and rank 1's
+            # whole-batch steps each take most of a card four ranks share.
+            whole = _cpu(whole)
         errs = _pod_errs(state, mesh) if tc.compressed_cross_pod else None
-        t["gathered"] = time.time()
-        if run.get("emulate") and rank == 0:
+        mark("gathered")
+        if cuda:
+            gc.collect()
+            torch.cuda.empty_cache()
+        if emulates:
+            start = tree_map(lambda x: x.to(dev), start)
             want, want_errs, hist = emulate_steps(
                 model, tc, start, job["batches"],
                 dict(zip(run["axes"], run["shape"])))
@@ -292,24 +356,37 @@ def train_rank(rank: int, world: int, job: dict) -> dict:
                     (p, differences(e, w))
                     for p, (e, w) in enumerate(zip(errs, want_errs))]
             del want, want_errs
-        t["emulated"] = time.time()
-        # Rank 1 (beside rank 0's emulation) runs the whole-batch steps.
-        if run.get("whole_batch") and rank == min(1, world - 1):
+        mark("emulated")
+        # Rank 1 runs the whole-batch steps once rank 0's emulation has
+        # let go of the card's memory.
+        if not (steps_whole or (run.get("return_state") and rank == 0)):
+            whole = None
+        if emulates and not steps_whole:
+            start = None
+        if cuda:
+            gc.collect()
+            torch.cuda.empty_cache()
+        if run.get("emulate") and run.get("whole_batch"):
+            collectives.barrier(mesh)
+        if steps_whole:
+            start, whole = (tree_map(lambda x: x.to(dev), t)
+                            for t in (start, whole))
             rec["whole_batch"] = whole_batch_steps(
                 model, TrainConfig(optimizer=tc.optimizer,
                                    schedule=tc.schedule),
-                start, job["batches"], whole)
-        t["whole_batch"] = time.time()
+                start, job["batches"], whole, mesh.shape.get("model", 1))
+        mark("whole_batch")
         del start
         if run.get("reshard"):
             rec["reshard"] = _reshard_chain(state, model, tc, mesh,
                                             run["reshard"], dev)
-        t["resharded"] = time.time()
+        mark("resharded")
         if run.get("return_state") and rank == 0:
             rec["state"] = _cpu(whole)
             if errs is not None:
                 rec["errs"] = [_cpu(e) for e in errs]
         rec["timeline"] = {k: v - t["start"] for k, v in t.items()}
+        rec["memory"] = mem
         out.append(rec)
         del state, whole, step, model
         if cuda:
@@ -331,61 +408,153 @@ def _pod_errs(state, mesh) -> list:
 
 
 def whole_batch_steps(model, tc: TrainConfig, start: dict, batches: list,
-                      got: dict) -> dict:
-    """The one-process step from ``start`` on the whole batches and, as a
-    control that a wrong step fails, on their first half only: the
-    metrics and step seconds of each, and how far ``got`` (the ranks'
-    gathered ``params`` and ``opt``) and the control sit from the whole
-    batch's state (:func:`departures`)."""
+                      got: dict, model_ranks: int = 1) -> dict:
+    """The one-process step from ``start`` on the whole batches, and the
+    checks of ``got`` (the ranks' gathered ``params`` and ``opt``) against
+    it.  The reference is that step with its compute split over
+    ``model_ranks`` as the ranks split it (``emulate_steps`` on a mesh of
+    ``model`` alone: every model rank's products at its shapes, the batch
+    not split), so that the ranks differ from it by the batch split
+    alone; the control, that a wrong step fails, is the same on the first
+    half of the rows.  ``plain``: the step with its compute whole, how
+    far the split reference sits from it (what the split's arithmetic
+    alone moves) and the seconds of both in this process (the split's
+    products at the ranks' shapes, no collectives).  Returns the
+    reference's metrics, the plain step's metrics, step seconds and peak
+    memory on a card, :func:`departures` of ``got`` and of the control
+    from the reference, and with a split ``fp32``: the first batch's
+    gradient split against whole in fp32 (:func:`split_fp32_departures`).
+    """
+    cuda = model.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
     step = make_train_step(model, tc)
+    state, hist, secs = start, [], []
+    for batch in batches:
+        b = _rows(batch, slice(None), model.device)
+        _sync(model.device)
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        _sync(model.device)
+        secs.append(time.perf_counter() - t0)
+        hist.append({k: float(v) for k, v in met.items()})
+    plain = {"metrics": hist, "secs": secs}
+    if cuda:
+        plain["peak_bytes"] = torch.cuda.max_memory_allocated() - held
+    del step
 
-    def steps(rows):
-        state, hist, secs = start, [], []
-        for batch in batches:
-            b = _rows(batch, rows, model.device)
-            _sync(model.device)
-            t0 = time.perf_counter()
-            state, met = step(state, b)
-            _sync(model.device)
-            secs.append(time.perf_counter() - t0)
-            hist.append({k: float(v) for k, v in met.items()})
-        return state, hist, secs
-    state, hist, secs = steps(slice(None))
-    half, half_hist, _ = steps(slice(0, len(batches[0]["tokens"]) // 2))
-    return {"metrics": hist, "secs": secs,
-            "got": departures(got, state, start),
-            "control": dict(departures(half, state, start),
-                            metrics=half_hist)}
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    shape = {"model": model_ranks}
+    split = model_split(per_layer_specs(model.param_specs()),
+                        param_shardings(model, tc, make_mesh(
+                            (model_ranks,), ("model",))), model.cfg).split
+    if split:
+        free()
+        _sync(model.device)
+        t0 = time.perf_counter()
+        ref, _, ref_hist = emulate_steps(model, tc, start, batches, shape)
+        _sync(model.device)
+        plain["split_secs"] = time.perf_counter() - t0
+        plain["departs"] = departures(state, ref, start)
+        del state
+    else:
+        ref, ref_hist = state, hist
+    out = {"metrics": ref_hist, "split": split, "plain": plain,
+           "got": departures(got, ref, start)}
+    free()
+    half = len(batches[0]["tokens"]) // 2
+    ctl, _, ctl_hist = emulate_steps(
+        model, tc, start, [{k: np.asarray(v)[:half] for k, v in b.items()}
+                           for b in batches], shape)
+    out["control"] = dict(departures(ctl, ref, start), metrics=ctl_hist)
+    if split:
+        del ctl, ref
+        free()
+        out["fp32"] = split_fp32_departures(model, start["params"],
+                                            batches[0], model_ranks)
+    return out
+
+
+def _apart(a: torch.Tensor, b: torch.Tensor,
+           s: Optional[torch.Tensor] = None) -> tuple:
+    """fp64 sums of squares of ``a - b`` and of ``b`` (each less ``s``),
+    ``MEAN_CHUNK`` elements at a time."""
+    num = den = 0.0
+    flat = [t.reshape(-1) for t in (a, b) + (() if s is None else (s,))]
+    for i in range(0, flat[0].numel(), MEAN_CHUNK):
+        x, y, *z = [f[i:i + MEAN_CHUNK].double().to(a.device) for f in flat]
+        if z:
+            x, y = x - z[0], y - z[0]
+        num += float((x - y).square().sum())
+        den += float(y.square().sum())
+    return num, den
+
+
+def _ratio(num: float, den: float) -> float:
+    return math.sqrt(num / den) if den else float(num > 0)
 
 
 def departures(got: dict, want: dict, start: dict) -> dict:
     """How far the train state ``got`` sits from ``want``, both stepped
     from ``start``, each as |got - want| / |want| in the L2 norm over the
-    whole tree (fp64): ``moments``, the larger of AdamW's ``m`` and ``v``;
-    ``update``, of the params' update (params - ``start``'s); and
-    ``leaf``, the moment leaf where that ratio is largest, with it.  The
-    moments are fp32 whatever the params' dtype, so they keep the
-    gradients that bf16 params round away."""
-    def apart(pairs):
-        num = den = 0.0
-        for a, b in pairs:
-            num += float((a - b).square().sum())
-            den += float(b.square().sum())
-        return math.sqrt(num / den) if den else float(num > 0)
+    whole tree (fp64, ``MEAN_CHUNK`` elements at a time): ``moments``, the
+    larger of AdamW's ``m`` and ``v``; ``update``, of the params' update
+    (params - ``start``'s); and ``leaf``, the moment leaf where that ratio
+    is largest, with it.  The moments are fp32 whatever the params'
+    dtype, so they keep the gradients that bf16 params round away."""
     moments, leaf = 0.0, (0.0, "")
     for part in ("m", "v"):
-        pairs = [(a.double(), b.double()) for a, b in zip(
-            tree_leaves(got["opt"][part]), tree_leaves(want["opt"][part]))]
-        moments = max(moments, apart(pairs))
-        for name, pair in zip(_leaf_names(want["opt"][part]), pairs):
-            r = apart([pair])
-            if r > leaf[0]:
-                leaf = (r, f"{part}{name}")
-    update = apart([(a.double() - s.double(), b.double() - s.double())
-                    for a, b, s in zip(tree_leaves(got["params"]),
-                                       tree_leaves(want["params"]),
-                                       tree_leaves(start["params"]))])
-    return {"moments": moments, "update": update, "leaf": leaf}
+        num = den = 0.0
+        for name, a, b in zip(_leaf_names(want["opt"][part]),
+                              tree_leaves(got["opt"][part]),
+                              tree_leaves(want["opt"][part])):
+            n, d = _apart(a, b)
+            num, den = num + n, den + d
+            if _ratio(n, d) > leaf[0]:
+                leaf = (_ratio(n, d), f"{part}{name}")
+        moments = max(moments, _ratio(num, den))
+    num = den = 0.0
+    for a, b, s in zip(tree_leaves(got["params"]),
+                       tree_leaves(want["params"]),
+                       tree_leaves(start["params"])):
+        n, d = _apart(a, b, s)
+        num, den = num + n, den + d
+    return {"moments": moments, "update": _ratio(num, den), "leaf": leaf}
+
+
+def split_fp32_departures(model, params: dict, batch: dict,
+                          model_ranks: int) -> dict:
+    """The split's arithmetic against the whole step's where rounding
+    cannot hide a fault: the gradients at ``params`` widened to fp32, on
+    ``batch``, each as |g - whole| / |whole| in the L2 norm over the whole
+    tree, of ``split`` (compute split over ``model_ranks`` as the ranks
+    split it, ``EmulatedGroup``) and of ``control`` (the whole step on
+    the first half of the rows).  In bf16 rounding hides such a fault:
+    at ``chip_smoke.py`` phase 4n's params the whole bf16
+    step's gradient of the tied table sits 0.69 of its norm from the fp32
+    one (``scripts/split_arithmetic.py``, NVIDIA H100 80GB HBM3, 700.00
+    W)."""
+    wide = build_model(model.cfg.replace(param_dtype="float32"),
+                       model.device)
+    p32 = tree_map(lambda t: t.float(), params)
+    n = len(batch["tokens"])
+    whole, _ = compute_grads(wide, p32, _rows(batch, slice(None),
+                                              model.device))
+    whole = tree_leaves(whole)
+
+    def apart(grads):
+        sums = [_apart(g, w) for g, w in zip(tree_leaves(grads), whole)]
+        return _ratio(sum(a for a, _ in sums), sum(b for _, b in sums))
+    with collectives.model_split(collectives.EmulatedGroup(model_ranks)):
+        out = {"split": apart(compute_grads(wide, p32, _rows(
+            batch, slice(None), model.device))[0])}
+    out["control"] = apart(compute_grads(wide, p32, _rows(
+        batch, slice(0, n // 2), model.device))[0])
+    return out
 
 
 def _reshard_chain(state, model, tc, mesh, chain, dev) -> dict:

@@ -16,7 +16,15 @@ reads only ``mesh.shape``, so abstract meshes of any size resolve.
 Placement (:func:`place`, :func:`shard_like`) moves each leaf whole to a
 one-device mesh's device; on a mesh of ranks (``launch/mesh.py``) it
 gives each rank its slice of every split dim, and :func:`gather` puts the
-whole leaf back together over the spec's axes.
+whole leaf back together over the spec's axes (or over some of them:
+``axes=``).
+
+:func:`model_split` says how the train step runs over ``model``: which
+leaves split over it it keeps split (the split layers compute on the
+rank's slice) and which it gathers whole, and why: every leaf of a
+family that does not split yet, a kernel's operands the kernel takes
+whole (:data:`SPLIT_FAMILIES`), and a leaf whose split does not fall on
+head boundaries (MQA's ``wk`` / ``wv``: one kv head cut in two).
 """
 from __future__ import annotations
 
@@ -203,6 +211,17 @@ def _index(shape: Dict[str, int], coords: Dict[str, int],
     return i
 
 
+def _restrict(sharding: Sharding, axes) -> Sharding:
+    """``sharding`` with only the dims split over ``axes`` (all of them
+    when ``axes`` is ``None``) left split."""
+    if axes is None:
+        return sharding
+    keep = set(axes)
+    return Sharding(sharding.mesh, tuple(
+        e if e is not None and set(_entry_axes(e)) <= keep else None
+        for e in sharding.spec))
+
+
 def place(x: torch.Tensor, sharding: Sharding) -> Optional[torch.Tensor]:
     """``x`` (the whole leaf) on ``sharding``'s mesh: whole on a
     one-device mesh; on a mesh of ranks this rank's slice of every split
@@ -236,12 +255,15 @@ def _split_over(sharding: Sharding) -> Tuple[str, ...]:
     return tuple(a for a in mesh.shape if a in names and mesh.shape[a] > 1)
 
 
-def gather_like(tree, shardings):
+def gather_like(tree, shardings, axes=None):
     """The whole tree from this rank's slices (:func:`place`'s inverse),
-    on every rank of each leaf's axes.  The leaves split over the same
-    axes travel as one flat all-gather of their bytes; each rank's piece
-    of a leaf then lands at its shard's offsets."""
-    leaves, shs = tree_leaves(tree), tree_leaves(shardings)
+    on every rank of each leaf's axes; with ``axes``, whole along the
+    dims split over those axes only (the others stay this rank's
+    slices).  The leaves split over the same axes travel as one flat
+    all-gather of their bytes; each rank's piece of a leaf then lands at
+    its shard's offsets."""
+    leaves = tree_leaves(tree)
+    shs = [_restrict(sh, axes) for sh in tree_leaves(shardings)]
     if not leaves or not getattr(shs[0].mesh, "ranked", False):
         return tree
     mesh = shs[0].mesh
@@ -287,3 +309,110 @@ def shard_like(tree, shardings):
     """Place a concrete tree onto the given shardings (:func:`place` each
     leaf)."""
     return tree_map(place, tree, shardings)
+
+
+# ---------------------------------------------------------------------------
+# Compute split over ``model`` in the train step
+# ---------------------------------------------------------------------------
+
+MODEL = collectives.MODEL
+# The families whose train step splits its compute over ``model``, each
+# with the leaves (a layer's paths) that a kernel of its path takes whole:
+# kernel 2 (mamba2_prefill) normalises y over all of d_inner, so it runs
+# on the whole in-projection and conv on every rank.
+SPLIT_FAMILIES: Dict[str, Tuple[str, ...]] = {
+    "mamba2": ("['mixer']['in_proj']['w']", "['mixer']['conv']['w']",
+               "['mixer']['conv']['b']"),
+    "transformer": (),
+}
+# The families that still compute whole on every rank along ``model``.
+WHOLE_FAMILIES: Dict[str, str] = {
+    "mamba": "mamba-130m's in_proj splits x from z, not by channel",
+    "recurrentgemma": "the RG-LRU block and its local attention are not "
+                      "split yet",
+    "whisper": "the encoder-decoder is not split yet",
+    "moe": "the experts need a dispatch across model",
+}
+# Logical axes cut into heads of ``head_dim``.
+_HEADED = ("qkv", "heads", "kv_heads")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """How the train step runs over a ``model`` axis of ``size`` ranks:
+    ``split`` whether its compute splits (``why`` not); ``kept`` the
+    leaves split over ``model`` that stay split, as ``(path, dim)``;
+    ``gathered`` those gathered whole before the step, as ``(path,
+    why)``."""
+    size: int
+    split: bool
+    why: str = ""
+    kept: Tuple[Tuple[str, int], ...] = ()
+    gathered: Tuple[Tuple[str, str], ...] = ()
+    # Each leaf's dim kept split over model (None: whole), in leaf order.
+    dims: Tuple[Optional[int], ...] = ()
+
+    def summary(self) -> str:
+        if self.size == 1:
+            return "no model axis: every rank computes its rows whole"
+        if not self.split:
+            return (f"compute whole on each of {self.size} model ranks "
+                    f"({self.why}); {len(self.gathered)} leaves gathered "
+                    f"over model")
+        lines = [f"compute split over {self.size} model ranks: "
+                 f"{len(self.kept)} leaves split, {len(self.gathered)} "
+                 f"gathered over model"]
+        lines += [f"  gathered {p}: {w}" for p, w in self.gathered]
+        return "\n".join(lines)
+
+
+def _family(cfg) -> str:
+    """The key of ``cfg``'s family in the tables above."""
+    return "moe" if getattr(cfg, "moe", False) else cfg.family
+
+
+def model_split(specs, shardings, cfg) -> ModelSplit:
+    """The :class:`ModelSplit` of the per-layer ``specs`` placed on
+    ``shardings`` (``per_layer_specs``, ``make_shardings``)."""
+    shs = tree_leaves(shardings)
+    m = shs[0].mesh.shape.get(MODEL, 1) if shs else 1
+    fam = _family(cfg)
+    operands = SPLIT_FAMILIES.get(fam)
+    why = "" if operands is not None else WHOLE_FAMILIES.get(
+        fam, f"family {fam!r} is not split")
+    kept, gathered, dims = [], [], []
+    for (path, spec), sh in zip(_with_paths(specs), shs):
+        on = [d for d, e in enumerate(sh.spec)
+              if e is not None and MODEL in _entry_axes(e)]
+        dims.append(None)
+        if m == 1 or not on:
+            continue
+        d = on[0]
+        if operands is None:
+            gathered.append((path, why))
+        elif path.endswith(operands):
+            gathered.append((path, "a kernel's operand, taken whole"))
+        elif spec.axes[d] in _HEADED and not collectives.splits(
+                spec.shape[d], m, cfg.head_dim):
+            gathered.append((path, f"{spec.shape[d]} over {m} ranks cuts "
+                                   f"heads of {cfg.head_dim}"))
+        else:
+            kept.append((path, d))
+            dims[-1] = d
+    return ModelSplit(m, operands is not None and m > 1, why, tuple(kept),
+                      tuple(gathered), tuple(dims))
+
+
+def step_shardings(shardings, plan: ModelSplit):
+    """``(cut, kept)``: each leaf's sharding for the step's cut of its
+    gradient (a leaf kept split over ``model`` without its ``model``
+    entry: the rank computed that shard), and the kept leaves' ``model``
+    entry alone (the others whole)."""
+    shs = tree_leaves(shardings)
+    others = tuple(a for a in shs[0].mesh.shape if a != MODEL)
+    cut = [_restrict(sh, others) if d is not None else sh
+           for sh, d in zip(shs, plan.dims)]
+    kept = [_restrict(sh, (MODEL,) if d is not None else ())
+            for sh, d in zip(shs, plan.dims)]
+    return tuple(tree_map(lambda _: next(it), shardings)
+                 for it in (iter(cut), iter(kept)))

@@ -182,13 +182,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             f"kernel")
     flash_attention.launches += 1
     flash_attention.path_launches[body] += 1
+    key = (hq, hkv)
+    flash_attention.head_launches[key] = \
+        flash_attention.head_launches.get(key, 0) + 1
     return out
 
 
 flash_attention.launches = 0
 # The same calls by the body they took (bf16 tensor cores, fp32 tensor
-# cores, SIMT).
+# cores, SIMT), and by their (query heads, kv heads).
 flash_attention.path_launches = {"wgmma": 0, "wgmma_fp32": 0, "simt": 0}
+flash_attention.head_launches = {}
 
 
 class FlashAttention(torch.autograd.Function):

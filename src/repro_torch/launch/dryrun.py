@@ -30,8 +30,10 @@ Train cells retry with 1, 2, 4 and 8 microbatches until the step fits
 past the budget.  A cell that never fits is costed as the JAX dry run
 costs every cell, at one and two layers extrapolated over the stack
 (``acct_mode`` ``"marginal"``).
-``--mesh multi`` is recorded as skipped (:data:`MULTI_SKIP`): its cells
-wait for a per-device count of compute split over ``model``.
+``--mesh multi`` is recorded as skipped (:data:`MULTI_SKIP`): the ranks
+of a mesh split compute over ``model`` (``train/step.py``), but the dry
+run counts one process's ops, and a per-device count of the split is
+still to come (ROADMAP, queue 2).
 
 Run one cell:   python -m repro_torch.launch.dryrun --arch mamba2-130m \\
                     --shape decode_32k
@@ -75,10 +77,10 @@ H100_HBM_BYTES = 85_017_493_504
 ALLOC_GRANULE = 512
 MICROBATCHES = (1, 2, 4, 8)
 MULTI_SKIP = ("--mesh multi: a cell of the (pod, data, model) mesh is "
-              "counted per device, which needs the per-device count of "
-              "compute split over the model axis (the next slice); the "
-              "ranks of a mesh run today, and compute the same rows "
-              "along model")
+              "counted per device, which needs a per-device count of "
+              "compute split over the model axis; the ranks of a mesh "
+              "split it (train/step.py), the dry run does not count a "
+              "rank's share yet")
 # Ops that allocate or re-view a storage and move no bytes.
 _NO_BYTES = {torch.ops.aten.empty.memory_format,
              torch.ops.aten.empty_strided.default,

@@ -13,8 +13,10 @@ n ranks on ``--device`` (``distributed/launch.py: spawn``, with no
 deadline, as a run without ``--mesh`` has none; on ``cuda`` they share
 card 0), each holding its shards of the state (placed by the
 logical rules, ``train/step.py: shard_state``) and its rows of every
-batch (``data/pipeline.py: host_local_slice``), and rank 0 logs and
-writes the checkpoints (gathered, synchronously).  ``main`` returns rank
+batch (``data/pipeline.py: host_local_slice``), its compute split over
+the ``model`` axis for Mamba-2 and the dense transformer (the log names
+the leaves gathered over ``model``, or why a family computes whole), and
+rank 0 logs and writes the checkpoints (gathered, synchronously).  ``main`` returns rank
 0's ``(state, monitor)`` with the state gathered whole on the CPU.  A
 mesh of one device places the state whole on it.
 
@@ -120,6 +122,7 @@ def main(argv=None):
     if mesh is not None:
         _, report = make_shardings(model.param_specs(), mesh)
         log.info("mesh %s; sharding: %s", describe(mesh), report.summary())
+        log.info("model axis: %s", step_fn.model_split.summary())
         state = shard_state(state, model, train_cfg, mesh)
         shardings = param_shardings(model, train_cfg, mesh)
         if ranked:

@@ -2,13 +2,15 @@
 the Mamba-1, Mamba-2, RecurrentGemma, transformer (dense, MoE and the
 vision stub) and Whisper families use,
 with ``dtype`` as a ``torch.dtype``; the shared helpers
-``chunk_positions``, ``cross_entropy_loss`` and ``remat`` (the
+``chunk_positions``, ``cross_entropy_loss`` (whole, or vocab-parallel
+over the ranks of ``model``) and ``remat`` (the
 training trunk's per-layer rematerialization); and :class:`DecodeAPI`,
 the serving surface's shared part (``prefill_chunk`` and
 ``verify_chunk`` over each family's chunk trunk, and the reference
 ``speculative_step``) that the model classes inherit."""
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 from typing import Optional, Tuple
 
@@ -17,6 +19,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.xamba import XambaConfig
+from repro_torch.distributed import collectives
+from repro_torch.nn import layers
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -31,17 +35,27 @@ def chunk_positions(index, batch: int, seq: int) -> np.ndarray:
     return idx[:, None] + np.arange(seq, dtype=np.int64)[None, :]
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+def cross_entropy_loss(logits, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
                        z_loss: float = 1e-4) -> Tuple[torch.Tensor, dict]:
     """Token-level CE with the z-loss; labels < 0, and positions where
     ``mask`` is not > 0, are ignored (the JAX package's
-    ``cross_entropy_loss``)."""
-    logits = logits.float()
+    ``cross_entropy_loss``).  ``logits`` a list: the pieces of the vocab
+    each rank of the model group holds (``nn/layers.py:
+    unembed_split``), the loss taken vocab-parallel
+    (:class:`VocabParallelCE`)."""
     valid = labels >= 0
     if mask is not None:
         valid = valid & (mask > 0)
     labels_safe = labels.clamp_min(0)
+    if isinstance(logits, list):
+        group = collectives.model_group()
+        loss, acc = VocabParallelCE.apply(
+            (group, group.offsets(group.size * logits[0].shape[-1]),
+             z_loss), labels_safe, valid, *[p.float() for p in logits])
+        denom = valid.sum().clamp_min(1)
+        return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+    logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
     nll = lse - ll
@@ -53,6 +67,119 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     hit = (logits.argmax(-1) == labels_safe).to(logits.dtype)
     acc = torch.where(valid, hit, zero).sum() / denom
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+
+def _vocab_group(cfg):
+    """The model group when the vocab splits over it, else ``None``."""
+    group = collectives.model_group()
+    return group if group is not None and group.splits(cfg.vocab_size) \
+        else None
+
+
+def embed_tokens(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """The token embeddings (``nn/layers.py: embed``); inside a split over
+    ``model`` vocab-parallel (``embed_split``)."""
+    group = _vocab_group(cfg)
+    if group is not None:
+        return layers.embed_split(params["embed"], tokens, group,
+                                  cfg.vocab_size)
+    return layers.embed(params["embed"], tokens)
+
+
+def lm_logits(params, x: torch.Tensor, cfg):
+    """fp32 logits of the final-normed ``x``: tied, ``x @ table^T``
+    accumulated in fp32; untied, ``x @ lm_head`` rounded to the stream
+    dtype and then widened, as the JAX package rounds them.  Inside a
+    split over ``model`` the list of each rank's vocab columns
+    (``unembed_split``; the untied ``lm_head`` column-parallel)."""
+    group = _vocab_group(cfg)
+    if group is None:
+        if cfg.tie_embeddings:
+            return layers.unembed(params["embed"], x)
+        return layers.linear(params["lm_head"], x).float()
+    if cfg.tie_embeddings:
+        return layers.unembed_split(params["embed"], x, group,
+                                    cfg.vocab_size)
+    return [t.float() for t in layers.linear_column(
+        params["lm_head"], group.copy(x.float()), group, cfg.vocab_size,
+        x.dtype)]
+
+
+def positions_of(logits, sl: slice):
+    """``logits[:, sl]``, of the whole logits or of each rank's piece."""
+    if isinstance(logits, list):
+        return [p[:, sl] for p in logits]
+    return logits[:, sl]
+
+
+class VocabParallelCE(torch.autograd.Function):
+    """The cross entropy of logits split over the vocab:
+    ``apply((group, offsets, z_loss), labels, valid, *pieces)`` ->
+    (loss, accuracy), each rank's piece (b, s, V / m) fp32 at its vocab
+    offset.  The log-sum-exp from the ranks' maxima and their sums of
+    exponentials (added in rank order); the target's logit from the rank
+    that holds it; the z-loss; the accuracy's argmax across the pieces,
+    ties to the lowest vocab index, as ``torch.argmax`` breaks them.  The
+    backward is local: softmax times ``1 + 2 z lse`` minus the one-hot on
+    the rank's columns, times the token's weight."""
+
+    @staticmethod
+    def forward(ctx, spec, labels, valid, *pieces):
+        group, offsets, z = spec
+        tops = [torch.stack([p.amax(-1).double(), p.argmax(-1).double()
+                             + off]) for p, off in zip(pieces, offsets)]
+        every = group.values(tops)
+        gmax = torch.stack([t[0] for t in every]).amax(0).float()
+        # torch.logsumexp's shift: an infinite maximum shifts by 0.
+        shift = torch.where(gmax.abs() == float("inf"),
+                            torch.zeros_like(gmax), gmax)
+        terms = []
+        for p, off in zip(pieces, offsets):
+            idx = labels - off
+            mine = (idx >= 0) & (idx < p.shape[-1])
+            at = torch.gather(p, -1, idx.clamp(0, p.shape[-1] - 1)[..., None])
+            terms.append(torch.stack([
+                torch.exp(p - shift[..., None]).sum(-1),
+                torch.where(mine, at[..., 0], torch.zeros_like(at[..., 0]))]))
+        sums = group.sum_values(terms, torch.float32)
+        lse = torch.log(sums[0]) + shift
+        nll = lse - sums[1]
+        if z:
+            nll = nll + z * lse.square()
+        denom = valid.sum().clamp_min(1)
+        zero = torch.zeros((), dtype=nll.dtype, device=nll.device)
+        loss = torch.where(valid, nll, zero).sum() / denom
+        # The first piece (lowest vocab) whose maximum is the maximum.
+        best = every[-1][1]
+        for t in reversed(every[:-1]):
+            best = torch.where(t[0] == gmax.double(), t[1], best)
+        hit = (best.long() == labels).float()
+        acc = torch.where(valid, hit, zero).sum() / denom
+        ctx.mark_non_differentiable(acc)
+        ctx.spec = spec
+        ctx.save_for_backward(labels, torch.where(valid, 1.0 / denom, zero),
+                              lse, *pieces)
+        return loss, acc
+
+    @staticmethod
+    def backward(ctx, g_loss, g_acc):
+        _, offsets, z = ctx.spec
+        labels, weight, lse, *pieces = ctx.saved_tensors
+        scale = (g_loss * weight)[..., None]
+        k = (1.0 + 2.0 * z * lse)[..., None] if z else None
+        grads = []
+        for p, off in zip(pieces, offsets):
+            # In place on one buffer: a rank's piece of gemma-2b's logits
+            # is 1 GB at b = 4, l = 512.
+            d = torch.sub(p, lse[..., None]).exp_()
+            if k is not None:
+                d.mul_(k)
+            idx = labels - off
+            mine = ((idx >= 0) & (idx < p.shape[-1]))[..., None]
+            col = idx.clamp(0, p.shape[-1] - 1)[..., None]
+            d.scatter_(-1, col, d.gather(-1, col) - mine.to(d.dtype))
+            grads.append(d.mul_(scale))
+        return (None, None, None, *grads)
 
 
 # The matrix products without batch dims whose outputs ``remat="dots"``
@@ -88,7 +215,14 @@ def remat(fn, mode: str):
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return torch.utils.checkpoint.checkpoint(fn, *args,
+        # The recompute runs in the backward, on the card on autograd's
+        # own thread: it runs in the forward's context (its model group,
+        # ``distributed/collectives.py: model_split``, and collective log).
+        context = contextvars.copy_context()
+
+        def body(*a):
+            return context.run(fn, *a)
+        return torch.utils.checkpoint.checkpoint(body, *args,
                                                  use_reentrant=False, **kw)
     return run
 

@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models.base import DecodeAPI, ModelConfig, \
-    cross_entropy_loss, remat
+    cross_entropy_loss, embed_tokens, lm_logits, positions_of, remat
 from repro_torch.nn import layers, ssm
 from repro_torch.nn.params import stack_specs
 
@@ -98,10 +98,8 @@ class MambaLM(DecodeAPI):
         return x, new
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
-        x = layers.norm(params["final_norm"], x)
-        if self.cfg.tie_embeddings:
-            return layers.unembed(params["embed"], x)
-        return layers.linear(params["lm_head"], x).float()
+        return lm_logits(params, layers.norm(params["final_norm"], x),
+                         self.cfg)
 
     def _trunk_train(self, params, x: torch.Tensor) -> torch.Tensor:
         """The cache-less trunk: every layer's prefill path without a
@@ -125,13 +123,16 @@ class MambaLM(DecodeAPI):
         / ``batch["labels"]`` (b, l) -> (loss, metrics: ``loss``,
         ``accuracy``, ``tokens``, ``loss_total``).  Differentiable: on the
         card every Mamba-2 layer's fused prefill runs kernel 2 through its
-        ``torch.autograd.Function`` (``kernels/ops.py``)."""
+        ``torch.autograd.Function`` (``kernels/ops.py``).  Inside the train
+        step's split over ``model`` the embedding, the logits and the loss
+        run vocab-parallel and each Mamba-2 out-projection row-parallel
+        (``nn/ssm.py``)."""
         if any("kernel" in p["mixer"] for p in params["layers"]):
             raise ValueError("MambaLM.loss takes the raw params, not a "
                              "decode_view (its operands are detached)")
-        x = layers.embed(params["embed"], batch["tokens"])
+        x = embed_tokens(params, batch["tokens"], self.cfg)
         logits = self._logits(params, self._trunk_train(params, x))
-        loss, metrics = cross_entropy_loss(logits[:, :-1],
+        loss, metrics = cross_entropy_loss(positions_of(logits, slice(-1)),
                                            batch["labels"][:, 1:])
         metrics["loss_total"] = loss
         return loss, metrics

@@ -103,7 +103,7 @@ class TransformerLM(base.DecodeAPI):
 
     # ---------------- trunk ----------------
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        x = layers.embed(params["embed"], tokens)
+        x = base.embed_tokens(params, tokens, self.cfg)
         if self.cfg.embed_scale:
             # sqrt(d_model) rounded to the stream dtype first (np.sqrt
             # gives float64; the JAX package casts it to x's dtype).
@@ -125,10 +125,8 @@ class TransformerLM(base.DecodeAPI):
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = layers.norm(params["final_norm"], x, norm_type=cfg.norm_type)
-        if cfg.tie_embeddings:
-            return layers.unembed(params["embed"], x)
-        return layers.linear(params["lm_head"], x).float()
+        return base.lm_logits(params, layers.norm(
+            params["final_norm"], x, norm_type=cfg.norm_type), cfg)
 
     def _trunk(self, params, x: torch.Tensor, positions: torch.Tensor,
                cache=None, cache_index=None
@@ -181,15 +179,18 @@ class TransformerLM(base.DecodeAPI):
         ``use_flash``, through its ``torch.autograd.Function`` under grad),
         next-token cross entropy with the z-loss over the token positions
         (the vision stub's P image positions dropped), plus the MoE
-        load-balancing term."""
+        load-balancing term.  Inside the train step's split over
+        ``model`` the embedding (scaled after the sum), the attention and
+        MLP products, the logits and the loss run split
+        (``nn/attention.py``, ``nn/mlp.py``, ``models/base.py``)."""
         cfg = self.cfg
         x, positions, prefix = self._embed_inputs(params, batch)
         x, _, aux = self._trunk(params, x, positions)
         logits = self._logits(params, x)
         if prefix:
-            logits = logits[:, prefix:]
-        loss, metrics = base.cross_entropy_loss(logits[:, :-1],
-                                                batch["labels"][:, 1:])
+            logits = base.positions_of(logits, slice(prefix, None))
+        loss, metrics = base.cross_entropy_loss(
+            base.positions_of(logits, slice(-1)), batch["labels"][:, 1:])
         if cfg.moe:
             loss = loss + cfg.moe_aux_weight * aux / cfg.n_layers
             metrics["moe_aux"] = aux / cfg.n_layers

@@ -17,6 +17,14 @@ Layouts are the JAX package's: q (b, s, nq, hd), k / v (b, t, nkv, hd),
 caches (b, T, nkv, hd).  Two cache layouts: **linear** (position p in
 slot p) and **ring** (``T == window``: position p in slot p % T).
 
+Inside the train step's split over ``model``
+(``distributed/collectives.py: model_split``) the cache-less forward runs
+on each rank's query heads (:func:`_apply_split`): ``wq`` column-parallel,
+``wk`` / ``wv`` too where the kv heads split over the ranks, else whole
+on every rank (MQA: gemma-2b's one kv head); each rank's query heads
+attend to the kv heads they use (kernel 9 under ``use_flash``); ``wo``
+row-parallel.
+
 Positions: ``cache_index`` / ``offset`` come from the host (an int, or a
 ``(b,)`` numpy array or list), as the engines keep them; a write to a
 slot past the cache is dropped, as the JAX package's scatters drop it.
@@ -35,6 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
 from repro_torch.nn import layers
 
@@ -345,6 +354,14 @@ def apply(params: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, s, _ = x.shape
     is_cross = is_cross or kv_source is not None
+    group = collectives.model_group()
+    if group is not None and group.splits(nq):
+        if cache is not None or is_cross:
+            raise NotImplementedError(
+                "attention split over model: the cache-less self-attention "
+                "of the train step only")
+        return _apply_split(params, cfg, x, positions, causal, window,
+                            group), None
     q = _split_heads(layers.linear(params["wq"], x), nq, hd)
     if is_cross and kv_source is None:
         if cache is None:
@@ -417,6 +434,57 @@ def apply(params: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
                              logit_softcap=softcap)
     y = layers.linear(params["wo"], o.reshape(b, s, nq * hd))
     return y, new_cache
+
+
+def _kv_heads_used(nq_rank: int, qpg: int, first: int) -> slice:
+    """The kv heads that the query heads ``first .. first + nq_rank`` of
+    groups of ``qpg`` attend to: whole groups, or part of one."""
+    if nq_rank % qpg and qpg % nq_rank:
+        raise NotImplementedError(
+            f"{nq_rank} query heads a rank in groups of {qpg}: a rank's "
+            f"heads must be whole groups or part of one")
+    return slice(first // qpg, -(-(first + nq_rank) // qpg))
+
+
+def _apply_split(params: dict, cfg, x: torch.Tensor, positions, causal,
+                 window, group) -> torch.Tensor:
+    """The cache-less self-attention on each rank's query heads."""
+    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, s, _ = x.shape
+    nq_r = nq // group.size
+    if group.splits(nkv):
+        uses = [collectives.fanout(xc, 3) for xc in group.copy(x.float())]
+        xq, xk, xv = ([u[i] for u in uses] for i in range(3))
+        k = [_split_heads(t, nkv // group.size, hd) for t in
+             layers.linear_column(params["wk"], xk, group, nkv * hd,
+                                  x.dtype)]
+        v = [_split_heads(t, nkv // group.size, hd) for t in
+             layers.linear_column(params["wv"], xv, group, nkv * hd,
+                                  x.dtype)]
+        k = [layers.rope(t, positions, theta=cfg.rope_theta) for t in k]
+    else:
+        # The kv heads do not split on head boundaries: k and v whole on
+        # every rank, from the whole wk / wv (gathered over model by the
+        # step), each rank's query heads taking the heads they use.
+        xa, xk, xv = collectives.fanout(x, 3)
+        xq = group.copy(xa.float())
+        kw = _split_heads(layers.linear(params["wk"], xk), nkv, hd)
+        vw = _split_heads(layers.linear(params["wv"], xv), nkv, hd)
+        kw = layers.rope(kw, positions, theta=cfg.rope_theta)
+        used = [_kv_heads_used(nq_r, nq // nkv, off)
+                for off in group.offsets(nq)]
+        k = [t[:, :, u] for t, u in zip(group.copy(kw), used)]
+        v = [t[:, :, u] for t, u in zip(group.copy(vw), used)]
+    q = [layers.rope(_split_heads(t, nq_r, hd), positions,
+                     theta=cfg.rope_theta)
+         for t in layers.linear_column(params["wq"], xq, group, nq * hd,
+                                       x.dtype)]
+    o = [full_attention(qr, kr, vr, causal=causal, window=window,
+                        use_flash=cfg.use_flash,
+                        logit_softcap=cfg.attn_logit_softcap,
+                        probs_bf16=cfg.attn_probs_bf16).reshape(b, s, -1)
+         for qr, kr, vr in zip(q, k, v)]
+    return layers.linear_row(params["wo"], o, group, nq * hd)
 
 
 def snapshot_keep_len(T: int, index: Optional[int],

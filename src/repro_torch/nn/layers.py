@@ -5,6 +5,20 @@ causal depthwise conv1d (ports of ``repro.nn.layers``).
 Params are plain dicts of tensors; every function keeps the JAX
 package's rounding points (fp32 interiors, output cast back to the
 stream dtype).
+
+The split forms run the train step's compute over the mesh's ``model``
+axis (``distributed/collectives.py: ModelGroup``; GSPMD's split of the
+same products in the JAX package), each on the list of pieces this
+process computes: :func:`linear_column` (the output dim split),
+:func:`linear_row` (the input dim split, the partial products summed
+over ``model``), :func:`embed_split` and :func:`unembed_split` (the
+vocab rows split).  JAX rounds ``x @ w`` once from fp32 sums: a product
+whose every sum is whole (the column form's output, the row form's input
+gradient, every weight gradient) rounds once; a partial sum (the row
+form's output, the column form's input gradient) is kept in fp32, added
+over ``model`` in fp32 and cast once; a bias is added once, after the
+sum.  The column form and the logits run in :class:`_Product` (the
+forward in the stream dtype, as :func:`linear`); the row form in fp32.
 """
 from __future__ import annotations
 
@@ -41,6 +55,90 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y.float() + p["b"].float()
     return y.to(x.dtype)
+
+
+def _float_weight(w):
+    if quant.is_quantized(w):
+        raise NotImplementedError("W8 weights serve only: the split train "
+                                  "step takes float weights")
+    return w
+
+
+def _f32_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (``a`` (..., k), ``b`` (k, n), one dtype) returned as its
+    fp32 sums, unrounded: bf16 operands on the card through cuBLAS's GEMM
+    with an fp32 output (the tensor cores' fp32 accumulators), any other
+    on fp32 copies (the products of bf16 values are exact in fp32)."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return y.view(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
+
+
+class _Product(torch.autograd.Function):
+    """``x @ w`` of one rank's piece of a column-parallel product, both
+    taken in ``dtype``: ``apply(x, w, dtype, f32_out)``.  The output is
+    its fp32 sums (``f32_out``: a product a bias joins, or the logits) or
+    rounded once to ``dtype``; ``x``'s gradient is the rank's partial, its
+    fp32 sums unrounded (``ModelGroup.copy`` adds the ranks' in fp32),
+    returned in ``x``'s dtype; ``w``'s is a whole sum over the tokens,
+    rounded once in ``dtype`` and returned in ``w``'s.  Saves ``x`` and
+    ``w`` as given, no widened copies."""
+
+    @staticmethod
+    def forward(ctx, x, w, dtype, f32_out):
+        ctx.save_for_backward(x, w)
+        ctx.dtype = dtype
+        xd, wd = x.to(dtype), w.to(dtype)
+        return _f32_sums(xd, wd) if f32_out else torch.matmul(xd, wd)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dt = ctx.dtype
+        xd, wd, gd = x.to(dt), w.to(dt), g.to(dt)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _f32_sums(gd, wd.t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(xd.reshape(-1, xd.shape[-1]).t(),
+                              gd.reshape(-1, gd.shape[-1])).to(w.dtype)
+        return dx, dw, None, None
+
+
+def linear_column(p: dict, xs, group, n: int, dtype) -> list:
+    """Column-parallel :func:`linear`: ``xs`` each rank's input in fp32
+    (``group.copy(x.float())``: the ranks' partial input gradients then
+    add in fp32 and round once), ``p``'s ``w`` (and ``b``) held split
+    along the output dim of ``n`` -> each rank's output columns in
+    ``dtype``, each a whole sum rounded once (with a bias, the fp32 sums
+    plus the bias, cast once)."""
+    ws = group.held(_float_weight(p["w"]), 1, n)
+    bs = group.held(p["b"], 0, n) if "b" in p else [None] * len(ws)
+    out = []
+    for x, w, b in zip(xs, ws, bs):
+        y = _Product.apply(x, w, dtype, b is not None)
+        if b is not None:
+            y = (y + b.float()).to(dtype)
+        out.append(y)
+    return out
+
+
+def linear_row(p: dict, parts, group, n: int) -> torch.Tensor:
+    """Row-parallel :func:`linear`: ``parts`` each rank's columns of the
+    input, ``p``'s ``w`` held split along the input dim of ``n`` -> the
+    whole output on every rank, the fp32 partial products summed over
+    ``model`` in rank order, the bias added, cast once.  The partial
+    products are fp32 GEMMs on widened operands, autograd's own: under
+    ``remat`` the recompute of a layer stops before its last product, as
+    in the whole step, where a custom Function's forward would run
+    again."""
+    ws = group.held(_float_weight(p["w"]), 0, n)
+    y = group.reduce([torch.matmul(x.float(), w.float())
+                      for x, w in zip(parts, ws)])
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(parts[0].dtype)
 
 
 def norm_specs(d: int, *, norm_type: str = "rmsnorm") -> dict:
@@ -162,6 +260,32 @@ def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied logits ``x @ table^T`` accumulated and returned in fp32."""
     table = p["table"].to(x.dtype)
     return torch.matmul(x.float(), table.float().t())
+
+
+def embed_split(p: dict, tokens: torch.Tensor, group,
+                vocab: int) -> torch.Tensor:
+    """Vocab-parallel :func:`embed`: each rank looks up the tokens of its
+    vocab rows and zeroes the rest; the rows summed over ``model`` (one
+    term of each sum is not zero, so the sum is exact)."""
+    parts = []
+    for t, off in zip(group.held(p["table"], 0, vocab),
+                      group.offsets(vocab)):
+        idx = tokens - off
+        mine = (idx >= 0) & (idx < t.shape[0])
+        rows = t[idx.clamp(0, t.shape[0] - 1)]
+        parts.append(torch.where(mine[..., None], rows, rows.new_zeros(())))
+    return group.reduce(parts)
+
+
+def unembed_split(p: dict, x: torch.Tensor, group, vocab: int) -> list:
+    """Vocab-parallel :func:`unembed`: each rank's logits over its vocab
+    rows, fp32 as :func:`unembed` takes them (x's gradient as
+    :func:`linear_column`'s: the ranks' fp32 partials summed, then rounded
+    once; over half the vocab a partial can be far larger than the sum).
+    The table's pieces are widened inside :class:`_Product`, not kept."""
+    return [_Product.apply(xc, t.to(x.dtype).t(), torch.float32, True)
+            for xc, t in zip(group.copy(x.float()),
+                             group.held(p["table"], 0, vocab))]
 
 
 def conv1d_specs(d: int, width: int) -> dict:

@@ -13,12 +13,19 @@ package dispatches them (``mlp.py:52-58``); otherwise the products run
 in the stream dtype (``layers.linear``: ``qdot`` for a W8 weight) and the
 activation (``core/pwl.py: activation``) after.
 GeLU is the tanh approximation, as ``jax.nn.gelu``'s default.
+
+Inside the train step's split over ``model``
+(``distributed/collectives.py: model_split``), with ``d_ff`` split over
+the model ranks: ``wi`` and ``wg`` column-parallel, the activation on the
+rank's columns (kernel 11 on them under ActiBA's ``pallas`` modes: it is
+elementwise a column), ``wo`` row-parallel.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import pwl
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
 from repro_torch.nn import layers, quant
 
@@ -39,6 +46,9 @@ def mlp_specs(cfg) -> dict:
 def apply(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     act_name = _ACT_FOR_MLP[cfg.mlp_type]
     xamba = cfg.xamba
+    group = collectives.model_group()
+    if group is not None and group.splits(cfg.d_ff):
+        return _apply_split(params, cfg, x, group)
     if cfg.mlp_type == "mlp":
         h = pwl.activation(act_name, xamba)(layers.linear(params["wi"], x))
     elif xamba.actiba and xamba.cumba in ("pallas", "pallas_interpret"):
@@ -59,3 +69,24 @@ def apply(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
         h = act(layers.linear(params["wg"], x)) * \
             layers.linear(params["wi"], x)
     return layers.linear(params["wo"], h.to(x.dtype))
+
+
+def _apply_split(params: dict, cfg, x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`apply` on each rank's ``d_ff`` columns."""
+    act_name = _ACT_FOR_MLP[cfg.mlp_type]
+    xamba, f, dt = cfg.xamba, cfg.d_ff, x.dtype
+    if cfg.mlp_type != "mlp" and xamba.actiba and \
+            xamba.cumba in ("pallas", "pallas_interpret"):
+        table = pwl.table_for(act_name, xamba)
+        hs = [ops.matmul_pwl(xc.reshape(-1, xc.shape[-1]), wg, table, wi)
+              .reshape(xc.shape[:-1] + (-1,)) for xc, wg, wi in zip(
+                  group.copy(x), group.held(params["wg"]["w"], 1, f),
+                  group.held(params["wi"]["w"], 1, f))]
+    else:
+        xs = group.copy(x.float())
+        act = pwl.activation(act_name, xamba)
+        up = layers.linear_column(params["wi"], xs, group, f, dt)
+        hs = [act(u) for u in up] if cfg.mlp_type == "mlp" else [
+            act(g) * u for g, u in zip(
+                layers.linear_column(params["wg"], xs, group, f, dt), up)]
+    return layers.linear_row(params["wo"], [h.to(dt) for h in hs], group, f)

@@ -42,6 +42,14 @@ same contract:
 
 ActiBA reaches the fused kernels as PWL tables (``xamba``) and the
 unfused chains through ``core/pwl.py: activation`` (kernel 12 on the GPU).
+
+Inside the train step's split over ``model``
+(``distributed/collectives.py: model_split``) the Mamba-2 mixer's gated
+RMSNorm runs over all of ``d_inner`` (one group couples every head), so
+kernel 2 (or the unfused chain) takes its operands whole on every rank
+(the step gathers ``in_proj`` and ``conv`` over ``model``, as GSPMD
+gathers a Pallas call's operands); its ``y`` is then cut to the rank's
+``d_inner`` rows for the row-parallel ``out_proj`` (:func:`_out_proj`).
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import pwl, selective_scan as sscan, ssd as ssd_mod
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
 from repro_torch.nn import layers, quant
 from repro_torch.nn.params import ParamSpec
@@ -157,12 +166,23 @@ def _unfused_streams(params: dict, cfg, x: torch.Tensor,
             silu)
 
 
+def _out_proj(params: dict, y: torch.Tensor) -> torch.Tensor:
+    """The out-projection of ``y`` (..., d_inner); inside a split over
+    ``model`` row-parallel, on each rank's ``d_inner`` rows of ``y``."""
+    group = collectives.model_group()
+    d_inner = y.shape[-1]
+    if group is not None and group.splits(d_inner):
+        return layers.linear_row(params["out_proj"], group.cut(y, -1),
+                                 group, d_inner)
+    return layers.linear(params["out_proj"], y)
+
+
 def _gate_out(params: dict, x, y, xs, z, silu) -> torch.Tensor:
     """D skip, gated RMSNorm and the out-projection of the unfused chain."""
     b, l = x.shape[:2]
     y = y + xs * params["D"].to(x.dtype)[None, None, :, None]
     y = layers.norm(params["norm"], y.reshape(b, l, -1)) * silu(z)
-    return layers.linear(params["out_proj"], y.to(x.dtype))
+    return _out_proj(params, y.to(x.dtype))
 
 
 def _mamba2_decode_naive(params: dict, cfg, x: torch.Tensor,
@@ -236,6 +256,9 @@ def mamba2_apply(params: dict, cfg, x: torch.Tensor,
     ``out``: buffers that receive the new state (with ``state`` only)."""
     b, l, _ = x.shape
     d_inner, nheads, g, n = mamba2_dims(cfg)
+    if state is not None and collectives.model_group() is not None:
+        raise NotImplementedError("the Mamba-2 mixer split over model: the "
+                                  "cache-less train trunk only")
     if state is not None and l == 1 and not cfg.force_prefill_path:
         return _mamba2_decode(params, cfg, x, state, out)
 
@@ -256,7 +279,7 @@ def mamba2_apply(params: dict, cfg, x: torch.Tensor,
             x, params["in_proj"]["w"], init.conv, init.ssm,
             **_operands(params), ngroups=g, head_dim=cfg.ssm_head_dim,
             chunk=min(cfg.chunk_size, l), xamba=cfg.xamba, out=out)
-        h = layers.linear(params["out_proj"], y.to(x.dtype))
+        h = _out_proj(params, y.to(x.dtype))
         new_state = Mamba2State(new_conv, new_ssm)
     return h, new_state if state is not None else None
 

@@ -27,22 +27,35 @@ compressed sync the params replicate over ``pod``, JAX's "FSDP
 restricted to data"), and ``batch`` is its own rows
 (``data/pipeline.py: host_local_slice``).  A step:
 
-1. gathers every param leaf whole (all of them at the start: a rank then
-   holds the whole params, the whole gradient in the params' dtype and
-   one fp32 copy, and its shards of params, ``m`` and ``v``);
-2. computes the rank's gradients, microbatches as in one process;
+1. gathers every param leaf over the batch axes (``pod``, ``data``);
+   a leaf split over ``model`` stays split there, except those
+   ``sharding.model_split`` gathers over ``model`` too: kernel 2's
+   operands (Mamba-2's ``in_proj`` and ``conv``), leaves whose split cuts
+   heads (MQA's ``wk`` / ``wv``), and every leaf of a family whose compute
+   is not split yet (mamba-130m, recurrentgemma, whisper, the MoE
+   transformers: each rank along ``model`` then computes its rows whole);
+2. computes the rank's gradients inside ``collectives.model_split`` of
+   the mesh's model group: the split layers take the rank's slices
+   (column-, row- and vocab-parallel products, the vocab-parallel loss);
+   a leaf kept split gets its shard's gradient, a leaf every model rank
+   computes whole the same whole gradient on each; microbatches as in
+   one process;
 3. sums them over the batch axes in rank order in fp32 and divides by
    their count (``collectives.sum_in_rank_order``: the bits of one
    process that computes the ranks' rows apart, adds them in that order
    and halves, as ``microbatches`` does); under the compressed sync over
-   ``data`` only, then ``compressed_pod_psum`` over ``pod`` divided by
-   the pod count, as JAX's ``shard_map`` branch does;
-4. takes the clip's global norm of that whole gradient (the same on
-   every rank; no replicated dim counted twice), cuts the gradient to
-   the rank's shards and runs AdamW on the shards.
+   ``data`` only, then (the kept leaves gathered over ``model`` first,
+   so that the int8 blocks run over whole leaves) ``compressed_pod_psum``
+   over ``pod`` divided by the pod count, as JAX's ``shard_map`` branch
+   does;
+4. takes the clip's global norm of the whole gradient (the same on every
+   rank: a kept leaf's sum of squares summed over ``model`` in rank
+   order, no replicated dim counted twice, :func:`split_global_norm`),
+   cuts each gradient to the rank's shard and runs AdamW on the shards.
 
-Ranks along ``model`` compute the same rows: compute split over that
-axis is the next slice.  The metrics are the means over the batch axes.
+The step's ``model_split`` attribute says which leaves ran split and
+which families compute whole.  The metrics are the means over the batch
+axes.
 """
 from __future__ import annotations
 
@@ -52,8 +65,9 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import gather_like, make_shardings, \
-    per_layer_specs, shard_like
+from repro_torch.distributed.sharding import MODEL, ModelSplit, \
+    gather_like, make_shardings, model_split, per_layer_specs, shard_like, \
+    step_shardings
 from repro_torch.nn.params import abstract_params, init_params, \
     jax_layout, per_layer, tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, ScheduleConfig, adamw, \
@@ -130,22 +144,52 @@ def shard_state(state: dict, model, train_cfg: TrainConfig, mesh,
                          replicated_axes(train_cfg, mesh))
 
 
+# Elements of the flat gradient that one gather of the mean moves: the
+# gathered operands and their fp32 sums stay a few hundred MB on the card
+# (gemma-2b's 0.4 G elements a rank would take ~7 GB at once).
+MEAN_CHUNK = 1 << 26
+
+
 def _flat_mean(tree: PyTree, mesh, axes) -> PyTree:
     """The tree's leaves summed over ``axes`` in rank order in fp32 and
-    divided by the count: one gather a dtype, all leaves flat."""
+    divided by the count: the leaves of a dtype flat, gathered
+    ``MEAN_CHUNK`` elements at a time."""
     n = collectives.axis_size(mesh, axes)
     leaves = tree_leaves(tree)
     out = [None] * len(leaves)
     for dtype in sorted({t.dtype for t in leaves}, key=str):
         idx = [i for i, t in enumerate(leaves) if t.dtype == dtype]
         flat = torch.cat([leaves[i].reshape(-1) for i in idx])
-        mean = collectives.sum_in_rank_order(flat, mesh, axes,
-                                             torch.float32) / n
+        mean = torch.empty(flat.shape, dtype=torch.float32,
+                           device=flat.device)
+        for a in range(0, flat.numel(), MEAN_CHUNK):
+            mean[a:a + MEAN_CHUNK] = collectives.sum_in_rank_order(
+                flat[a:a + MEAN_CHUNK], mesh, axes, torch.float32) / n
+        del flat
         for i, part in zip(idx, mean.split([leaves[i].numel()
                                             for i in idx])):
             out[i] = part.view(leaves[i].shape)
     it = iter(out)
     return tree_map(lambda _: next(it), tree)
+
+
+def split_global_norm(grads: PyTree, dims, group) -> torch.Tensor:
+    """:func:`adamw.global_norm` of a gradient whose leaves at ``dims``
+    (one entry a leaf, ``None``: whole) are split over ``group``'s model
+    ranks: each piece's fp32 sum of squares, a leaf's summed in rank
+    order."""
+    leaves = tree_leaves(grads)
+    ss = [None if d is not None else torch.sum(torch.square(g.float()))
+          for g, d in zip(leaves, dims)]
+    kept = [i for i, d in enumerate(dims) if d is not None]
+    if kept:
+        per = [group.pieces(leaves[i], dims[i]) for i in kept]
+        total = group.sum_values([torch.stack([
+            torch.sum(torch.square(p[r].float())) for p in per])
+            for r in range(len(per[0]))], torch.float32)
+        for j, i in enumerate(kept):
+            ss[i] = total[j]
+    return torch.sqrt(torch.stack(ss).sum())
 
 
 def _split_microbatches(batch: dict, k: int) -> list:
@@ -201,21 +245,33 @@ def make_train_step(model, train_cfg: TrainConfig, mesh=None):
     if podwise and npods > 1 and not ranked:
         raise ValueError(f"a 'pod' axis of {npods} on a mesh without "
                          f"ranks: nothing to reduce over")
+    plan = ModelSplit(1, False)
     if ranked:
         sh = param_shardings(model, train_cfg, mesh)
         batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
         mean_axes = tuple(a for a in batch_axes
                           if not (podwise and a == "pod"))
+        plan = model_split(per_layer_specs(model.param_specs()), sh, cfg)
+        sh_cut, sh_kept = step_shardings(sh, plan)
+        group = collectives.RankGroup(mesh) if plan.split else None
 
     def train_step(state, batch):
+        gnorm = None
         if ranked:
-            grads, metrics = grads_of(gather_like(state["params"], sh),
-                                      batch)
+            params = gather_like(state["params"], sh, axes=batch_axes)
+            if plan.gathered:
+                params = gather_like(params, sh_cut, axes=(MODEL,))
+            with collectives.model_split(group):
+                grads, metrics = grads_of(params, batch)
             if collectives.axis_size(mesh, mean_axes) > 1:
                 grads = _flat_mean(grads, mesh, mean_axes)
             metrics = {n: torch.cat(collectives.all_gather(
                 v.reshape(1), mesh, batch_axes)).float().mean(0)
                 for n, v in metrics.items()}
+            if podwise and plan.kept:
+                grads = gather_like(grads, sh_kept)
+            elif plan.kept:
+                gnorm = split_global_norm(grads, plan.dims, group)
         else:
             grads, metrics = grads_of(state["params"], batch)
         new_err = state.get("err")
@@ -227,9 +283,10 @@ def make_train_step(model, train_cfg: TrainConfig, mesh=None):
                 mesh)
             grads = tree_map(lambda g: g / npods, per_layer(red))
             new_err = per_layer(new_err)
-        gnorm = adamw.global_norm(grads)
+        if gnorm is None:
+            gnorm = adamw.global_norm(grads)
         if ranked:
-            grads = shard_like(grads, sh)
+            grads = shard_like(grads, sh if podwise else sh_cut)
         lr = sched.lr_at(state["opt"]["step"], scfg)
         new_params, new_opt, stats = adamw.update(
             grads, state["opt"], state["params"], lr, ocfg, gnorm=gnorm)
@@ -240,4 +297,5 @@ def make_train_step(model, train_cfg: TrainConfig, mesh=None):
         metrics.update(stats)
         return new_state, metrics
 
+    train_step.model_split = plan
     return train_step

@@ -493,14 +493,15 @@ def test_activation_layout_is_the_identity_on_one_card():
         with pytest.raises(ValueError, match="4 devices of a mesh without"):
             api.shard_tokens3d(x)
     # On a mesh of ranks a rank holds its own rows: a batch constraint
-    # moves nothing; a split over a sequence axis waits for the next slice.
+    # moves nothing; a split over a sequence axis is not ported yet.
     ranked = mesh_mod.Mesh({"data": 4, "model": 2}, (torch.device("cpu"),)
                            * 8, rank=3)
     with api.activation_layout(("data",), None, mesh=ranked):
         assert api.shard_tokens3d(x) is x
         assert api.constrain_dims(x, {0: "batch"}) is x
     with api.activation_layout(("data",), "model", mesh=ranked):
-        with pytest.raises(NotImplementedError, match="next slice"):
+        with pytest.raises(NotImplementedError, match="sequence axes is "
+                           "not ported"):
             api.shard_tokens3d(x)
     assert api.batch_pspec(1) == (None,)
 

@@ -23,10 +23,13 @@ from repro.distributed import collectives as jcoll, pipeline as jpipeline
 from repro.models import build_model as jbuild
 from repro.nn import params as jparams
 from repro_torch.configs import get_config
-from repro_torch.data import host_local_slice
+from repro_torch.data import DataConfig, SyntheticLM, host_local_slice
 from repro_torch.distributed import launch, programs
 from repro_torch.kernels import build
 from repro_torch.launch import mesh as mesh_mod, train as train_cli
+from repro_torch.models import build_model
+from repro_torch.optim import AdamWConfig, ScheduleConfig
+from repro_torch.train import TrainConfig, init_state
 from repro_torch.nn.params import from_jax_params, tree_leaves
 
 CPU8 = (torch.device("cpu"),) * 8
@@ -147,7 +150,6 @@ def test_reshard_state_across_meshes(world8):
     whole = [tuple(t.shape) for t in tree_leaves(params)]
     from repro_torch.distributed.sharding import make_shardings, \
         per_layer_specs
-    from repro_torch.models import build_model
     specs = per_layer_specs(build_model(get_config("gemma-2b", reduced=True),
                                         "meta").param_specs())
     for mesh_i, (shape, axes) in enumerate(RESHARD_CHAIN[:2]):
@@ -333,10 +335,12 @@ def test_build_all_compiles_once_under_its_lock(tmp_path, monkeypatch):
 
 def test_train_cli_mesh_2x2(capfd, monkeypatch):
     """``launch/train.py --mesh 2x2:data,model`` starts 4 ranks and trains
-    2 steps: its logged losses and final state equal, bit for bit, the
-    run without ``--mesh`` that computes the two data ranks' rows as two
-    microbatches (the ranks' arithmetic), in one thread as each rank
-    runs.  The ranks' run has no deadline, as the run without ``--mesh``
+    2 steps with its compute split over ``model``: its logged losses and
+    final state equal, bit for bit, the one-process emulation of the
+    ranks' arithmetic (``programs.emulate_steps``: the two data ranks'
+    rows apart, each with both model ranks' pieces) on the CLI's batches
+    and initial state, in one thread as each rank runs; it logs what ran
+    split.  The ranks' run has no deadline, as the run without ``--mesh``
     has none: ``spawn``'s clock here passes an hour at every poll."""
     argv = ["--device", "cpu", "--reduced", "--steps", "2", "--batch", "4",
             "--seq", "16", "--log-every", "1"]
@@ -344,29 +348,30 @@ def test_train_cli_mesh_2x2(capfd, monkeypatch):
         _racing_clock(m)
         state, monitor = train_cli.main(argv + ["--mesh", "2x2:data,model"])
     mesh_log = capfd.readouterr().err
-    real, losses = train_cli.make_train_step, []
-
-    def recording(model, tc, *mesh):
-        step = real(model, tc, *mesh)
-
-        def run(state, batch):
-            state, metrics = step(state, batch)
-            losses.append(float(metrics["loss"]))
-            return state, metrics
-        return run
-    monkeypatch.setattr(train_cli, "make_train_step", recording)
+    cfg = get_config("mamba2-130m", reduced=True)
+    model = build_model(cfg, "cpu")
+    tc = TrainConfig(optimizer=AdamWConfig(), schedule=ScheduleConfig(
+        base_lr=3e-4, warmup_steps=10, total_steps=2))
+    data = iter(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=16, global_batch=4, seed=0)))
+    batches = [next(data) for _ in range(2)]
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        want, want_monitor = train_cli.main(argv + ["--microbatches", "2"])
+        want, _, hist = programs.emulate_steps(
+            model, tc, init_state(model, 0, tc), batches,
+            {"data": 2, "model": 2})
     finally:
         torch.set_num_threads(threads)
     logged = [line.split("loss")[1].split()[0] for line in
               mesh_log.splitlines() if line.startswith("step")]
-    assert logged == [f"{x:.4f}" for x in losses] and len(losses) == 2
+    assert logged == [f"{h['loss']:.4f}" for h in hist] and len(hist) == 2
     assert "data=2 x model=2 (4 ranks)" in mesh_log
-    assert monitor.summary()["steps"] == want_monitor.summary()["steps"] == 2
-    assert programs.differences(state, want) == []
+    assert "compute split over 2 model ranks" in mesh_log
+    assert monitor.summary()["steps"] == 2
+    assert programs.differences(
+        {k: state[k] for k in ("params", "opt")},
+        {k: want[k] for k in ("params", "opt")}) == []
 
 
 def test_parse_collectives_reads_the_record():

@@ -1,6 +1,7 @@
 """The train step on meshes of ranks against the JAX package: mamba2 on a
-(data, model) = (2, 4) mesh, deepseek-7b on 8 ranks against one device,
-and the compressed cross-pod sync on (pod, data) = (2, 2).
+(data, model) = (2, 4) mesh, deepseek-7b and gemma-2b on 8 ranks against
+one device, each with its compute split over ``model``, and the
+compressed cross-pod sync on (pod, data) = (2, 2).
 
 The ranks are ``gloo`` processes on the CPU (``distributed/launch.py``),
 each one thread.  Every run is held bit for bit to the port's one-process
@@ -43,6 +44,8 @@ MAMBA = dict(arch="mamba2-130m", reduced=True,
                             ssm_head_dim=16))
 DEEPSEEK = dict(arch="deepseek-7b", reduced=True,
                 overrides=dict(param_dtype="float32"))
+GEMMA = dict(arch="gemma-2b", reduced=True,
+             overrides=dict(param_dtype="float32"))
 COMPRESSED = dict(arch="mamba2-130m", reduced=True,
                   overrides=dict(param_dtype="float32"))
 # The multi-rank loss is the mean of the ranks' means over their rows; the
@@ -75,64 +78,145 @@ def _batches(n, b, l, vocab, seed):
 
 
 # ---------------------------------------------------------------------------
-# World of 8: mamba2 on (2, 4), deepseek-7b on (2, 4)
+# World of 8: mamba2, deepseek-7b and gemma-2b on (2, 4)
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
 def world8():
     jm, jp, cfg, tp = _jax_pair(MAMBA)
     dm, dp, dcfg, dtp = _jax_pair(DEEPSEEK)
+    gm, gp, gcfg, gtp = _jax_pair(GEMMA)
     batches = _batches(2, 8, 32, cfg.vocab_size, 10)
-    runs = [dict(MAMBA, params=tp, schedule=SCHED, shape=(2, 4),
-                 axes=("data", "model"), emulate=True, return_state=True,
-                 whole_batch=True),
-            dict(DEEPSEEK, params=dtp, schedule=SCHED, shape=(2, 4),
-                 axes=("data", "model"), emulate=True)]
-    # deepseek takes the first batch only: the JAX test's one step.
+    mesh = dict(shape=(2, 4), axes=("data", "model"), emulate=True,
+                count_flops=True)
+    runs = [dict(MAMBA, params=tp, schedule=SCHED, return_state=True,
+                 whole_batch=True, **mesh),
+            dict(DEEPSEEK, params=dtp, schedule=SCHED, **mesh),
+            dict(GEMMA, params=gtp, schedule=SCHED, **mesh)]
+    # deepseek and gemma take the first batch only: the JAX test's one
+    # step.
     res = launch.spawn(programs.sequence_rank, 8, ([
         (programs.train_rank, {"batches": batches, "runs": runs[:1]}),
         (programs.train_rank, {"batches": batches[:1], "runs": runs[1:]})],),
         timeout_s=300)
     return dict(mamba=[r[0][0] for r in res], deepseek=[r[1][0] for r in res],
-                batches=batches, jm=jm, jp=jp, cfg=cfg, dm=dm, dp=dp,
-                dcfg=dcfg, dtp=dtp)
+                gemma=[r[1][1] for r in res], batches=batches, jm=jm, jp=jp,
+                cfg=cfg, tp=tp, dm=dm, dp=dp, dcfg=dcfg, dtp=dtp, gm=gm,
+                gp=gp, gcfg=gcfg, gtp=gtp)
 
 
 def test_train_step_on_2x4_is_its_emulation_bit_for_bit(world8):
     """mamba2 reduced (d_model 64, head_dim 16, fp32) on (data, model) =
-    (2, 4), 2 steps (tests/test_distributed.py:51): params, AdamW's
-    moments and every step's metrics equal, bit for bit, one process that
-    computes each data rank's rows apart, adds the gradients in rank order
-    and halves them; every rank reports the same metrics."""
+    (2, 4), 2 steps (tests/test_distributed.py:51), its compute split over
+    ``model``: params, AdamW's moments and every step's metrics equal, bit
+    for bit, one process that computes each data rank's rows apart with
+    every model rank's pieces (``collectives.EmulatedGroup``), adds the
+    gradients in rank order and halves them; every rank reports the same
+    metrics."""
     ranks = world8["mamba"]
     emu = ranks[0]["emulation"]
     assert emu["state"] == []
     assert ranks[0]["metrics"] == emu["metrics"]
     for r in ranks:
         assert r["metrics"] == ranks[0]["metrics"]
-    # A step's collectives: the params gathered in one all-gather a set of
-    # split axes (data, model, both), the gradients summed over the two
-    # data ranks in one flat all-gather, and the loss's 4 metrics (loss,
-    # accuracy, tokens, loss_total); ranks along model compute the same
-    # rows and exchange nothing else.
+        assert r["model_split"]["split"]
+    # A step's collectives.  all_gather: the params over data (one flat
+    # gather), kernel 2's operands over model (one), the gradients' mean
+    # over the two data ranks (one) and the loss's 4 metrics.  Over model:
+    # model_sum, the vocab-parallel embedding's sum, each layer's
+    # row-parallel out-projection (the recompute under remat "full" stops
+    # before it: its output is saved by nothing), the logits' input
+    # gradient, the loss's sums and the clip norm's squares; model_values
+    # the loss's maxima and argmaxes; model_gather each layer's y
+    # gradient (the cut's backward).
     col = ranks[0]["collectives"][1]
-    assert set(col) == {"all_gather"}
-    assert col["all_gather"]["count"] == 3 + 1 + 4
+    n = world8["cfg"].n_layers
+    assert {op: c["count"] for op, c in col.items()} == {
+        "all_gather": 1 + 1 + 1 + 4, "model_sum": 1 + n + 1 + 1 + 1,
+        "model_values": 1, "model_gather": n}
+
+
+def _split_flops(cfg, m: int, b: int, l: int) -> int:
+    """The FLOPs, as ``FlopCounterMode`` counts them (a product of M x K
+    by K x N: 2MKN forward, twice that backward), of one step's products
+    that the split divides over ``m`` model ranks, on b x l tokens: the
+    Mamba-2 out-projection; the attention's q / k / v (k, v where the kv
+    heads split) and out products, its scores and values (batched over
+    the heads), the MLP's three; the logits."""
+    tokens, d, V = b * l, cfg.d_model, cfg.vocab_size
+    if cfg.family == "mamba2":
+        per_layer = 6 * tokens * cfg.expand * d * d
+    else:
+        nq, nkv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+        kv = 2 * d * nkv * hd if nkv % m == 0 else 0
+        per_layer = 6 * tokens * (d * nq * hd + kv + nq * hd * d + 3 * d * f) \
+            + 6 * 2 * b * nq * l * l * hd
+    return cfg.n_layers * per_layer + 6 * tokens * d * V
+
+
+@pytest.mark.parametrize("run,spec", [("mamba", MAMBA),
+                                      ("deepseek", DEEPSEEK),
+                                      ("gemma", GEMMA)])
+def test_each_rank_computes_its_share_of_the_split_products(world8, run,
+                                                            spec):
+    """Each rank's ``FlopCounterMode`` total for one step is the
+    one-device step's on its rows less (m - 1) / m of the products the
+    split divides (``_split_flops``), exactly; and the leaves it gathered
+    over ``model`` are exactly kernel 2's operands (mamba2), the kv
+    projections whose split cuts gemma-2b's one kv head, and none of
+    deepseek-7b's."""
+    from torch.utils.flop_counter import FlopCounterMode
+    cfg, params = world8[{"mamba": "cfg", "deepseek": "dcfg",
+                          "gemma": "gcfg"}[run]], \
+        world8[{"mamba": "tp", "deepseek": "dtp", "gemma": "gtp"}[run]]
+    model = build_model(cfg, "cpu")
+    tc = programs.train_config(dict(spec, schedule=SCHED))
+    state = programs.initial_state(model, dict(spec, params=params), tc)
+    rows = programs._rows(world8["batches"][0], slice(0, 4), "cpu")
+    with FlopCounterMode(display=False) as counter:
+        programs.make_train_step(model, tc)(state, rows)
+    one = counter.get_total_flops()
+    split = _split_flops(cfg, 4, 4, 32)
+    assert split % 4 == 0 and 0 < split <= one
+    for r in world8[run]:
+        assert r["flops"] == one - 3 * split // 4
+    # A layer's leaves, its "['layers'][i]" prefix dropped.
+    gathered = {p.split("]", 2)[2]
+                for p in world8[run][0]["model_split"]["gathered"]}
+    assert gathered == {
+        "mamba": {"['mixer']['in_proj']['w']", "['mixer']['conv']['w']",
+                  "['mixer']['conv']['b']"},
+        "deepseek": set(),
+        "gemma": {"['attn']['wk']['w']", "['attn']['wv']['w']"}}[run]
+    assert len(world8[run][0]["model_split"]["gathered"]) == \
+        {"mamba": 3, "deepseek": 0, "gemma": 2}[run] * cfg.n_layers
 
 
 def test_whole_batch_check_fails_a_half_batch_step(world8):
     """``programs.whole_batch_steps`` (chip_smoke.py's check of the ranks
-    against the one-process step on the whole batch): the ranks' AdamW
-    moments and update sit at the fp32 noise of the reordered sums
-    (measured 9.34e-8 and 3.52e-6 of their norms here), while the control,
-    the one-process step on half the batch, sits far (0.590 and 0.831);
-    the losses within ``LOSS_ORDER_TOL``."""
+    against the one-process step on the whole batch, its compute split
+    over ``model`` as the ranks split it): the ranks' AdamW moments and
+    update sit at the fp32 noise of the batch split's reordered sums
+    (measured 9.51e-8 and 3.52e-6 of their norms here; 9.34e-8 and
+    3.52e-6 before the split over ``model``), while the control, that step
+    on half the batch, sits far (0.590 and 0.831); the losses within
+    ``LOSS_ORDER_TOL`` of the split reference and of the plain one-process
+    step (which the split reference's moments and update sit 1.48e-5 and
+    3.77e-5 from: the split's reordered sums, carried as the gradients
+    carry fp32 rounding, ``test_torch_tensor_parallel.py:
+    test_split_departs_from_the_whole_step_by_its_rounding``); and the
+    first batch's gradient split over the 4 model ranks against whole
+    (``programs.split_fp32_departures``) within 1e-4 of its norm, the
+    half-batch control past 0.1."""
     wb = world8["mamba"][1]["whole_batch"]
+    assert wb["split"]
+    assert wb["fp32"]["split"] <= 1e-4 and wb["fp32"]["control"] > 0.1
     assert wb["got"]["moments"] <= 1e-5 and wb["got"]["update"] <= 1e-5
     assert wb["control"]["moments"] > 0.1 and wb["control"]["update"] > 0.1
-    np.testing.assert_allclose(
-        [m["loss"] for m in world8["mamba"][0]["metrics"]],
-        [m["loss"] for m in wb["metrics"]], rtol=0, atol=LOSS_ORDER_TOL)
+    losses = [m["loss"] for m in world8["mamba"][0]["metrics"]]
+    for ref in (wb["metrics"], wb["plain"]["metrics"]):
+        np.testing.assert_allclose(losses, [m["loss"] for m in ref],
+                                   rtol=0, atol=LOSS_ORDER_TOL)
 
 
 def test_train_step_on_2x4_matches_jax_one_device(world8):
@@ -162,23 +246,29 @@ def test_train_step_on_2x4_matches_jax_one_device(world8):
             jax.tree_util.keystr(path), err)
 
 
-def test_multidevice_matches_single_device(world8):
-    """deepseek-7b reduced, fp32, on 8 ranks: the loss within 1e-3 of
+@pytest.mark.parametrize("run", ["deepseek", "gemma"])
+def test_multidevice_matches_single_device(world8, run):
+    """deepseek-7b (4 kv heads: every projection split) and gemma-2b (MQA:
+    ``wk`` / ``wv`` gathered over ``model``) reduced, fp32, on 8 ranks
+    with their compute split over ``model``: the loss within 1e-3 of
     JAX's one-device loss on the same weights (tests/test_distributed.py:
     88), within ``LOSS_ORDER_TOL`` of the port's one-process loss, and the
     step bit for bit with its emulation."""
     w = world8
+    jm, jp, cfg, tp = {"deepseek": ("dm", "dp", "dcfg", "dtp"),
+                       "gemma": ("gm", "gp", "gcfg", "gtp")}[run]
     batch = w["batches"][0]
-    got = w["deepseek"][0]["metrics"][0]["loss"]
-    jl, _ = w["dm"].loss(w["dp"], {k: jnp.asarray(v)
-                                   for k, v in batch.items()})
+    got = w[run][0]["metrics"][0]["loss"]
+    jl, _ = w[jm].loss(w[jp], {k: jnp.asarray(v) for k, v in batch.items()})
     assert abs(got - float(jl)) < 1e-3, (got, float(jl))
-    model = build_model(w["dcfg"], "cpu")
-    params = tree_map(torch.from_numpy, w["dtp"])
+    model = build_model(w[cfg], "cpu")
+    params = tree_map(torch.from_numpy, w[tp])
     tl, _ = model.loss(params, {k: torch.from_numpy(v).long()
                                 for k, v in batch.items()})
     assert abs(got - float(tl)) < LOSS_ORDER_TOL, (got, float(tl))
-    assert w["deepseek"][0]["emulation"]["state"] == []
+    assert w[run][0]["emulation"]["state"] == []
+    assert w[run][0]["metrics"] == w[run][0]["emulation"]["metrics"]
+    assert all(r["model_split"]["split"] for r in w[run])
 
 
 # ---------------------------------------------------------------------------
